@@ -10,7 +10,9 @@ setup(
     name="recnet_tpu",
     version="0.1.0",
     description="TPU-native RecNet video-captioning framework (JAX/Pallas)",
-    packages=find_packages(include=["recnet_tpu", "recnet_tpu.*"]),
+    packages=find_packages(include=["recnet_tpu", "recnet_tpu.*",
+                                    "recnet_tpu_torch", "recnet_tpu_torch.*"]),
+    package_data={"recnet_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[
         Extension(
             "recnet_tpu.native._fastmetrics",
@@ -34,6 +36,7 @@ setup(
             "recnet-serve = recnet_tpu.cli.serve:main",
             "recnet-import-torch = recnet_tpu.cli.import_torch:main",
             "recnet-export-torch = recnet_tpu.cli.export_torch:main",
+            "recnet-torch-serve = recnet_tpu_torch.cli.serve:main",
         ],
     },
 )
