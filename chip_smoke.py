@@ -5,16 +5,23 @@
 Phases, one line or more each; any failure exits non-zero before a result:
 
 1. environment: torch, CUDA, the card, TF32 off;
-2. build: nvcc builds the port's CUDA kernels from this checkout;
+2. build: nvcc builds the port's CUDA kernels from this checkout, one
+   process per source, all at once;
 3. kernels: K1 (whole decode) and K2 (decode segment) against their plain
-   PyTorch twins at the flagship width, GRU and LSTM, f32 and bf16;
-4. main path: the port's HTTP handler behind the MicroBatcher serves
-   captions from a flagship-width bf16 Captioner (use_pallas,
-   greedy_segment=4), with the kernels' launch counts read around it;
-5. times: captions/s at B=1024 for the kernel and plain decode paths.
+   PyTorch twins at the flagship width, GRU and LSTM, f32 and bf16; K3
+   (projection + top-k) against its twin at the flagship beam's shapes;
+4. main paths, each with the launch counts set to 0 before it and read
+   after it: greedy requests through the port's HTTP handler behind the
+   MicroBatcher, from a flagship-width bf16 Captioner (use_pallas,
+   greedy_segment=4), for K1 and K2; beam-5 requests mixed with greedy
+   ones through the same front, for K3; ``evaluation.evaluate`` with beam
+   5 and greedy on an in-memory score corpus, for K3 and K2;
+5. times: captions/s at B=1024 for the kernel and plain greedy paths, K3
+   and its twin at N=5120, and beam captions/s for the K3 and plain
+   routes.
 
 The weights are random, drawn from a numpy seed. The last three lines are
-the card's name and power limit, a JSON line per kernel, and
+the card's name and power limit, one JSON line listing every kernel, and
 {"ok": true, "device": {...}}.
 """
 
@@ -46,6 +53,13 @@ H_RTOL, H_ATOL = 1e-4, 1e-5   # f32 h against the twin (sum-order noise)
 # about this share of the later steps of a short plain-twin probe, so that
 # every row ends within T and eos_stop fires
 EOS_WIN_SHARE = 0.3
+BEAM = 5               # the flagship preset's beam width
+# K3 checks: (rows, k) at the flagship beam (B = 1024 x beam 5 = 5120 rows)
+# and a ragged N
+TOPK_CHECKS = ((5120, 1), (5120, 3), (5120, 5), (1001, 5))
+TOPK_RTOL = TOPK_ATOL = 1e-5   # f32 sums of exact products, another order
+BEAM_CHECK_VIDEOS = 256        # f32 beam captions, kernel against plain
+EVAL_VIDEOS = 128              # the in-memory score corpus
 
 
 class SmokeFailure(RuntimeError):
@@ -85,15 +99,22 @@ def environment(torch):
 
 
 def build_kernels():
+    """One nvcc per source, started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from recnet_tpu_torch.ops.cuda import build
+    sources = ("whole_decode", "topk_proj")
     t0 = time.perf_counter()
-    path = build.build("whole_decode")
-    build.load("whole_decode")
-    log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: {path.name} in "
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = list(pool.map(build.build, sources))
+    for name in sources:
+        build.load(name)
+    log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: "
+                 f"{', '.join(p.name for p in paths)} in "
                  f"{time.perf_counter() - t0:.2f} s")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", line.strip())
+    for path in paths:
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log("build", f"{path.stem}: {line.strip()}")
 
 
 # --------------------------------------------------------------------------
@@ -201,8 +222,71 @@ def kernels_against_twins(torch, tc, cfg_base):
     return errs
 
 
+def topk_margin(out, w, b, row, k):
+    """Smallest gap between neighbours among the twin's k + 1 best f32
+    logits of ``row``: how close the row is to a swap."""
+    import torch
+    logits = out[row].float() @ w.float() + b.float()
+    top = torch.sort(logits, descending=True).values[: k + 1]
+    return float((top[:-1] - top[1:]).min())
+
+
+def topk_against_twin(torch, cfg):
+    """K3 against its twin at the flagship beam's shapes, f32 and bf16;
+    returns the max |value - twin value| on the rows whose columns agree."""
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    H, V = cfg.hidden_size, cfg.vocab_size
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    hidden = torch.tanh(torch.randn((max(n for n, _ in TOPK_CHECKS), H),
+                                    generator=g, device=DEVICE))
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        params = seeded_params(cfg, dtype)
+        w, b = params["out_w"], params["out_b"]
+        for n, k in TOPK_CHECKS:
+            out = hidden[:n].to(dtype)
+            got_v, got_i = tp.outproj_topk(out, w, b, k=k)
+            want_v, want_i = tp.outproj_topk_reference(out, w, b, k=k)
+            torch.cuda.synchronize()
+            rows = (got_i == want_i).all(dim=1)
+            share = rows.float().mean().item()
+            dv = float((got_v - want_v).abs()[rows].max())
+            log("kernels", f"K3 {dname} N={n} H={H} V={V} k={k}: columns "
+                           f"equal on {share:.4f} of rows, max |dvalue| on "
+                           f"them {dv:.3e}")
+            for row in torch.nonzero(~rows)[:5, 0].tolist():
+                log("kernels", f"  row {row} differs: twin top-{k + 1} "
+                               f"logit margin "
+                               f"{topk_margin(out, w, b, row, k):.3e}")
+            check(share >= F32_ROWS, f"K3 {dname} N={n} k={k}: columns "
+                                     f"equal on {share} < {F32_ROWS}")
+            check(torch.allclose(got_v[rows], want_v[rows], rtol=TOPK_RTOL,
+                                 atol=TOPK_ATOL),
+                  f"K3 {dname} N={n} k={k}: values off the twin beyond "
+                  f"rtol {TOPK_RTOL} atol {TOPK_ATOL}")
+            err = max(err, dv)
+        # exact ties across every vocab tile: column j of out_w is the unit
+        # vector e_(j mod 8), so logit j equals out[:, j % 8] exactly
+        w_tie = torch.zeros((H, V), dtype=dtype, device=DEVICE)
+        cols = torch.arange(V, device=DEVICE)
+        w_tie[cols % 8, cols] = 1.0
+        b_tie = torch.zeros(V, dtype=dtype, device=DEVICE)
+        out = hidden[:1001].to(dtype)
+        got = tp.outproj_topk(out, w_tie, b_tie, k=BEAM)
+        want = tp.outproj_topk_reference(out, w_tie, b_tie, k=BEAM)
+        torch.cuda.synchronize()
+        best = out[:, :8].float().argmax(dim=1).int()   # first of the max
+        exact = (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+                 and torch.equal(got[1][:, 0], best))
+        log("kernels", f"K3 {dname} tie case N=1001 V={V} k={BEAM}: columns "
+                       f"and values {'equal' if exact else 'DIFFER'}")
+        check(exact, f"K3 {dname} tie case differs from the twin")
+    return err
+
+
 # --------------------------------------------------------------------------
-# 4. the main path: HTTP serving with the kernels
+# 4. the main paths: HTTP serving and evaluation with the kernels
 # --------------------------------------------------------------------------
 
 def flagship_checkpoint_dir(tmp: Path, n_vocab: int) -> Path:
@@ -224,9 +308,10 @@ def request_features(seed: int, n: int, encoder_size: int):
             for f in rng.integers(8, 61, n)]
 
 
-def serve(captioner, model_id, requests):
+def serve(captioner, model_id, requests, beams=None):
     """POST ``requests`` concurrently through the port's handler behind a
-    MicroBatcher; returns the captions of each request, in order."""
+    MicroBatcher, request i with ``"beam": beams[i]`` when that is set;
+    returns the captions of each request, in order."""
     from http.server import ThreadingHTTPServer
     from recnet_tpu_torch.cli.serve import make_handler
     from recnet_tpu_torch.serving import MicroBatcher
@@ -237,8 +322,10 @@ def serve(captioner, model_id, requests):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}/caption"
-    bodies = [json.dumps({"features": [f.tolist() for f in feats]}).encode()
-              for feats in requests]
+    beams = beams or [None] * len(requests)
+    bodies = [json.dumps({"features": [f.tolist() for f in feats],
+                          **({"beam": beam} if beam else {})}).encode()
+              for feats, beam in zip(requests, beams)]
     out, errors = [None] * len(bodies), []
 
     def client(i):
@@ -372,6 +459,101 @@ def main_path(torch, tc, vocab, cfg, params, eos_params):
     return launches
 
 
+def beam_path(torch, tc, vocab, cfg, params):
+    """Beam-5 requests mixed with greedy ones through the HTTP front, from
+    the bf16 flagship Captioner with use_pallas; then f32 beam captions of
+    the K3 route against the plain route. Returns K3's launches in the
+    served run."""
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.serving import Captioner
+    cap = Captioner(tc, vocab, params, dtype="bfloat16", device=DEVICE,
+                    use_pallas=tc.use_pallas,
+                    greedy_segment=tc.greedy_segment)
+    sizes, beams = (1, 20, 37, 9), (BEAM, None, BEAM, BEAM)
+    requests = [request_features(20 + i, n, cfg.encoder_size)
+                for i, n in enumerate(sizes)]
+    tp.outproj_topk.n_launches = 0
+    t0 = time.perf_counter()
+    caps, health = serve(cap, tc.id, requests, beams)
+    launches = tp.outproj_topk.n_launches
+    log("beam", f"served requests of {sizes} videos with beams {beams} in "
+                f"{time.perf_counter() - t0:.2f} s; healthz {health}; "
+                f"outproj_topk launches {launches}")
+    check([len(c) for c in caps] == list(sizes),
+          f"beam: caption counts {[len(c) for c in caps]} != {sizes}")
+    check(launches > 0, "K3 never launched on the beam requests")
+    check(all(isinstance(c, str) for r in caps for c in r),
+          "beam: a caption is not a string")
+    log("beam", f"sample beam caption: {caps[2][0][:80]!r}")
+
+    feats = request_features(30, BEAM_CHECK_VIDEOS, cfg.encoder_size)
+    got, want = (Captioner(tc, vocab, params, dtype="float32", device=DEVICE,
+                           use_pallas=use_pallas).caption(feats,
+                                                          beam_width=BEAM)
+                 for use_pallas in (True, False))
+    share = float(np.mean([g == w for g, w in zip(got, want)]))
+    log("beam", f"f32 beam-{BEAM} captions, K3 route against the plain "
+                f"route: equal on {share:.4f} of {len(feats)} videos")
+    check(share >= F32_ROWS, f"f32 beam captions agree on {share} < "
+                             f"{F32_ROWS}")
+    return launches
+
+
+def eval_path(torch, tc, vocab, cfg, params_np, tmp: Path):
+    """``evaluation.evaluate`` with beam 5 and greedy at the flagship width
+    (f32 params, as a trained checkpoint holds them, use_pallas and
+    greedy_segment from the preset) on an in-memory score corpus of random
+    features and reference captions. Returns each kernel's launches."""
+    import types
+    from recnet_tpu_torch.evaluation import evaluate
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.weights import params_from_jax
+    params = params_from_jax(params_np, DEVICE, torch.float32)
+    rng = np.random.default_rng(40)
+    vids = [f"vid{i}" for i in range(EVAL_VIDEOS)]
+    bs, L, Fdim = tc.batch_size, tc.encoder_output_len, cfg.encoder_size
+    batches = []
+    for start in range(0, len(vids), bs):
+        chunk = vids[start:start + bs]
+        batches.append((chunk + ["PAD"] * (bs - len(chunk)),
+                        rng.standard_normal((bs, L, Fdim)).astype(np.float32)))
+    words = [vocab.idx2word[i] for i in range(3, 40)]
+    pairs = [(v, " ".join(rng.choice(words, int(rng.integers(3, 9)))))
+             for v in vids for _ in range(3)]
+    corpus = types.SimpleNamespace(
+        score_batcher=batches, vocab=vocab,
+        test_dataset=types.SimpleNamespace(video_caption_pairs=pairs))
+    launches = {}
+    for search in (("beam", BEAM), "greedy"):
+        tp.outproj_topk.n_launches = 0
+        wd.whole_greedy_decode_segment.n_launches = 0
+        name = search if isinstance(search, str) else f"beam {search[1]}"
+        pred = tmp / f"predictions {name}.txt"
+        t0 = time.perf_counter()
+        scores = evaluate(tc, corpus, params, cfg, search,
+                          predictions_fpath=str(pred), n_test=EVAL_VIDEOS)
+        launches[name] = {
+            "outproj_topk": tp.outproj_topk.n_launches,
+            "whole_greedy_decode_segment":
+                wd.whole_greedy_decode_segment.n_launches}
+        lines = pred.read_text().splitlines()
+        log("eval", f"evaluate {name}, {len(batches)} batches of {bs}: "
+                    f"{time.perf_counter() - t0:.2f} s, {len(lines)} "
+                    f"predictions, launches {launches[name]}, scores "
+                    f"{ {k: round(v, 4) for k, v in scores.items()} }")
+        check(len(lines) == EVAL_VIDEOS and all("\t\t" in x for x in lines),
+              f"evaluate {name}: predictions.txt malformed")
+        check(set(tc.scores) <= set(scores)
+              and all(np.isfinite(v) for v in scores.values()),
+              f"evaluate {name}: scores {scores}")
+    check(launches[f"beam {BEAM}"]["outproj_topk"] > 0,
+          "K3 never launched in evaluate")
+    check(launches["greedy"]["whole_greedy_decode_segment"] > 0,
+          "K2 never launched in evaluate")
+    return launches
+
+
 # --------------------------------------------------------------------------
 # 5. times
 # --------------------------------------------------------------------------
@@ -419,8 +601,19 @@ def times(torch, tc, cfg, params_np, eos_np):
             timed(torch, lambda: wd.whole_greedy_decode_segment_reference(
                 *ops, z, z, sos, seg_len=4, **kw))[0]),
     }
+    # K3 at the flagship beam's shapes: B x beam rows of GRU output
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    hidden = torch.tanh(torch.randn((B * BEAM, cfg.hidden_size),
+                                    generator=g, device=DEVICE)).to(dtype)
+    w, b = params["out_w"], params["out_b"]
+    kernel_ms["outproj_topk"] = (
+        timed(torch, lambda: tp.outproj_topk(hidden, w, b, k=BEAM), reps=10)[0],
+        timed(torch, lambda: tp.outproj_topk_reference(hidden, w, b, k=BEAM),
+              reps=10)[0])
     for name, (ms, plain) in kernel_ms.items():
-        log("times", f"{name} B={B} bf16: kernel {ms:.3f} ms, plain twin "
+        shape = f"N={B * BEAM} k={BEAM}" if name == "outproj_topk" else f"B={B}"
+        log("times", f"{name} {shape} bf16: kernel {ms:.3f} ms, plain twin "
                      f"{plain:.3f} ms ({card})")
     paths = {
         "K2 segmented (greedy_segment=4, eos_stop)": lambda: (
@@ -437,6 +630,10 @@ def times(torch, tc, cfg, params_np, eos_np):
             params, cfg, enc, T - 1, early_exit=True),
         "precompute_uv alone": lambda: precompute_uv(params["attention"],
                                                      enc),
+        f"beam_decode K={BEAM}, K3 route": lambda: decoding.beam_decode(
+            params, cfg, enc, BEAM, T - 1, use_pallas_topk=True),
+        f"beam_decode K={BEAM}, plain route": lambda: decoding.beam_decode(
+            params, cfg, enc, BEAM, T - 1, use_pallas_topk=False),
     }
     for name, fn in paths.items():
         dev_ms, wall_ms = timed(torch, fn)
@@ -462,17 +659,24 @@ def main() -> int:
     cfg = config_from_train(tc, vocab.n_vocabs)
     params_np = random_params(cfg, SEED)
     errs = kernels_against_twins(torch, tc, cfg)
+    errs["outproj_topk"] = topk_against_twin(torch, cfg)
     eos_np = eos_biased(torch, tc, cfg, params_np)
     launches = main_path(torch, tc, vocab, cfg, params_np, eos_np)
+    launches["outproj_topk"] = beam_path(torch, tc, vocab, cfg, params_np)
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_path(torch, tc, vocab, cfg, params_np, Path(tmp))
     kernel_ms = times(torch, tc, cfg, params_np, eos_np)
 
     replaces = {
         "whole_greedy_decode": "recnet_tpu/ops/pallas/whole_decode.py:440",
         "whole_greedy_decode_segment":
             "recnet_tpu/ops/pallas/whole_decode.py:360",
+        "outproj_topk": "recnet_tpu/ops/pallas/topk_proj.py:77",
     }
-    kernels = [{"name": name, "route": "cuda",
-                "source": "recnet_tpu_torch/csrc/whole_decode.cu",
+    source = lambda name: ("recnet_tpu_torch/csrc/topk_proj.cu"
+                           if name == "outproj_topk"
+                           else "recnet_tpu_torch/csrc/whole_decode.cu")
+    kernels = [{"name": name, "route": "cuda", "source": source(name),
                 "replaces": replaces[name], "launches": launches[name],
                 "max_abs_err": errs[name], "ms": kernel_ms[name][0],
                 "plain_ms": kernel_ms[name][1]}

@@ -12,7 +12,7 @@ Port of ``recnet_tpu.cli.serve``, with the same JSON protocol:
 
 Status codes: 400 for a malformed request, 404 for an unknown path, 503
 when the micro-batch queue is full, 504 past the deadline, 500 for a
-runtime failure (a beam request, until beam search is ported).
+runtime failure. A request may ask for beam search with ``"beam": K``.
 Concurrent requests are micro-batched unless ``--sequential``.
 """
 
@@ -111,11 +111,14 @@ def main(argv=None):
                    help="per-request wall budget from enqueue; requests "
                         "still queued past it get HTTP 504 (0 = none)")
     a.add_argument("--beam_length_margin", type=int, default=-1,
-                   help="approximate beam cutoff (beam search is not "
-                        "ported yet; kept for flag parity)")
+                   help="approximate beam cutoff: stop this many steps "
+                        "after every beam candidate has a first <EOS> "
+                        "(-1 = the exact full-length search)")
     a.add_argument("--use_pallas", action="store_true",
-                   help="decode with the hand-written whole-decode kernels "
-                        "(1-layer GRU/LSTM; decoding.kernels_supported)")
+                   help="decode with the hand-written kernels: the "
+                        "whole-decode kernel for greedy requests (1-layer "
+                        "GRU/LSTM) and the projection + top-K kernel for "
+                        "beam requests (decoding.kernels_supported)")
     a.add_argument("--greedy_segment", type=int, default=0,
                    help="with --use_pallas: decode in N-step kernel "
                         "segments and stop once every row has an <EOS> "

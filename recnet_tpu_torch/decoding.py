@@ -1,25 +1,31 @@
-"""Greedy decoding: the plain loop and the loops around the decode kernels.
+"""Greedy and beam decoding: the plain loops and the loops around the
+decode kernels.
 
-Port of the greedy half of ``recnet_tpu.decoding`` (reference eval.py:19-33):
+Port of ``recnet_tpu.decoding`` (reference eval.py:19-120):
 
 * ``greedy_decode``: the argmax chain in plain PyTorch, freezing once every
   token is <PAD> and reporting ``n_steps``; ``early_exit`` stops there;
 * ``greedy_decode_whole``: the whole loop in one launch of kernel K1;
 * ``greedy_decode_whole_segmented``: K2 segments chained with a stop check
-  between them (all <PAD>, or with ``eos_stop`` every row has seen <EOS>).
+  between them (all <PAD>, or with ``eos_stop`` every row has seen <EOS>);
+* ``beam_decode``: batched beam search with the reference's scoring, its
+  per-beam top-K either plain or through kernel K3 (``use_pallas_topk``).
 
-Beam search and sampling are not ported yet (ROADMAP Queue 1, item 6).
+Sampling is not ported yet (ROADMAP Queue 1, item 6).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as nnf
 
 from recnet_tpu_torch.models import decoder as dec_mod
 from recnet_tpu_torch.ops import attention as attn_ops
+from recnet_tpu_torch.ops import rnn as rnn_ops
+from recnet_tpu_torch.ops.cuda import topk_proj
 from recnet_tpu_torch.ops.cuda import whole_decode as wd
 
 
@@ -32,14 +38,18 @@ def kernels_supported(cfg: dec_mod.DecoderConfig, kind: str) -> bool:
     """Whether a hand-written decode kernel serves this config; the
     counterpart of ``recnet_tpu.decoding.pallas_supported``.
 
-    ``"greedy_whole"`` (K1/K2): a GRU or LSTM with one layer. It decides by
-    config only, so routing is the same on the CPU and on the card; the
-    wrappers alone choose between the kernel (CUDA tensors) and its plain
-    twin (CPU tensors)."""
+    ``"greedy_whole"`` (K1/K2): a GRU or LSTM with one layer.
+    ``"beam_topk"`` (K3): any cell and depth; the kernel sees only the
+    decoder output and the vocab projection.
+
+    It decides by config only, so routing is the same on the CPU and on the
+    card; the wrappers alone choose between the kernel (CUDA tensors) and
+    its plain twin (CPU tensors)."""
     if kind == "greedy_whole":
         return cfg.cell_type in ("GRU", "LSTM") and cfg.n_layers == 1
-    raise ValueError(f"no ported kernel of kind {kind!r}; the beam top-K "
-                     "kernel is ROADMAP Queue 2, K3")
+    if kind == "beam_topk":
+        return True
+    raise ValueError(f"no ported kernel of kind {kind!r}")
 
 
 def _make_step_logits(params: Dict, cfg: dec_mod.DecoderConfig,
@@ -166,6 +176,167 @@ def greedy_decode_whole_segmented(params: Dict, cfg: dec_mod.DecoderConfig,
     tokens = toks[:, :T].T
     return GreedyResult(tokens,
                         _steps_to_first_all_pad(tokens, cfg.pad_token))
+
+
+class BeamResult(NamedTuple):
+    tokens: torch.Tensor   # (B, T) int32, the top beam, valid through n_steps
+    n_steps: int
+    scores: torch.Tensor   # (B, K) final cumulative scores
+
+
+# log_sigmoid's saturation point: -log(f32 tiny), where exp(-x) leaves the
+# f32 normal range (recnet_tpu.decoding.beam_decode)
+_LOGSIG_SAT = float(-np.log(np.finfo(np.float32).tiny))
+
+
+@torch.no_grad()
+def beam_decode(params: Dict, cfg: dec_mod.DecoderConfig,
+                encoder_outputs: torch.Tensor, beam_width: int,
+                max_len: int, use_pallas_topk: bool = False,
+                early_exit: bool = False,
+                length_cutoff_margin: Optional[int] = None) -> BeamResult:
+    """Batched beam search of width K (reference eval.py:36-120).
+
+    Port of ``recnet_tpu.decoding.beam_decode`` with its quirks:
+
+    * candidates score ``log(sigmoid(logit))``, not log-softmax;
+    * the cumulative score is re-divided every step by ``len ** 0.7``, len
+      being the position of the beam's LAST <EOS> plus one, else t + 1;
+    * one live beam at t = 0 (the other slots start at -inf);
+    * each beam keeps its own top-K of the raw logits, then a stable top-K
+      over the K*K candidates (``lax.top_k`` order) picks the new beams;
+    * logits are clamped at log_sigmoid's saturation point, -log(f32 tiny):
+      the plain route clamps before it ranks, so saturated logits tie and
+      rank by word; the kernel route (``use_pallas_topk``, kernel K3) ranks
+      the raw logits and clamps the values it returns;
+    * a sticky first-<EOS> register per beam, and once every token of a
+      step is <PAD> the output-bearing state freezes and ``n_steps`` stops.
+
+    ``early_exit`` stops the loop at that all-<PAD> step; the output is
+    the same. ``length_cutoff_margin`` (implies ``early_exit``) also stops
+    once every beam has a first <EOS> and the step is ``margin`` past the
+    latest one, an approximation for serving. Both read a stop flag on the
+    host each step. ``cum_prob`` is carried in the encoder dtype, as JAX
+    does. A 1-layer decoder runs on the hoisted decode tables (a GRU
+    without a cell state); deeper ones through ``_multilayer_rnn``."""
+    early_exit = early_exit or (length_cutoff_margin is not None)
+    B, F, _ = encoder_outputs.shape
+    K = beam_width
+    T = max_len + 1
+    dtype, dev = encoder_outputs.dtype, encoder_outputs.device
+    a = params["attention"]
+    uv = attn_ops.precompute_uv(a, encoder_outputs)        # shared by beams
+    hoist = cfg.n_layers == 1
+    if hoist:
+        pre_table, encW, b_ih = dec_mod.hoisted_decode_tables(
+            params, cfg, encoder_outputs)
+    is_gru = cfg.cell_type == "GRU" and hoist
+    sat = torch.tensor(_LOGSIG_SAT, dtype=dtype, device=dev)
+
+    def compute_scores(query):
+        wh = query @ a["W"]                                       # (B, K, A)
+        return (torch.tanh(wh[:, :, None, :] + uv[:, None] + a["b"])
+                * a["w"][:, 0]).sum(-1)                           # (B, K, F)
+
+    def beam_decoder_step(tokens, h, c):
+        """One decoder step for all B*K beams against the shared encoder;
+        returns (out (B*K, H), h, c) with h, c shaped like the inputs."""
+        query = h if hoist else h[:, :, -1]
+        scores = compute_scores(query)
+        if hoist:
+            gi = (pre_table[tokens]
+                  + torch.einsum("bkf,bfg->bkg", scores, encW) / F
+                  + b_ih).reshape(B * K, -1)
+            if is_gru:
+                nh = rnn_ops.gru_cell_pre(params["rnn"][0], gi,
+                                          h.reshape(B * K, -1))
+                return nh, nh.reshape(B, K, -1), c
+            nh, nc = rnn_ops.lstm_cell_pre(
+                params["rnn"][0], gi,
+                (h.reshape(B * K, -1), c.reshape(B * K, -1)))
+            return nh, nh.reshape(B, K, -1), nc.reshape(B, K, -1)
+        emb = params["embedding"][tokens] * cfg.embedding_scale   # (B, K, E)
+        ctx = torch.einsum("bkf,bfe->bke", scores, encoder_outputs) / F
+        x = torch.cat([emb, ctx], dim=-1).reshape(B * K, -1)
+        flat = lambda s: s.reshape(B * K, cfg.n_layers, -1).movedim(1, 0)
+        out, (nh, nc) = dec_mod._multilayer_rnn(
+            cfg, params["rnn"], x, (flat(h), flat(c)))
+        unflat = lambda s: s.movedim(0, 1).reshape(B, K, cfg.n_layers, -1)
+        return out, unflat(nh), unflat(nc)
+
+    def per_beam_topk(out):
+        """Top-K of ``out @ out_w + out_b`` per row: (values, words)."""
+        if use_pallas_topk:
+            vals, idxs = topk_proj.outproj_topk(
+                out, params["out_w"], params["out_b"], k=K)
+            return torch.minimum(vals.to(dtype), sat), idxs
+        return topk_proj.topk_rounds(
+            torch.minimum(out @ params["out_w"] + params["out_b"], sat), K)
+
+    def gather_beams(x, src):
+        """Rows of (B, K, ...) x regathered by source beam src (B, K)."""
+        index = src.reshape((B, K) + (1,) * (x.dim() - 2)).expand(x.shape)
+        return torch.gather(x, 1, index)
+
+    L, H = cfg.n_layers, cfg.hidden_size
+    state_shape = (B, K, H) if hoist else (B, K, L, H)
+    h = torch.zeros(state_shape, dtype=dtype, device=dev)
+    c = (torch.zeros((1, 1, 1), dtype=dtype, device=dev) if is_gru
+         else torch.zeros(state_shape, dtype=dtype, device=dev))
+    tokens = torch.full((B, K), cfg.sos_token, dtype=torch.int32, device=dev)
+    cum_prob = torch.full((B, K), float("-inf"), dtype=dtype, device=dev)
+    cum_prob[:, 0] = 0.0                     # one live beam at t = 0
+    last_eos = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+    first_eos = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+    history = torch.full((B, K, T), cfg.pad_token, dtype=torch.int32,
+                         device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    n_steps = torch.zeros((), dtype=torch.int32, device=dev)
+
+    for t in range(T):
+        if early_exit:
+            stop = done
+            if length_cutoff_margin is not None:
+                stop = stop | ((first_eos >= 0).all() & (
+                    t >= first_eos.max() + 1 + length_cutoff_margin))
+            if bool(stop):                   # host sync
+                break
+        out, nh, nc = beam_decoder_step(tokens, h, c)
+        pb_val, pb_idx = per_beam_topk(out)                      # (B*K, K)
+
+        # length-penalised cumulative score (eval.py:51-63)
+        seq_len = torch.where(last_eos >= 0, last_eos + 1, t + 1).to(dtype)
+        penalized = cum_prob / seq_len ** 0.7
+        cand = (penalized.reshape(B * K, 1)
+                + nnf.logsigmoid(pb_val)).reshape(B, K * K)
+        # a stable descending sort keeps lax.top_k's order among equals
+        top_val, top_i = torch.sort(cand, dim=1, descending=True,
+                                    stable=True)
+        top_val, top_i = top_val[:, :K], top_i[:, :K]
+        src = torch.div(top_i, K, rounding_mode="floor")
+        word = torch.gather(pb_idx.reshape(B, K * K), 1, top_i)
+
+        h = gather_beams(nh, src)
+        c = c if is_gru else gather_beams(nc, src)
+        new_hist = gather_beams(history, src)
+        new_hist[:, :, t] = word
+        new_last_eos = torch.where(word == cfg.eos_token, t,
+                                   torch.gather(last_eos, 1, src))
+        inherited = torch.gather(first_eos, 1, src)
+        new_first_eos = torch.where(
+            inherited >= 0, inherited,
+            torch.where(word == cfg.eos_token, t, -1)).to(torch.int32)
+
+        # freeze the output-bearing state once done (the reference's break)
+        keep = lambda n, o: torch.where(done, o, n)
+        tokens = keep(word, tokens)
+        cum_prob = keep(top_val, cum_prob)
+        last_eos = keep(new_last_eos, last_eos)
+        first_eos = keep(new_first_eos, first_eos)
+        history = keep(new_hist, history)
+        n_steps = torch.where(done, n_steps, t + 1)
+        done = done | (word == cfg.pad_token).all()
+    return BeamResult(history[:, 0, :], int(n_steps), cum_prob)
 
 
 def tokens_to_sentences(idxs, idx2word, eos_token: int) -> List[str]:

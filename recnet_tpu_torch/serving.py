@@ -5,9 +5,9 @@ power-of-two buckets and decodes them on an explicit ``device``, and a
 ``MicroBatcher`` that coalesces concurrent requests into shared batches.
 
 ``use_pallas`` keeps its name because ``TrainConfig`` and the CLI carry it;
-here it selects the hand-written decode kernels (K1, or K2 with
-``greedy_segment``). Beam search and multi-device serving are not ported
-yet and raise ``NotImplementedError``.
+here it selects the hand-written decode kernels: K1, or K2 with
+``greedy_segment``, for greedy requests, and K3 for beam requests.
+Multi-device serving is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ import torch
 
 from recnet_tpu.data import transforms
 from recnet_tpu_torch import checkpoint as ckpt
-from recnet_tpu_torch.decoding import (greedy_decode, greedy_decode_whole,
+from recnet_tpu_torch.decoding import (beam_decode, greedy_decode,
+                                       greedy_decode_whole,
                                        greedy_decode_whole_segmented,
                                        kernels_supported, tokens_to_sentences)
 from recnet_tpu_torch.models import decoder as dec_mod
@@ -40,7 +41,10 @@ class Captioner:
         """``dec_params``: the decoder params in the JAX layout (nested
         dict/list of arrays or tensors), cast to ``dtype`` on ``device``.
         ``greedy_segment``: with ``use_pallas``, decode in K2 segments of
-        this many steps and stop once every row has an <EOS>."""
+        this many steps and stop once every row has an <EOS>.
+        ``beam_length_margin``: the approximate beam cutoff of
+        ``decoding.beam_decode``'s ``length_cutoff_margin``; None runs the
+        exact search."""
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving is not ported yet "
@@ -70,10 +74,17 @@ class Captioner:
     def _decode(self, videos: torch.Tensor,
                 beam_width: Optional[int]) -> np.ndarray:
         """videos (B, L, F) on the device -> tokens (n_steps, B)."""
-        if beam_width:
-            raise NotImplementedError(
-                "beam search is not ported yet (ROADMAP Queue 1, item 6)")
         max_len = self.tc.caption_max_len
+        if beam_width:
+            # only a margin stops early (and pays a host sync per step):
+            # the all-<PAD> stop rarely fires
+            res = beam_decode(
+                self.params, self.dcfg, videos, beam_width, max_len,
+                use_pallas_topk=(self.use_pallas
+                                 and kernels_supported(self.dcfg,
+                                                       "beam_topk")),
+                length_cutoff_margin=self.beam_length_margin)
+            return res.tokens[:, : res.n_steps].T.cpu().numpy()
         if self.use_pallas and kernels_supported(self.dcfg, "greedy_whole"):
             if self.greedy_segment:
                 # eos_stop: the sentences are exact and the all-<PAD> break

@@ -1,4 +1,5 @@
-"""The whole-decode CUDA kernels on the card, against their plain twins.
+"""The CUDA kernels on the card, against their plain twins: the whole
+decode (K1/K2) and the fused projection + top-k (K3).
 
 Needs a CUDA card with sm_90a and nvcc; every test skips without a card.
 This file imports neither JAX nor the test conftest, so on the card run:
@@ -17,6 +18,7 @@ import torch
 
 from recnet_tpu_torch.models.decoder import DecoderConfig
 from recnet_tpu_torch.ops.attention import precompute_uv
+from recnet_tpu_torch.ops.cuda import topk_proj
 from recnet_tpu_torch.ops.cuda import whole_decode as wd
 from recnet_tpu_torch.weights import params_from_jax, random_params
 
@@ -157,3 +159,82 @@ def test_captioner_kernel_path_equals_plain_path(cuda):
                         batch_size=8, **kw)
         caps[name] = cap.caption(feats)
     assert caps["k1"] == caps["k2"] == caps["plain"]
+
+
+def _topk_operands(device, n, h, v, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+    return t(n, h), t(h, v), t(v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,v,k", [(13, 24, 300, 5), (64, 32, 128, 1),
+                                     (130, 40, 517, 3), (7, 16, 1000, 128),
+                                     (9, 99, 301, 4)])
+def test_k3_matches_twin(cuda, dtype, n, h, v, k):
+    """Ragged N (blocks of 64 rows), V (tiles of 128 columns) and H (bf16
+    slices of 64, odd sizes read one element at a time); indices equal,
+    values within rtol/atol 1e-5 (f32 sums in another order)."""
+    ops = _topk_operands(cuda, n, h, v, dtype)
+    got = topk_proj.outproj_topk(*ops, k=k)
+    want = topk_proj.outproj_topk_reference(*ops, k=k)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("v", [256, 1000])
+def test_k3_ties_take_the_lowest_column(cuda, v):
+    """Repeated weight columns: logits equal out[:, j % 8] exactly, so a
+    row's top k is one residue class in ascending columns, across tiles."""
+    h, k = 8, 6
+    out = torch.randn((70, h), device=cuda)
+    w = torch.from_numpy(np.tile(np.eye(h, 8, dtype=np.float32),
+                                 (1, v // 8))).to(cuda)
+    b = torch.zeros(w.shape[1], device=cuda)
+    got = topk_proj.outproj_topk(out, w, b, k=k)
+    want = topk_proj.outproj_topk_reference(out, w, b, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    best = out.argmax(dim=1, keepdim=True).int()
+    assert torch.equal(got[1], best + 8 * torch.arange(
+        k, device=cuda, dtype=torch.int32))
+
+
+def test_k3_rejects_and_counts(cuda):
+    out, w, b = _topk_operands(cuda, 8, 16, 200, torch.float32)
+    with pytest.raises(ValueError, match="outside"):
+        topk_proj.outproj_topk(out, w, b, k=129)
+    with pytest.raises(ValueError, match="on cpu"):
+        topk_proj.outproj_topk(out, w.cpu(), b, k=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk_proj.outproj_topk(out, w.t().contiguous().t(), b, k=3)
+    n = topk_proj.outproj_topk.n_launches
+    topk_proj.outproj_topk(out, w, b, k=3)
+    topk_proj.outproj_topk_reference(out, w, b, k=3)
+    assert topk_proj.outproj_topk.n_launches == n + 1
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_beam_kernel_route_equals_plain_route(cuda, cell):
+    """A small f32 beam search on the card: K3 against the plain top-K."""
+    from recnet_tpu_torch.decoding import beam_decode
+
+    cfg = DecoderConfig(cell_type=cell, vocab_size=V, embedding_size=E,
+                        encoder_size=F, hidden_size=H, attn_size=A)
+    p = random_params(cfg, 5)
+    p["out_w"] = p["out_w"] * 8.0
+    params = params_from_jax(p, cuda)
+    enc = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (B, L, F)).astype(np.float32)).to(cuda)
+    n = topk_proj.outproj_topk.n_launches
+    got = beam_decode(params, cfg, enc, 5, MAX_LEN, use_pallas_topk=True)
+    want = beam_decode(params, cfg, enc, 5, MAX_LEN)
+    assert topk_proj.outproj_topk.n_launches == n + MAX_LEN + 1
+    assert got.n_steps == want.n_steps
+    assert torch.equal(got.tokens, want.tokens)
+    torch.testing.assert_close(got.scores, want.scores, rtol=1e-5,
+                               atol=1e-5)

@@ -144,8 +144,10 @@ def test_kernels_supported_decides_by_config():
     assert t_decoding.kernels_supported(cfg("GRU"), "greedy_whole")
     assert t_decoding.kernels_supported(cfg("LSTM"), "greedy_whole")
     assert not t_decoding.kernels_supported(cfg("GRU", 2), "greedy_whole")
-    with pytest.raises(ValueError, match="K3"):
-        t_decoding.kernels_supported(cfg("GRU"), "beam_topk")
+    for cell, layers in (("GRU", 1), ("LSTM", 1), ("GRU", 2), ("LSTM", 3)):
+        assert t_decoding.kernels_supported(cfg(cell, layers), "beam_topk")
+    with pytest.raises(ValueError, match="no ported kernel"):
+        t_decoding.kernels_supported(cfg("GRU"), "fused_step")
     _, tcfg2, _, tp2, enc = _setup("GRU", n_layers=2)
     with pytest.raises(ValueError, match="1-layer"):
         t_decoding.greedy_decode_whole(tp2, tcfg2, torch.from_numpy(enc), 3)

@@ -1,6 +1,7 @@
-"""recnet_tpu_torch.serving and cli.serve: mirrors of tests/test_serving.py
-cases against the port, its import hygiene and its kernel build's failure
-mode. Weights come from a numpy seed; nothing here needs JAX."""
+"""recnet_tpu_torch.serving, cli.serve and cli.caption: mirrors of
+tests/test_serving.py cases against the port, its import hygiene and its
+kernel build's failure mode. Weights come from a numpy seed. Beam captions
+and the caption CLI are held against the JAX Captioner and CLI in f32."""
 
 import json
 import subprocess
@@ -88,9 +89,29 @@ def test_validate_features(captioner):
             captioner.validate_features([good, bad])
 
 
+def test_beam_captions_match_jax_captioner():
+    """Beam requests, plain route and kernel route (K3's twin here), with
+    and without the length cutoff, caption like the JAX Captioner in f32."""
+    from recnet_tpu.serving import Captioner as JaxCaptioner
+
+    tc = tiny_train_config("unused")
+    vocab = Vocab(tc.init_word2idx_dict).build([" ".join(WORDS)], str.split)
+    params = random_params(config_from_train(tc, vocab.n_vocabs), seed=0)
+    params["out_w"] = params["out_w"] * 8.0      # captions end
+    feats = _feats(8, 11)
+    for margin in (None, 2):
+        want = JaxCaptioner(tc, vocab, params, dtype="float32", batch_size=8,
+                            beam_length_margin=margin).caption(
+                                feats, beam_width=3)
+        for use_pallas in (False, True):
+            got = Captioner(tc, vocab, params, dtype="float32", device="cpu",
+                            batch_size=8, use_pallas=use_pallas,
+                            beam_length_margin=margin).caption(
+                                feats, beam_width=3)
+            assert got == want
+
+
 def test_unported_modes_raise(captioner, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        captioner.caption(_feats(1, 2), beam_width=3)
     with pytest.raises(NotImplementedError, match="item 11"):
         _captioner(mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -101,8 +122,8 @@ def test_unported_modes_raise(captioner, monkeypatch):
 
 
 def test_http_endpoint(captioner):
-    """/healthz and /caption over real HTTP: 200, 400 for malformed input,
-    404 for an unknown path, 500 for beam (not ported yet)."""
+    """/healthz and /caption over real HTTP: 200 for greedy and beam, 400
+    for malformed input, 404 for an unknown path."""
     server = HTTPServer(("127.0.0.1", 0), make_handler(captioner, "tiny"))
     threading.Thread(target=server.serve_forever, daemon=True).start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -136,7 +157,9 @@ def test_http_endpoint(captioner):
         assert status("/caption", {"nope": 1}) == 400
         assert status("/nope", {"features": feats}) == 404
         assert status("/nope") == 404
-        assert status("/caption", {"features": feats, "beam": 2}) == 500
+        beam = post("/caption", {"features": feats, "beam": 2})
+        assert beam["captions"] == captioner.caption(
+            [np.asarray(f, np.float32) for f in feats], beam_width=2)
         assert post("/caption", {"features": feats}) == out
     finally:
         server.shutdown()
@@ -223,6 +246,37 @@ def test_serve_cli_rejects_sequential_with_overload_knobs():
     for extra in (["--max_queue", "8"], ["--deadline_s", "2"]):
         with pytest.raises(SystemExit):
             serve_main(["--ckpt", "/nonexistent", "--sequential"] + extra)
+
+
+@pytest.mark.parametrize("beam", [0, 2])
+def test_caption_cli_matches_jax_cli(tmp_path, beam):
+    """cli.caption writes the JAX CLI's lines from one npz checkpoint and
+    one HDF5 feature file (f32)."""
+    import jax
+    from recnet_tpu import checkpoint as j_ckpt
+    from recnet_tpu.cli.caption import main as j_caption_main
+    from recnet_tpu.data import Corpus
+    from recnet_tpu.training.step import init_train_state
+    from recnet_tpu_torch.cli.caption import main as t_caption_main
+    from fixtures import make_msvd_fixture
+
+    root = str(tmp_path / "data")
+    make_msvd_fixture(root)
+    tc = tiny_train_config(root)
+    vocab = Corpus(tc).vocab
+    state, _, _ = init_train_state(jax.random.PRNGKey(0), tc, vocab.n_vocabs)
+    state = state._replace(dec_params=dict(
+        state.dec_params, out_w=state.dec_params["out_w"] * 8.0))
+    d = j_ckpt.save_checkpoint(str(tmp_path / "ck"), 1, state, tc, vocab)
+    features = tc.video_fpath("test")
+    common = ["--ckpt", d, "--features", features, "--dtype", "float32",
+              "--beam", str(beam)]
+    j_caption_main(common + ["--out", str(tmp_path / "jax.txt")])
+    t_caption_main(common + ["--out", str(tmp_path / "port.txt"),
+                             "--device", "cpu"])
+    lines = (tmp_path / "port.txt").read_text()
+    assert lines == (tmp_path / "jax.txt").read_text()
+    assert len(lines.splitlines()) == 2 and "\t\t" in lines
 
 
 def test_port_imports_leave_jax_out():
