@@ -10,15 +10,25 @@ Phases, one line or more each; any failure exits non-zero before a result:
 3. kernels: K1 (whole decode) and K2 (decode segment) against their plain
    PyTorch twins at the flagship width, GRU and LSTM, f32 and bf16; K3
    (projection + top-k) against its twin at the flagship beam's shapes;
+   K4 (fused attention + GRU step) against its twin, f32 and bf16, frame
+   chunks 1 and 7; the K5 variants of K1: ``dual`` bit-equal to K1, each
+   ``ablate`` part against its twin;
 4. main paths, each with the launch counts set to 0 before it and read
    after it: greedy requests through the port's HTTP handler behind the
    MicroBatcher, from a flagship-width bf16 Captioner (use_pallas,
    greedy_segment=4), for K1 and K2; beam-5 requests mixed with greedy
    ones through the same front, for K3; ``evaluation.evaluate`` with beam
    5 and greedy on an in-memory score corpus, for K3 and K2;
-5. times: captions/s at B=1024 for the kernel and plain greedy paths, K3
-   and its twin at N=5120, and beam captions/s for the K3 and plain
-   routes.
+   ``decoding.greedy_decode_pallas`` at B=1024, for K4 (T launches);
+   ``decoding.greedy_decode_whole(early_exit=True)`` on PAD-timed
+   weights (blocks stop at different steps), for K5's early exit;
+5. times: captions/s at B=1024 for the kernel and plain greedy paths
+   (K1, K2, the K4 loop), K3 and its twin at N=5120, K4 and its twin per
+   step, the early exit and dual against K1, and beam captions/s for the
+   K3 and plain routes;
+6. ablate: the profiling sweep of K1 at B=1024 bf16 (production, each
+   ablated part, dual), each part's cost as full - variant and its tokens
+   against its twin's.
 
 The weights are random, drawn from a numpy seed. The last three lines are
 the card's name and power limit, one JSON line listing every kernel, and
@@ -27,6 +37,7 @@ the card's name and power limit, one JSON line listing every kernel, and
 
 from __future__ import annotations
 
+import collections
 import json
 import shutil
 import subprocess
@@ -60,6 +71,15 @@ TOPK_CHECKS = ((5120, 1), (5120, 3), (5120, 5), (1001, 5))
 TOPK_RTOL = TOPK_ATOL = 1e-5   # f32 sums of exact products, another order
 BEAM_CHECK_VIDEOS = 256        # f32 beam captions, kernel against plain
 EVAL_VIDEOS = 128              # the in-memory score corpus
+K4_CHUNKS = (1, 7)             # K4's frame_chunk values (L = 28)
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-2   # bf16 h: 2 bf16 ulps
+ABLATE_PARTS = ("emb", "attn", "score1", "fma", "proj", "nativeargmax",
+                "argmax")
+# the PAD-timed variant: (z, n) of the GRU unit whose rise lifts <PAD>, and
+# the step at which the lift would pass every max logit of a probe: past
+# the flagship's T = 31, so that blocks stop over a wide span of steps
+PAD_TIMER = (0.97, 0.9, 40)
+EARLY_STOP_BLOCKS = 0.5        # share of blocks the early exit must stop
 
 
 class SmokeFailure(RuntimeError):
@@ -102,7 +122,7 @@ def build_kernels():
     """One nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from recnet_tpu_torch.ops.cuda import build
-    sources = ("whole_decode", "topk_proj")
+    sources = ("whole_decode", "topk_proj", "fused_step")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(build.build, sources))
@@ -285,9 +305,119 @@ def topk_against_twin(torch, cfg):
     return err
 
 
+def k4_operands(torch, cfg, params, enc, seed):
+    """The fused step's operands at the embedding rows of random tokens
+    and a random h in (-1, 1)."""
+    from recnet_tpu_torch.ops.attention import precompute_uv
+    from recnet_tpu_torch.ops.cuda import fused_step as fs
+    a, r = params["attention"], params["rnn"][0]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    B = enc.shape[0]
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=DEVICE)
+    h = torch.tanh(torch.randn((B, cfg.hidden_size), generator=g,
+                               device=DEVICE)).to(enc.dtype)
+    return (params["embedding"][tok], h, enc, precompute_uv(a, enc), a["W"],
+            a["w"], a["b"][None, :], r["w_ih"], r["w_hh"],
+            fs.pack_gru_bias(r["b_ih"], r["b_hh"]))
+
+
+def fused_step_against_twin(torch, tc, cfg):
+    """K4 against its twin at B = CHECK_B, f32 and bf16, frame_chunk 1 and
+    7; returns the max |h - h_twin| in f32."""
+    from recnet_tpu_torch.ops.cuda import fused_step as fs
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        enc = seeded_features(torch, CHECK_B, tc.encoder_output_len, cfg,
+                              dtype, 11)
+        ops = k4_operands(torch, cfg, seeded_params(cfg, dtype), enc, 12)
+        for fc in K4_CHUNKS:
+            kw = dict(emb_size=cfg.embedding_size, frame_chunk=fc)
+            got = fs.fused_gru_attn_step(*ops, **kw)
+            want = fs.fused_gru_attn_step_reference(*ops, **kw)
+            torch.cuda.synchronize()
+            d = float((got.float() - want.float()).abs().max())
+            log("kernels", f"K4 {dname} B={CHECK_B} frame_chunk={fc}: max "
+                           f"|h - h_twin| {d:.3e}")
+            if dtype == torch.float32:
+                check(torch.allclose(got, want, rtol=H_RTOL, atol=H_ATOL),
+                      f"K4 f32 frame_chunk={fc}: h off the twin beyond rtol "
+                      f"{H_RTOL} atol {H_ATOL}")
+                err = max(err, d)
+            else:
+                check(torch.allclose(got.float(), want.float(),
+                                     rtol=BF16_RTOL, atol=BF16_ATOL),
+                      f"K4 bf16 frame_chunk={fc}: h off the twin beyond "
+                      f"rtol {BF16_RTOL} atol {BF16_ATOL}")
+    return err
+
+
+def variants_against_k1(torch, tc, cfg_base):
+    """K5: ``dual`` tokens equal K1's on every row (GRU and LSTM, f32 and
+    bf16); each ``ablate`` part against its twin in f32 (GRU and LSTM), and
+    ``nativeargmax`` equal to production. Returns max |token - twin token|
+    per variant."""
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    T, L = tc.caption_max_len + 1, tc.encoder_output_len
+    errs = {}
+    for cell in ("GRU", "LSTM"):
+        cfg = cfg_base._replace(cell_type=cell)
+        for dtype in (torch.float32, torch.bfloat16):
+            ops = decode_operands(seeded_params(cfg, dtype),
+                                  seeded_features(torch, CHECK_B, L, cfg,
+                                                  dtype, 1))
+            kw = dict(emb_size=cfg.embedding_size, max_len=T - 1,
+                      cell_type=cell)
+            dual = wd.whole_greedy_decode(*ops, dual=True, **kw)
+            full = wd.whole_greedy_decode(*ops, **kw)
+            torch.cuda.synchronize()
+            rows = (dual == full).all(dim=1).float().mean().item()
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            log("kernels", f"K5 dual {cell} {dname} B={CHECK_B}: rows equal "
+                           f"to K1 {rows:.4f}")
+            check(rows == 1.0, f"K5 dual {cell} {dname} differs from K1")
+            errs["dual"] = max(errs.get("dual", 0.0),
+                               float((dual - full).abs().max()))
+    for cell in ("GRU", "LSTM"):
+        cfg = cfg_base._replace(cell_type=cell)
+        ops = decode_operands(seeded_params(cfg, torch.float32),
+                              seeded_features(torch, CHECK_B, L, cfg,
+                                              torch.float32, 1))
+        kw = dict(emb_size=cfg.embedding_size, max_len=T - 1, cell_type=cell)
+        production = wd.whole_greedy_decode(*ops, **kw)
+        for part in ABLATE_PARTS:
+            got = wd.whole_greedy_decode(*ops, ablate=part, **kw)
+            want = wd.whole_greedy_decode_reference(*ops, ablate=part, **kw)
+            torch.cuda.synchronize()
+            rows = (got == want).all(dim=1).float().mean().item()
+            name = f"ablate={part}"
+            errs[name] = max(errs.get(name, 0.0),
+                             float((got - want).abs().max()))
+            log("kernels", f"K5 ablate={part} {cell} f32 B={CHECK_B}: rows "
+                           f"equal to the twin {rows:.4f}")
+            check(rows >= F32_ROWS, f"K5 ablate={part} {cell}: rows equal "
+                                    f"{rows} < {F32_ROWS}")
+            if part == "nativeargmax":
+                check(torch.equal(got, production),
+                      f"K5 ablate=nativeargmax {cell} differs from "
+                      f"production")
+    return errs
+
+
 # --------------------------------------------------------------------------
 # 4. the main paths: HTTP serving and evaluation with the kernels
 # --------------------------------------------------------------------------
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from recnet_tpu_torch.ops.cuda import fused_step as fs
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    for fn in (wd.whole_greedy_decode, wd.whole_greedy_decode_segment,
+               tp.outproj_topk, fs.fused_gru_attn_step):
+        fn.n_launches = 0
+    wd.whole_greedy_decode.variant_launches.clear()
+
 
 def flagship_checkpoint_dir(tmp: Path, n_vocab: int) -> Path:
     """config.json (the flagship preset) and vocab.json (synthetic words)
@@ -356,28 +486,37 @@ def serve(captioner, model_id, requests, beams=None):
     return out, health
 
 
+def logit_gaps(torch, tc, cfg, params, token, seed, steps):
+    """The gap between the max logit and ``token``'s at each of the first
+    ``steps`` steps of a plain-twin probe (``params`` in f32, 64 rows of
+    features drawn from ``seed``): a list of (64,) gaps."""
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.weights import params_from_jax
+    ops = decode_operands(params_from_jax(params, DEVICE, torch.float32),
+                          seeded_features(torch, 64, tc.encoder_output_len,
+                                          cfg, torch.float32, seed))
+    p = ops[0]
+    z = torch.zeros((64, cfg.hidden_size), device=DEVICE)
+    state = (z, z, torch.full((64, 1), cfg.sos_token, dtype=torch.int32,
+                              device=DEVICE))
+    gaps = []
+    for _ in range(steps):
+        _, h, c, tok = wd.whole_greedy_decode_segment_reference(
+            *ops, *state, emb_size=cfg.embedding_size, seg_len=1,
+            cell_type=cfg.cell_type)
+        logits = h @ p["out_w"] + p["out_b"]
+        gaps.append(logits.max(dim=-1).values - logits[:, token])
+        state = (h, c, tok)
+    return gaps
+
+
 def eos_biased(torch, tc, cfg, params):
     """``params`` with out_b[<EOS>] raised so that <EOS> wins about
     EOS_WIN_SHARE of steps 1-3 of a plain-twin probe (f32, 64 rows), as a
     trained model's captions end; random weights never end. Step 0 is kept
     below <EOS>: random weights give nearly every row the same first
     logits, so a lift that wins there would end every caption at once."""
-    from recnet_tpu_torch.ops.cuda import whole_decode as wd
-    ops = decode_operands(seeded_params(cfg, torch.float32),
-                          seeded_features(torch, 64, tc.encoder_output_len,
-                                          cfg, torch.float32, 7))
-    p = ops[0]
-    H, gaps = cfg.hidden_size, []
-    z = torch.zeros((64, H), device=DEVICE)
-    state = (z, z, torch.full((64, 1), cfg.sos_token, dtype=torch.int32,
-                              device=DEVICE))
-    for _ in range(4):
-        _, h, c, tok = wd.whole_greedy_decode_segment_reference(
-            *ops, *state, emb_size=cfg.embedding_size, seg_len=1,
-            cell_type=cfg.cell_type)
-        logits = h @ p["out_w"] + p["out_b"]
-        gaps.append(logits.max(dim=-1).values - logits[:, cfg.eos_token])
-        state = (h, c, tok)
+    gaps = logit_gaps(torch, tc, cfg, params, cfg.eos_token, 7, 4)
     lift = min(float(torch.quantile(torch.cat(gaps[1:]), EOS_WIN_SHARE)),
                0.9 * float(gaps[0].min()))
     out = dict(params, out_b=params["out_b"].copy())
@@ -405,8 +544,7 @@ def main_path(torch, tc, vocab, cfg, params, eos_params):
     requests = [request_features(10 + i, n, cfg.encoder_size)
                 for i, n in enumerate(sizes)]
 
-    wd.whole_greedy_decode.n_launches = 0
-    wd.whole_greedy_decode_segment.n_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     caps_k2, health = serve(cap_k2, tc.id, requests)
     k2_plain = wd.whole_greedy_decode_segment.n_launches
@@ -472,7 +610,7 @@ def beam_path(torch, tc, vocab, cfg, params):
     sizes, beams = (1, 20, 37, 9), (BEAM, None, BEAM, BEAM)
     requests = [request_features(20 + i, n, cfg.encoder_size)
                 for i, n in enumerate(sizes)]
-    tp.outproj_topk.n_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     caps, health = serve(cap, tc.id, requests, beams)
     launches = tp.outproj_topk.n_launches
@@ -526,8 +664,7 @@ def eval_path(torch, tc, vocab, cfg, params_np, tmp: Path):
         test_dataset=types.SimpleNamespace(video_caption_pairs=pairs))
     launches = {}
     for search in (("beam", BEAM), "greedy"):
-        tp.outproj_topk.n_launches = 0
-        wd.whole_greedy_decode_segment.n_launches = 0
+        reset_counts()
         name = search if isinstance(search, str) else f"beam {search[1]}"
         pred = tmp / f"predictions {name}.txt"
         t0 = time.perf_counter()
@@ -554,6 +691,168 @@ def eval_path(torch, tc, vocab, cfg, params_np, tmp: Path):
     return launches
 
 
+def pallas_path(torch, tc, cfg, params_np):
+    """``decoding.greedy_decode_pallas`` (the K4 loop) at B = TIME_B bf16,
+    with K4's launches counted; then its f32 tokens and n_steps at B =
+    CHECK_B against plain ``greedy_decode``'s, on the random weights, whose
+    rows run all T steps. Returns K4's launches."""
+    from recnet_tpu_torch import decoding
+    from recnet_tpu_torch.ops.cuda import fused_step as fs
+    from recnet_tpu_torch.weights import params_from_jax
+    T, L = tc.caption_max_len + 1, tc.encoder_output_len
+    params = params_from_jax(params_np, DEVICE, torch.bfloat16)
+    enc = seeded_features(torch, TIME_B, L, cfg, torch.bfloat16, 3)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = decoding.greedy_decode_pallas(params, cfg, enc, T - 1)
+    torch.cuda.synchronize()
+    launches = fs.fused_gru_attn_step.n_launches
+    log("pallas", f"greedy_decode_pallas B={TIME_B} bf16 T={T}: "
+                  f"{time.perf_counter() - t0:.2f} s, n_steps {res.n_steps}, "
+                  f"K4 launches {launches}")
+    check(launches == T, f"K4 launched {launches} times, not T = {T}")
+    check(tuple(res.tokens.shape) == (T, TIME_B)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "greedy_decode_pallas tokens malformed")
+    f32 = params_from_jax(params_np, DEVICE, torch.float32)
+    enc = seeded_features(torch, CHECK_B, L, cfg, torch.float32, 13)
+    got = decoding.greedy_decode_pallas(f32, cfg, enc, T - 1)
+    want = decoding.greedy_decode(f32, cfg, enc, T - 1)
+    rows = (got.tokens == want.tokens).all(dim=0)
+    share = rows.float().mean().item()
+    first = [int(torch.nonzero(got.tokens[:, r] != want.tokens[:, r])[0, 0])
+             for r in torch.nonzero(~rows)[:5, 0].tolist()]
+    log("pallas", f"f32 B={CHECK_B}: all {T} tokens equal to plain "
+                  f"greedy_decode's on {share:.4f} of rows (first steps that "
+                  f"differ {first}); n_steps {got.n_steps} vs "
+                  f"{want.n_steps}; tokens of row 0 "
+                  f"{got.tokens[:6, 0].tolist()}...")
+    check(share >= F32_ROWS, f"greedy_decode_pallas f32 rows agree on "
+                             f"{share} < {F32_ROWS}")
+    check(got.n_steps == want.n_steps, "greedy_decode_pallas n_steps differ")
+    return launches
+
+
+def pad_timed(torch, tc, cfg, params):
+    """``params`` (a 1-layer GRU) with a timer for <PAD>, so that rows take
+    <PAD> at steps of their own and blocks exit early at different steps.
+    Hidden unit 0 loses its input and recurrent weights and gets the gate
+    biases z = zeta, n = nu (PAD_TIMER), so that after step t it holds
+    nu (1 - zeta^(t+1)) on every row. Only the <PAD> logit reads it:
+    beta * h_0 + b, with no other weight in out_w[:, <PAD>] or out_w[0].
+    A row takes <PAD> once this ramp passes its own max logit, and keeps
+    it as the ramp climbs on. beta and b put the ramp, in a plain-twin
+    probe with the <PAD> logit held at 0, at the smallest max logit of
+    steps 0-1 at step 1 and at the largest of any step at step ``full``
+    (PAD_TIMER)."""
+    H, T, pad = cfg.hidden_size, tc.caption_max_len + 1, cfg.pad_token
+    zeta, nu, full = PAD_TIMER
+    rnn = {k: v.copy() for k, v in params["rnn"][0].items()}
+    gates = [0, H, 2 * H]                        # unit 0's r, z, n
+    rnn["w_ih"][:, gates] = 0.0
+    rnn["w_hh"][:, gates] = 0.0
+    rnn["b_hh"][gates] = 0.0
+    rnn["b_ih"][gates] = [0.0, np.log(zeta / (1 - zeta)), np.arctanh(nu)]
+    out = dict(params, rnn=[rnn], out_w=params["out_w"].copy(),
+               out_b=params["out_b"].copy())
+    out["out_w"][0, :] = 0.0
+    out["out_w"][:, pad] = 0.0
+    out["out_b"][pad] = 0.0
+    gaps = torch.stack(logit_gaps(torch, tc, cfg, out, pad, 8, T))  # (T, 64)
+    ramp = lambda t: nu * (1 - zeta ** (t + 1))     # h_0 after step t
+    lo, hi = float(gaps[:2].min()), float(gaps.max())
+    beta = (hi - lo) / (ramp(full) - ramp(1))
+    out["out_w"][0, pad] = beta
+    out["out_b"][pad] = lo - beta * ramp(1)
+    log("early", f"pad variant: unit 0 times <PAD>, beta {beta:.4f}, "
+                 f"out_b[<PAD>] {lo - beta * ramp(1):.4f} (probe max logits "
+                 f"{lo:.4f} at steps 0-1 to {hi:.4f})")
+    return out
+
+
+def block_stops(torch, full, what):
+    """The step at which each 8-row block of the full decode ``full`` (B,
+    T) is first all 0, where its early exit stops (T where it never is).
+    Fails unless the blocks stop at more than one step, most of them after
+    step 0 and at least EARLY_STOP_BLOCKS of them before the last step,
+    and some row takes a word again after its block's stop: only then does
+    a kernel that stops too early or too late differ from its twin.
+    Returns (B, T): whether each column lies after its block's stop."""
+    T = full.shape[1]
+    zero = (full == 0).view(-1, 8, T).all(dim=1)           # (blocks, T)
+    stop = torch.where(zero.any(dim=1), zero.int().argmax(dim=1), T)
+    after = (torch.arange(T, device=full.device)[None, :]
+             > stop.repeat_interleave(8)[:, None])         # (B, T)
+    resurrect = int(((full != 0) & after).any(dim=1).sum())
+    stopped = (stop < T - 1).float().mean().item()
+    after0 = (stop > 0).float().mean().item()
+    hist = sorted(collections.Counter(stop.tolist()).items())
+    log("early", f"{what}: {len(stop)} blocks stop at steps (step, blocks) "
+                 f"{hist}; {stopped:.4f} before step {T - 1}, {after0:.4f} "
+                 f"after step 0; {resurrect} rows take a word after their "
+                 f"block's stop")
+    check(len(hist) > 1 and after0 > 0.5 and stopped >= EARLY_STOP_BLOCKS
+          and resurrect > 0,
+          f"{what}: the blocks' stops {hist} ({resurrect} rows take a word "
+          f"after them) do not test the early exit")
+    return after
+
+
+def early_exit_path(torch, tc, cfg, pad_np):
+    """K5's early exit on the PAD-timed weights: the kernel against its
+    twin (f32, B = CHECK_B); then ``decoding.greedy_decode_whole(
+    early_exit=True)`` at B = TIME_B bf16, with its launches counted,
+    against the full K1 decode. Each run first checks that its blocks stop
+    at different steps (``block_stops``). Returns (launches, max |token -
+    twin token|)."""
+    from recnet_tpu_torch import decoding
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.weights import params_from_jax
+    T, L = tc.caption_max_len + 1, tc.encoder_output_len
+    ops = decode_operands(params_from_jax(pad_np, DEVICE, torch.float32),
+                          seeded_features(torch, CHECK_B, L, cfg,
+                                          torch.float32, 1))
+    kw = dict(emb_size=cfg.embedding_size, max_len=T - 1,
+              cell_type=cfg.cell_type, early_exit=True)
+    got = wd.whole_greedy_decode(*ops, **kw)
+    want = wd.whole_greedy_decode_reference(*ops, **kw)
+    twin_full = wd.whole_greedy_decode_reference(
+        *ops, **dict(kw, early_exit=False))
+    torch.cuda.synchronize()
+    block_stops(torch, twin_full, f"full twin f32 B={CHECK_B}")
+    rows = (got == want).all(dim=1).float().mean().item()
+    err = float((got - want).abs().max())
+    log("early", f"early_exit f32 B={CHECK_B}: rows equal to the twin "
+                 f"{rows:.4f}")
+    check(rows >= F32_ROWS, f"early_exit f32 rows equal {rows} < {F32_ROWS}")
+
+    params = params_from_jax(pad_np, DEVICE, torch.bfloat16)
+    enc = seeded_features(torch, TIME_B, L, cfg, torch.bfloat16, 3)
+    reset_counts()
+    early = decoding.greedy_decode_whole(params, cfg, enc, T - 1,
+                                         early_exit=True)
+    torch.cuda.synchronize()
+    launches = wd.whole_greedy_decode.variant_launches["early_exit"]
+    full = decoding.greedy_decode_whole(params, cfg, enc, T - 1)
+    torch.cuda.synchronize()
+    check(launches == 1, f"early_exit launched {launches} times, not once")
+    e, f = early.tokens.T, full.tokens.T                   # (B, T)
+    after = block_stops(torch, f, f"full K1 bf16 B={TIME_B}")
+    quiet = ~((f != 0) & after).any(dim=1)     # tail all <PAD> after stop
+    same = (e == f).all(dim=1)
+    expected = torch.where(after, 0, f)
+    log("early", f"early_exit bf16 B={TIME_B}: rows equal to full K1 "
+                 f"{same.float().mean().item():.4f}; every row equals K1 "
+                 f"with the tail after its block's stop zeroed: "
+                 f"{bool(torch.equal(e, expected))}; n_steps "
+                 f"{early.n_steps} vs {full.n_steps}; launches {launches}")
+    check(bool(same[quiet].all()),
+          "early exit differs from K1 on a row that does not resurrect")
+    check(torch.equal(e, expected), "early exit differs from K1 on the "
+                                    "steps its block ran")
+    return launches, err
+
+
 # --------------------------------------------------------------------------
 # 5. times
 # --------------------------------------------------------------------------
@@ -574,15 +873,17 @@ def timed(torch, fn, reps=3):
     return start.elapsed_time(end) / reps, wall
 
 
-def times(torch, tc, cfg, params_np, eos_np):
+def times(torch, tc, cfg, params_np, eos_np, pad_np):
     from recnet_tpu_torch import decoding
     from recnet_tpu_torch.ops.attention import precompute_uv
+    from recnet_tpu_torch.ops.cuda import fused_step as fs
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     from recnet_tpu_torch.weights import params_from_jax
 
     B, T, dtype = TIME_B, tc.caption_max_len + 1, torch.bfloat16
     params = params_from_jax(params_np, DEVICE, dtype)
     eos_params = params_from_jax(eos_np, DEVICE, dtype)
+    pad_params = params_from_jax(pad_np, DEVICE, dtype)
     enc = seeded_features(torch, B, tc.encoder_output_len, cfg, dtype, 3)
     ops = decode_operands(params, enc)
     kw = dict(emb_size=cfg.embedding_size, cell_type=cfg.cell_type)
@@ -611,10 +912,36 @@ def times(torch, tc, cfg, params_np, eos_np):
         timed(torch, lambda: tp.outproj_topk(hidden, w, b, k=BEAM), reps=10)[0],
         timed(torch, lambda: tp.outproj_topk_reference(hidden, w, b, k=BEAM),
               reps=10)[0])
+    # K4 per step; the K5 early exit on the PAD-timed weights and dual
+    k4 = k4_operands(torch, cfg, params, enc, 14)
+    k4kw = dict(emb_size=cfg.embedding_size)
+    kernel_ms["fused_gru_attn_step"] = (
+        timed(torch, lambda: fs.fused_gru_attn_step(*k4, **k4kw),
+              reps=10)[0],
+        timed(torch, lambda: fs.fused_gru_attn_step_reference(*k4, **k4kw),
+              reps=10)[0])
+    pad_ops = decode_operands(pad_params, enc)
+    early = dict(max_len=T - 1, early_exit=True, **kw)
+    kernel_ms["whole_greedy_decode[early_exit]"] = (
+        timed(torch, lambda: wd.whole_greedy_decode(*pad_ops, **early))[0],
+        timed(torch, lambda: wd.whole_greedy_decode_reference(
+            *pad_ops, **early))[0])
+    full_pad_ms = timed(torch, lambda: wd.whole_greedy_decode(
+        *pad_ops, max_len=T - 1, **kw))[0]
+    kernel_ms["whole_greedy_decode[dual]"] = (
+        timed(torch, lambda: wd.whole_greedy_decode(
+            *ops, max_len=T - 1, dual=True, **kw))[0],
+        kernel_ms["whole_greedy_decode"][1])   # the twin of dual is K1's
     for name, (ms, plain) in kernel_ms.items():
         shape = f"N={B * BEAM} k={BEAM}" if name == "outproj_topk" else f"B={B}"
         log("times", f"{name} {shape} bf16: kernel {ms:.3f} ms, plain twin "
                      f"{plain:.3f} ms ({card})")
+    log("times", f"PAD-timed weights B={B} bf16: K1 early_exit "
+                 f"{kernel_ms['whole_greedy_decode[early_exit]'][0]:.3f} ms, "
+                 f"full K1 {full_pad_ms:.3f} ms; dual "
+                 f"{kernel_ms['whole_greedy_decode[dual]'][0]:.3f} ms against "
+                 f"production K1 {kernel_ms['whole_greedy_decode'][0]:.3f} ms "
+                 f"({card})")
     paths = {
         "K2 segmented (greedy_segment=4, eos_stop)": lambda: (
             decoding.greedy_decode_whole_segmented(
@@ -624,6 +951,13 @@ def times(torch, tc, cfg, params_np, eos_np):
                 eos_params, cfg, enc, T - 1, segment=4, eos_stop=True)),
         "K1 whole": lambda: decoding.greedy_decode_whole(
             params, cfg, enc, T - 1),
+        "greedy_decode_pallas (K4 loop)": lambda: (
+            decoding.greedy_decode_pallas(params, cfg, enc, T - 1)),
+        "K1 early_exit, PAD-timed weights": lambda: (
+            decoding.greedy_decode_whole(pad_params, cfg, enc, T - 1,
+                                         early_exit=True)),
+        "K1 whole, PAD-timed weights": lambda: decoding.greedy_decode_whole(
+            pad_params, cfg, enc, T - 1),
         "plain twin of K1": lambda: wd.whole_greedy_decode_reference(
             *decode_operands(params, enc), max_len=T - 1, **kw),
         "plain greedy_decode (early_exit)": lambda: decoding.greedy_decode(
@@ -644,6 +978,67 @@ def times(torch, tc, cfg, params_np, eos_np):
     return kernel_ms
 
 
+# --------------------------------------------------------------------------
+# 6. the ablation sweep of K1
+# --------------------------------------------------------------------------
+
+def ablate_sweep(torch, tc, cfg, params_np):
+    """The profiling sweep of benchmarks/profile_whole_decode.py on the
+    card: K1 at B = TIME_B bf16, production, each ablated part and dual,
+    through the ops-level wrapper, launches counted; then each timed, the
+    production kernel first and last, and each part's cost as full -
+    variant. Each ablated part's tokens are held against its twin's
+    (BF16_ROWS of tokens equal), dual's against production's (all equal).
+    Returns (launches by variant, {variant: (ms, twin ms)}, {variant: max
+    |token - twin token|})."""
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.weights import params_from_jax
+    T, dtype = tc.caption_max_len + 1, torch.bfloat16
+    params = params_from_jax(params_np, DEVICE, dtype)
+    enc = seeded_features(torch, TIME_B, tc.encoder_output_len, cfg, dtype,
+                          3)
+    ops = decode_operands(params, enc)
+    kw = dict(emb_size=cfg.embedding_size, max_len=T - 1,
+              cell_type=cfg.cell_type)
+    variants = [("", {})] + [(f"ablate={p}", {"ablate": p})
+                             for p in ABLATE_PARTS] + [("dual", {"dual": True})]
+    reset_counts()
+    tokens = {name: wd.whole_greedy_decode(*ops, **vkw, **kw)
+              for name, vkw in variants}
+    torch.cuda.synchronize()
+    launches = dict(wd.whole_greedy_decode.variant_launches)
+    log("ablate", f"sweep launches: production "
+                  f"{wd.whole_greedy_decode.n_launches}, variants {launches}")
+    check(wd.whole_greedy_decode.n_launches == 1
+          and all(launches.get(name) == 1 for name, _ in variants[1:]),
+          "the ablation sweep missed a variant")
+    ms = {name: timed(torch, lambda vkw=vkw: wd.whole_greedy_decode(
+              *ops, **vkw, **kw))[0] for name, vkw in variants}
+    full = (ms[""] + timed(torch, lambda: wd.whole_greedy_decode(
+        *ops, **kw))[0]) / 2
+    card = card_line()
+    log("ablate", f"K1 production B={TIME_B} bf16: {full:.3f} ms (mean of "
+                  f"the first and last timing) on {card}")
+    out, errs = {}, {}
+    for name, vkw in variants[1:]:
+        cost = full - ms[name]
+        if "ablate" in vkw:    # against its twin, on the inputs it was timed on
+            want = wd.whole_greedy_decode_reference(*ops, **vkw, **kw)
+            plain = timed(torch, lambda vkw=vkw: (
+                wd.whole_greedy_decode_reference(*ops, **vkw, **kw)))[0]
+        else:                  # dual: the production tokens
+            want, plain = tokens[""], None
+        equal = (tokens[name] == want).float().mean().item()
+        errs[name] = float((tokens[name] - want).abs().max())
+        log("ablate", f"{name}: {ms[name]:.3f} ms; full - variant "
+                      f"{cost:.3f} ms ({100 * cost / full:.1f}% of K1); "
+                      f"tokens equal to its twin's {equal:.4f}")
+        check(equal >= (1.0 if name == "dual" else BF16_ROWS),
+              f"{name} bf16 B={TIME_B}: tokens equal {equal}")
+        out[name] = (ms[name], plain)
+    return launches, out, errs
+
+
 def main() -> int:
     import torch
 
@@ -660,27 +1055,49 @@ def main() -> int:
     params_np = random_params(cfg, SEED)
     errs = kernels_against_twins(torch, tc, cfg)
     errs["outproj_topk"] = topk_against_twin(torch, cfg)
+    errs["fused_gru_attn_step"] = fused_step_against_twin(torch, tc, cfg)
+    variant_errs = variants_against_k1(torch, tc, cfg)
     eos_np = eos_biased(torch, tc, cfg, params_np)
     launches = main_path(torch, tc, vocab, cfg, params_np, eos_np)
     launches["outproj_topk"] = beam_path(torch, tc, vocab, cfg, params_np)
     with tempfile.TemporaryDirectory() as tmp:
         eval_path(torch, tc, vocab, cfg, params_np, Path(tmp))
-    kernel_ms = times(torch, tc, cfg, params_np, eos_np)
+    launches["fused_gru_attn_step"] = pallas_path(torch, tc, cfg,
+                                                  params_np)
+    pad_np = pad_timed(torch, tc, cfg, params_np)
+    variant_launches = {}
+    variant_launches["early_exit"], variant_errs["early_exit"] = (
+        early_exit_path(torch, tc, cfg, pad_np))
+    kernel_ms = times(torch, tc, cfg, params_np, eos_np, pad_np)
+    sweep_launches, sweep_ms, sweep_errs = ablate_sweep(torch, tc, cfg,
+                                                        params_np)
+    variant_launches.update(sweep_launches)
+    for name, err in sweep_errs.items():
+        variant_errs[name] = max(variant_errs[name], err)
 
-    replaces = {
-        "whole_greedy_decode": "recnet_tpu/ops/pallas/whole_decode.py:440",
-        "whole_greedy_decode_segment":
-            "recnet_tpu/ops/pallas/whole_decode.py:360",
-        "outproj_topk": "recnet_tpu/ops/pallas/topk_proj.py:77",
-    }
-    source = lambda name: ("recnet_tpu_torch/csrc/topk_proj.cu"
-                           if name == "outproj_topk"
-                           else "recnet_tpu_torch/csrc/whole_decode.cu")
-    kernels = [{"name": name, "route": "cuda", "source": source(name),
-                "replaces": replaces[name], "launches": launches[name],
+    pallas = "recnet_tpu/ops/pallas/"
+    csrc = "recnet_tpu_torch/csrc/"
+    rows = [("whole_greedy_decode", "whole_decode.cu",
+             "whole_decode.py:440"),
+            ("whole_greedy_decode_segment", "whole_decode.cu",
+             "whole_decode.py:360"),
+            ("outproj_topk", "topk_proj.cu", "topk_proj.py:77"),
+            ("fused_gru_attn_step", "fused_step.cu", "fused_step.py:92")]
+    kernels = [{"name": name, "route": "cuda", "source": csrc + src,
+                "replaces": pallas + tpu, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": kernel_ms[name][0],
                 "plain_ms": kernel_ms[name][1]}
-               for name in replaces]
+               for name, src, tpu in rows]
+    for variant in ["early_exit", "dual"] + [f"ablate={p}"
+                                             for p in ABLATE_PARTS]:
+        name = f"whole_greedy_decode[{variant}]"
+        ms, plain = kernel_ms.get(name) or sweep_ms[variant]
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + "whole_decode.cu",
+            "replaces": pallas + "whole_decode.py:497",
+            "launches": variant_launches[variant],
+            "max_abs_err": variant_errs[variant], "ms": ms,
+            "plain_ms": plain})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

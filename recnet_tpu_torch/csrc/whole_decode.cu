@@ -1,17 +1,20 @@
 // Greedy whole-decode kernel for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels whole_greedy_decode (K1) and
-// whole_greedy_decode_segment (K2) of recnet_tpu/ops/pallas/whole_decode.py
-// (step body _make_step). One launch runs n_steps greedy steps for the whole
-// batch from a carried state (h, c, token): K1 calls it with a zero state,
-// <SOS> and n_steps = T; K2 with the carried state and seg_len.
+// Replaces the Pallas TPU kernels whole_greedy_decode (K1, with its
+// early_exit, dual and ablate variants, K5) and whole_greedy_decode_segment
+// (K2) of recnet_tpu/ops/pallas/whole_decode.py (step body _make_step). One
+// launch runs n_steps greedy steps for the whole batch from a carried state
+// (h, c, token): K1 calls it with a zero state, <SOS> and n_steps = T; K2
+// with the carried state and seg_len.
 //
 // Each step, per batch row: gather the embedding row of the current token
-// (times embedding_scale), unnormalised additive attention over the encoder
-// features (score_f = w . tanh(W h + uv_f + b), ctx = sum_f score_f enc_f / L),
-// a GRU (r,z,n) or LSTM (i,f,g,o) cell, logits = h' @ out_w + out_b in f32,
-// and the first index of the maximum under the order-preserving int key of
-// the logits (the Pallas kernel's argmax, which orders -0.0 < +0.0).
+// (times embedding_scale; a token outside [0, V) reads a zero row, as the
+// Pallas one-hot product does), unnormalised additive attention over the
+// encoder features (score_f = w . tanh(W h + uv_f + b),
+// ctx = sum_f score_f enc_f / L), a GRU (r,z,n) or LSTM (i,f,g,o) cell,
+// logits = h' @ out_w + out_b in f32, and the first index of the maximum
+// under the order-preserving int key of the logits (the Pallas kernel's
+// argmax, which orders -0.0 < +0.0).
 // Casts sit where _make_step has them: every product reads dtype operands
 // and accumulates in f32; ctx is cast to dtype before its gate product;
 // h (and the LSTM c) are computed in f32 and stored in dtype.
@@ -34,6 +37,22 @@
 // hidden unit j across all gates, so the cell runs in registers with no
 // gate buffer. The argmax is a running (max key, first index) per thread,
 // then a warp-shuffle and a cross-warp reduction. Rows past B are masked.
+//
+// The K5 variants are compile-time variants of the same body (template
+// parameter VAR; the production kernel is VAR = 0 and carries none of
+// their code):
+// * EARLY_EXIT: the block stops its step loop once every one of its real
+//   rows has current token 0 (the Pallas per-tile while_loop; its tile is
+//   this block's 8 rows). Every thread reads the flag after a barrier, so
+//   the break is uniform across the block.
+// * DUAL: the Hopper reading of the Pallas _dual_kernel's two row-halves.
+//   The block's two 4-row halves each run on 256 threads and sync on their
+//   own named barrier (bar.sync 1 / bar.sync 2), so one half's projection
+//   can overlap the other half's gates. Each row's arithmetic is the
+//   production step's, so the tokens are bit-identical.
+// * ABL_*: the profiling stubs of _make_step (emb, attn / score1 / fma,
+//   proj / nativeargmax / argmax), one part at a time, for cost attribution
+//   by subtraction.
 // Next steps (later work): bf16 products on tensor cores (mma.sync
 // m16n8k16, with the 8 rows as N), TMA, and weights kept resident across a
 // cluster's shared memory.
@@ -43,7 +62,15 @@
 #include <climits>
 #include <cstddef>
 
+#include "decode_common.cuh"
+
 namespace {
+
+using recnet::from_f;
+using recnet::load_rows;
+using recnet::round_to;
+using recnet::sigmoid;
+using recnet::to_f;
 
 constexpr int TB = 8;          // batch rows per block
 // 16 warps and 8 loads in flight per k loop keep enough L2 requests
@@ -52,45 +79,35 @@ constexpr int THREADS = 512;
 constexpr int UNROLL = 8;
 constexpr int NWARPS = THREADS / 32;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// variant bits (VAR); the wrapper builds the same code
+constexpr int EARLY_EXIT = 1;
+constexpr int DUAL = 2;
+constexpr int ABL_EMB = 4;          // zero embedding
+constexpr int ABL_ATTN_SHIFT = 3;   // 1 zero ctx, 2 score = act[0],
+                                    // 3 ctx = sum_f score_f (no enc, no / L)
+constexpr int ABL_PROJ_SHIFT = 5;   // 1 the token stays, 2 float first-max
+                                    // argmax, 3 token = int(max logit)
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// f32 value rounded to the storage type, kept in f32
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// order-preserving f32 -> int32 key (whole_decode.py:251-252)
+// order-preserving f32 -> int32 key (whole_decode.py:251-252); the map is
+// its own inverse
 __device__ __forceinline__ int order_key(float x) {
   int bits = __float_as_int(x);
   return bits ^ ((bits >> 31) & 0x7FFFFFFF);
 }
 
-// the TB row values of column k of a [k][TB] shared-memory matrix
-__device__ __forceinline__ void load_rows(const float* p, float v[TB]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
 __device__ __forceinline__ bool key_wins(int k, int i, int bk, int bi) {
   return k > bk || (k == bk && i < bi);
+}
+
+// the barrier of a thread group: the whole block, or under DUAL one half
+// on its own named barrier (ids 1 and 2; 0 is __syncthreads')
+template <bool HALVES>
+__device__ __forceinline__ void group_sync(int grp) {
+  if constexpr (HALVES)
+    asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "n"(THREADS / 2)
+                 : "memory");
+  else
+    __syncthreads();
 }
 
 size_t smem_bytes(int L, int F, int A, int E, int H) {
@@ -103,7 +120,7 @@ size_t smem_bytes(int L, int F, int A, int E, int H) {
   return floats * sizeof(float) + ints * sizeof(int);
 }
 
-template <typename T, int NG>
+template <typename T, int NG, int VAR>
 __global__ void __launch_bounds__(THREADS)
 whole_decode_kernel(const T* __restrict__ enc, const T* __restrict__ uv,
                     const T* __restrict__ emb, const T* __restrict__ attn_W,
@@ -116,6 +133,13 @@ whole_decode_kernel(const T* __restrict__ enc, const T* __restrict__ uv,
                     T* __restrict__ c_out, int* __restrict__ tok_out,
                     int B, int L, int F, int A, int E, int H, int V,
                     int n_steps, float emb_scale) {
+  constexpr bool HALVES = (VAR & DUAL) != 0;
+  constexpr int RB = HALVES ? TB / 2 : TB;           // rows of a group
+  constexpr int NT = HALVES ? THREADS / 2 : THREADS; // threads of a group
+  constexpr int NW = NT / 32;
+  constexpr int ATTN = (VAR >> ABL_ATTN_SHIFT) & 3;
+  constexpr int PROJ = (VAR >> ABL_PROJ_SHIFT) & 3;
+
   extern __shared__ float4 smem_f4[];
   const int K = E + F;
   const int G = NG * H;
@@ -128,104 +152,145 @@ whole_decode_kernel(const T* __restrict__ enc, const T* __restrict__ uv,
   int* red_idx = red_key + NWARPS * TB;            // [NWARPS][TB]
   int* tok_s = red_idx + NWARPS * TB;              // [TB]
 
-  const int tid = threadIdx.x;
+  // A thread group owns RB rows: the whole block, or under DUAL one half.
+  // Its views of the shared arrays start at its first row rb.
+  const int grp = HALVES ? (int)threadIdx.x / NT : 0;
+  const int rb = grp * RB;
+  const int tid = threadIdx.x - grp * NT;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int row0 = blockIdx.x * TB;
+  const int row0 = blockIdx.x * TB + rb;
+  float* x_g = x_s + rb;
+  float* c_g = c_s + rb;
+  float* wh_g = wh_s + (size_t)rb * A;
+  float* sc_g = sc_s + (size_t)rb * L;
+  int* key_g = red_key + rb;
+  int* idx_g = red_idx + rb;
+  int* tok_g = tok_s + rb;
 
-  for (int i = tid; i < TB * H; i += THREADS) {
+  for (int i = tid; i < RB * H; i += NT) {
     const int b = i / H, j = i % H, row = row0 + b;
     const bool ok = row < B;
-    h_s[j * TB + b] = ok ? to_f(h0[(size_t)row * H + j]) : 0.f;
-    c_s[j * TB + b] = ok ? to_f(c0[(size_t)row * H + j]) : 0.f;
+    h_s[j * TB + rb + b] = ok ? to_f(h0[(size_t)row * H + j]) : 0.f;
+    c_g[j * TB + b] = ok ? to_f(c0[(size_t)row * H + j]) : 0.f;
   }
-  if (tid < TB) tok_s[tid] = row0 + tid < B ? tok0[row0 + tid] : 0;
-  __syncthreads();
+  if (tid < RB) tok_g[tid] = row0 + tid < B ? tok0[row0 + tid] : 0;
+  group_sync<HALVES>(grp);
 
   int cur = 0;
   for (int t = 0; t < n_steps; ++t) {
-    const float* h_cur = h_s + (size_t)cur * H * TB;
-    float* h_nxt = h_s + (size_t)(cur ^ 1) * H * TB;
+    if constexpr ((VAR & EARLY_EXIT) != 0) {
+      // the Pallas condition hard-codes token 0, not cfg.pad_token
+      // (whole_decode.py:302); rows past B do not count
+      bool stop = true;
+#pragma unroll
+      for (int b = 0; b < RB; ++b) stop &= row0 + b >= B || tok_g[b] == 0;
+      if (stop) break;
+    }
+    const float* h_cur = h_s + (size_t)cur * H * TB + rb;
+    float* h_nxt = h_s + (size_t)(cur ^ 1) * H * TB + rb;
 
     // 1. embedding row of the current token: an exact row read (equal to
-    //    the Pallas one-hot product), times the scale, in dtype
-    for (int i = tid; i < TB * E; i += THREADS) {
+    //    the Pallas one-hot product, which gives a zero row for a token
+    //    outside [0, V)), times the scale, in dtype
+    for (int i = tid; i < RB * E; i += NT) {
       const int b = i / E, k = i % E;
-      x_s[k * TB + b] =
-          round_to<T>(to_f(emb[(size_t)tok_s[b] * E + k]) * emb_scale);
+      float v = 0.f;
+      if constexpr ((VAR & ABL_EMB) == 0) {
+        const int tk = tok_g[b];
+        if ((unsigned)tk < (unsigned)V)
+          v = round_to<T>(to_f(emb[(size_t)tk * E + k]) * emb_scale);
+      }
+      x_g[k * TB + b] = v;
     }
-    // 2. W h (TB x A), f32 accumulate
-    for (int a = tid; a < A; a += THREADS) {
-      float acc[TB] = {};
+    if constexpr (ATTN == 1) {
+      // ablated attention: ctx = 0
+      for (int i = tid; i < RB * F; i += NT)
+        x_g[(E + i % F) * TB + i / F] = 0.f;
+    } else {
+      // 2. W h (RB x A), f32 accumulate
+      for (int a = tid; a < A; a += NT) {
+        float acc[RB] = {};
 #pragma unroll UNROLL
-      for (int k = 0; k < H; ++k) {
-        float hv[TB];
-        load_rows(h_cur + k * TB, hv);
-        const float w = to_f(attn_W[(size_t)k * A + a]);
+        for (int k = 0; k < H; ++k) {
+          float hv[RB];
+          load_rows<RB>(h_cur + k * TB, hv);
+          const float w = to_f(attn_W[(size_t)k * A + a]);
 #pragma unroll
-        for (int b = 0; b < TB; ++b) acc[b] += hv[b] * w;
+          for (int b = 0; b < RB; ++b) acc[b] += hv[b] * w;
+        }
+#pragma unroll
+        for (int b = 0; b < RB; ++b) wh_g[b * A + a] = acc[b];
       }
-#pragma unroll
-      for (int b = 0; b < TB; ++b) wh_s[b * A + a] = acc[b];
-    }
-    __syncthreads();
+      group_sync<HALVES>(grp);
 
-    // 3. scores: one warp per (row, frame)
-    for (int p = warp; p < TB * L; p += NWARPS) {
-      const int b = p / L, f = p % L, row = row0 + b;
-      float s = 0.f;
-      if (row < B) {
-        const T* uvp = uv + ((size_t)row * L + f) * A;
-        for (int a = lane; a < A; a += 32)
-          s += tanhf(wh_s[b * A + a] + to_f(uvp[a]) + to_f(attn_b[a])) *
-               to_f(attn_w[a]);
+      // 3. scores: one warp per (row, frame)
+      for (int p = warp; p < RB * L; p += NW) {
+        const int b = p / L, f = p % L, row = row0 + b;
+        float s = 0.f;
+        if (row < B) {
+          const T* uvp = uv + ((size_t)row * L + f) * A;
+          if constexpr (ATTN == 2) {   // score = act[0], no score matvec
+            if (lane == 0)
+              s = tanhf(wh_g[b * A] + to_f(uvp[0]) + to_f(attn_b[0]));
+          } else {
+            for (int a = lane; a < A; a += 32)
+              s += tanhf(wh_g[b * A + a] + to_f(uvp[a]) + to_f(attn_b[a])) *
+                   to_f(attn_w[a]);
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_down_sync(0xffffffffu, s, off);
+        if (lane == 0) sc_g[b * L + f] = s;
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_down_sync(0xffffffffu, s, off);
-      if (lane == 0) sc_s[b * L + f] = s;
-    }
-    __syncthreads();
+      group_sync<HALVES>(grp);
 
-    // 4. ctx = sum_f score_f enc_f / L in f32, then cast to dtype
-    for (int i = tid; i < TB * F; i += THREADS) {
-      const int b = i / F, e = i % F, row = row0 + b;
-      float acc = 0.f;
-      if (row < B) {
-        const T* ep = enc + (size_t)row * L * F + e;
+      // 4. ctx = sum_f score_f enc_f / L in f32, then cast to dtype
+      for (int i = tid; i < RB * F; i += NT) {
+        const int b = i / F, e = i % F, row = row0 + b;
+        float acc = 0.f;
+        if constexpr (ATTN == 3) {     // ctx = sum_f score_f, no enc, no / L
+          for (int f = 0; f < L; ++f) acc += sc_g[b * L + f];
+          x_g[(E + e) * TB + b] = round_to<T>(acc);
+        } else {
+          if (row < B) {
+            const T* ep = enc + (size_t)row * L * F + e;
 #pragma unroll 4
-        for (int f = 0; f < L; ++f)
-          acc += sc_s[b * L + f] * to_f(ep[(size_t)f * F]);
+            for (int f = 0; f < L; ++f)
+              acc += sc_g[b * L + f] * to_f(ep[(size_t)f * F]);
+          }
+          x_g[(E + e) * TB + b] = round_to<T>(acc / (float)L);
+        }
       }
-      x_s[(E + e) * TB + b] = round_to<T>(acc / (float)L);
     }
-    __syncthreads();
+    group_sync<HALVES>(grp);
 
     // 5. gates and cell: thread owns hidden unit j in every gate
-    for (int j = tid; j < H; j += THREADS) {
-      float gi[NG][TB] = {}, gh[NG][TB] = {};
+    for (int j = tid; j < H; j += NT) {
+      float gi[NG][RB] = {}, gh[NG][RB] = {};
 #pragma unroll UNROLL
       for (int k = 0; k < K; ++k) {
-        float xv[TB];
-        load_rows(x_s + k * TB, xv);
+        float xv[RB];
+        load_rows<RB>(x_g + k * TB, xv);
         const T* wr = w_ih + (size_t)k * G + j;
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
           const float w = to_f(wr[g * H]);
 #pragma unroll
-          for (int b = 0; b < TB; ++b) gi[g][b] += xv[b] * w;
+          for (int b = 0; b < RB; ++b) gi[g][b] += xv[b] * w;
         }
       }
 #pragma unroll UNROLL
       for (int k = 0; k < H; ++k) {
-        float hv[TB];
-        load_rows(h_cur + k * TB, hv);
+        float hv[RB];
+        load_rows<RB>(h_cur + k * TB, hv);
         const T* wr = w_hh + (size_t)k * G + j;
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
           const float w = to_f(wr[g * H]);
 #pragma unroll
-          for (int b = 0; b < TB; ++b) gh[g][b] += hv[b] * w;
+          for (int b = 0; b < RB; ++b) gh[g][b] += hv[b] * w;
         }
       }
 #pragma unroll
@@ -233,13 +298,13 @@ whole_decode_kernel(const T* __restrict__ enc, const T* __restrict__ uv,
         const float bi = to_f(bias2[g * H + j]);
         const float bh = to_f(bias2[G + g * H + j]);
 #pragma unroll
-        for (int b = 0; b < TB; ++b) {
+        for (int b = 0; b < RB; ++b) {
           gi[g][b] += bi;
           gh[g][b] += bh;
         }
       }
 #pragma unroll
-      for (int b = 0; b < TB; ++b) {
+      for (int b = 0; b < RB; ++b) {
         if constexpr (NG == 3) {  // GRU
           const float r = sigmoid(gi[0][b] + gh[0][b]);
           const float z = sigmoid(gi[1][b] + gh[1][b]);
@@ -251,106 +316,142 @@ whole_decode_kernel(const T* __restrict__ enc, const T* __restrict__ uv,
           const float fg = sigmoid(gi[1][b] + gh[1][b]);
           const float gg = tanhf(gi[2][b] + gh[2][b]);
           const float og = sigmoid(gi[3][b] + gh[3][b]);
-          const float c = fg * c_s[j * TB + b] + ig * gg;
+          const float c = fg * c_g[j * TB + b] + ig * gg;
           h_nxt[j * TB + b] = round_to<T>(og * tanhf(c));
-          c_s[j * TB + b] = round_to<T>(c);
+          c_g[j * TB + b] = round_to<T>(c);
         }
       }
     }
-    __syncthreads();
+    group_sync<HALVES>(grp);
 
     // 6. logits in f32 and the first index of the max key, per row
-    int best_key[TB], best_idx[TB];
+    if constexpr (PROJ == 1) {         // ablated projection: token stays
+      if (tid < RB && row0 + tid < B)
+        tokens[(size_t)(row0 + tid) * n_steps + t] = tok_g[tid];
+    } else {
+      int best_key[RB], best_idx[RB];
 #pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      best_key[b] = INT_MIN;
-      best_idx[b] = INT_MAX;
-    }
-    for (int v = tid; v < V; v += THREADS) {
-      float acc[TB] = {};
+      for (int b = 0; b < RB; ++b) {
+        best_key[b] = INT_MIN;
+        best_idx[b] = INT_MAX;
+      }
+      for (int v = tid; v < V; v += NT) {
+        float acc[RB] = {};
 #pragma unroll UNROLL
-      for (int k = 0; k < H; ++k) {
-        float hv[TB];
-        load_rows(h_nxt + k * TB, hv);
-        const float w = to_f(out_w[(size_t)k * V + v]);
+        for (int k = 0; k < H; ++k) {
+          float hv[RB];
+          load_rows<RB>(h_nxt + k * TB, hv);
+          const float w = to_f(out_w[(size_t)k * V + v]);
 #pragma unroll
-        for (int b = 0; b < TB; ++b) acc[b] += hv[b] * w;
-      }
-      const float bv = to_f(out_b[v]);
+          for (int b = 0; b < RB; ++b) acc[b] += hv[b] * w;
+        }
+        const float bv = to_f(out_b[v]);
 #pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        const int key = order_key(acc[b] + bv);
-        if (key_wins(key, v, best_key[b], best_idx[b])) {
-          best_key[b] = key;
-          best_idx[b] = v;
+        for (int b = 0; b < RB; ++b) {
+          float logit = acc[b] + bv;
+          // a float argmax ties -0.0 with +0.0
+          if constexpr (PROJ == 2) logit = logit == 0.f ? 0.f : logit;
+          const int key = order_key(logit);
+          if (key_wins(key, v, best_key[b], best_idx[b])) {
+            best_key[b] = key;
+            best_idx[b] = v;
+          }
         }
       }
-    }
 #pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      int k = best_key[b], i = best_idx[b];
+      for (int b = 0; b < RB; ++b) {
+        int k = best_key[b], i = best_idx[b];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const int k2 = __shfl_down_sync(0xffffffffu, k, off);
-        const int i2 = __shfl_down_sync(0xffffffffu, i, off);
-        if (key_wins(k2, i2, k, i)) {
-          k = k2;
-          i = i2;
+        for (int off = 16; off > 0; off >>= 1) {
+          const int k2 = __shfl_down_sync(0xffffffffu, k, off);
+          const int i2 = __shfl_down_sync(0xffffffffu, i, off);
+          if (key_wins(k2, i2, k, i)) {
+            k = k2;
+            i = i2;
+          }
+        }
+        if (lane == 0) {
+          key_g[warp * TB + b] = k;
+          idx_g[warp * TB + b] = i;
         }
       }
-      if (lane == 0) {
-        red_key[warp * TB + b] = k;
-        red_idx[warp * TB + b] = i;
-      }
-    }
-    __syncthreads();
-    if (tid < TB) {
-      int k = red_key[tid], i = red_idx[tid];
-      for (int w = 1; w < NWARPS; ++w) {
-        if (key_wins(red_key[w * TB + tid], red_idx[w * TB + tid], k, i)) {
-          k = red_key[w * TB + tid];
-          i = red_idx[w * TB + tid];
+      group_sync<HALVES>(grp);
+      if (tid < RB) {
+        int k = key_g[tid], i = idx_g[tid];
+        for (int w = 1; w < NW; ++w) {
+          if (key_wins(key_g[w * TB + tid], idx_g[w * TB + tid], k, i)) {
+            k = key_g[w * TB + tid];
+            i = idx_g[w * TB + tid];
+          }
         }
+        // ablated argmax: the token is int(max logit), often outside [0, V)
+        if constexpr (PROJ == 3) i = (int)__int_as_float(order_key(
+                                         __int_as_float(k)));
+        tok_g[tid] = i;
+        if (row0 + tid < B) tokens[(size_t)(row0 + tid) * n_steps + t] = i;
       }
-      tok_s[tid] = i;
-      if (row0 + tid < B) tokens[(size_t)(row0 + tid) * n_steps + t] = i;
     }
-    __syncthreads();
+    group_sync<HALVES>(grp);
     cur ^= 1;
   }
 
-  const float* h_fin = h_s + (size_t)cur * H * TB;
-  for (int i = tid; i < TB * H; i += THREADS) {
+  const float* h_fin = h_s + (size_t)cur * H * TB + rb;
+  for (int i = tid; i < RB * H; i += NT) {
     const int b = i / H, j = i % H, row = row0 + b;
     if (row < B) {
       h_out[(size_t)row * H + j] = from_f<T>(h_fin[j * TB + b]);
-      c_out[(size_t)row * H + j] = from_f<T>(c_s[j * TB + b]);
+      c_out[(size_t)row * H + j] = from_f<T>(c_g[j * TB + b]);
     }
   }
-  if (tid < TB && row0 + tid < B) tok_out[row0 + tid] = tok_s[tid];
+  if (tid < RB && row0 + tid < B) tok_out[row0 + tid] = tok_g[tid];
 }
 
-template <typename T, int NG>
-int launch(const void* enc, const void* uv, const void* emb,
-           const void* attn_W, const void* attn_w, const void* attn_b,
-           const void* w_ih, const void* w_hh, const void* bias2,
-           const void* out_w, const void* out_b, const void* h0,
-           const void* c0, const int* tok0, int* tokens, void* h_out,
-           void* c_out, int* tok_out, int B, int L, int F, int A, int E,
-           int H, int V, int n_steps, float emb_scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(L, F, A, E, H);
-  auto kernel = whole_decode_kernel<T, NG>;
+// the launch's operands, as the C entry point takes them
+struct Operands {
+  const void *enc, *uv, *emb, *attn_W, *attn_w, *attn_b, *w_ih, *w_hh,
+      *bias2, *out_w, *out_b, *h0, *c0;
+  const int* tok0;
+  int* tokens;
+  void *h_out, *c_out;
+  int* tok_out;
+  int B, L, F, A, E, H, V, n_steps;
+  float emb_scale;
+};
+
+template <typename T, int NG, int VAR>
+int launch(const Operands& o, cudaStream_t stream) {
+  const size_t smem = smem_bytes(o.L, o.F, o.A, o.E, o.H);
+  auto kernel = whole_decode_kernel<T, NG, VAR>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + TB - 1) / TB);
+  const dim3 grid((o.B + TB - 1) / TB);
   kernel<<<grid, THREADS, smem, stream>>>(
-      (const T*)enc, (const T*)uv, (const T*)emb, (const T*)attn_W,
-      (const T*)attn_w, (const T*)attn_b, (const T*)w_ih, (const T*)w_hh,
-      (const T*)bias2, (const T*)out_w, (const T*)out_b, (const T*)h0,
-      (const T*)c0, tok0, tokens, (T*)h_out, (T*)c_out, tok_out, B, L, F, A,
-      E, H, V, n_steps, emb_scale);
+      (const T*)o.enc, (const T*)o.uv, (const T*)o.emb, (const T*)o.attn_W,
+      (const T*)o.attn_w, (const T*)o.attn_b, (const T*)o.w_ih,
+      (const T*)o.w_hh, (const T*)o.bias2, (const T*)o.out_w,
+      (const T*)o.out_b, (const T*)o.h0, (const T*)o.c0, o.tok0, o.tokens,
+      (T*)o.h_out, (T*)o.c_out, o.tok_out, o.B, o.L, o.F, o.A, o.E, o.H,
+      o.V, o.n_steps, o.emb_scale);
   return (int)cudaGetLastError();
+}
+
+// the built variants: production, early exit, dual, and one ablated part
+template <typename T, int NG>
+int launch_variant(int variant, const Operands& o, cudaStream_t s) {
+  switch (variant) {
+    case 0: return launch<T, NG, 0>(o, s);
+    case EARLY_EXIT: return launch<T, NG, EARLY_EXIT>(o, s);
+    case DUAL: return launch<T, NG, DUAL>(o, s);
+    case ABL_EMB: return launch<T, NG, ABL_EMB>(o, s);
+    case 1 << ABL_ATTN_SHIFT: return launch<T, NG, 1 << ABL_ATTN_SHIFT>(o, s);
+    case 2 << ABL_ATTN_SHIFT: return launch<T, NG, 2 << ABL_ATTN_SHIFT>(o, s);
+    case 3 << ABL_ATTN_SHIFT: return launch<T, NG, 3 << ABL_ATTN_SHIFT>(o, s);
+    case 1 << ABL_PROJ_SHIFT: return launch<T, NG, 1 << ABL_PROJ_SHIFT>(o, s);
+    case 2 << ABL_PROJ_SHIFT: return launch<T, NG, 2 << ABL_PROJ_SHIFT>(o, s);
+    case 3 << ABL_PROJ_SHIFT: return launch<T, NG, 3 << ABL_PROJ_SHIFT>(o, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -361,9 +462,10 @@ const char* recnet_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; n_gates: 3 = GRU, 4 = LSTM.
+// dtype: 0 = float32, 1 = bfloat16; n_gates: 3 = GRU, 4 = LSTM; variant:
+// 0 for K1/K2, else the K5 variant bits (EARLY_EXIT, DUAL, one ABL_ part).
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-int recnet_whole_decode(int dtype, int n_gates, const void* enc,
+int recnet_whole_decode(int dtype, int n_gates, int variant, const void* enc,
                         const void* uv, const void* emb, const void* attn_W,
                         const void* attn_w, const void* attn_b,
                         const void* w_ih, const void* w_hh, const void* bias2,
@@ -372,16 +474,17 @@ int recnet_whole_decode(int dtype, int n_gates, const void* enc,
                         void* h_out, void* c_out, int* tok_out, int B, int L,
                         int F, int A, int E, int H, int V, int n_steps,
                         float emb_scale, void* stream) {
+  const Operands o{enc,   uv,   emb,   attn_W, attn_w, attn_b, w_ih,
+                   w_hh,  bias2, out_w, out_b, h0,     c0,     tok0,
+                   tokens, h_out, c_out, tok_out, B,   L,      F,
+                   A,     E,    H,     V,      n_steps, emb_scale};
   const cudaStream_t s = (cudaStream_t)stream;
-#define RECNET_LAUNCH(T, NG)                                                  \
-  launch<T, NG>(enc, uv, emb, attn_W, attn_w, attn_b, w_ih, w_hh, bias2,     \
-                out_w, out_b, h0, c0, tok0, tokens, h_out, c_out, tok_out, B, \
-                L, F, A, E, H, V, n_steps, emb_scale, s)
-  if (dtype == 0 && n_gates == 3) return RECNET_LAUNCH(float, 3);
-  if (dtype == 0 && n_gates == 4) return RECNET_LAUNCH(float, 4);
-  if (dtype == 1 && n_gates == 3) return RECNET_LAUNCH(__nv_bfloat16, 3);
-  if (dtype == 1 && n_gates == 4) return RECNET_LAUNCH(__nv_bfloat16, 4);
-#undef RECNET_LAUNCH
+  if (dtype == 0 && n_gates == 3) return launch_variant<float, 3>(variant, o, s);
+  if (dtype == 0 && n_gates == 4) return launch_variant<float, 4>(variant, o, s);
+  if (dtype == 1 && n_gates == 3)
+    return launch_variant<__nv_bfloat16, 3>(variant, o, s);
+  if (dtype == 1 && n_gates == 4)
+    return launch_variant<__nv_bfloat16, 4>(variant, o, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,7 +5,10 @@ Port of ``recnet_tpu.decoding`` (reference eval.py:19-120):
 
 * ``greedy_decode``: the argmax chain in plain PyTorch, freezing once every
   token is <PAD> and reporting ``n_steps``; ``early_exit`` stops there;
-* ``greedy_decode_whole``: the whole loop in one launch of kernel K1;
+* ``greedy_decode_pallas``: the loop around kernel K4, one fused
+  attention + GRU step per launch, the projection and argmax in torch;
+* ``greedy_decode_whole``: the whole loop in one launch of kernel K1
+  (``early_exit``: its K5 variant that stops a block once its tokens are 0);
 * ``greedy_decode_whole_segmented``: K2 segments chained with a stop check
   between them (all <PAD>, or with ``eos_stop`` every row has seen <EOS>);
 * ``beam_decode``: batched beam search with the reference's scoring, its
@@ -25,7 +28,7 @@ import torch.nn.functional as nnf
 from recnet_tpu_torch.models import decoder as dec_mod
 from recnet_tpu_torch.ops import attention as attn_ops
 from recnet_tpu_torch.ops import rnn as rnn_ops
-from recnet_tpu_torch.ops.cuda import topk_proj
+from recnet_tpu_torch.ops.cuda import fused_step, topk_proj
 from recnet_tpu_torch.ops.cuda import whole_decode as wd
 
 
@@ -119,19 +122,67 @@ def _steps_to_first_all_pad(tokens: torch.Tensor, pad: int) -> int:
 
 
 @torch.no_grad()
+def greedy_decode_pallas(params: Dict, cfg: dec_mod.DecoderConfig,
+                         encoder_outputs: torch.Tensor,
+                         max_len: int) -> GreedyResult:
+    """Greedy decode with kernel K4 (``fused_gru_attn_step``) doing the
+    recurrent step: per step the embedding gather in torch, K4, then the
+    vocab projection and ``torch.argmax`` (the first maximum, as
+    ``jnp.argmax``) in torch, as JAX leaves them to XLA. Once every token of
+    a step is <PAD>, h, the output and ``n_steps`` freeze. A fixed T-step
+    loop with no host sync but the final ``n_steps``. The 1-layer GRU only;
+    the name is the JAX counterpart's."""
+    if cfg.cell_type != "GRU" or cfg.n_layers != 1:
+        raise ValueError("K4 takes the 1-layer GRU decoder, not "
+                         f"{cfg.n_layers} layer(s) of {cfg.cell_type}")
+    B, dev = encoder_outputs.shape[0], encoder_outputs.device
+    T = max_len + 1
+    a, r = params["attention"], params["rnn"][0]
+    uv = attn_ops.precompute_uv(a, encoder_outputs)
+    bias3 = fused_step.pack_gru_bias(r["b_ih"], r["b_hh"])
+    attn_b2 = a["b"][None, :]
+    h = torch.zeros((B, cfg.hidden_size), dtype=encoder_outputs.dtype,
+                    device=dev)
+    token = torch.full((B,), cfg.sos_token, dtype=torch.int32, device=dev)
+    tokens = torch.full((T, B), cfg.pad_token, dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    n_steps = torch.zeros((), dtype=torch.int32, device=dev)
+    for t in range(T):
+        emb = params["embedding"][token] * cfg.embedding_scale
+        h_new = fused_step.fused_gru_attn_step(
+            emb, h, encoder_outputs, uv, a["W"], a["w"], attn_b2,
+            r["w_ih"], r["w_hh"], bias3, emb_size=cfg.embedding_size)
+        logits = h_new @ params["out_w"] + params["out_b"]
+        out = torch.argmax(logits, dim=-1).to(torch.int32)
+        out = torch.where(done, cfg.pad_token, out).to(torch.int32)
+        n_steps = torch.where(done, n_steps, t + 1).to(torch.int32)
+        h = torch.where(done, h, h_new)
+        done = done | (out == cfg.pad_token).all()
+        tokens[t] = out
+        token = out
+    return GreedyResult(tokens, int(n_steps))
+
+
+@torch.no_grad()
 def greedy_decode_whole(params: Dict, cfg: dec_mod.DecoderConfig,
-                        encoder_outputs: torch.Tensor,
-                        max_len: int) -> GreedyResult:
+                        encoder_outputs: torch.Tensor, max_len: int,
+                        early_exit: bool = False) -> GreedyResult:
     """Greedy decode with the whole loop in one launch of K1. Rows evolve
     independently, so the tokens equal ``greedy_decode``'s on the executed
-    prefix; n_steps comes from the first all-<PAD> step."""
+    prefix; n_steps comes from the first all-<PAD> step.
+
+    ``early_exit`` takes K5's variant: a block of 8 rows stops once all
+    its tokens are 0, and its later tokens read 0. It equals the full
+    decode unless a row emits a non-zero token after its whole block went
+    to 0 (JAX's per-tile caveat, with a tile of 8 rows)."""
     if not kernels_supported(cfg, "greedy_whole"):
         raise ValueError("K1 takes a 1-layer GRU or LSTM decoder")
     uv = attn_ops.precompute_uv(params["attention"], encoder_outputs)
     tokens = wd.whole_greedy_decode(
         params, encoder_outputs, uv, _bias2(params),
         emb_size=cfg.embedding_size, max_len=max_len, sos=cfg.sos_token,
-        cell_type=cfg.cell_type, emb_scale=cfg.embedding_scale).T
+        cell_type=cfg.cell_type, emb_scale=cfg.embedding_scale,
+        early_exit=early_exit).T
     return GreedyResult(tokens,
                         _steps_to_first_all_pad(tokens, cfg.pad_token))
 

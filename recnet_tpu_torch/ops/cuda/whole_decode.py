@@ -4,7 +4,8 @@ and their plain-PyTorch twins.
 Counterpart of ``recnet_tpu/ops/pallas/whole_decode.py``:
 
 * ``whole_greedy_decode`` (K1) runs the whole T-step greedy loop in one
-  launch and returns tokens (B, T);
+  launch and returns tokens (B, T); its keywords ``early_exit``, ``dual``
+  and ``ablate`` select the K5 variants of the same kernel;
 * ``whole_greedy_decode_segment`` (K2) runs ``seg_len`` steps from a
   carried (h, c, token) and returns (tokens (B, seg_len), h, c, token).
 
@@ -12,16 +13,19 @@ Both launch the one CUDA kernel (K1 from a zero state and <SOS>). A wrapper
 launches it for CUDA tensors and raises on anything the kernel does not
 take; for CPU tensors it runs its plain twin (``*_reference``), which
 mirrors the Pallas step's casts in plain PyTorch. Each wrapper counts its
-launches in ``n_launches``.
+launches in ``n_launches``; K1 counts its K5 variants apart, in
+``variant_launches``.
 
 Unlike the Pallas wrappers there is no ``block_b``: a block owns 8 rows and
 masks the ragged tail, so any B works. ``emb_scale`` multiplies the gathered
 embedding row, as ``decoder_step`` does (the Pallas step leaves it out,
-which is exact only at the shipped scale 1.0).
+which is exact only at the shipped scale 1.0). A token outside [0, V)
+gathers a zero embedding row, as the Pallas one-hot product does.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Dict, Tuple
 
@@ -31,6 +35,48 @@ from recnet_tpu_torch.ops.cuda import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _N_GATES = {"GRU": 3, "LSTM": 4}
+ROWS_PER_BLOCK = 8     # the kernel's tile: the early exit stops per block
+
+# the kernel's variant bits (csrc/whole_decode.cu)
+_EARLY_EXIT, _DUAL, _ABL_EMB = 1, 2, 4
+_ABL_ATTN_SHIFT, _ABL_PROJ_SHIFT = 3, 5
+_BUILT_VARIANTS = frozenset(
+    [0, _EARLY_EXIT, _DUAL, _ABL_EMB]
+    + [m << _ABL_ATTN_SHIFT for m in (1, 2, 3)]
+    + [m << _ABL_PROJ_SHIFT for m in (1, 2, 3)])
+
+
+def _ablated(ablate: str) -> Tuple[bool, int, int]:
+    """The substring tests of the Pallas ``_make_step``, in its order:
+    (zero embedding, attention mode, projection mode). Attention: 0
+    production, 1 ``attn`` (ctx = 0), 2 ``score1`` (score = act[:, 0]), 3
+    ``fma`` (ctx = sum_f score_f, not divided by L). Projection: 0
+    production, 1 ``proj`` (the token stays), 2 ``nativeargmax`` (plain
+    first-max argmax), 3 ``argmax`` (token = int(max logit))."""
+    attn = (1 if "attn" in ablate else 2 if "score1" in ablate
+            else 3 if "fma" in ablate else 0)
+    proj = (1 if "proj" in ablate else 2 if "nativeargmax" in ablate
+            else 3 if "argmax" in ablate else 0)
+    return "emb" in ablate, attn, proj
+
+
+def _variant(early_exit: bool, dual: bool, ablate: str) -> int:
+    emb, attn, proj = _ablated(ablate)
+    return ((_EARLY_EXIT if early_exit else 0) | (_DUAL if dual else 0)
+            | (_ABL_EMB if emb else 0) | attn << _ABL_ATTN_SHIFT
+            | proj << _ABL_PROJ_SHIFT)
+
+
+def _variant_name(early_exit: bool, dual: bool, ablate: str) -> str:
+    """The key of ``variant_launches``: "early_exit", "dual" or
+    "ablate=<part>"; "" is the production kernel."""
+    return ("early_exit" if early_exit else "dual" if dual
+            else f"ablate={ablate}" if _variant(False, False, ablate) else "")
+
+
+def _check_options(early_exit: bool, dual: bool, ablate: str) -> None:
+    if dual and (early_exit or ablate):
+        raise ValueError("dual=True does not support early_exit or ablate")
 
 
 def _library() -> ctypes.CDLL:
@@ -38,7 +84,7 @@ def _library() -> ctypes.CDLL:
     if getattr(lib, "_recnet_bound", False):
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.recnet_whole_decode.argtypes = ([i, i] + [p] * 18 + [i] * 8
+    lib.recnet_whole_decode.argtypes = ([i, i, i] + [p] * 18 + [i] * 8
                                         + [ctypes.c_float, p])
     lib.recnet_whole_decode.restype = i
     lib.recnet_cuda_error_string.argtypes = [i]
@@ -65,20 +111,30 @@ def _check_cuda(named: Dict[str, torch.Tensor], dtype: torch.dtype,
             raise ValueError(f"{name} must be contiguous")
 
 
+def check_sm90(device: torch.device, what: str) -> None:
+    major, minor = torch.cuda.get_device_capability(device)
+    if major != 9:
+        raise RuntimeError(
+            f"the {what} kernel is built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(device)} is sm_{major}{minor}")
+
+
 def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
-            n_steps: int, cell_type: str, emb_scale: float):
+            n_steps: int, cell_type: str, emb_scale: float,
+            variant: int = 0):
     """Run the CUDA kernel for ``n_steps`` steps; returns
-    (tokens (B, n_steps), h, c, token (B, 1))."""
+    (tokens (B, n_steps), h, c, token (B, 1)). Token columns a block never
+    reached (early exit) read 0."""
     device, dtype = enc.device, enc.dtype
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {dtype}")
     if cell_type not in _N_GATES:
         raise ValueError(f"the kernel takes a GRU or LSTM, not {cell_type!r}")
-    major, minor = torch.cuda.get_device_capability(device)
-    if major != 9:
-        raise RuntimeError(
-            f"the whole-decode kernel is built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(device)} is sm_{major}{minor}")
+    if variant not in _BUILT_VARIANTS:
+        raise ValueError("the kernel is built for one ablated part at a "
+                         "time (emb, attn, score1, fma, proj, nativeargmax, "
+                         "argmax)")
+    check_sm90(device, "whole-decode")
     emb, W, w, b, w_ih, w_hh, out_w, out_b = _weights(params)
     _check_cuda(dict(enc=enc, uv=uv, embedding=emb, attn_W=W, attn_w=w,
                      attn_b=b, w_ih=w_ih, w_hh=w_hh, bias2=bias2,
@@ -103,7 +159,7 @@ def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
     if B < 1 or n_steps < 1:
         raise ValueError(f"empty decode: B={B}, n_steps={n_steps}")
 
-    tokens = torch.empty((B, n_steps), dtype=torch.int32, device=device)
+    tokens = torch.zeros((B, n_steps), dtype=torch.int32, device=device)
     h_out, c_out = torch.empty_like(h), torch.empty_like(c)
     tok_out = torch.empty((B, 1), dtype=torch.int32, device=device)
     lib = _library()
@@ -111,8 +167,8 @@ def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.recnet_whole_decode(
-            _DTYPE_CODES[dtype], _N_GATES[cell_type], ptr(enc), ptr(uv),
-            ptr(emb), ptr(W), ptr(w), ptr(b), ptr(w_ih), ptr(w_hh),
+            _DTYPE_CODES[dtype], _N_GATES[cell_type], variant, ptr(enc),
+            ptr(uv), ptr(emb), ptr(W), ptr(w), ptr(b), ptr(w_ih), ptr(w_hh),
             ptr(bias2), ptr(out_w), ptr(out_b), ptr(h), ptr(c), ptr(token),
             ptr(tokens), ptr(h_out), ptr(c_out), ptr(tok_out), B, L, F, A,
             E, H, V, n_steps, ctypes.c_float(emb_scale),
@@ -146,12 +202,36 @@ def _intkey_argmax(logits: torch.Tensor) -> torch.Tensor:
     return masked.min(dim=-1, keepdim=True).values
 
 
+def _embedding_rows(emb: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
+    """Rows of ``emb`` for token (B, 1); a token outside [0, V) gives a
+    zero row, as the Pallas one-hot product does."""
+    tk = token[:, 0].long()
+    ok = (tk >= 0) & (tk < emb.shape[0])
+    rows = emb[tk.clamp(0, emb.shape[0] - 1)]
+    return torch.where(ok[:, None], rows, torch.zeros_like(rows))
+
+
+def _live_tiles(token: torch.Tensor) -> torch.Tensor:
+    """(B, 1): whether the row's tile of ``ROWS_PER_BLOCK`` rows (the
+    kernel's block) still holds a token other than 0."""
+    B, R = token.shape[0], ROWS_PER_BLOCK
+    nonzero = torch.zeros(-(-B // R) * R, dtype=torch.bool,
+                          device=token.device)
+    nonzero[:B] = token[:, 0] != 0
+    return nonzero.view(-1, R).any(dim=1).repeat_interleave(R)[:B, None]
+
+
 def _decode_reference(params, enc, uv, bias2, h, c, token, *, emb_size: int,
-                      n_steps: int, cell_type: str, emb_scale: float):
+                      n_steps: int, cell_type: str, emb_scale: float,
+                      ablate: str = "", early_exit: bool = False):
     """``n_steps`` greedy steps in plain PyTorch with the casts of the
     Pallas step (``_make_step``): dtype operands, f32 accumulation (a
     product of dtype values widened to f32), ctx cast to dtype before its
-    gate product, h and c computed in f32 and stored in dtype."""
+    gate product, h and c computed in f32 and stored in dtype. ``ablate``
+    stubs parts as ``_make_step`` does. With ``early_exit`` a tile of
+    ``ROWS_PER_BLOCK`` rows stops once all its tokens are 0 (the token
+    freezes, so its later columns read 0), and the loop ends when every
+    tile has stopped."""
     f32 = torch.float32
     dtype = enc.dtype
     emb, W, w, b, w_ih, w_hh, out_w, out_b = _weights(params)
@@ -161,17 +241,35 @@ def _decode_reference(params, enc, uv, bias2, h, c, token, *, emb_size: int,
     w_hh, out_w, out_b = w_hh.to(f32), out_w.to(f32), out_b.to(f32)
     b_ih, b_hh = bias2[0].to(f32), bias2[1].to(f32)
     enc_f, uv_f = enc.to(f32), uv.to(f32)
+    no_emb, attn, proj = _ablated(ablate)
 
-    toks = []
-    for _ in range(n_steps):
-        e = (emb[token[:, 0]].to(f32) * emb_scale).to(dtype).to(f32)
+    toks = torch.zeros((enc.shape[0], n_steps), dtype=torch.int32,
+                       device=enc.device)
+    for t in range(n_steps):
+        if early_exit:
+            live = _live_tiles(token)
+            if not bool(live.any()):
+                break
+        if no_emb:
+            e = torch.zeros((enc.shape[0], E), dtype=f32, device=enc.device)
+        else:
+            e = (_embedding_rows(emb, token).to(f32)
+                 * emb_scale).to(dtype).to(f32)
         h32 = h.to(f32)
-        act = torch.tanh((h32 @ W)[:, None, :] + uv_f + b)     # (B, L, A)
-        score = act @ w                                         # (B, L, 1)
         ctx = torch.zeros_like(enc_f[:, 0])
-        for f in range(L):
-            ctx = ctx + score[:, f] * enc_f[:, f]
-        ctx = (ctx / L).to(dtype).to(f32)
+        if attn != 1:
+            act = torch.tanh((h32 @ W)[:, None, :] + uv_f + b)  # (B, L, A)
+            score = act[:, :, :1] if attn == 2 else act @ w      # (B, L, 1)
+            if attn == 3:
+                acc = torch.zeros_like(score[:, 0])
+                for f in range(L):
+                    acc = acc + score[:, f]
+                ctx = ctx + acc
+            else:
+                for f in range(L):
+                    ctx = ctx + score[:, f] * enc_f[:, f]
+                ctx = ctx / L
+        ctx = ctx.to(dtype).to(f32)
         gi = e @ w_emb + ctx @ w_ctx + b_ih
         gh = h32 @ w_hh + b_hh
         if cell_type == "GRU":
@@ -187,23 +285,41 @@ def _decode_reference(params, enc, uv, bias2, h, c, token, *, emb_size: int,
             c = c32.to(dtype)
         else:
             raise ValueError(f"Unknown cell type: {cell_type}")
-        token = _intkey_argmax(h.to(f32) @ out_w + out_b)
-        toks.append(token)
-    return torch.cat(toks, dim=1), h, c, token
+        new = token
+        if proj != 1:
+            logits = h.to(f32) @ out_w + out_b
+            if proj == 2:      # first max; -0.0 ties +0.0
+                new = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+            elif proj == 3:    # int(max logit), often outside [0, V)
+                new = logits.max(dim=-1, keepdim=True).values.to(torch.int32)
+            else:
+                new = _intkey_argmax(logits)
+        token = torch.where(live, new, token) if early_exit else new
+        toks[:, t] = token[:, 0]
+    return toks, h, c, token
 
 
 def whole_greedy_decode_reference(params: Dict, enc: torch.Tensor,
                                   uv: torch.Tensor, bias2: torch.Tensor, *,
                                   emb_size: int, max_len: int, sos: int = 1,
                                   cell_type: str = "GRU",
-                                  emb_scale: float = 1.0) -> torch.Tensor:
-    """Plain twin of K1: tokens (B, max_len + 1) int32."""
+                                  emb_scale: float = 1.0,
+                                  early_exit: bool = False,
+                                  dual: bool = False,
+                                  ablate: str = "") -> torch.Tensor:
+    """Plain twin of K1 and its K5 variants: tokens (B, max_len + 1) int32.
+
+    ``early_exit`` stops each tile of ``ROWS_PER_BLOCK`` rows (the kernel's
+    block; JAX's ``block_b=8``) once all its tokens are 0. ``dual`` computes
+    what the production kernel does. ``ablate`` as in JAX."""
+    _check_options(early_exit, dual, ablate)
     B, H = enc.shape[0], params["attention"]["W"].shape[0]
     z = torch.zeros((B, H), dtype=enc.dtype, device=enc.device)
     tok = torch.full((B, 1), sos, dtype=torch.int32, device=enc.device)
     return _decode_reference(params, enc, uv, bias2, z, z, tok,
                              emb_size=emb_size, n_steps=max_len + 1,
-                             cell_type=cell_type, emb_scale=emb_scale)[0]
+                             cell_type=cell_type, emb_scale=emb_scale,
+                             ablate=ablate, early_exit=early_exit)[0]
 
 
 def whole_greedy_decode_segment_reference(
@@ -225,16 +341,29 @@ def whole_greedy_decode_segment_reference(
 def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
                         bias2: torch.Tensor, *, emb_size: int, max_len: int,
                         sos: int = 1, cell_type: str = "GRU",
-                        emb_scale: float = 1.0) -> torch.Tensor:
+                        emb_scale: float = 1.0, early_exit: bool = False,
+                        dual: bool = False,
+                        ablate: str = "") -> torch.Tensor:
     """K1: the whole greedy decode in one launch.
 
     params: decoder params (embedding, attention{W,w,b}, rnn[0], out_w,
     out_b); enc (B, L, F); uv (B, L, A); bias2 (2, nG*H) = [b_ih, b_hh].
-    Returns tokens (B, max_len + 1) int32."""
+    Returns tokens (B, max_len + 1) int32.
+
+    The K5 variants, as in JAX: ``early_exit`` stops a block of 8 rows
+    once all its tokens are 0 (the Pallas condition: 0, not the config's
+    <PAD>), later columns reading 0; ``dual`` runs each block as two 4-row
+    halves on their own barriers, with the production tokens; ``ablate``
+    (profiling) stubs parts of the step: "emb", "attn" / "score1" / "fma",
+    "proj" / "nativeargmax" / "argmax", one part at a time on the card
+    (the twin takes any comma-joined set). ``dual`` with ``early_exit`` or
+    ``ablate`` raises ``ValueError``."""
+    _check_options(early_exit, dual, ablate)
     kw = dict(emb_size=emb_size, cell_type=cell_type, emb_scale=emb_scale)
     if _device_route(enc) == "cpu":
-        return whole_greedy_decode_reference(params, enc, uv, bias2,
-                                             max_len=max_len, sos=sos, **kw)
+        return whole_greedy_decode_reference(
+            params, enc, uv, bias2, max_len=max_len, sos=sos,
+            early_exit=early_exit, dual=dual, ablate=ablate, **kw)
     B, H = enc.shape[0], params["attention"]["W"].shape[0]
     V = params["embedding"].shape[0]
     if not 0 <= sos < V:
@@ -242,12 +371,18 @@ def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
     z = torch.zeros((B, H), dtype=enc.dtype, device=enc.device)
     tok = torch.full((B, 1), sos, dtype=torch.int32, device=enc.device)
     tokens = _launch(params, enc, uv, bias2, z, z, tok,
-                     n_steps=max_len + 1, **kw)[0]
-    whole_greedy_decode.n_launches += 1
+                     n_steps=max_len + 1,
+                     variant=_variant(early_exit, dual, ablate), **kw)[0]
+    name = _variant_name(early_exit, dual, ablate)
+    if name:
+        whole_greedy_decode.variant_launches[name] += 1
+    else:
+        whole_greedy_decode.n_launches += 1
     return tokens
 
 
 whole_greedy_decode.n_launches = 0
+whole_greedy_decode.variant_launches = collections.Counter()
 
 
 def whole_greedy_decode_segment(

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card, against their plain twins: the whole
-decode (K1/K2) and the fused projection + top-k (K3).
+decode (K1/K2) with its K5 variants (early exit, dual, ablate), the fused
+projection + top-k (K3) and the fused attention + GRU step (K4).
 
 Needs a CUDA card with sm_90a and nvcc; every test skips without a card.
 This file imports neither JAX nor the test conftest, so on the card run:
@@ -18,6 +19,7 @@ import torch
 
 from recnet_tpu_torch.models.decoder import DecoderConfig
 from recnet_tpu_torch.ops.attention import precompute_uv
+from recnet_tpu_torch.ops.cuda import fused_step as fs
 from recnet_tpu_torch.ops.cuda import topk_proj
 from recnet_tpu_torch.ops.cuda import whole_decode as wd
 from recnet_tpu_torch.weights import params_from_jax, random_params
@@ -238,3 +240,189 @@ def test_beam_kernel_route_equals_plain_route(cuda, cell):
     assert torch.equal(got.tokens, want.tokens)
     torch.testing.assert_close(got.scores, want.scores, rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_k5_dual_is_bit_equal_to_k1(cuda, cell, dtype):
+    ops = _operands(cell, cuda, dtype=dtype, seed=6)
+    kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell)
+    got = wd.whole_greedy_decode(*ops, dual=True, **kw)
+    want = wd.whole_greedy_decode(*ops, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_k5_early_exit_matches_twin_with_a_zero_tail(cuda, cell):
+    """PAD-biased weights: the first block (8 rows) or the ragged second
+    (5 rows) stops; the kernel equals the twin, zero tail included."""
+    params, enc, uv, bias2 = _operands(cell, cuda, seed=7)
+    params = dict(params, out_b=params["out_b"].clone())
+    params["out_b"][0] += 2.0
+    kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell, early_exit=True)
+    ops = (params, enc, uv, bias2)
+    n = wd.whole_greedy_decode.variant_launches["early_exit"]
+    got = wd.whole_greedy_decode(*ops, **kw)
+    want = wd.whole_greedy_decode_reference(*ops, **kw)
+    torch.cuda.synchronize()
+    assert wd.whole_greedy_decode.variant_launches["early_exit"] == n + 1
+    assert torch.equal(got, want)
+    assert (got[:, -1] == 0).all()
+
+
+def test_k5_early_exit_stops_blocks_at_different_steps(cuda):
+    """A timer for <PAD>: GRU unit 0 keeps only its gate biases, so it
+    rises by the same ramp 0.9 (1 - 0.9^(t+1)) on every row, and only the
+    <PAD> logit reads it. Rows take <PAD> at steps of their own, so the six
+    blocks of 45 rows (the last one ragged) stop at different steps, none
+    at step 0; the kernel equals the twin."""
+    cfg = DecoderConfig(cell_type="GRU", vocab_size=V, embedding_size=E,
+                        encoder_size=F, hidden_size=H, attn_size=A)
+    p = random_params(cfg, 12)
+    p["out_w"] = p["out_w"] * 8.0
+    r, gates = p["rnn"][0], [0, H, 2 * H]
+    r["w_ih"][:, gates] = r["w_hh"][:, gates] = r["b_hh"][gates] = 0.0
+    r["b_ih"][gates] = [0.0, np.log(0.9 / 0.1), np.arctanh(0.9)]
+    p["out_w"][0, :] = p["out_w"][:, 0] = 0.0
+    # the ramp at the smallest max logit of steps 0-1 at step 1 and at the
+    # largest of steps 0-9 at step 15 (these weights and features)
+    p["out_w"][0, 0], p["out_b"][0] = 5.698, 0.707
+    params = params_from_jax(p, cuda)
+    enc = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (45, L, F)).astype(np.float32)).to(cuda)
+    ops = (params, enc, precompute_uv(params["attention"], enc),
+           torch.stack([params["rnn"][0]["b_ih"], params["rnn"][0]["b_hh"]]))
+    kw = dict(emb_size=E, max_len=MAX_LEN)
+    got = wd.whole_greedy_decode(*ops, early_exit=True, **kw)
+    want = wd.whole_greedy_decode_reference(*ops, early_exit=True, **kw)
+    full = wd.whole_greedy_decode_reference(*ops, **kw)
+    torch.cuda.synchronize()
+    zero = torch.ones((48, MAX_LEN + 1), dtype=torch.bool, device=cuda)
+    zero[:45] = want == 0
+    zero = zero.view(6, 8, -1).all(dim=1)
+    stops = torch.where(zero.any(dim=1), zero.int().argmax(dim=1),
+                        MAX_LEN + 1)
+    assert len(set(stops.tolist())) > 2 and bool((stops > 0).all())
+    assert bool((stops < MAX_LEN).any())
+    # a row takes a word after its block's stop: a late stop would show
+    assert not torch.equal(want, full)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("part", ["emb", "attn", "score1", "fma", "proj",
+                                  "nativeargmax", "argmax"])
+@pytest.mark.parametrize("cell,dtype", [("GRU", torch.float32),
+                                        ("GRU", torch.bfloat16),
+                                        ("LSTM", torch.float32)])
+def test_k5_ablate_matches_twin(cuda, part, cell, dtype):
+    """f32: tokens equal the twin's. bf16: h within 2 bf16 ulps of the
+    twin's can flip a near tie and the row's later tokens with it, so at
+    least 90% of the tokens must be equal. ``nativeargmax`` equals the
+    production kernel exactly."""
+    ops = _operands(cell, cuda, dtype=dtype, seed=8)
+    kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell)
+    got = wd.whole_greedy_decode(*ops, ablate=part, **kw)
+    want = wd.whole_greedy_decode_reference(*ops, ablate=part, **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        assert (got == want).float().mean().item() >= 0.9
+    if part == "nativeargmax":
+        assert torch.equal(got, wd.whole_greedy_decode(*ops, **kw))
+
+
+def test_k5_rejects_combined_ablations_and_dual_options(cuda):
+    ops = _operands("GRU", cuda)
+    with pytest.raises(ValueError, match="one ablated part"):
+        wd.whole_greedy_decode(*ops, emb_size=E, max_len=MAX_LEN,
+                               ablate="emb,proj")
+    with pytest.raises(ValueError, match="dual=True does not support"):
+        wd.whole_greedy_decode(*ops, emb_size=E, max_len=MAX_LEN, dual=True,
+                               early_exit=True)
+
+
+@pytest.mark.parametrize("bad", [-1, V, 1 << 30])
+def test_out_of_range_token_reads_a_zero_embedding(cuda, bad):
+    ops = _operands("LSTM", cuda, seed=9)
+    z, c, _ = _start(cuda, torch.float32)
+    tok = torch.full((B, 1), bad, dtype=torch.int32, device=cuda)
+    got = wd.whole_greedy_decode_segment(*ops, z, c, tok, emb_size=E,
+                                         seg_len=3, cell_type="LSTM")
+    want = wd.whole_greedy_decode_segment_reference(
+        *ops, z, c, tok, emb_size=E, seg_len=3, cell_type="LSTM")
+    zero_emb = dict(ops[0], embedding=torch.zeros_like(ops[0]["embedding"]))
+    first = wd.whole_greedy_decode_segment_reference(
+        zero_emb, *ops[1:], z, c, tok, emb_size=E, seg_len=1,
+        cell_type="LSTM")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[0][:, :1], first[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+
+
+K4_L = 28
+
+
+def _k4_operands(device, dtype, seed=0, b=B):
+    rng = np.random.default_rng(seed)
+    t = lambda *shape: torch.from_numpy(
+        (rng.standard_normal(shape) * 0.3).astype(np.float32)).to(device,
+                                                                  dtype)
+    return (t(b, E), t(b, H), t(b, K4_L, F), t(b, K4_L, A), t(H, A),
+            t(A, 1), torch.ones((1, A), device=device, dtype=dtype),
+            t(E + F, 3 * H), t(H, 3 * H), t(2, 3 * H))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frame_chunk", [1, 4, 7, 28])
+def test_k4_matches_twin(cuda, dtype, frame_chunk):
+    """B = 13 (a ragged block of 5 rows); f32 rtol 1e-5, atol 1e-6 (sums
+    in another order); bf16 within 2 bf16 ulps (rtol 2^-7, atol 1e-2)."""
+    ops = _k4_operands(cuda, dtype, seed=frame_chunk)
+    got = fs.fused_gru_attn_step(*ops, emb_size=E, frame_chunk=frame_chunk)
+    want = fs.fused_gru_attn_step_reference(*ops, emb_size=E,
+                                            frame_chunk=frame_chunk)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H) and got.dtype == dtype
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
+           else dict(rtol=2.0 ** -7, atol=1e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_k4_rejects_and_counts(cuda):
+    ops = list(_k4_operands(cuda, torch.float32))
+    with pytest.raises(ValueError, match="frame_chunk"):
+        fs.fused_gru_attn_step(*ops, emb_size=E, frame_chunk=3)
+    with pytest.raises(ValueError, match="on cpu"):
+        fs.fused_gru_attn_step(*ops[:7], ops[7].cpu(), *ops[8:], emb_size=E)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.fused_gru_attn_step(*ops[:3], ops[3].transpose(0, 1).contiguous()
+                               .transpose(0, 1), *ops[4:], emb_size=E)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fs.fused_gru_attn_step(*[t.half() for t in ops], emb_size=E)
+    n = fs.fused_gru_attn_step.n_launches
+    fs.fused_gru_attn_step(*ops, emb_size=E)
+    fs.fused_gru_attn_step_reference(*ops, emb_size=E)
+    assert fs.fused_gru_attn_step.n_launches == n + 1
+
+
+def test_greedy_decode_pallas_equals_plain_greedy(cuda):
+    """K4's greedy loop on the card, f32: the tokens and n_steps of the
+    plain greedy_decode, with T launches of K4."""
+    from recnet_tpu_torch.decoding import greedy_decode, greedy_decode_pallas
+
+    cfg = DecoderConfig(cell_type="GRU", vocab_size=V, embedding_size=E,
+                        encoder_size=F, hidden_size=H, attn_size=A)
+    p = random_params(cfg, 10)
+    p["out_w"] = p["out_w"] * 8.0
+    params = params_from_jax(p, cuda)
+    enc = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (B, L, F)).astype(np.float32)).to(cuda)
+    n = fs.fused_gru_attn_step.n_launches
+    got = greedy_decode_pallas(params, cfg, enc, MAX_LEN)
+    want = greedy_decode(params, cfg, enc, MAX_LEN)
+    assert fs.fused_gru_attn_step.n_launches == n + MAX_LEN + 1
+    assert got.n_steps == want.n_steps
+    assert torch.equal(got.tokens, want.tokens)

@@ -94,6 +94,24 @@ def test_greedy_decode_whole_matches_jax(cell):
 
 
 @pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+@pytest.mark.parametrize("pad_bias", [None, 4.0])
+def test_greedy_decode_whole_early_exit_matches_jax(cell, pad_bias):
+    """early_exit (K5) against JAX ``greedy_decode_whole(block_b=8,
+    early_exit=True)`` on two tiles: tokens and n_steps exact."""
+    jcfg, tcfg, params, tp, enc = _setup(cell, seed=9)
+    if pad_bias is not None:
+        params = dict(params, out_b=params["out_b"].at[0].add(pad_bias))
+        tp = params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    want = j_decoding.greedy_decode_whole(params, jcfg, jnp.asarray(enc),
+                                          MAX_LEN, block_b=8,
+                                          early_exit=True, interpret=True)
+    got = t_decoding.greedy_decode_whole(tp, tcfg, torch.from_numpy(enc),
+                                         MAX_LEN, early_exit=True)
+    assert got.n_steps == int(want.n_steps)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
 @pytest.mark.parametrize("segment", [1, 3, 4, 8, 12])
 def test_greedy_decode_whole_segmented_matches_jax(cell, segment):
     jcfg, tcfg, params, tp, enc = _setup(cell, seed=9)

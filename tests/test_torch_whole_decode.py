@@ -202,3 +202,142 @@ def test_wrapper_refuses_a_device_without_a_route():
     meta = [t.to("meta") for t in t_ops[1:]]
     with pytest.raises(ValueError, match="no whole-decode route"):
         wd.whole_greedy_decode(t_ops[0], *meta, emb_size=E, max_len=MAX_LEN)
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+@pytest.mark.parametrize("bad", [-1, V])
+def test_k2_twin_out_of_range_token_reads_zero_embedding(cell, bad):
+    """A carried token outside [0, V) gathers a zero embedding row, as the
+    Pallas one-hot product does: tokens equal, h and c within rtol 2e-5."""
+    cfg, params, enc = _setup(cell, seed=10)
+    j_ops, t_ops = _operands(params, enc)
+    jz = jnp.zeros((B, H), jnp.float32)
+    jtok = jnp.full((B, 1), bad, jnp.int32)
+    want = whole_greedy_decode_segment(*j_ops, jz, jz, jtok, emb_size=E,
+                                       seg_len=3, block_b=8, cell_type=cell,
+                                       interpret=True)
+    tz = torch.zeros((B, H))
+    got = wd.whole_greedy_decode_segment_reference(
+        *t_ops, tz, tz, torch.full((B, 1), bad, dtype=torch.int32),
+        emb_size=E, seg_len=3, cell_type=cell)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for g, w in zip(got[1:3], want[1:3]):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=2e-5,
+                                   atol=2e-6)
+
+
+def _pad_biased(params, lift):
+    return dict(params, out_b=params["out_b"].at[0].add(lift))
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_k1_early_exit_twin_matches_pallas(cell):
+    """early_exit on two tiles of 8 rows (JAX block_b=8): exact, the
+    columns after a tile's stop reading 0; one tile stops before T."""
+    cfg, params, enc = _setup(cell, seed=11)
+    j_ops, t_ops = _operands(_pad_biased(params, 3.0), enc)
+    kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell)
+    want = np.asarray(whole_greedy_decode(*j_ops, block_b=8, early_exit=True,
+                                          interpret=True, **kw))
+    got = wd.whole_greedy_decode_reference(*t_ops, early_exit=True, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    full = wd.whole_greedy_decode_reference(*t_ops, **kw).numpy()
+    assert not (got.numpy() == full).all()     # a tile stopped early
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_k1_dual_twin_matches_pallas(cell):
+    """dual=True gives the production tokens (test_pallas_fused.py:224)."""
+    cfg, params, enc = _setup(cell, seed=4, peaky=False)
+    j_ops, t_ops = _operands(params, enc)
+    kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell)
+    want = whole_greedy_decode(*j_ops, block_b=B, dual=True, interpret=True,
+                               **kw)
+    got = wd.whole_greedy_decode(*t_ops, dual=True, **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), wd.whole_greedy_decode_reference(*t_ops, **kw).numpy())
+
+
+ABLATE_PARTS = ["emb", "attn", "score1", "fma", "proj", "nativeargmax",
+                "argmax"]
+
+
+@pytest.mark.parametrize("part", ABLATE_PARTS)
+def test_k1_ablate_twin_matches_pallas(part):
+    """Each profiling stub against JAX ``ablate=`` on the same weights;
+    "argmax" feeds int(max logit), often outside [0, V), back in."""
+    cfg, params, enc = _setup("GRU", seed=12)
+    j_ops, t_ops = _operands(params, enc)
+    kw = dict(emb_size=E, max_len=MAX_LEN, cell_type="GRU")
+    want = whole_greedy_decode(*j_ops, block_b=8, ablate=part,
+                               interpret=True, **kw)
+    got = wd.whole_greedy_decode(*t_ops, ablate=part, **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_k1_ablate_lstm_combined_parts_match_pallas():
+    """The twin takes comma-joined parts, tested in _make_step's order."""
+    cfg, params, enc = _setup("LSTM", seed=13)
+    j_ops, t_ops = _operands(params, enc)
+    kw = dict(emb_size=E, max_len=MAX_LEN, cell_type="LSTM")
+    for ablate in ("emb,fma", "score1,argmax", "attn,proj"):
+        want = whole_greedy_decode(*j_ops, block_b=8, ablate=ablate,
+                                   interpret=True, **kw)
+        got = wd.whole_greedy_decode_reference(*t_ops, ablate=ablate, **kw)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", [3, 7])
+def test_k1_nativeargmax_equals_production(seed):
+    """The int-key argmax and the plain first-max argmax pick the same
+    tokens (test_pallas_fused.py:173-195)."""
+    cfg, params, enc = _setup("GRU", seed=seed, peaky=False)
+    _, t_ops = _operands(params, enc)
+    kw = dict(emb_size=E, max_len=MAX_LEN)
+    np.testing.assert_array_equal(
+        wd.whole_greedy_decode(*t_ops, ablate="nativeargmax", **kw).numpy(),
+        wd.whole_greedy_decode(*t_ops, **kw).numpy())
+
+
+@pytest.mark.parametrize("other", [dict(early_exit=True),
+                                   dict(ablate="emb")])
+def test_dual_refuses_early_exit_and_ablate(other):
+    _, params, enc = _setup("GRU", seed=14)
+    _, t_ops = _operands(params, enc)
+    for fn in (wd.whole_greedy_decode, wd.whole_greedy_decode_reference):
+        with pytest.raises(ValueError, match="dual=True does not support"):
+            fn(*t_ops, emb_size=E, max_len=MAX_LEN, dual=True, **other)
+
+
+def test_variant_bits_follow_the_substring_order():
+    """The kernel variant a wrapper asks for: "nativeargmax" before
+    "argmax", "attn" before "score1" and "fma"; combinations are not
+    built for the card."""
+    assert wd._variant(False, False, "") == 0
+    assert wd._variant(True, False, "") == wd._EARLY_EXIT
+    assert wd._variant(False, True, "") == wd._DUAL
+    assert wd._ablated("nativeargmax") == (False, 0, 2)
+    assert wd._ablated("argmax") == (False, 0, 3)
+    assert wd._ablated("attn,score1") == (False, 1, 0)
+    assert wd._ablated("emb,proj") == (True, 0, 1)
+    built = {wd._variant(False, False, p) for p in ABLATE_PARTS}
+    assert built <= wd._BUILT_VARIANTS and len(built) == len(ABLATE_PARTS)
+    assert wd._variant(False, False, "emb,proj") not in wd._BUILT_VARIANTS
+    assert wd._variant_name(False, False, "fma") == "ablate=fma"
+    assert wd._variant_name(False, False, "") == ""
+
+
+@pytest.mark.parametrize("lift", [45.0, -45.0])
+def test_k1_ablate_argmax_out_of_range_matches_pallas(lift):
+    """Logits lifted past V (or below 0): every "argmax" token after the
+    first step lies outside [0, V) and reads a zero embedding row."""
+    cfg, params, enc = _setup("LSTM", seed=15)
+    params = dict(params, out_b=params["out_b"] + lift)
+    j_ops, t_ops = _operands(params, enc)
+    kw = dict(emb_size=E, max_len=MAX_LEN, cell_type="LSTM")
+    want = np.asarray(whole_greedy_decode(*j_ops, block_b=8, ablate="argmax",
+                                          interpret=True, **kw))
+    got = wd.whole_greedy_decode_reference(*t_ops, ablate="argmax", **kw)
+    assert ((want < 0) | (want >= V)).all()
+    np.testing.assert_array_equal(got.numpy(), want)
