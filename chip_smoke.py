@@ -1,6 +1,9 @@
 """Smoke run of the PyTorch/CUDA port (recnet_tpu_torch) on one Hopper card.
 
-    python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py                        # from the repository root
+    python3 chip_smoke.py --compare <other tree> # K1, K2, K3 of two trees
+    python3 chip_smoke.py --read-rates           # the card's L2 and HBM
+                                                 # read rates
 
 Phases, one line or more each; any failure exits non-zero before a result:
 
@@ -8,27 +11,38 @@ Phases, one line or more each; any failure exits non-zero before a result:
 2. build: nvcc builds the port's CUDA kernels from this checkout, one
    process per source, all at once;
 3. kernels: K1 (whole decode) and K2 (decode segment) against their plain
-   PyTorch twins at the flagship width, GRU and LSTM, f32 and bf16; K3
-   (projection + top-k) against its twin at the flagship beam's shapes;
-   K4 (fused attention + GRU step) against its twin, f32 and bf16, frame
-   chunks 1 and 7; the K5 variants of K1: ``dual`` bit-equal to K1, each
+   PyTorch twins at the flagship width, GRU and LSTM, f32 (CUDA-core
+   body) and bf16 (tensor-core body: tokens on BF16_TOKENS, h and c on
+   the rows that agree within 2 bf16 ulps, its token agreement beside the
+   CUDA-core body's at B=256 and 1024); K3 (projection + top-k) against
+   its twin at the flagship beam's shapes; K4 (fused attention + GRU
+   step) against its twin, f32 and bf16, frame chunks 1 and 7; the K5
+   variants of K1: ``dual`` bit-equal to K1's CUDA-core step, each
    ``ablate`` part against its twin;
 4. main paths, each with the launch counts set to 0 before it and read
    after it: greedy requests through the port's HTTP handler behind the
    MicroBatcher, from a flagship-width bf16 Captioner (use_pallas,
-   greedy_segment=4), for K1 and K2; beam-5 requests mixed with greedy
+   greedy_segment=4), for K1 and K2, the bf16 captions held word by word
+   against the twin's; beam-5 requests mixed with greedy
    ones through the same front, for K3; ``evaluation.evaluate`` with beam
    5 and greedy on an in-memory score corpus, for K3 and K2;
    ``decoding.greedy_decode_pallas`` at B=1024, for K4 (T launches);
    ``decoding.greedy_decode_whole(early_exit=True)`` on PAD-timed
-   weights (blocks stop at different steps), for K5's early exit;
-5. times: captions/s at B=1024 for the kernel and plain greedy paths
-   (K1, K2, the K4 loop), K3 and its twin at N=5120, K4 and its twin per
-   step, the early exit and dual against K1, and beam captions/s for the
-   K3 and plain routes;
-6. ablate: the profiling sweep of K1 at B=1024 bf16 (production, each
-   ablated part, dual), each part's cost as full - variant and its tokens
-   against its twin's.
+   weights (blocks stop at different steps), for K5's early exit, held
+   against the full K1 and, in bf16, against its twin;
+5. times: each kernel at B=1024 (K3 at N=5120) beside its plain twin,
+   its library route where one PyTorch route computes the same function
+   (plain ``greedy_decode`` for K1/K2, the cuBLAS product and the top-K
+   rounds for K3) and its bound (operations at the bf16 peak or bytes at
+   the device-memory rate); captions/s of the greedy and beam paths;
+6. ablate: the profiling sweep of K1's CUDA-core body at B=1024 bf16
+   (its production step, each ablated part, dual), each part's cost as
+   full - variant and its tokens against its twin's.
+
+``--compare`` times K1, K2 (seg_len 4) and K3 with their library routes
+for this tree and another (an unpacked parent, say) in turns: this,
+other, other, this, each in a process of its own. ``--read-rates`` times
+a small read kernel over an L2-resident buffer and over device memory.
 
 The weights are random, drawn from a numpy seed. The last three lines are
 the card's name and power limit, one JSON line listing every kernel, and
@@ -39,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -58,7 +73,7 @@ VOCAB = 4188           # the flagship vocabulary size (MSVD, min_count 5)
 CHECK_B = 256          # batch of the kernel-against-twin checks
 TIME_B = 1024          # batch of the timed decodes
 F32_ROWS = 0.99        # share of rows whose f32 tokens must equal the twin's
-BF16_ROWS = 0.90       # sanity bound on the bf16 token agreement
+BF16_TOKENS = 0.98     # share of bf16 tokens that must equal the twin's
 H_RTOL, H_ATOL = 1e-4, 1e-5   # f32 h against the twin (sum-order noise)
 # the variant whose captions end lifts out_b[<EOS>] until <EOS> would win
 # about this share of the later steps of a short plain-twin probe, so that
@@ -80,6 +95,13 @@ ABLATE_PARTS = ("emb", "attn", "score1", "fma", "proj", "nativeargmax",
 # the flagship's T = 31, so that blocks stop over a wide span of steps
 PAD_TIMER = (0.97, 0.9, 40)
 EARLY_STOP_BLOCKS = 0.5        # share of blocks the early exit must stop
+# the least time of a kernel's work: its operations at the bf16 tensor-core
+# peak or its bytes (each input read once, each output written once) at
+# the device-memory rate, whichever is longer (H100 SXM data sheet, dense)
+PEAK_BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = 3.35e12
+L2_PROBE_BYTES = 12 * 2 ** 20  # --read-rates: about one block-step of K1's
+                               # weights
 
 
 class SmokeFailure(RuntimeError):
@@ -132,9 +154,14 @@ def build_kernels():
                  f"{', '.join(p.name for p in paths)} in "
                  f"{time.perf_counter() - t0:.2f} s")
     for path in paths:
+        kernel = ""
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{path.stem}: {line.strip()}")
+            entry = re.search(r"entry function .*?\d([a-z_]+_kernel)"
+                              r"(I[A-Za-z0-9_]*?EE)?", line)
+            if entry:     # the mangled name: kernel and template arguments
+                kernel = entry.group(1) + (entry.group(2) or "")
+            elif "registers" in line or "spill" in line:
+                log("build", f"{path.stem} {kernel}: {line.strip()}")
 
 
 # --------------------------------------------------------------------------
@@ -176,6 +203,12 @@ def first_divergence_margin(wd, ops, row, t, sos_token, kw):
 
 
 def kernels_against_twins(torch, tc, cfg_base):
+    """K1 and K2 against their twins, GRU and LSTM: f32 (CUDA-core body)
+    tokens on F32_ROWS of rows and h within H_RTOL/H_ATOL on them; bf16
+    (tensor-core body, the timed one) tokens on BF16_TOKENS and h and c
+    within BF16_RTOL/BF16_ATOL on the rows that agree. Returns the bf16
+    max |h - h_twin| (and |c - c_twin|) of K1 (T steps from <SOS>) and of
+    K2 (seg_len 1 and 4)."""
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     T, L = tc.caption_max_len + 1, tc.encoder_output_len
     errs = {"whole_greedy_decode": 0.0, "whole_greedy_decode_segment": 0.0}
@@ -206,8 +239,9 @@ def kernels_against_twins(torch, tc, cfg_base):
                 check(share >= F32_ROWS, f"K1 {cell} f32 rows equal {share} "
                                          f"< {F32_ROWS}")
             else:
-                check(tok_share >= BF16_ROWS,
-                      f"K1 {cell} bf16 tokens equal {tok_share} < {BF16_ROWS}")
+                check(tok_share >= BF16_TOKENS, f"K1 {cell} bf16 tokens equal "
+                                                f"{tok_share} < {BF16_TOKENS}")
+                bf16_agreement(torch, wd, cfg, T, L, got, want)
             # K2, two chained segments per length, and T steps from <SOS>
             # (K1's launch) for the h error
             B, H = CHECK_B, cfg.hidden_size
@@ -216,19 +250,30 @@ def kernels_against_twins(torch, tc, cfg_base):
                 sos = torch.full((B, 1), cfg.sos_token, dtype=torch.int32,
                                  device=DEVICE)
                 k_state, t_state = (z, z, sos), (z, z, sos)
+                k_toks, t_toks = [], []
                 for _ in range(1 if seg_len == T else 2):
                     k_out = wd.whole_greedy_decode_segment(
                         *ops, *k_state, seg_len=seg_len, **kw)
                     t_out = wd.whole_greedy_decode_segment_reference(
                         *ops, *t_state, seg_len=seg_len, **kw)
                     k_state, t_state = k_out[1:], t_out[1:]
+                    k_toks.append(k_out[0])
+                    t_toks.append(t_out[0])
                 torch.cuda.synchronize()
-                rows = (k_out[0] == t_out[0]).all(dim=1)
-                dh = (k_out[1].float() - t_out[1].float()).abs()[rows]
-                err = float(dh.max()) if len(dh) else float("nan")
+                k_toks, t_toks = torch.cat(k_toks, 1), torch.cat(t_toks, 1)
+                rows = (k_toks == t_toks).all(dim=1)
+                tok_share = (k_toks == t_toks).float().mean().item()
+                # h, and c for the LSTM (a GRU carries no c)
+                states = [(k_out[i], t_out[i], "hc"[i - 1])
+                          for i in ((1, 2) if cell == "LSTM" else (1,))]
+                err = max((float((a.float() - b.float()).abs()[rows].max())
+                           if bool(rows.any()) else float("nan"))
+                          for a, b, _ in states)
                 log("kernels", f"K2 {cell} {dname} seg_len={seg_len}: rows "
-                               f"equal {rows.float().mean().item():.4f}, max "
-                               f"|h - h_twin| on them {err:.3e}")
+                               f"equal {rows.float().mean().item():.4f}, "
+                               f"tokens equal {tok_share:.4f}, max |state - "
+                               f"twin| on those rows {err:.3e} "
+                               f"({'h, c' if cell == 'LSTM' else 'h'})")
                 if dtype == torch.float32:
                     check(rows.float().mean().item() >= F32_ROWS,
                           f"K2 {cell} f32 seg_len={seg_len} rows disagree")
@@ -236,10 +281,44 @@ def kernels_against_twins(torch, tc, cfg_base):
                                          rtol=H_RTOL, atol=H_ATOL),
                           f"K2 {cell} f32 h off the twin beyond rtol "
                           f"{H_RTOL} atol {H_ATOL}")
-                    name = ("whole_greedy_decode" if seg_len == T
-                            else "whole_greedy_decode_segment")
-                    errs[name] = max(errs[name], err)
+                    continue
+                check(tok_share >= BF16_TOKENS,
+                      f"K2 {cell} bf16 seg_len={seg_len}: tokens equal "
+                      f"{tok_share} < {BF16_TOKENS}")
+                for a, b, what in states:
+                    check(torch.allclose(a[rows].float(), b[rows].float(),
+                                         rtol=BF16_RTOL, atol=BF16_ATOL),
+                          f"K2 {cell} bf16 seg_len={seg_len}: {what} off the "
+                          f"twin beyond rtol {BF16_RTOL} atol {BF16_ATOL}")
+                name = ("whole_greedy_decode" if seg_len == T
+                        else "whole_greedy_decode_segment")
+                errs[name] = max(errs[name], err)
     return errs
+
+
+def bf16_agreement(torch, wd, cfg, T, L, got, want):
+    """The bf16 token agreement of the tensor-core body (``got``) with the
+    twin (``want``), beside the CUDA-core body's on the same inputs, at
+    CHECK_B and again at TIME_B rows."""
+    kw = dict(emb_size=cfg.embedding_size, cell_type=cfg.cell_type,
+              max_len=T - 1)
+    for B in (CHECK_B, TIME_B):
+        ops = decode_operands(seeded_params(cfg, torch.bfloat16),
+                              seeded_features(torch, B, L, cfg,
+                                              torch.bfloat16, 1))
+        if B != CHECK_B:
+            got = wd.whole_greedy_decode(*ops, **kw)
+            want = wd.whole_greedy_decode_reference(*ops, **kw)
+        cores = wd.whole_greedy_decode(*ops, cuda_cores=True, **kw)
+        torch.cuda.synchronize()
+        share = lambda a, b: (a == b).float().mean().item()
+        log("kernels", f"  K1 {cfg.cell_type} bf16 B={B}: tokens equal to "
+                       f"the twin's: tensor-core body {share(got, want):.4f}, "
+                       f"CUDA-core body {share(cores, want):.4f}; the two "
+                       f"bodies agree on {share(got, cores):.4f}")
+        check(share(got, want) >= BF16_TOKENS,
+              f"K1 {cfg.cell_type} bf16 B={B} tokens equal "
+              f"{share(got, want)} < {BF16_TOKENS}")
 
 
 def topk_margin(out, w, b, row, k):
@@ -369,12 +448,12 @@ def variants_against_k1(torch, tc, cfg_base):
             kw = dict(emb_size=cfg.embedding_size, max_len=T - 1,
                       cell_type=cell)
             dual = wd.whole_greedy_decode(*ops, dual=True, **kw)
-            full = wd.whole_greedy_decode(*ops, **kw)
+            full = wd.whole_greedy_decode(*ops, cuda_cores=True, **kw)
             torch.cuda.synchronize()
             rows = (dual == full).all(dim=1).float().mean().item()
             dname = "f32" if dtype == torch.float32 else "bf16"
             log("kernels", f"K5 dual {cell} {dname} B={CHECK_B}: rows equal "
-                           f"to K1 {rows:.4f}")
+                           f"to K1 on the CUDA-core body {rows:.4f}")
             check(rows == 1.0, f"K5 dual {cell} {dname} differs from K1")
             errs["dual"] = max(errs.get("dual", 0.0),
                                float((dual - full).abs().max()))
@@ -525,6 +604,17 @@ def eos_biased(torch, tc, cfg, params):
     return out
 
 
+def word_share(got, want):
+    """Share of word positions at which two lists of captions agree; the
+    longer caption of each pair sets its positions."""
+    same = total = 0
+    for g, w in zip(got, want):
+        g, w = g.split(), w.split()
+        same += sum(a == b for a, b in zip(g, w))
+        total += max(len(g), len(w))
+    return same / max(total, 1)
+
+
 def main_path(torch, tc, vocab, cfg, params, eos_params):
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     from recnet_tpu_torch.serving import Captioner
@@ -575,8 +665,24 @@ def main_path(torch, tc, vocab, cfg, params, eos_params):
     log("main", f"sample captions: {caps_k2[0][0][:80]!r} | "
                 f"{caps_eos[1][0][:80]!r}")
 
-    # f32 on the card: kernel path against the plain twin, per video
+    # bf16: the served K2 captions of the largest request (the tensor-core
+    # body) against the twin's on the same prepared features, word by word
     from recnet_tpu_torch.decoding import tokens_to_sentences
+    kw = dict(emb_size=cfg.embedding_size, max_len=tc.caption_max_len,
+              sos=cfg.sos_token, cell_type=cfg.cell_type)
+    videos = torch.from_numpy(cap_k2.prepare(requests[2])).to(
+        DEVICE, torch.bfloat16)
+    twin = wd.whole_greedy_decode_reference(
+        *decode_operands(cap_k2.params, videos), **kw)
+    want = tokens_to_sentences(twin.T.cpu().numpy(), vocab.idx2word,
+                               cfg.eos_token)
+    share = word_share(caps_k2[2], want)
+    log("main", f"bf16 served captions: words equal to the twin's at "
+                f"{share:.4f} of positions ({len(want)} videos)")
+    check(share >= BF16_TOKENS, f"bf16 served captions: words equal to the "
+                                f"twin's at {share} < {BF16_TOKENS}")
+
+    # f32 on the card: kernel path against the plain twin, per video
     cap_f32 = Captioner(tc, vocab, eos_params, dtype="float32",
                         device=DEVICE, use_pallas=True,
                         greedy_segment=tc.greedy_segment)
@@ -585,9 +691,7 @@ def main_path(torch, tc, vocab, cfg, params, eos_params):
     videos = torch.from_numpy(cap_f32.prepare(feats)).to(DEVICE,
                                                          torch.float32)
     ops = decode_operands(cap_f32.params, videos)
-    twin = wd.whole_greedy_decode_reference(
-        *ops, emb_size=cfg.embedding_size, max_len=tc.caption_max_len,
-        sos=cfg.sos_token, cell_type=cfg.cell_type)
+    twin = wd.whole_greedy_decode_reference(*ops, **kw)
     want = tokens_to_sentences(twin.T.cpu().numpy(), vocab.idx2word,
                                cfg.eos_token)
     share = float(np.mean([g == w for g, w in zip(got, want)]))
@@ -800,11 +904,12 @@ def block_stops(torch, full, what):
 
 def early_exit_path(torch, tc, cfg, pad_np):
     """K5's early exit on the PAD-timed weights: the kernel against its
-    twin (f32, B = CHECK_B); then ``decoding.greedy_decode_whole(
-    early_exit=True)`` at B = TIME_B bf16, with its launches counted,
-    against the full K1 decode. Each run first checks that its blocks stop
-    at different steps (``block_stops``). Returns (launches, max |token -
-    twin token|)."""
+    twin (f32, B = CHECK_B, the CUDA-core body); then ``decoding.
+    greedy_decode_whole(early_exit=True)`` at B = TIME_B bf16 (the
+    tensor-core body), with its launches counted, against the full K1
+    decode and against its twin (BF16_TOKENS of tokens). Each full decode
+    first shows that its blocks stop at different steps (``block_stops``).
+    Returns (launches, the bf16 run's max |token - twin token|)."""
     from recnet_tpu_torch import decoding
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     from recnet_tpu_torch.weights import params_from_jax
@@ -821,7 +926,6 @@ def early_exit_path(torch, tc, cfg, pad_np):
     torch.cuda.synchronize()
     block_stops(torch, twin_full, f"full twin f32 B={CHECK_B}")
     rows = (got == want).all(dim=1).float().mean().item()
-    err = float((got - want).abs().max())
     log("early", f"early_exit f32 B={CHECK_B}: rows equal to the twin "
                  f"{rows:.4f}")
     check(rows >= F32_ROWS, f"early_exit f32 rows equal {rows} < {F32_ROWS}")
@@ -850,7 +954,15 @@ def early_exit_path(torch, tc, cfg, pad_np):
           "early exit differs from K1 on a row that does not resurrect")
     check(torch.equal(e, expected), "early exit differs from K1 on the "
                                     "steps its block ran")
-    return launches, err
+    twin = wd.whole_greedy_decode_reference(*decode_operands(params, enc),
+                                            **kw)
+    torch.cuda.synchronize()
+    share = (e == twin).float().mean().item()
+    log("early", f"early_exit bf16 B={TIME_B}: tokens equal to the twin's "
+                 f"{share:.4f}")
+    check(share >= BF16_TOKENS, f"early_exit bf16 tokens equal {share} < "
+                                f"{BF16_TOKENS}")
+    return launches, float((e - twin).abs().max())
 
 
 # --------------------------------------------------------------------------
@@ -873,6 +985,161 @@ def timed(torch, fn, reps=3):
     return start.elapsed_time(end) / reps, wall
 
 
+def bound(flops, nbytes):
+    """(bound ms, "operations" or "bytes"): the larger of the two times."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def decode_work(cfg, L, B, row_steps, n_steps, ablate="", state=False):
+    """(flops, bytes) of greedy decode steps in bf16: ``row_steps`` rows x
+    steps run (B x n_steps unless blocks stop early), each input read once
+    (weights, enc, uv; h and c when ``state``), tokens written once.
+    ``ablate`` drops the work of the stubbed part."""
+    E, F, H, A, V = (cfg.embedding_size, cfg.encoder_size, cfg.hidden_size,
+                     cfg.attn_size, cfg.vocab_size)
+    G, K = (3 if cfg.cell_type == "GRU" else 4) * H, E + F
+    attn, proj = ablate == "attn", ablate == "proj"
+    macs = ((K + H) * G + (0 if attn else H * A)
+            + (0 if attn or ablate == "score1" else L * A)
+            + (0 if attn or ablate == "fma" else L * F)
+            + (0 if proj else H * V))
+    weights = (V * E + K * G + H * G + 2 * G + (0 if attn else H * A + 2 * A)
+               + (0 if proj else H * V + V))
+    acts = ((0 if attn or ablate == "fma" else B * L * F)
+            + (0 if attn else B * L * A) + (4 * B * H if state else 0))
+    return 2 * row_steps * macs, 2 * (weights + acts) + 4 * B * n_steps
+
+
+# a read-only kernel: every thread reads 16 bytes at a time through L2
+# (ld.global.cg, no L1), `passes` times over the buffer: grid-stride
+# (disjoint reads), or with `same` every block the whole buffer in order
+READ_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void read_probe(const uint4* __restrict__ p, long long n,
+                           int passes, int same, unsigned* sink) {
+  unsigned acc = 0;
+  const long long start =
+      same ? threadIdx.x : blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride =
+      same ? blockDim.x : (long long)gridDim.x * blockDim.x;
+  for (int r = 0; r < passes; ++r) {
+#pragma unroll 8
+    for (long long i = start; i < n; i += stride) {
+      const uint4 v = __ldcg(p + i);
+      acc ^= v.x ^ v.y ^ v.z ^ v.w;
+    }
+  }
+  if (acc == 0x9e3779b9u) sink[0] = acc;   // keeps the loads
+}
+extern "C" int run_read_probe(const void* p, long long n16, int passes,
+                              int same, void* sink, int blocks, int threads,
+                              void* stream) {
+  read_probe<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)p, n16, passes, same, (unsigned*)sink);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def read_probe_library(build):
+    """READ_PROBE_SRC built with nvcc into ``build``'s directory and bound
+    with ctypes."""
+    import ctypes
+    src = build.BUILD_DIR / "read_probe.cu"
+    lib_path = src.with_suffix(".so")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(READ_PROBE_SRC)
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
+                    str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.run_read_probe.argtypes = [p, ctypes.c_longlong, i, i, p, i, i, p]
+    lib.run_read_probe.restype = i
+    return lib
+
+
+def read_rates(torch):
+    """``--read-rates``: READ_PROBE_SRC (built with nvcc into build/) over a
+    12 MiB buffer that stays in the 50 MB L2: disjoint reads across the
+    grid, 50 passes a launch; every one of 128 blocks (K1's grid at B =
+    1024) reading the whole buffer in the same order, as K1's blocks read
+    the weights, with 512 threads a block (K1's) and with 1024; then the
+    device-memory rate, one disjoint pass over 2 GiB. Logs GB/s of each."""
+    from recnet_tpu_torch.ops.cuda import build
+    card = card_line()
+    lib = read_probe_library(build)
+    sink = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    grid = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    for what, nbytes, passes, same, blocks, threads in (
+            ("L2, disjoint", L2_PROBE_BYTES, 50, 0, grid, 512),
+            ("L2, every block the whole buffer", L2_PROBE_BYTES, 2, 1, 128,
+             512),
+            ("L2, every block the whole buffer", L2_PROBE_BYTES, 2, 1, 128,
+             1024),
+            ("HBM, disjoint", 2 ** 31, 1, 0, grid, 512)):
+        buf = torch.ones(nbytes // 4, dtype=torch.int32, device=DEVICE)
+
+        def run():
+            err = lib.run_read_probe(buf.data_ptr(), nbytes // 16, passes,
+                                     same, sink.data_ptr(), blocks, threads,
+                                     stream)
+            check(err == 0, f"read probe launch failed ({err})")
+        ms = timed(torch, run, reps=5)[0]
+        total = nbytes * passes * (blocks if same else 1)
+        log("rates", f"{what} ({nbytes} bytes, {blocks} x {threads} "
+                     f"threads, 16 bytes a load): {total / ms / 1e6:.1f} "
+                     f"GB/s ({card})")
+        del buf
+
+
+def core_kernels(torch, tc, cfg, params, enc):
+    """K1, K2 (seg_len 4) and K3 at the timed shapes: B = enc's rows, K3 at
+    B x BEAM rows of GRU output (the flagship beam's). Each as (kernel,
+    plain twin, library route, (flops, bytes) of its work, timing reps);
+    K3's library route is ``beam_decode``'s plain one, cuBLAS then the
+    top-K. Imports the package first on sys.path, so that ``--compare``
+    times another tree's with it."""
+    from recnet_tpu_torch import decoding
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    B, T, dtype = enc.shape[0], tc.caption_max_len + 1, enc.dtype
+    L, H = tc.encoder_output_len, cfg.hidden_size
+    ops = decode_operands(params, enc)
+    kw = dict(emb_size=cfg.embedding_size, cell_type=cfg.cell_type)
+    k1 = dict(max_len=T - 1, **kw)
+    z = torch.zeros((B, H), dtype=dtype, device=DEVICE)
+    sos = torch.full((B, 1), cfg.sos_token, dtype=torch.int32, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    hidden = torch.tanh(torch.randn((B * BEAM, H), generator=g,
+                                    device=DEVICE)).to(dtype)
+    w, b = params["out_w"], params["out_b"]
+    padded = (params.get("layouts") or {}).get("out_w_padded")
+    k3 = dict(k=BEAM, **({"padded_w": padded} if padded is not None else {}))
+    N, V = B * BEAM, cfg.vocab_size
+    return {
+        "whole_greedy_decode": (
+            lambda: wd.whole_greedy_decode(*ops, **k1),
+            lambda: wd.whole_greedy_decode_reference(*ops, **k1),
+            lambda: decoding.greedy_decode(params, cfg, enc, T - 1),
+            decode_work(cfg, L, B, B * T, T), 3),
+        "whole_greedy_decode_segment": (
+            lambda: wd.whole_greedy_decode_segment(*ops, z, z, sos,
+                                                   seg_len=4, **kw),
+            lambda: wd.whole_greedy_decode_segment_reference(
+                *ops, z, z, sos, seg_len=4, **kw),
+            lambda: decoding.greedy_decode(params, cfg, enc, 3),
+            decode_work(cfg, L, B, B * 4, 4, state=True), 3),
+        "outproj_topk": (
+            lambda: tp.outproj_topk(hidden, w, b, **k3),
+            lambda: tp.outproj_topk_reference(hidden, w, b, k=BEAM),
+            lambda: tp.topk_rounds(hidden @ w + b, BEAM),
+            (2 * N * H * V, 2 * (N * H + H * V + V) + 8 * N * BEAM), 10),
+    }
+
+
 def times(torch, tc, cfg, params_np, eos_np, pad_np):
     from recnet_tpu_torch import decoding
     from recnet_tpu_torch.ops.attention import precompute_uv
@@ -887,61 +1154,74 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
     enc = seeded_features(torch, B, tc.encoder_output_len, cfg, dtype, 3)
     ops = decode_operands(params, enc)
     kw = dict(emb_size=cfg.embedding_size, cell_type=cfg.cell_type)
-    z = torch.zeros((B, cfg.hidden_size), dtype=dtype, device=DEVICE)
-    sos = torch.full((B, 1), cfg.sos_token, dtype=torch.int32, device=DEVICE)
     card = card_line()
-    kernel_ms = {
-        "whole_greedy_decode": (
-            timed(torch, lambda: wd.whole_greedy_decode(
-                *ops, max_len=T - 1, **kw))[0],
-            timed(torch, lambda: wd.whole_greedy_decode_reference(
-                *ops, max_len=T - 1, **kw))[0]),
-        "whole_greedy_decode_segment": (
-            timed(torch, lambda: wd.whole_greedy_decode_segment(
-                *ops, z, z, sos, seg_len=4, **kw))[0],
-            timed(torch, lambda: wd.whole_greedy_decode_segment_reference(
-                *ops, z, z, sos, seg_len=4, **kw))[0]),
-    }
-    # K3 at the flagship beam's shapes: B x beam rows of GRU output
-    from recnet_tpu_torch.ops.cuda import topk_proj as tp
-    g = torch.Generator(device=DEVICE).manual_seed(6)
-    hidden = torch.tanh(torch.randn((B * BEAM, cfg.hidden_size),
-                                    generator=g, device=DEVICE)).to(dtype)
-    w, b = params["out_w"], params["out_b"]
-    kernel_ms["outproj_topk"] = (
-        timed(torch, lambda: tp.outproj_topk(hidden, w, b, k=BEAM), reps=10)[0],
-        timed(torch, lambda: tp.outproj_topk_reference(hidden, w, b, k=BEAM),
-              reps=10)[0])
-    # K4 per step; the K5 early exit on the PAD-timed weights and dual
+    L, E, H = tc.encoder_output_len, cfg.embedding_size, cfg.hidden_size
+    N = B * BEAM
+    entries = {}
+
+    def entry(name, kernel, plain, library, work, reps=3):
+        """Time the kernel, its plain twin and the library route (None
+        where there is none) on the same inputs; bound from ``work``."""
+        ms, plain_ms = (timed(torch, fn, reps)[0] for fn in (kernel, plain))
+        bound_ms, bound_by = bound(*work)
+        entries[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=timed(torch, library, reps)[0] if library else None)
+
+    for name, args in core_kernels(torch, tc, cfg, params, enc).items():
+        entry(name, *args)
+    k1 = dict(max_len=T - 1, **kw)
+    k1_twin = lambda: wd.whole_greedy_decode_reference(*ops, **k1)
+    k1_library = lambda: decoding.greedy_decode(params, cfg, enc, T - 1)
+    k1_work = decode_work(cfg, L, B, B * T, T)
+    # K4 per step (no library route); the K5 early exit on the PAD-timed
+    # weights, dual and the CUDA-core production step against K1
     k4 = k4_operands(torch, cfg, params, enc, 14)
-    k4kw = dict(emb_size=cfg.embedding_size)
-    kernel_ms["fused_gru_attn_step"] = (
-        timed(torch, lambda: fs.fused_gru_attn_step(*k4, **k4kw),
-              reps=10)[0],
-        timed(torch, lambda: fs.fused_gru_attn_step_reference(*k4, **k4kw),
-              reps=10)[0])
+    k4kw = dict(emb_size=E)
+    A, F, G = cfg.attn_size, cfg.encoder_size, 3 * H
+    entry("fused_gru_attn_step", lambda: fs.fused_gru_attn_step(*k4, **k4kw),
+          lambda: fs.fused_gru_attn_step_reference(*k4, **k4kw), None,
+          (2 * B * ((E + F + H) * G + H * A + L * A + L * F),
+           2 * (B * E + 2 * B * H + B * L * F + B * L * A + H * A + 2 * A
+                + (E + F + H) * G + 2 * G)), reps=10)
     pad_ops = decode_operands(pad_params, enc)
-    early = dict(max_len=T - 1, early_exit=True, **kw)
-    kernel_ms["whole_greedy_decode[early_exit]"] = (
-        timed(torch, lambda: wd.whole_greedy_decode(*pad_ops, **early))[0],
-        timed(torch, lambda: wd.whole_greedy_decode_reference(
-            *pad_ops, **early))[0])
+    early = dict(k1, early_exit=True)
+    full_pad = wd.whole_greedy_decode(*pad_ops, **k1)
+    zero = torch.ones((-(-B // 8) * 8, T), dtype=torch.bool, device=DEVICE)
+    zero[:B] = full_pad == 0
+    zero = zero.view(-1, 8, T).all(dim=1)
+    stop = torch.where(zero.any(dim=1), zero.int().argmax(dim=1) + 1, T)
+    row_steps = int((stop.clamp(max=T) * 8).sum())   # rows x steps run
+    entry("whole_greedy_decode[early_exit]",
+          lambda: wd.whole_greedy_decode(*pad_ops, **early),
+          lambda: wd.whole_greedy_decode_reference(*pad_ops, **early),
+          lambda: decoding.greedy_decode(pad_params, cfg, enc, T - 1),
+          decode_work(cfg, L, B, row_steps, T))
     full_pad_ms = timed(torch, lambda: wd.whole_greedy_decode(
-        *pad_ops, max_len=T - 1, **kw))[0]
-    kernel_ms["whole_greedy_decode[dual]"] = (
-        timed(torch, lambda: wd.whole_greedy_decode(
-            *ops, max_len=T - 1, dual=True, **kw))[0],
-        kernel_ms["whole_greedy_decode"][1])   # the twin of dual is K1's
-    for name, (ms, plain) in kernel_ms.items():
-        shape = f"N={B * BEAM} k={BEAM}" if name == "outproj_topk" else f"B={B}"
-        log("times", f"{name} {shape} bf16: kernel {ms:.3f} ms, plain twin "
-                     f"{plain:.3f} ms ({card})")
+        *pad_ops, **k1))[0]
+    entry("whole_greedy_decode[dual]",
+          lambda: wd.whole_greedy_decode(*ops, dual=True, **k1), k1_twin,
+          k1_library, k1_work)
+    entry("whole_greedy_decode[cuda_cores]",
+          lambda: wd.whole_greedy_decode(*ops, cuda_cores=True, **k1),
+          k1_twin, k1_library, k1_work)
+    for name, e in entries.items():
+        shape = f"N={N} k={BEAM}" if name == "outproj_topk" else f"B={B}"
+        library = ("none" if e["library_ms"] is None
+                   else f"{e['library_ms']:.3f} ms")
+        log("times", f"{name} {shape} bf16: kernel {e['ms']:.3f} ms, plain "
+                     f"twin {e['plain_ms']:.3f} ms, library route {library}, "
+                     f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}) "
+                     f"({card})")
     log("times", f"PAD-timed weights B={B} bf16: K1 early_exit "
-                 f"{kernel_ms['whole_greedy_decode[early_exit]'][0]:.3f} ms, "
-                 f"full K1 {full_pad_ms:.3f} ms; dual "
-                 f"{kernel_ms['whole_greedy_decode[dual]'][0]:.3f} ms against "
-                 f"production K1 {kernel_ms['whole_greedy_decode'][0]:.3f} ms "
-                 f"({card})")
+                 f"{entries['whole_greedy_decode[early_exit]']['ms']:.3f} ms "
+                 f"({row_steps} of {B * T} row-steps), full K1 "
+                 f"{full_pad_ms:.3f} ms; dual "
+                 f"{entries['whole_greedy_decode[dual]']['ms']:.3f} ms and "
+                 f"the CUDA-core step "
+                 f"{entries['whole_greedy_decode[cuda_cores]']['ms']:.3f} ms "
+                 f"against production K1 "
+                 f"{entries['whole_greedy_decode']['ms']:.3f} ms ({card})")
     paths = {
         "K2 segmented (greedy_segment=4, eos_stop)": lambda: (
             decoding.greedy_decode_whole_segmented(
@@ -975,7 +1255,7 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
                      f"{wall_ms:.3f} ms wall; {B / dev_ms * 1000:.0f} "
                      f"captions/s (events) {B / wall_ms * 1000:.0f} "
                      f"(wall) on {card}")
-    return kernel_ms
+    return entries
 
 
 # --------------------------------------------------------------------------
@@ -984,13 +1264,14 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
 
 def ablate_sweep(torch, tc, cfg, params_np):
     """The profiling sweep of benchmarks/profile_whole_decode.py on the
-    card: K1 at B = TIME_B bf16, production, each ablated part and dual,
+    card: K1 at B = TIME_B bf16 on the CUDA-core body (the body the probes
+    are variants of: its production step, each ablated part and dual),
     through the ops-level wrapper, launches counted; then each timed, the
-    production kernel first and last, and each part's cost as full -
-    variant. Each ablated part's tokens are held against its twin's
-    (BF16_ROWS of tokens equal), dual's against production's (all equal).
-    Returns (launches by variant, {variant: (ms, twin ms)}, {variant: max
-    |token - twin token|})."""
+    production step first and last, and each part's cost as full -
+    variant. The production step's and each ablated part's tokens are held
+    against their twins' (BF16_TOKENS of tokens equal), dual's against the
+    production step's (all equal). Returns (launches by variant, {variant:
+    (ms, twin ms)}, {variant: max |token - twin token|})."""
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     from recnet_tpu_torch.weights import params_from_jax
     T, dtype = tc.caption_max_len + 1, torch.bfloat16
@@ -1000,49 +1281,116 @@ def ablate_sweep(torch, tc, cfg, params_np):
     ops = decode_operands(params, enc)
     kw = dict(emb_size=cfg.embedding_size, max_len=T - 1,
               cell_type=cfg.cell_type)
-    variants = [("", {})] + [(f"ablate={p}", {"ablate": p})
-                             for p in ABLATE_PARTS] + [("dual", {"dual": True})]
+    variants = ([("cuda_cores", {"cuda_cores": True})]
+                + [(f"ablate={p}", {"ablate": p}) for p in ABLATE_PARTS]
+                + [("dual", {"dual": True})])
     reset_counts()
     tokens = {name: wd.whole_greedy_decode(*ops, **vkw, **kw)
               for name, vkw in variants}
     torch.cuda.synchronize()
     launches = dict(wd.whole_greedy_decode.variant_launches)
-    log("ablate", f"sweep launches: production "
-                  f"{wd.whole_greedy_decode.n_launches}, variants {launches}")
-    check(wd.whole_greedy_decode.n_launches == 1
-          and all(launches.get(name) == 1 for name, _ in variants[1:]),
+    log("ablate", f"sweep launches: {launches}")
+    check(all(launches.get(name) == 1 for name, _ in variants),
           "the ablation sweep missed a variant")
     ms = {name: timed(torch, lambda vkw=vkw: wd.whole_greedy_decode(
               *ops, **vkw, **kw))[0] for name, vkw in variants}
-    full = (ms[""] + timed(torch, lambda: wd.whole_greedy_decode(
-        *ops, **kw))[0]) / 2
+    full = (ms["cuda_cores"] + timed(torch, lambda: wd.whole_greedy_decode(
+        *ops, cuda_cores=True, **kw))[0]) / 2
     card = card_line()
-    log("ablate", f"K1 production B={TIME_B} bf16: {full:.3f} ms (mean of "
-                  f"the first and last timing) on {card}")
+    log("ablate", f"K1's CUDA-core production step B={TIME_B} bf16: "
+                  f"{full:.3f} ms (mean of the first and last timing) on "
+                  f"{card}")
     out, errs = {}, {}
-    for name, vkw in variants[1:]:
-        cost = full - ms[name]
-        if "ablate" in vkw:    # against its twin, on the inputs it was timed on
-            want = wd.whole_greedy_decode_reference(*ops, **vkw, **kw)
-            plain = timed(torch, lambda vkw=vkw: (
-                wd.whole_greedy_decode_reference(*ops, **vkw, **kw)))[0]
-        else:                  # dual: the production tokens
-            want, plain = tokens[""], None
+    for name, vkw in variants:
+        if name == "dual":     # the production step's tokens
+            want, plain = tokens["cuda_cores"], None
+        else:                  # against its twin, on the timed inputs
+            twin_kw = {k: v for k, v in vkw.items() if k == "ablate"}
+            want = wd.whole_greedy_decode_reference(*ops, **twin_kw, **kw)
+            plain = timed(torch, lambda twin_kw=twin_kw: (
+                wd.whole_greedy_decode_reference(*ops, **twin_kw, **kw)))[0]
         equal = (tokens[name] == want).float().mean().item()
         errs[name] = float((tokens[name] - want).abs().max())
+        cost = full - ms[name]
         log("ablate", f"{name}: {ms[name]:.3f} ms; full - variant "
-                      f"{cost:.3f} ms ({100 * cost / full:.1f}% of K1); "
+                      f"{cost:.3f} ms ({100 * cost / full:.1f}% of the step); "
                       f"tokens equal to its twin's {equal:.4f}")
-        check(equal >= (1.0 if name == "dual" else BF16_ROWS),
+        check(equal >= (1.0 if name == "dual" else BF16_TOKENS),
               f"{name} bf16 B={TIME_B}: tokens equal {equal}")
         out[name] = (ms[name], plain)
     return launches, out, errs
 
 
+# --------------------------------------------------------------------------
+# 7. two trees in turns: python3 chip_smoke.py --compare <other tree>
+# --------------------------------------------------------------------------
+
+def time_kernels(root: str) -> None:
+    """Time K1, K2 (seg_len 4) and K3 of the package under ``root`` and
+    their library routes, as ``times`` does (``core_kernels``, bf16, B =
+    TIME_B, on inputs from this script's seeds); print one JSON line. Runs
+    in a process of its own, so that ``root``'s package and its kernel
+    builds are the ones imported."""
+    import importlib.util
+    import torch
+    sys.path.insert(0, str(Path(root).resolve()))
+    from recnet_tpu_torch.models.decoder import config_from_train
+    from recnet_tpu_torch.ops.cuda import build
+    from recnet_tpu_torch.weights import params_from_jax, random_params
+    # the flagship preset through this tree's config, loaded by path
+    spec = importlib.util.spec_from_file_location(
+        "smoke_config", REPO / "recnet_tpu_torch" / "config.py")
+    config = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = config
+    spec.loader.exec_module(config)
+    tc = config.TrainConfig.from_json(FLAGSHIP.read_text())
+    cfg = config_from_train(tc, VOCAB)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    for name in ("whole_decode", "topk_proj"):
+        build.load(name)
+    built = time.perf_counter() - t0
+    params = params_from_jax(random_params(cfg, SEED), DEVICE, torch.bfloat16)
+    enc = seeded_features(torch, TIME_B, tc.encoder_output_len, cfg,
+                          torch.bfloat16, 3)
+    ms = {}
+    for name, (kernel, _, library, _, reps) in core_kernels(
+            torch, tc, cfg, params, enc).items():
+        ms[name] = timed(torch, kernel, reps)[0]
+        ms[f"{name} library"] = timed(torch, library, reps)[0]
+    print(json.dumps({"root": root, "build_s": built, "ms": ms}), flush=True)
+
+
+def compare(other: str) -> None:
+    """Time this tree and ``other`` in turns (this, other, other, this),
+    each in a process of its own; print each run's JSON line."""
+    card = card_line()
+    for root in (str(REPO), other, other, str(REPO)):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--time-kernels",
+             root], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            raise SmokeFailure(f"--time-kernels {root} exited "
+                               f"{proc.returncode}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        log("compare", f"{json.dumps(result)} ({card})")
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--time-kernels"]:
+        time_kernels(sys.argv[2])
+        return 0
     environment(torch)
+    if sys.argv[1:2] == ["--compare"]:
+        build_kernels()
+        compare(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--read-rates"]:
+        read_rates(torch)
+        return 0
     build_kernels()
     from recnet_tpu_torch.checkpoint import load_config_and_vocab
     from recnet_tpu_torch.models.decoder import config_from_train
@@ -1068,12 +1416,20 @@ def main() -> int:
     variant_launches = {}
     variant_launches["early_exit"], variant_errs["early_exit"] = (
         early_exit_path(torch, tc, cfg, pad_np))
-    kernel_ms = times(torch, tc, cfg, params_np, eos_np, pad_np)
+    entries = times(torch, tc, cfg, params_np, eos_np, pad_np)
     sweep_launches, sweep_ms, sweep_errs = ablate_sweep(torch, tc, cfg,
                                                         params_np)
     variant_launches.update(sweep_launches)
     for name, err in sweep_errs.items():
-        variant_errs[name] = max(variant_errs[name], err)
+        variant_errs[name] = max(variant_errs.get(name, 0.0), err)
+    T, L = tc.caption_max_len + 1, tc.encoder_output_len
+    for part in ABLATE_PARTS:
+        ms, plain = sweep_ms[f"ablate={part}"]
+        bound_ms, bound_by = bound(*decode_work(cfg, L, TIME_B, TIME_B * T,
+                                                T, ablate=part))
+        entries[f"whole_greedy_decode[ablate={part}]"] = dict(
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms,
+            bound_by=bound_by)
 
     pallas = "recnet_tpu/ops/pallas/"
     csrc = "recnet_tpu_torch/csrc/"
@@ -1083,21 +1439,18 @@ def main() -> int:
              "whole_decode.py:360"),
             ("outproj_topk", "topk_proj.cu", "topk_proj.py:77"),
             ("fused_gru_attn_step", "fused_step.cu", "fused_step.py:92")]
-    kernels = [{"name": name, "route": "cuda", "source": csrc + src,
-                "replaces": pallas + tpu, "launches": launches[name],
-                "max_abs_err": errs[name], "ms": kernel_ms[name][0],
-                "plain_ms": kernel_ms[name][1]}
+    rows += [(f"whole_greedy_decode[{variant}]", "whole_decode.cu",
+              "whole_decode.py:497")
+             for variant in ["early_exit", "dual", "cuda_cores"]
+             + [f"ablate={p}" for p in ABLATE_PARTS]]
+    counts = dict(launches, **{f"whole_greedy_decode[{v}]": n
+                               for v, n in variant_launches.items()})
+    errors = dict(errs, **{f"whole_greedy_decode[{v}]": e
+                           for v, e in variant_errs.items()})
+    kernels = [dict({"name": name, "route": "cuda", "source": csrc + src,
+                     "replaces": pallas + tpu, "launches": counts[name],
+                     "max_abs_err": errors[name]}, **entries[name])
                for name, src, tpu in rows]
-    for variant in ["early_exit", "dual"] + [f"ablate={p}"
-                                             for p in ABLATE_PARTS]:
-        name = f"whole_greedy_decode[{variant}]"
-        ms, plain = kernel_ms.get(name) or sweep_ms[variant]
-        kernels.append({
-            "name": name, "route": "cuda", "source": csrc + "whole_decode.cu",
-            "replaces": pallas + "whole_decode.py:497",
-            "launches": variant_launches[variant],
-            "max_abs_err": variant_errs[variant], "ms": ms,
-            "plain_ms": plain})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,8 @@ from typing import Dict
 
 import numpy as np
 
+from recnet_tpu_torch.config import TrainConfig
+from recnet_tpu_torch.data.vocab import Vocab
 from recnet_tpu_torch.models.decoder import DecoderConfig, config_from_train
 
 _ATTENTION_KEYS = ("U", "W", "b", "w")          # sorted
@@ -33,9 +35,6 @@ _LAYER_KEYS = ("b_hh", "b_ih", "w_hh", "w_ih")  # sorted
 
 def load_config_and_vocab(step_dir: str):
     """(TrainConfig, Vocab) from the step directory's JSON sidecars."""
-    from recnet_tpu.config import TrainConfig
-    from recnet_tpu.data.vocab import Vocab
-
     with open(os.path.join(step_dir, "config.json")) as f:
         tc = TrainConfig.from_json(f.read())
     with open(os.path.join(step_dir, "vocab.json")) as f:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import argparse
 
-from recnet_tpu.data.datasets import load_videos_hdf5
+from recnet_tpu_torch.data.datasets import load_videos_hdf5
 from recnet_tpu_torch.serving import Captioner
 
 

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import argparse
 
-from recnet_tpu.data import Corpus
 from recnet_tpu_torch import checkpoint as ckpt
+from recnet_tpu_torch.data import Corpus
 from recnet_tpu_torch.evaluation import evaluate
 from recnet_tpu_torch.models.decoder import config_from_train
 from recnet_tpu_torch.weights import params_from_jax

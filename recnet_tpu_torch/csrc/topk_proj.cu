@@ -14,32 +14,47 @@
 // Pallas kernel does.
 //
 // What bounds it. At the flagship beam (B = 1024, beam 5: N = 5120, H = 512,
-// V = 4188) one call is 11.0 G multiply-adds. out_w is 4.3 MB in bf16 and
-// stays in the 50 MB L2, so the work, not device memory, bounds it: on CUDA
-// cores in f32; in bf16 the tensor cores would take about 0.02 ms, so the
-// loads that feed them bound it instead. One block per 64 rows gives 80
-// blocks of 8 warps, one per SM, too few warps to hide the L2 latency of
-// each slice. The kernel writes 40 B per row (k = 5 values and columns).
-// The plain route writes the whole logit matrix every step (86 MB in f32,
-// 43 MB in bf16) and reads it again in each of the k rounds of max and mask.
+// V = 4188) one call is 11.0 G multiply-adds (21.96 GFLOP: 0.022 ms at the
+// tensor cores' bf16 peak) over 9.7 MB of operands, so the arithmetic, not
+// device memory, bounds it: on CUDA cores in f32, on the tensor cores in
+// bf16, where feeding them from L2 is the practical limit. The kernel
+// writes 40 B per row (k = 5 values and columns). The plain route writes
+// the whole logit matrix every step (86 MB in f32, 43 MB in bf16) and reads
+// it again in each of the k rounds of max and mask.
 //
-// Design. A block owns BM = 64 rows and walks the vocabulary in tiles of
-// BN = 128 columns, so no block ever holds a whole logit row and any V works.
-// For each tile it computes the 64 x 128 logits from slices of out and
-// out_w staged in shared memory: in f32 each of 256 threads owns 4 rows x 8
-// columns in registers; in bf16 each of 8 warps owns 32 rows x 32 columns
-// of mma.sync tiles, and the next 64-deep slice is loaded into registers
-// (two bf16 per 32-bit load where H and V are even) while the current one
-// is multiplied. The tile goes to shared memory, and one warp
-// per row merges it into that row's running top-k list, which is kept
-// sorted in shared memory. A column enters only if it ranks before the
-// list's k-th entry, and is inserted after every entry that ranks before
-// it. Columns are offered in ascending order, so an equal value from a later
-// column never displaces an earlier one, within a tile or across tiles. Rows
-// past N and columns past V are masked in the kernel; out and out_w are
-// read where they lie, never padded or copied. NaN logits never enter.
-// Later work: wgmma with TMA, and a split of V across blocks, since
-// N = 5120 gives only 80 blocks for the card's 132 SMs.
+// Two designs:
+//
+// * bf16 with k <= 8 (the beam path): the vocabulary splits into S
+//   contiguous ranges of 128-column tiles, one block per (64 rows, range), S
+//   chosen by the wrapper so that the blocks fill two a SM in one wave (N =
+//   5120: 80 x 3 = 240 blocks for 132 SMs; 4 ranges, 320 blocks, took a
+//   second wave and 0.32 ms against 0.26). 64-deep slices of out and out_w
+//   come through a 3-slot cp.async ring in 16-byte copies (the wrapper pads
+//   out_w's rows to a multiple of 16 bytes once per parameter set, V = 4188
+//   -> 4192 columns) into mma.sync with ldmatrix. Each thread keeps the k
+//   best of its two rows in registers, offered in ascending column order,
+//   and the 8 lists of a row are merged in shared memory at the end. Each
+//   block writes its rows' k best of its range to an (N, S, k) scratch; a
+//   second small kernel, one warp a row, merges the S sorted lists with the
+//   lower column first among equal values, as lax.top_k orders them.
+// * f32, and bf16 with k > 8: one pass, below.
+//
+// Single-pass design. A block owns BM = 64 rows and walks the vocabulary in
+// tiles of BN = 128 columns, so no block ever holds a whole logit row and
+// any V works. For each tile it computes the 64 x 128 logits from slices of
+// out and out_w staged in shared memory: in f32 each of 256 threads owns 4
+// rows x 8 columns in registers; in bf16 each of 8 warps owns 32 rows x 32
+// columns of mma.sync tiles, and the next 64-deep slice is loaded into
+// registers (two bf16 per 32-bit load where H and V are even) while the
+// current one is multiplied. The tile goes to shared memory, and one warp
+// per row merges it into that row's running top-k list, which is kept sorted
+// in shared memory. A column enters only if it ranks before the list's k-th
+// entry, and is inserted after every entry that ranks before it. Columns are
+// offered in ascending order, so an equal value from a later column never
+// displaces an earlier one, within a tile or across tiles. Rows past N and
+// columns past V are masked in the kernel; out and out_w are read where they
+// lie, never padded or copied. NaN logits never enter. Later work: wgmma
+// with TMA in place of mma.sync.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,7 +63,12 @@
 #include <cstddef>
 #include <type_traits>
 
+#include "hopper_mma.cuh"
+
 namespace {
+
+using recnet::ldmatrix_x4;
+using recnet::mma_bf16;
 
 constexpr int BM = 64;           // rows per block
 constexpr int BN = 128;          // vocab columns per tile
@@ -138,33 +158,6 @@ __device__ __forceinline__ void tile_fma(const float* __restrict__ out,
 #pragma unroll
     for (int i = 0; i < 4; ++i) l_s[(ty * 4 + i) * L_LD + c] = acc[i][j];
   }
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
-                                         const unsigned b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// the four 8x8 b16 matrices whose rows lanes 0-7, 8-15, 16-23 and 24-31
-// point at, as mma.sync fragments; TRANS delivers them transposed
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  if (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
 }
 
 // two bf16 in one register, the first in the low half
@@ -404,6 +397,259 @@ int launch(const void* out, const void* out_w, const void* out_b, float* vals,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16, k <= KR_MAX: vocab ranges split across blocks, then a merge
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int KR_MAX = 8;        // the longest list kept in registers
+constexpr int SBK = 64;          // depth of a staged slice
+constexpr int SSTAGES = 3;       // slices in the cp.async ring
+constexpr int SA_LD = SBK + 8;   // out slice [BM][SA_LD], rows padded so
+constexpr int SB_LD = BN + 8;    // that ldmatrix reads hit distinct banks
+constexpr int SA_ELEMS = BM * SA_LD;
+constexpr int SSTAGE = SA_ELEMS + SBK * SB_LD;  // bf16 elements a slot
+constexpr int LISTS = 8;         // lists a row: 4 lanes x 2 column halves
+constexpr size_t SPLIT_RING = sizeof(bf16) * SSTAGES * SSTAGE;
+constexpr size_t SPLIT_LISTS =
+    (sizeof(float) + sizeof(int)) * (size_t)BM * LISTS * KR_MAX;
+constexpr size_t SPLIT_SMEM = SPLIT_RING > SPLIT_LISTS ? SPLIT_RING
+                                                       : SPLIT_LISTS;
+static_assert(SSTAGE * sizeof(bf16) % 16 == 0, "slots stay 16-byte aligned");
+
+// Offer (v, c) to the sorted list (lv, li) of the KR best; static indices
+// only, so the list stays in registers
+template <int KR>
+__device__ __forceinline__ void offer(float (&lv)[KR], int (&li)[KR],
+                                      float v, int c) {
+  if (!ranks_before(v, c, lv[KR - 1], li[KR - 1])) return;
+  lv[KR - 1] = v;
+  li[KR - 1] = c;
+#pragma unroll
+  for (int s = KR - 1; s > 0; --s) {
+    if (ranks_before(lv[s], li[s], lv[s - 1], li[s - 1])) {
+      const float tv = lv[s];
+      const int ti = li[s];
+      lv[s] = lv[s - 1];
+      li[s] = li[s - 1];
+      lv[s - 1] = tv;
+      li[s - 1] = ti;
+    }
+  }
+}
+
+// Block (row block x, vocab range y): the k best of rows m0.. over the
+// columns of tiles [y tpr, (y + 1) tpr), written to scratch (N, S, k).
+// Warp w owns rows (w % 4) * 16.. and columns (w / 4) * 64.. of each 64 x
+// 128 tile: one m16 x eight n8 mma.sync tiles. out and out_w slices come
+// through a ring of SSTAGES slots by cp.async, every thread copying its
+// share, one __syncthreads an item. Each thread keeps the KR best of each
+// of its two rows in registers, offered in ascending column order; at the
+// end the 8 lists of a row meet in shared memory and one thread merges them.
+template <int KR>
+__global__ void __launch_bounds__(THREADS)
+topk_split_kernel(const bf16* __restrict__ out,
+                  const bf16* __restrict__ out_w,
+                  const bf16* __restrict__ out_b, float* __restrict__ scr_v,
+                  int* __restrict__ scr_i, int N, int H, int V, int ldw,
+                  int k, int S, int tpr, bool aligned_a, bool aligned_b) {
+  extern __shared__ float4 smem_f4[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_f4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp & 3) * 16, wn = (warp >> 2) * 64;
+  const int lr = (lane & 7) + (lane & 8), lc = (lane & 16) >> 1;
+  const int m0 = blockIdx.x * BM, r = blockIdx.y;
+  const int n_tiles = (V + BN - 1) / BN;
+  const int t0 = r * tpr, t1 = min(t0 + tpr, n_tiles);
+  const int col_end = min(t1 * BN, V);
+  const int nk = (H + SBK - 1) / SBK;
+  const int n_items = max(t1 - t0, 0) * nk;
+
+  float lv[2][KR];
+  int li[2][KR];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int s = 0; s < KR; ++s) {
+      lv[q][s] = -INFINITY;
+      li[q][s] = INT_MAX;
+    }
+  float acc[8][4] = {};
+
+  int i_tile = t0, i_k = 0;   // the next item to issue
+  auto issue = [&](int slot) {
+    bf16* a_s = ring + slot * SSTAGE;
+    bf16* b_s = a_s + SA_ELEMS;
+    const int k0 = i_k * SBK, v0 = i_tile * BN;
+    // out rows m0.., depth k0.., in chunks of 8
+#pragma unroll
+    for (int idx = tid; idx < BM * SBK / 8; idx += THREADS) {
+      const int row = idx / (SBK / 8), kc = idx % (SBK / 8) * 8;
+      const bool ok = m0 + row < N;
+      recnet::copy_chunk(a_s + row * SA_LD + kc,
+                         ok ? out + (size_t)(m0 + row) * H : out, k0 + kc, H,
+                         ok, aligned_a);
+    }
+    // out_w depth k0.., columns v0..
+#pragma unroll
+    for (int idx = tid; idx < SBK * BN / 8; idx += THREADS) {
+      const int kk = idx / (BN / 8), cc = idx % (BN / 8) * 8;
+      const bool ok = k0 + kk < H;
+      recnet::copy_chunk(b_s + kk * SB_LD + cc,
+                         ok ? out_w + (size_t)(k0 + kk) * ldw : out_w,
+                         v0 + cc, ldw, ok, aligned_b);
+    }
+    if (++i_k == nk) {
+      i_k = 0;
+      ++i_tile;
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < SSTAGES - 1; ++s) {
+    if (s < n_items) issue(s);
+    recnet::cp_async_commit();
+  }
+  int c_tile = t0, c_k = 0;
+  for (int i = 0; i < n_items; ++i) {
+    recnet::cp_async_wait<SSTAGES - 2>();
+    __syncthreads();   // item i landed for all; slot i - 1 was read
+    if (i + SSTAGES - 1 < n_items) issue((i + SSTAGES - 1) % SSTAGES);
+    recnet::cp_async_commit();
+    const bf16* a_s = ring + (i % SSTAGES) * SSTAGE;
+    const bf16* b_s = a_s + SA_ELEMS;
+#pragma unroll
+    for (int ks = 0; ks < SBK; ks += 16) {
+      unsigned af[4];
+      ldmatrix_x4<false>(af, a_s + (wm + lr) * SA_LD + ks + lc);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned rr[4];
+        ldmatrix_x4<true>(rr, b_s + (ks + lr) * SB_LD + wn + np * 16 + lc);
+        const unsigned b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
+        mma_bf16(acc[2 * np], af, b0);
+        mma_bf16(acc[2 * np + 1], af, b1);
+      }
+    }
+    if (++c_k < nk) continue;
+    // the tile's logits, plus the bias in f32, into the two rows' lists
+    const int v0 = c_tile * BN + wn;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = v0 + nt * 8 + 2 * t4 + (e & 1);
+        if (col < col_end)
+          offer(lv[e >> 1], li[e >> 1], acc[nt][e] + to_f(out_b[col]), col);
+        acc[nt][e] = 0.f;
+      }
+    c_k = 0;
+    ++c_tile;
+  }
+
+  __syncthreads();   // the ring becomes the lists' meeting place
+  float* mv = reinterpret_cast<float*>(smem_f4);    // [BM][LISTS][KR]
+  int* mi = reinterpret_cast<int*>(mv + BM * LISTS * KR);
+  const int list = (warp >> 2) * 4 + t4;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int at = ((wm + g + q * 8) * LISTS + list) * KR;
+#pragma unroll
+    for (int s = 0; s < KR; ++s) {
+      mv[at + s] = lv[q][s];
+      mi[at + s] = li[q][s];
+    }
+  }
+  __syncthreads();
+  if (tid < BM && m0 + tid < N) {
+    float bv[KR];
+    int bi[KR];
+#pragma unroll
+    for (int s = 0; s < KR; ++s) {
+      bv[s] = -INFINITY;
+      bi[s] = INT_MAX;
+    }
+    for (int j = 0; j < LISTS * KR; ++j)
+      offer(bv, bi, mv[tid * LISTS * KR + j], mi[tid * LISTS * KR + j]);
+    const size_t at = ((size_t)(m0 + tid) * S + r) * k;
+#pragma unroll
+    for (int s = 0; s < KR; ++s)
+      if (s < k) {
+        scr_v[at + s] = bv[s];
+        scr_i[at + s] = bi[s];
+      }
+  }
+}
+
+// One warp a row: the k best of the row's S sorted lists of k (S k <= 32),
+// ties to the lower column, so to the lower range
+__global__ void topk_merge_kernel(const float* __restrict__ scr_v,
+                                  const int* __restrict__ scr_i,
+                                  float* __restrict__ vals,
+                                  int* __restrict__ idxs, int N, int S,
+                                  int k) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
+  if (row >= N) return;   // the whole warp
+  const int n = S * k;
+  float v = -INFINITY;
+  int c = INT_MAX;
+  if (lane < n) {
+    v = scr_v[(size_t)row * n + lane];
+    c = scr_i[(size_t)row * n + lane];
+  }
+  for (int s = 0; s < k; ++s) {
+    float bv = v;
+    int bc = c, bl = lane;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(FULL, bv, off);
+      const int oc = __shfl_xor_sync(FULL, bc, off);
+      const int ol = __shfl_xor_sync(FULL, bl, off);
+      if (ranks_before(ov, oc, bv, bc)
+          || (ov == bv && oc == bc && ol < bl)) {
+        bv = ov;
+        bc = oc;
+        bl = ol;
+      }
+    }
+    if (lane == 0) {
+      vals[(size_t)row * k + s] = bv;
+      idxs[(size_t)row * k + s] = bc;
+    }
+    if (lane == bl) {
+      v = -INFINITY;
+      c = INT_MAX;
+    }
+  }
+}
+
+template <int KR>
+int launch_split(const void* out, const void* out_w, const void* out_b,
+                 float* vals, int* idxs, float* scr_v, int* scr_i, int N,
+                 int H, int V, int ldw, int k, int S, cudaStream_t stream) {
+  auto kernel = topk_split_kernel<KR>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SPLIT_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (V + BN - 1) / BN;
+  const int tpr = (n_tiles + S - 1) / S;
+  const dim3 grid((N + BM - 1) / BM, S);
+  kernel<<<grid, THREADS, SPLIT_SMEM, stream>>>(
+      (const bf16*)out, (const bf16*)out_w, (const bf16*)out_b, scr_v, scr_i,
+      N, H, V, ldw, k, S, tpr, recnet::rows_aligned16(out, H),
+      recnet::rows_aligned16(out_w, ldw));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  constexpr int ROWS = 8;   // rows (warps) of a merge block
+  topk_merge_kernel<<<(N + ROWS - 1) / ROWS, 32 * ROWS, 0, stream>>>(
+      scr_v, scr_i, vals, idxs, N, S, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -413,13 +659,31 @@ const char* recnet_topk_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Needs N, H >= 1 and 1 <= k <= min(128,
-// V). Launches on `stream` and returns cudaGetLastError() (0 on success).
+// V). splits > 0 (bf16, k <= 8, splits x k <= 32) runs the vocab split
+// into `splits` ranges, with (N, splits, k) scratch at scr_v / scr_i and
+// out_w's rows ldw >= V columns apart (columns past V are never read as
+// logits); splits = 0 the single-pass kernel, with ldw = V. Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 int recnet_topk_proj(int dtype, const void* out, const void* out_w,
                      const void* out_b, float* vals, int* idxs, int N, int H,
-                     int V, int k, void* stream) {
-  if (N < 1 || H < 1 || k < 1 || k > MAX_K || k > V)
+                     int V, int ldw, int k, float* scr_v, int* scr_i,
+                     int splits, void* stream) {
+  if (N < 1 || H < 1 || k < 1 || k > MAX_K || k > V || splits < 0
+      || ldw < V || (splits == 0 && ldw != V))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (splits > 0) {
+    if (dtype != 1 || k > KR_MAX || splits * k > 32)
+      return (int)cudaErrorInvalidValue;
+    if (k <= 2)
+      return launch_split<2>(out, out_w, out_b, vals, idxs, scr_v, scr_i, N,
+                             H, V, ldw, k, splits, s);
+    if (k <= 4)
+      return launch_split<4>(out, out_w, out_b, vals, idxs, scr_v, scr_i, N,
+                             H, V, ldw, k, splits, s);
+    return launch_split<8>(out, out_w, out_b, vals, idxs, scr_v, scr_i, N, H,
+                           V, ldw, k, splits, s);
+  }
   if (dtype == 0)
     return launch<float, false>(out, out_w, out_b, vals, idxs, N, H, V, k, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;

@@ -319,7 +319,8 @@ def beam_decode(params: Dict, cfg: dec_mod.DecoderConfig,
         """Top-K of ``out @ out_w + out_b`` per row: (values, words)."""
         if use_pallas_topk:
             vals, idxs = topk_proj.outproj_topk(
-                out, params["out_w"], params["out_b"], k=K)
+                out, params["out_w"], params["out_b"], k=K,
+                padded_w=(params.get("layouts") or {}).get("out_w_padded"))
             return torch.minimum(vals.to(dtype), sat), idxs
         return topk_proj.topk_rounds(
             torch.minimum(out @ params["out_w"] + params["out_b"], sat), K)

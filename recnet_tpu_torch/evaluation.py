@@ -2,8 +2,8 @@
 
 Port of ``recnet_tpu.evaluation``. Decodes the score batches with greedy or
 beam search on the device the decoder params lie on, truncates to the first
-``n_test`` videos, writes predictions.txt and scores with the reused
-``recnet_tpu.metrics.CaptionScorer``. ``use_pallas`` routes greedy to the
+``n_test`` videos, writes predictions.txt and scores with the port's
+copy of the JAX package's scorer (``recnet_tpu_torch.metrics``). ``use_pallas`` routes greedy to the
 whole-decode kernels (K1, or K2 with ``greedy_segment``) and beam to the
 projection + top-K kernel (K3), as in the JAX package. Multi-device
 evaluation is not ported yet (ROADMAP Queue 1, item 11).
@@ -17,11 +17,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from recnet_tpu.metrics import CaptionScorer, gts_from_pairs, res_from_dict
 from recnet_tpu_torch.decoding import (beam_decode, greedy_decode,
                                        greedy_decode_whole,
                                        greedy_decode_whole_segmented,
                                        kernels_supported, tokens_to_sentences)
+from recnet_tpu_torch.metrics import (CaptionScorer, gts_from_pairs,
+                                     res_from_dict)
 
 
 def decode_batch(decoder_params, dcfg, videos, search_method, max_len: int,
@@ -64,7 +65,7 @@ def evaluate(tc, corpus, decoder_params, dcfg, search_method,
 
     ``corpus`` needs ``score_batcher`` (an iterable of (vids, videos)
     batches), ``vocab`` and ``test_dataset.video_caption_pairs``, as
-    ``recnet_tpu.data.Corpus`` has. ``score_on_host=False`` writes the
+    ``recnet_tpu_torch.data.Corpus`` has. ``score_on_host=False`` writes the
     predictions and returns ``{}`` without scoring."""
     n_test = n_test if n_test is not None else tc.n_test
     eos = corpus.vocab.word2idx["<EOS>"]

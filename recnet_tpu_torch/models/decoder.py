@@ -136,7 +136,8 @@ def decoder_step_hoisted(params: Dict, cfg: DecoderConfig,
 class Decoder(nn.Module):
     """Holds the decoder's parameters (JAX layout) as frozen nn.Parameters.
 
-    ``params()`` returns the nested dict the functions of this module take;
+    ``params()`` returns the nested dict the functions of this module take,
+    with the kernels' weight copies (``"layouts"``) it was given;
     ``forward`` is one ``decoder_step``."""
 
     def __init__(self, cfg: DecoderConfig, params: Dict):
@@ -151,15 +152,19 @@ class Decoder(nn.Module):
             for layer in params["rnn"])
         self.out_w = frozen(params["out_w"])
         self.out_b = frozen(params["out_b"])
+        self.layouts = params.get("layouts")
 
     def params(self) -> Dict:
-        return {
+        params = {
             "embedding": self.embedding,
             "attention": dict(self.attention),
             "rnn": [dict(layer) for layer in self.rnn],
             "out_w": self.out_w,
             "out_b": self.out_b,
         }
+        if self.layouts:
+            params["layouts"] = self.layouts
+        return params
 
     def forward(self, token, state, encoder_outputs, uv):
         return decoder_step(self.params(), self.cfg, token, state,

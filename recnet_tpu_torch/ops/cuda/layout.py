@@ -1,0 +1,96 @@
+"""One-time relayouts of the weights for the tensor-core kernels' copies.
+
+``kernel_layouts`` makes them once per parameter set, where the set is
+built: ``weights.params_from_jax`` keeps them as ``params["layouts"]``
+(16.5 MB at the flagship width, bf16). They are copies of the weights at
+that time, so a caller that changes a weight makes them again. A kernel
+wrapper given params without them makes them for that one call.
+
+* ``padded_columns``: the projection + top-k kernel (K3) copies out_w's
+  rows in 16-byte pieces (cp.async), which needs every row to start
+  16-byte aligned; out_w (H, V) at the flagship V = 4188 has rows of 8376
+  bytes, so it gets zero columns up to 4192 (4.3 MB at the flagship
+  width, bf16). The kernel masks the columns past V.
+* ``gate_tiles`` and ``column_tiles``: the whole-decode kernel's
+  tensor-core body (K1/K2) streams 16 x 16 weight tiles, and in the JAX
+  input-major layout a tile's rows lie a weight row apart; these copies
+  put each tile, and each k16 step of a unit tile's gates, in one
+  contiguous block (7.8 MB for w_ih and w_hh, 4.3 MB for out_w, 0.1 MB
+  for the attention's W at the flagship width, bf16).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+_ALIGN_BYTES = 16
+# out_w columns that one projection item of K1/K2's tensor-core body reads
+# (csrc/whole_decode.cu: 16 * PT); the wrapper checks it against the kernel
+PROJ_GROUP = 48
+
+
+def padded_columns(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (rows, cols) with zero columns appended until a row is a
+    multiple of 16 bytes; ``t`` itself when it already is."""
+    per = _ALIGN_BYTES // t.element_size()
+    cols = t.shape[1]
+    if cols % per == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, -cols % per)).contiguous()
+
+
+def gate_tiles(w_ih: torch.Tensor, w_hh: torch.Tensor,
+               n_gates: int) -> torch.Tensor:
+    """The gate weights as the whole-decode kernel's tensor-core body reads
+    them: w_ih (K, G) with its rows zero-padded to a multiple of 16, then
+    w_hh (H, G), cut into 16 x 16 tiles and laid out [H / 16 unit tiles]
+    [k16 steps][gate][16 inputs][16 units], so that one k16 step of one
+    unit tile's gates is one contiguous block."""
+    K, G = w_ih.shape
+    H = G // n_gates
+    steps = -(-K // 16) + H // 16
+    w = torch.zeros((steps * 16, G), dtype=w_ih.dtype, device=w_ih.device)
+    w[:K] = w_ih
+    w[steps * 16 - H:] = w_hh
+    return (w.view(steps, 16, n_gates, H // 16, 16)
+            .permute(3, 0, 2, 1, 4).contiguous())
+
+
+def column_tiles(out_w: torch.Tensor, group: int) -> torch.Tensor:
+    """out_w (H, V) with its columns zero-padded to a multiple of
+    ``group``, cut into 16 x 16 tiles and laid out [V / group column
+    groups][H / 16 k16 steps][group / 16 tiles][16 inputs][16 units], for
+    the whole-decode kernel's projection (and, with groups of 16, its
+    W h)."""
+    H, V = out_w.shape
+    n_groups = -(-V // group)
+    w = torch.nn.functional.pad(out_w, (0, n_groups * group - V))
+    return (w.view(H // 16, 16, n_groups, group // 16, 16)
+            .permute(2, 0, 3, 1, 4).contiguous())
+
+
+def decode_tiles(params: Dict) -> Dict[str, torch.Tensor]:
+    """The tiles K1/K2's tensor-core body reads, from the first RNN layer:
+    "gates", "attn_W" (the attention's W) and "out_w"."""
+    r = params["rnn"][0]
+    n_gates = r["w_hh"].shape[1] // r["w_hh"].shape[0]
+    return {"gates": gate_tiles(r["w_ih"], r["w_hh"], n_gates),
+            "attn_W": column_tiles(params["attention"]["W"], 16),
+            "out_w": column_tiles(params["out_w"], PROJ_GROUP)}
+
+
+def kernel_layouts(params: Dict) -> Optional[Dict[str, torch.Tensor]]:
+    """The relayouts that the bf16 kernels read, for params in bf16:
+    "out_w_padded" for K3's split route and, for a one-layer decoder in
+    16-unit tiles, ``decode_tiles``. None for f32 params (the CUDA-core
+    paths read the weights as they are)."""
+    out_w = params["out_w"]
+    if out_w.dtype != torch.bfloat16:
+        return None
+    layouts = {"out_w_padded": padded_columns(out_w)}
+    H = params["attention"]["W"].shape[0]
+    if len(params["rnn"]) == 1 and H % 16 == 0:
+        layouts.update(decode_tiles(params))
+    return layouts

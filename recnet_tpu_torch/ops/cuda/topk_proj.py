@@ -12,21 +12,30 @@ kernel does not take; for CPU tensors it runs the twin,
 ``outproj_topk_reference``. The twin does not use ``torch.topk``, whose
 order among equal values is not specified: it runs k rounds of row max,
 first column of the max, mask, as the Pallas kernel does. The wrapper
-counts its launches in ``n_launches``. Unlike the Pallas wrapper there is no
-``block_b``: the kernel masks the ragged edges itself, so any N and V work.
+counts its launches in ``n_launches``, one a call. In bf16 with k <= 8 a
+call is two CUDA kernels, counted as one launch and timed as one: the
+split kernel, which writes an (N, S, k) scratch (``splits`` gives S), then
+the merge kernel over it. The split kernel reads out_w with its rows
+padded to 16 bytes (``layout.padded_columns``), which the caller makes
+once per parameter set and passes as ``padded_w``. Unlike the Pallas
+wrapper there is no ``block_b``: the kernel masks the ragged edges itself,
+so any N and V work.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from recnet_tpu_torch.ops.cuda import build
+from recnet_tpu_torch.ops.cuda.layout import padded_columns
 
 MAX_K = 128
+SPLIT_MAX_K = 8        # the split kernel keeps each row's k best in registers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROWS, _COLS = 64, 128  # the kernel's row block and vocab tile
 
 
 def _library() -> ctypes.CDLL:
@@ -34,7 +43,8 @@ def _library() -> ctypes.CDLL:
     if getattr(lib, "_recnet_bound", False):
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.recnet_topk_proj.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
+    lib.recnet_topk_proj.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p, p,
+                                     i, p]
     lib.recnet_topk_proj.restype = i
     lib.recnet_topk_error_string.argtypes = [i]
     lib.recnet_topk_error_string.restype = ctypes.c_char_p
@@ -67,6 +77,17 @@ def _check(out: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
             raise ValueError(f"{name} is {t.dtype}, out is {out.dtype}")
 
 
+def splits(N: int, V: int, k: int, dtype: torch.dtype, n_sms: int) -> int:
+    """S, the vocab ranges of the split kernel: as many (64 rows, range)
+    blocks as fit two an SM in one wave, at most one range a 128-column
+    tile and S k <= 32 for the merge warp; 0 (the single-pass kernel) for
+    f32 or k > 8."""
+    if dtype != torch.bfloat16 or k > SPLIT_MAX_K:
+        return 0
+    row_blocks, tiles = -(-N // _ROWS), -(-V // _COLS)
+    return max(1, min(2 * n_sms // row_blocks, tiles, 32 // k))
+
+
 def topk_rounds(work: torch.Tensor,
                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top k of each row of ``work`` (N, V) in ``lax.top_k`` order: k rounds
@@ -92,11 +113,14 @@ def outproj_topk_reference(out: torch.Tensor, out_w: torch.Tensor,
 
 
 def outproj_topk(out: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
-                 *, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 *, k: int, padded_w: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``top_k(out @ out_w + out_b, k)`` in one launch, without writing the
     logits. out (N, H); out_w (H, V); out_b (V,); float32 or bfloat16 and
-    1 <= k <= min(128, V). Returns (values (N, k) float32, columns (N, k)
-    int32)."""
+    1 <= k <= min(128, V). ``padded_w``: ``padded_columns(out_w)``, made
+    once per parameter set (``params["layouts"]["out_w_padded"]``); the
+    split route makes it for the call when it is None. Returns (values
+    (N, k) float32, columns (N, k) int32)."""
     _check(out, out_w, out_b, k)
     if out.device.type == "cpu":
         return outproj_topk_reference(out, out_w, out_b, k=k)
@@ -117,18 +141,35 @@ def outproj_topk(out: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
     V = out_w.shape[1]
     vals = torch.empty((N, k), dtype=torch.float32, device=out.device)
     idxs = torch.empty((N, k), dtype=torch.int32, device=out.device)
+    S = splits(N, V, k, out.dtype, torch.cuda.get_device_properties(
+        out.device).multi_processor_count)
+    scr_v = torch.empty((N, S, k), dtype=torch.float32, device=out.device)
+    scr_i = torch.empty((N, S, k), dtype=torch.int32, device=out.device)
+    if S:
+        if padded_w is None:
+            padded_w = padded_columns(out_w)
+        per = 16 // out_w.element_size()
+        if (padded_w.dtype != out_w.dtype or padded_w.device != out.device
+                or not padded_w.is_contiguous()
+                or padded_w.shape[0] != H or padded_w.shape[1] < V
+                or padded_w.shape[1] % per):
+            raise ValueError(f"padded_w {tuple(padded_w.shape)} "
+                             f"{padded_w.dtype} is not out_w {(H, V)} "
+                             f"{out_w.dtype} with rows padded to 16 bytes")
+        out_w = padded_w
     lib = _library()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = lib.recnet_topk_proj(
             _DTYPE_CODES[out.dtype], ptr(out), ptr(out_w), ptr(out_b),
-            ptr(vals), ptr(idxs), N, H, V, k, ctypes.c_void_p(stream))
+            ptr(vals), ptr(idxs), N, H, V, out_w.shape[1], k, ptr(scr_v),
+            ptr(scr_i), S, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"top-k projection kernel launch failed: "
             f"{lib.recnet_topk_error_string(err).decode()} ({err})")
-    outproj_topk.n_launches += 1
+    outproj_topk.n_launches += 1      # split + merge count as one
     return vals, idxs
 
 

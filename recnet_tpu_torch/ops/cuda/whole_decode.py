@@ -5,11 +5,15 @@ Counterpart of ``recnet_tpu/ops/pallas/whole_decode.py``:
 
 * ``whole_greedy_decode`` (K1) runs the whole T-step greedy loop in one
   launch and returns tokens (B, T); its keywords ``early_exit``, ``dual``
-  and ``ablate`` select the K5 variants of the same kernel;
+  and ``ablate`` select the K5 variants of the same kernel, and
+  ``cuda_cores`` the bf16 production step of the CUDA-core body (the
+  baseline that the ``ablate`` probes are subtracted from);
 * ``whole_greedy_decode_segment`` (K2) runs ``seg_len`` steps from a
   carried (h, c, token) and returns (tokens (B, seg_len), h, c, token).
 
-Both launch the one CUDA kernel (K1 from a zero state and <SOS>). A wrapper
+Both launch the one CUDA entry point (K1 from a zero state and <SOS>):
+bf16 production and the early exit run on its tensor-core body, f32 and
+the probes on its CUDA-core body (``csrc/whole_decode.cu``). A wrapper
 launches it for CUDA tensors and raises on anything the kernel does not
 take; for CPU tensors it runs its plain twin (``*_reference``), which
 mirrors the Pallas step's casts in plain PyTorch. Each wrapper counts its
@@ -32,13 +36,14 @@ from typing import Dict, Tuple
 import torch
 
 from recnet_tpu_torch.ops.cuda import build
+from recnet_tpu_torch.ops.cuda import layout
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _N_GATES = {"GRU": 3, "LSTM": 4}
 ROWS_PER_BLOCK = 8     # the kernel's tile: the early exit stops per block
 
 # the kernel's variant bits (csrc/whole_decode.cu)
-_EARLY_EXIT, _DUAL, _ABL_EMB = 1, 2, 4
+_EARLY_EXIT, _DUAL, _ABL_EMB, _TENSOR_CORES = 1, 2, 4, 256
 _ABL_ATTN_SHIFT, _ABL_PROJ_SHIFT = 3, 5
 _BUILT_VARIANTS = frozenset(
     [0, _EARLY_EXIT, _DUAL, _ABL_EMB]
@@ -67,16 +72,21 @@ def _variant(early_exit: bool, dual: bool, ablate: str) -> int:
             | proj << _ABL_PROJ_SHIFT)
 
 
-def _variant_name(early_exit: bool, dual: bool, ablate: str) -> str:
-    """The key of ``variant_launches``: "early_exit", "dual" or
-    "ablate=<part>"; "" is the production kernel."""
+def _variant_name(early_exit: bool, dual: bool, ablate: str,
+                  cuda_cores: bool = False) -> str:
+    """The key of ``variant_launches``: "early_exit", "dual",
+    "ablate=<part>" or "cuda_cores"; "" is the production kernel."""
     return ("early_exit" if early_exit else "dual" if dual
-            else f"ablate={ablate}" if _variant(False, False, ablate) else "")
+            else f"ablate={ablate}" if _variant(False, False, ablate)
+            else "cuda_cores" if cuda_cores else "")
 
 
-def _check_options(early_exit: bool, dual: bool, ablate: str) -> None:
+def _check_options(early_exit: bool, dual: bool, ablate: str,
+                   cuda_cores: bool = False) -> None:
     if dual and (early_exit or ablate):
         raise ValueError("dual=True does not support early_exit or ablate")
+    if cuda_cores and (early_exit or dual or ablate):
+        raise ValueError("cuda_cores=True is the production step only")
 
 
 def _library() -> ctypes.CDLL:
@@ -86,9 +96,16 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.recnet_whole_decode.argtypes = ([i, i, i] + [p] * 18 + [i] * 8
                                         + [ctypes.c_float, p])
+    lib.recnet_whole_decode_out_group.argtypes = []
+    lib.recnet_whole_decode_out_group.restype = i
     lib.recnet_whole_decode.restype = i
     lib.recnet_cuda_error_string.argtypes = [i]
     lib.recnet_cuda_error_string.restype = ctypes.c_char_p
+    if lib.recnet_whole_decode_out_group() != layout.PROJ_GROUP:
+        raise RuntimeError(
+            f"the kernel's out_w column group "
+            f"{lib.recnet_whole_decode_out_group()} != layout.PROJ_GROUP "
+            f"{layout.PROJ_GROUP}")
     lib._recnet_bound = True
     return lib
 
@@ -119,12 +136,19 @@ def check_sm90(device: torch.device, what: str) -> None:
             f"{torch.cuda.get_device_name(device)} is sm_{major}{minor}")
 
 
+def _tensor_cores(dtype: torch.dtype, H: int) -> bool:
+    """Whether the tensor-core body takes these operands: bf16 in 16-unit
+    tiles."""
+    return dtype == torch.bfloat16 and H % 16 == 0
+
+
 def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
             n_steps: int, cell_type: str, emb_scale: float,
-            variant: int = 0):
+            variant: int = 0, cuda_cores: bool = False):
     """Run the CUDA kernel for ``n_steps`` steps; returns
     (tokens (B, n_steps), h, c, token (B, 1)). Token columns a block never
-    reached (early exit) read 0."""
+    reached (early exit) read 0. Production and the early exit run on the
+    tensor-core body where it takes the operands, unless ``cuda_cores``."""
     device, dtype = enc.device, enc.dtype
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {dtype}")
@@ -158,11 +182,20 @@ def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
         raise ValueError(f"embedding width {E} != emb_size {emb_size}")
     if B < 1 or n_steps < 1:
         raise ValueError(f"empty decode: B={B}, n_steps={n_steps}")
+    lib = _library()
+    if (variant in (0, _EARLY_EXIT) and not cuda_cores
+            and _tensor_cores(dtype, H)):
+        # the body reads weight tiles: the parameter set's, made where it
+        # was built, or made for this call
+        variant |= _TENSOR_CORES
+        tiles = params.get("layouts") or {}
+        if "gates" not in tiles:
+            tiles = layout.decode_tiles(params)
+        w_ih, W, out_w = tiles["gates"], tiles["attn_W"], tiles["out_w"]
 
     tokens = torch.zeros((B, n_steps), dtype=torch.int32, device=device)
     h_out, c_out = torch.empty_like(h), torch.empty_like(c)
     tok_out = torch.empty((B, 1), dtype=torch.int32, device=device)
-    lib = _library()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -342,8 +375,8 @@ def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
                         bias2: torch.Tensor, *, emb_size: int, max_len: int,
                         sos: int = 1, cell_type: str = "GRU",
                         emb_scale: float = 1.0, early_exit: bool = False,
-                        dual: bool = False,
-                        ablate: str = "") -> torch.Tensor:
+                        dual: bool = False, ablate: str = "",
+                        cuda_cores: bool = False) -> torch.Tensor:
     """K1: the whole greedy decode in one launch.
 
     params: decoder params (embedding, attention{W,w,b}, rnn[0], out_w,
@@ -357,8 +390,14 @@ def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
     (profiling) stubs parts of the step: "emb", "attn" / "score1" / "fma",
     "proj" / "nativeargmax" / "argmax", one part at a time on the card
     (the twin takes any comma-joined set). ``dual`` with ``early_exit`` or
-    ``ablate`` raises ``ValueError``."""
-    _check_options(early_exit, dual, ablate)
+    ``ablate`` raises ``ValueError``. ``cuda_cores`` runs the production
+    step on the CUDA-core body (in bf16 the tensor-core body runs
+    otherwise; f32 always runs on CUDA cores): the same tokens up to the
+    sum order, kept as the baseline of the ``ablate`` probes. The
+    tensor-core body reads the tiles in ``params["layouts"]`` (see
+    ``layout.kernel_layouts``), or makes them for the call where they are
+    missing."""
+    _check_options(early_exit, dual, ablate, cuda_cores)
     kw = dict(emb_size=emb_size, cell_type=cell_type, emb_scale=emb_scale)
     if _device_route(enc) == "cpu":
         return whole_greedy_decode_reference(
@@ -372,8 +411,9 @@ def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
     tok = torch.full((B, 1), sos, dtype=torch.int32, device=enc.device)
     tokens = _launch(params, enc, uv, bias2, z, z, tok,
                      n_steps=max_len + 1,
-                     variant=_variant(early_exit, dual, ablate), **kw)[0]
-    name = _variant_name(early_exit, dual, ablate)
+                     variant=_variant(early_exit, dual, ablate),
+                     cuda_cores=cuda_cores, **kw)[0]
+    name = _variant_name(early_exit, dual, ablate, cuda_cores)
     if name:
         whole_greedy_decode.variant_launches[name] += 1
     else:

@@ -21,7 +21,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from recnet_tpu.data import transforms
+from recnet_tpu_torch.data import transforms
 from recnet_tpu_torch import checkpoint as ckpt
 from recnet_tpu_torch.decoding import (beam_decode, greedy_decode,
                                        greedy_decode_whole,

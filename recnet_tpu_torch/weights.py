@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from recnet_tpu_torch.models.decoder import DecoderConfig
+from recnet_tpu_torch.ops.cuda.layout import kernel_layouts
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -39,11 +40,23 @@ def _map(tree, fn):
 def params_from_jax(tree: Dict, device="cpu", dtype=None) -> Dict:
     """JAX decoder params (nested dict/list of arrays) -> nested dict of
     tensors on ``device``. Floating arrays are cast to ``dtype`` when given;
-    the values are copied bit for bit otherwise."""
+    the values are copied bit for bit otherwise. bf16 params on a CUDA card
+    also carry ``"layouts"``, the weight copies the kernels read
+    (``ops.cuda.layout.kernel_layouts``), made here once."""
     params = _map(tree, lambda x: torch.from_numpy(np.array(x, copy=True)))
     if dtype is not None:
         params = cast_params(params, dtype)
-    return _map(params, lambda t: t.to(device))
+    params = _map(params, lambda t: t.to(device))
+    layouts = (kernel_layouts(params) if torch.device(device).type == "cuda"
+               else None)
+    if layouts:
+        params["layouts"] = layouts
+    return params
+
+
+def _weights_only(params: Dict) -> Dict:
+    """``params`` without the kernels' weight copies."""
+    return {k: v for k, v in params.items() if k != "layouts"}
 
 
 def params_to_numpy(params: Dict) -> Dict:
@@ -54,13 +67,15 @@ def params_to_numpy(params: Dict) -> Dict:
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
-    return _map(params, to_numpy)
+    return _map(_weights_only(params), to_numpy)
 
 
 def cast_params(params: Dict, dtype) -> Dict:
-    """Cast every floating tensor to ``dtype`` (the serving precision)."""
+    """Cast every floating tensor to ``dtype`` (the serving precision); the
+    kernels' weight copies of the old dtype are dropped."""
     dt = torch_dtype(dtype)
-    return _map(params, lambda t: t.to(dt) if t.is_floating_point() else t)
+    return _map(_weights_only(params),
+                lambda t: t.to(dt) if t.is_floating_point() else t)
 
 
 def random_params(cfg: DecoderConfig, seed: int) -> Dict:

@@ -7,6 +7,7 @@ of K2; JAX runs its XLA greedy_decode(early_exit=True), because
 pallas_supported is False off the TPU. Equal sentences tie the port's
 kernel-path decode loop to the JAX reference semantics."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -53,7 +54,9 @@ def test_load_decoder_params_is_bit_equal(tmp_path_factory, cell, n_layers):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
     tc2, vocab2 = t_ckpt.load_config_and_vocab(d)
-    assert tc2 == tc and vocab2.word2idx == vocab.word2idx
+    # the port's own TrainConfig: equal field by field, and the same id
+    assert dataclasses.asdict(tc2) == dataclasses.asdict(tc)
+    assert tc2.id == tc.id and vocab2.word2idx == vocab.word2idx
 
 
 def test_load_decoder_params_rejects_mismatch_and_orbax(tmp_path_factory):

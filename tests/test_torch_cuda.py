@@ -139,8 +139,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 def test_captioner_kernel_path_equals_plain_path(cuda):
-    from recnet_tpu.config import TrainConfig
-    from recnet_tpu.data.vocab import Vocab
+    from recnet_tpu_torch.config import TrainConfig
+    from recnet_tpu_torch.data.vocab import Vocab
     from recnet_tpu_torch.models.decoder import config_from_train
     from recnet_tpu_torch.serving import Captioner
 
@@ -245,10 +245,12 @@ def test_beam_kernel_route_equals_plain_route(cuda, cell):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cell", ["GRU", "LSTM"])
 def test_k5_dual_is_bit_equal_to_k1(cuda, cell, dtype):
+    """dual against K1's production step on the same (CUDA-core) body;
+    bf16 K1 itself runs on the tensor cores."""
     ops = _operands(cell, cuda, dtype=dtype, seed=6)
     kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell)
     got = wd.whole_greedy_decode(*ops, dual=True, **kw)
-    want = wd.whole_greedy_decode(*ops, **kw)
+    want = wd.whole_greedy_decode(*ops, cuda_cores=True, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -319,7 +321,7 @@ def test_k5_ablate_matches_twin(cuda, part, cell, dtype):
     """f32: tokens equal the twin's. bf16: h within 2 bf16 ulps of the
     twin's can flip a near tie and the row's later tokens with it, so at
     least 90% of the tokens must be equal. ``nativeargmax`` equals the
-    production kernel exactly."""
+    production step of its body exactly."""
     ops = _operands(cell, cuda, dtype=dtype, seed=8)
     kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell)
     got = wd.whole_greedy_decode(*ops, ablate=part, **kw)
@@ -330,7 +332,8 @@ def test_k5_ablate_matches_twin(cuda, part, cell, dtype):
     else:
         assert (got == want).float().mean().item() >= 0.9
     if part == "nativeargmax":
-        assert torch.equal(got, wd.whole_greedy_decode(*ops, **kw))
+        assert torch.equal(got, wd.whole_greedy_decode(*ops, cuda_cores=True,
+                                                       **kw))
 
 
 def test_k5_rejects_combined_ablations_and_dual_options(cuda):
@@ -426,3 +429,142 @@ def test_greedy_decode_pallas_equals_plain_greedy(cuda):
     assert fs.fused_gru_attn_step.n_launches == n + MAX_LEN + 1
     assert got.n_steps == want.n_steps
     assert torch.equal(got.tokens, want.tokens)
+
+
+# the tensor-core body of K1/K2 (bf16) at the flagship embedding width, a
+# ragged k (E + F = 516) and ragged vocabularies; B = 45 leaves a block of 5
+TC_B, TC_E, TC_F, TC_H, TC_A = 45, 468, 48, 32, 16
+TC_SHARE = 0.98   # bf16 tokens equal to the twin's (2 ulps of h flip ties)
+
+
+def _tc_operands(cell, device, v, seed):
+    cfg = DecoderConfig(cell_type=cell, vocab_size=v, embedding_size=TC_E,
+                        encoder_size=TC_F, hidden_size=TC_H, attn_size=TC_A)
+    p = random_params(cfg, seed)
+    p["out_w"] = p["out_w"] * 8.0
+    params = params_from_jax(p, device, torch.bfloat16)
+    enc = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (TC_B, L, TC_F)).astype(np.float32)).to(device, torch.bfloat16)
+    r = params["rnn"][0]
+    return (params, enc, precompute_uv(params["attention"], enc),
+            torch.stack([r["b_ih"], r["b_hh"]]))
+
+
+@pytest.mark.parametrize("v", [4188, 1001])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_k1_tensor_cores_match_twin(cuda, cell, v):
+    """bf16 K1 on the tensor-core body: tokens equal the twin's and the
+    CUDA-core body's on TC_SHARE of the tokens."""
+    ops = _tc_operands(cell, cuda, v, 20)
+    kw = dict(emb_size=TC_E, max_len=MAX_LEN, cell_type=cell)
+    n = wd.whole_greedy_decode.variant_launches["cuda_cores"]
+    got = wd.whole_greedy_decode(*ops, **kw)
+    cores = wd.whole_greedy_decode(*ops, cuda_cores=True, **kw)
+    want = wd.whole_greedy_decode_reference(*ops, **kw)
+    torch.cuda.synchronize()
+    assert wd.whole_greedy_decode.variant_launches["cuda_cores"] == n + 1
+    assert bool(((got >= 0) & (got < v)).all())
+    assert (got == want).float().mean().item() >= TC_SHARE
+    assert (got == cores).float().mean().item() >= TC_SHARE
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_k2_tensor_cores_carry_the_state(cuda, cell):
+    """Two chained bf16 segments of 3 steps: h (and c) within 2 bf16 ulps
+    of the twin's, tokens equal on TC_SHARE."""
+    ops = _tc_operands(cell, cuda, 4188, 21)
+    z = torch.zeros((TC_B, TC_H), dtype=torch.bfloat16, device=cuda)
+    sos = torch.ones((TC_B, 1), dtype=torch.int32, device=cuda)
+    k_state = t_state = (z, z, sos)
+    kw = dict(emb_size=TC_E, seg_len=3, cell_type=cell)
+    for _ in range(2):
+        k_out = wd.whole_greedy_decode_segment(*ops, *k_state, **kw)
+        t_out = wd.whole_greedy_decode_segment_reference(*ops, *t_state, **kw)
+        torch.cuda.synchronize()
+        assert (k_out[0] == t_out[0]).float().mean().item() >= TC_SHARE
+        for got, want in zip(k_out[1:3], t_out[1:3]):
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2.0 ** -7, atol=1e-2)
+        k_state, t_state = k_out[1:], t_out[1:]
+
+
+def test_k1_tensor_cores_early_exit(cuda):
+    """bf16 early exit on the tensor-core body with <PAD> lifted: each
+    block's tokens equal the full decode's up to its stop, 0 after."""
+    params, enc, uv, bias2 = _tc_operands("GRU", cuda, 1001, 22)
+    params = dict(params, out_b=params["out_b"].clone())
+    params["out_b"][0] += 3.0
+    ops = (params, enc, uv, bias2)
+    kw = dict(emb_size=TC_E, max_len=MAX_LEN)
+    got = wd.whole_greedy_decode(*ops, early_exit=True, **kw)
+    full = wd.whole_greedy_decode(*ops, **kw)
+    torch.cuda.synchronize()
+    T = MAX_LEN + 1
+    padded = torch.ones((48, T), dtype=torch.bool, device=cuda)
+    padded[:TC_B] = full == 0
+    zero = padded.view(6, 8, T).all(dim=1)
+    stop = torch.where(zero.any(dim=1), zero.int().argmax(dim=1), T)
+    after = (torch.arange(T, device=cuda)[None, :]
+             > stop.repeat_interleave(8)[:TC_B, None])
+    assert torch.equal(got, torch.where(after, 0, full))
+
+
+def test_parameter_set_layouts_are_what_the_kernels_read(cuda):
+    """bf16 params on the card carry the kernels' weight copies, made once
+    in params_from_jax; K1 and K3 give the same results with them as with
+    copies made for the call, and K3 rejects a padded_w of another
+    layout."""
+    ops = _tc_operands("GRU", cuda, 4188, 23)
+    params = ops[0]
+    layouts = params["layouts"]
+    assert set(layouts) == {"out_w_padded", "gates", "attn_W", "out_w"}
+    bare = {k: v for k, v in params.items() if k != "layouts"}
+    kw = dict(emb_size=TC_E, max_len=MAX_LEN)
+    assert torch.equal(wd.whole_greedy_decode(*ops, **kw),
+                       wd.whole_greedy_decode(bare, *ops[1:], **kw))
+    out = torch.tanh(torch.randn((1001, TC_H), device=cuda)).bfloat16()
+    w, b = params["out_w"], params["out_b"]
+    got = topk_proj.outproj_topk(out, w, b, k=5,
+                                 padded_w=layouts["out_w_padded"])
+    want = topk_proj.outproj_topk(out, w, b, k=5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        topk_proj.outproj_topk(out, w, b, k=5, padded_w=w)   # 8376-byte rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k", [(1001, 1), (1001, 3), (1001, 5), (70, 5)])
+def test_k3_flagship_width_matches_twin(cuda, dtype, n, k):
+    """H = 512, V = 4188 (rows of 8376 bytes, 8-byte copies): columns equal
+    the twin's on 99% of rows, values within 1e-5 on them."""
+    out, w, b = _topk_operands(cuda, n, 512, 4188, dtype, seed=k)
+    out = torch.tanh(out.float()).to(dtype)
+    got = topk_proj.outproj_topk(out, w, b, k=k)
+    want = topk_proj.outproj_topk_reference(out, w, b, k=k)
+    torch.cuda.synchronize()
+    rows = (got[1] == want[1]).all(dim=1)
+    assert rows.float().mean().item() >= 0.99
+    torch.testing.assert_close(got[0][rows], want[0][rows], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_k3_split_boundaries_inside_equal_logits(cuda, dtype, k):
+    """Every column of out_w is e_0: each row's logits are out[:, 0],
+    exactly, across the whole vocabulary, so the split ranges' boundaries
+    fall inside a run of equal logits; the top k are columns 0..k-1, as
+    lax.top_k gives."""
+    n, h, v = 1001, 64, 4188
+    out = torch.randn((n, h), device=cuda).to(dtype)
+    w = torch.zeros((h, v), device=cuda, dtype=dtype)
+    w[0] = 1.0
+    b = torch.zeros(v, device=cuda, dtype=dtype)
+    assert topk_proj.splits(n, v, k, torch.bfloat16, 132) > 1
+    got = topk_proj.outproj_topk(out, w, b, k=k)
+    want = topk_proj.outproj_topk_reference(out, w, b, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[1], torch.arange(k, device=cuda, dtype=torch.int32)
+                       .expand(n, k))
+    assert torch.equal(got[0], want[0])

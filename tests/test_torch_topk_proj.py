@@ -94,3 +94,48 @@ def test_outproj_topk_rejects_what_the_kernel_does_not_take():
         topk_proj.outproj_topk(out, w.bfloat16(), b, k=2)
     with pytest.raises(ValueError, match="disagree"):
         topk_proj.outproj_topk(out, w[:7], b, k=2)
+
+
+@pytest.mark.parametrize("n,v,k,dtype,want", [
+    (5120, 4188, 5, torch.bfloat16, 3),   # the flagship beam: 80 x 3 blocks
+    (1001, 4188, 5, torch.bfloat16, 6),   # S k <= 32 for the merge warp
+    (1001, 4188, 1, torch.bfloat16, 16),
+    (64, 200, 3, torch.bfloat16, 2),      # at most one range a 128-column tile
+    (20000, 4188, 5, torch.bfloat16, 1),  # more row blocks than two an SM
+    (5120, 4188, 5, torch.float32, 0),    # f32: the single-pass kernel
+    (5120, 4188, 9, torch.bfloat16, 0),   # k > 8: the single-pass kernel
+])
+def test_splits_fill_one_wave(n, v, k, dtype, want):
+    assert topk_proj.splits(n, v, k, dtype, n_sms=132) == want
+
+
+def test_padded_columns_is_made_once_and_follows_changes():
+    """The padded out_w is made once per parameter set, kept with it
+    (``params["layouts"]``, through the Decoder module too) and dropped by
+    a cast; made again, it follows a change of the weight."""
+    from recnet_tpu_torch.models.decoder import Decoder, DecoderConfig
+    from recnet_tpu_torch.ops.cuda.layout import (kernel_layouts,
+                                                  padded_columns)
+    from recnet_tpu_torch.weights import (cast_params, params_from_jax,
+                                          params_to_numpy, random_params)
+    cfg = DecoderConfig(vocab_size=4188, embedding_size=8, encoder_size=8,
+                        hidden_size=16, attn_size=16)
+    params = params_from_jax(random_params(cfg, 0), "cpu", torch.bfloat16)
+    assert "layouts" not in params                # only on a card
+    params["layouts"] = kernel_layouts(params)
+    w, p = params["out_w"], params["layouts"]["out_w_padded"]
+    assert p.shape == (16, 4192) and p.is_contiguous()
+    assert torch.equal(p[:, :4188], w) and not p[:, 4188:].any()
+    assert set(params["layouts"]) == {"out_w_padded", "gates", "attn_W",
+                                      "out_w"}
+    kept = Decoder(cfg, params).params()["layouts"]
+    assert kept["out_w_padded"] is p              # kept with the set
+    assert "layouts" not in cast_params(params, "float32")
+    assert set(params_to_numpy(params)) == set(random_params(cfg, 0))
+    assert kernel_layouts(cast_params(params, "float32")) is None
+    w.add_(1.0)                                   # changed in place
+    q = padded_columns(w)
+    assert q is not p and torch.equal(q[:, :4188], w)
+    aligned = torch.randn(4, 4192).bfloat16()
+    assert padded_columns(aligned) is aligned
+    assert padded_columns(torch.randn(3, 6)).shape == (3, 8)   # f32: 4 a row

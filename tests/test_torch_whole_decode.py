@@ -19,6 +19,7 @@ from recnet_tpu.models import decoder as j_dec
 from recnet_tpu.ops import attention as j_attn
 from recnet_tpu.ops.pallas.whole_decode import (whole_greedy_decode,
                                                 whole_greedy_decode_segment)
+from recnet_tpu_torch.ops.cuda import layout
 from recnet_tpu_torch.ops.cuda import whole_decode as wd
 from recnet_tpu_torch.weights import params_from_jax
 
@@ -341,3 +342,62 @@ def test_k1_ablate_argmax_out_of_range_matches_pallas(lift):
     got = wd.whole_greedy_decode_reference(*t_ops, ablate="argmax", **kw)
     assert ((want < 0) | (want >= V)).all()
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cuda_cores_is_the_production_step_on_the_cpu():
+    """``cuda_cores`` picks the CUDA-core body on the card; on the CPU the
+    wrapper runs the production twin, and the option takes no variant."""
+    _, params, enc = _setup("LSTM", seed=15)
+    _, t_ops = _operands(params, enc)
+    kw = dict(emb_size=E, max_len=MAX_LEN, cell_type="LSTM")
+    np.testing.assert_array_equal(
+        wd.whole_greedy_decode(*t_ops, cuda_cores=True, **kw).numpy(),
+        wd.whole_greedy_decode(*t_ops, **kw).numpy())
+    assert wd._variant_name(False, False, "", True) == "cuda_cores"
+    for other in (dict(early_exit=True), dict(dual=True),
+                  dict(ablate="emb")):
+        with pytest.raises(ValueError, match="production step only"):
+            wd.whole_greedy_decode(*t_ops, cuda_cores=True, **other, **kw)
+
+
+@pytest.mark.parametrize("H_,dtype,want", [
+    (512, torch.bfloat16, True),
+    (16, torch.bfloat16, True),
+    (24, torch.bfloat16, False),     # not 16-unit tiles
+    (512, torch.float32, False),     # f32 stays on CUDA cores
+])
+def test_the_tensor_core_body_takes_bf16_in_16_unit_tiles(H_, dtype, want):
+    assert wd._tensor_cores(dtype, H_) == want
+
+
+@pytest.mark.parametrize("cell,n_gates", [("GRU", 3), ("LSTM", 4)])
+def test_gate_tiles_hold_every_weight_once_in_tile_order(cell, n_gates):
+    """Tile (u, s, g) row r unit c is w_ih[16 s + r, g H + 16 u + c] for
+    the w_ih steps (zero past K), then w_hh's rows; a copy, made again
+    after a weight changes in place."""
+    K, H_ = 37, 32
+    rng = np.random.default_rng(0)
+    w_ih = torch.from_numpy(rng.standard_normal((K, n_gates * H_)))
+    w_hh = torch.from_numpy(rng.standard_normal((H_, n_gates * H_)))
+    t = layout.gate_tiles(w_ih, w_hh, n_gates)
+    nkx = -(-K // 16)
+    assert t.shape == (H_ // 16, nkx + H_ // 16, n_gates, 16, 16)
+    for u, s_, g, r, c in [(0, 0, 0, 0, 0), (1, 2, n_gates - 1, 4, 15),
+                           (1, 1, 1, 3, 7)]:
+        assert t[u, s_, g, r, c] == w_ih[16 * s_ + r, g * H_ + 16 * u + c]
+    assert not t[:, nkx - 1, :, K - 16 * (nkx - 1):].any()   # zero rows
+    assert t[1, nkx + 1, 2, 5, 9] == w_hh[16 + 5, 2 * H_ + 16 + 9]
+    w_hh.mul_(2.0)
+    assert t[1, nkx + 1, 2, 5, 9] != w_hh[16 + 5, 2 * H_ + 16 + 9]
+    t = layout.gate_tiles(w_ih, w_hh, n_gates)
+    assert t[1, nkx + 1, 2, 5, 9] == w_hh[16 + 5, 2 * H_ + 16 + 9]
+
+
+def test_column_tiles_pad_and_group_out_w():
+    H_, V_, group = 32, 100, 48
+    out_w = torch.arange(H_ * V_, dtype=torch.float32).view(H_, V_)
+    t = layout.column_tiles(out_w, group)
+    assert t.shape == (3, 2, 3, 16, 16)
+    # group 1, k step 1, tile 2, row 3, unit 4: column 48 + 32 + 4 = 84
+    assert t[1, 1, 2, 3, 4] == out_w[16 + 3, 84]
+    assert not t[2, :, :, :, 100 - 96:].any()        # columns past V
