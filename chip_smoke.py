@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (recnet_tpu_torch) on one Hopper card.
 
     python3 chip_smoke.py                        # from the repository root
-    python3 chip_smoke.py --compare <other tree> # K1, K2, K3 of two trees
+    python3 chip_smoke.py --compare <other tree> # K1-K4 of two trees
     python3 chip_smoke.py --read-rates           # the card's L2 and HBM
                                                  # read rates
 
@@ -16,7 +16,9 @@ Phases, one line or more each; any failure exits non-zero before a result:
    the rows that agree within 2 bf16 ulps, its token agreement beside the
    CUDA-core body's at B=256 and 1024); K3 (projection + top-k) against
    its twin at the flagship beam's shapes; K4 (fused attention + GRU
-   step) against its twin, f32 and bf16, frame chunks 1 and 7; the K5
+   step) against its twin, frame chunks 1 and 7: f32 (CUDA-core body),
+   bf16 on the tensor-core route at B=256 and 1024 (and each of its two
+   kernels against its plain stage), bf16 under ``cuda_cores``; the K5
    variants of K1: ``dual`` bit-equal to K1's CUDA-core step, each
    ``ablate`` part against its twin;
 4. main paths, each with the launch counts set to 0 before it and read
@@ -26,21 +28,25 @@ Phases, one line or more each; any failure exits non-zero before a result:
    against the twin's; beam-5 requests mixed with greedy
    ones through the same front, for K3; ``evaluation.evaluate`` with beam
    5 and greedy on an in-memory score corpus, for K3 and K2;
-   ``decoding.greedy_decode_pallas`` at B=1024, for K4 (T launches);
+   ``decoding.greedy_decode_pallas`` at B=1024, for K4 (T launches, all
+   on the tensor-core route in bf16, tokens held against the same loop
+   through K4's twin);
    ``decoding.greedy_decode_whole(early_exit=True)`` on PAD-timed
    weights (blocks stop at different steps), for K5's early exit, held
    against the full K1 and, in bf16, against its twin;
 5. times: each kernel at B=1024 (K3 at N=5120) beside its plain twin,
    its library route where one PyTorch route computes the same function
    (plain ``greedy_decode`` for K1/K2, the cuBLAS product and the top-K
-   rounds for K3) and its bound (operations at the bf16 peak or bytes at
-   the device-memory rate); captions/s of the greedy and beam paths;
+   rounds for K3, the composed ``gru_attn_step_reference`` for K4) and
+   its bound (operations at the bf16 peak or bytes at the device-memory
+   rate); K4's CUDA-core body and the tensor-core route's two kernels
+   apart; captions/s of the greedy and beam paths;
 6. ablate: the profiling sweep of K1's CUDA-core body at B=1024 bf16
    (its production step, each ablated part, dual), each part's cost as
    full - variant and its tokens against its twin's.
 
-``--compare`` times K1, K2 (seg_len 4) and K3 with their library routes
-for this tree and another (an unpacked parent, say) in turns: this,
+``--compare`` times K1, K2 (seg_len 4), K3 and K4 with their library
+routes, and the K4 loop, for this tree and another (an unpacked parent, say) in turns: this,
 other, other, this, each in a process of its own. ``--read-rates`` times
 a small read kernel over an L2-resident buffer and over device memory.
 
@@ -52,6 +58,7 @@ the card's name and power limit, one JSON line listing every kernel, and
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import re
 import shutil
@@ -401,33 +408,73 @@ def k4_operands(torch, cfg, params, enc, seed):
 
 
 def fused_step_against_twin(torch, tc, cfg):
-    """K4 against its twin at B = CHECK_B, f32 and bf16, frame_chunk 1 and
-    7; returns the max |h - h_twin| in f32."""
+    """K4 against its twin, frame_chunk 1 and 7: f32 (CUDA-core body) at B
+    = CHECK_B within H_RTOL/H_ATOL; bf16 on the tensor-core route (its
+    per-body count shows it) at B = CHECK_B and TIME_B, and bf16 on the
+    CUDA-core body (``cuda_cores``) at CHECK_B, h within 2 bf16 ulps; at
+    TIME_B the route's two kernels each against its plain stage (X, then
+    h' from the same X). Returns the tensor-core route's max |h - h_twin|
+    (bf16)."""
     from recnet_tpu_torch.ops.cuda import fused_step as fs
+    L, E = tc.encoder_output_len, cfg.embedding_size
     err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, B, cores in ((torch.float32, CHECK_B, False),
+                            (torch.bfloat16, CHECK_B, False),
+                            (torch.bfloat16, TIME_B, False),
+                            (torch.bfloat16, CHECK_B, True)):
         dname = "f32" if dtype == torch.float32 else "bf16"
-        enc = seeded_features(torch, CHECK_B, tc.encoder_output_len, cfg,
-                              dtype, 11)
-        ops = k4_operands(torch, cfg, seeded_params(cfg, dtype), enc, 12)
+        params = seeded_params(cfg, dtype)
+        enc = seeded_features(torch, B, L, cfg, dtype, 11)
+        ops = k4_operands(torch, cfg, params, enc, 12)
+        tiles = (params.get("layouts") or {}).get("gates")
+        body = fs.step_body(dtype, cfg.hidden_size, cores)
         for fc in K4_CHUNKS:
-            kw = dict(emb_size=cfg.embedding_size, frame_chunk=fc)
-            got = fs.fused_gru_attn_step(*ops, **kw)
+            kw = dict(emb_size=E, frame_chunk=fc)
+            n = fs.fused_gru_attn_step.body_launches[body]
+            got = fs.fused_gru_attn_step(*ops, tiles=tiles, cuda_cores=cores,
+                                         **kw)
             want = fs.fused_gru_attn_step_reference(*ops, **kw)
             torch.cuda.synchronize()
             d = float((got.float() - want.float()).abs().max())
-            log("kernels", f"K4 {dname} B={CHECK_B} frame_chunk={fc}: max "
+            log("kernels", f"K4 {dname} {body} B={B} frame_chunk={fc}: max "
                            f"|h - h_twin| {d:.3e}")
+            check(fs.fused_gru_attn_step.body_launches[body] == n + 1,
+                  f"K4 {dname} B={B} did not run on the {body} body")
             if dtype == torch.float32:
                 check(torch.allclose(got, want, rtol=H_RTOL, atol=H_ATOL),
                       f"K4 f32 frame_chunk={fc}: h off the twin beyond rtol "
                       f"{H_RTOL} atol {H_ATOL}")
+                continue
+            check(torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
+                                 atol=BF16_ATOL),
+                  f"K4 bf16 {body} B={B} frame_chunk={fc}: h off the twin "
+                  f"beyond rtol {BF16_RTOL} atol {BF16_ATOL}")
+            if body == "tensor_cores":
                 err = max(err, d)
-            else:
-                check(torch.allclose(got.float(), want.float(),
-                                     rtol=BF16_RTOL, atol=BF16_ATOL),
-                      f"K4 bf16 frame_chunk={fc}: h off the twin beyond "
-                      f"rtol {BF16_RTOL} atol {BF16_ATOL}")
+        if dtype != torch.bfloat16 or B != TIME_B:
+            continue
+        # each kernel of the route against its plain stage
+        fc = K4_CHUNKS[-1]
+        x = fs._attention_pass(*ops[:7], frame_chunk=fc)
+        x_want = fs.attention_pass_reference(*ops[:7], frame_chunk=fc)
+        h_new = fs._gate_cell(x, tiles, ops[9])
+        h_want = fs.gate_cell_reference(x, tiles, ops[9])
+        torch.cuda.synchronize()
+        F = cfg.encoder_size
+        ctx, ctx_want = x[:, E:E + F].float(), x_want[:, E:E + F].float()
+        exact = (torch.equal(x[:, :E], x_want[:, :E])
+                 and torch.equal(x[:, E + F:], x_want[:, E + F:]))
+        log("kernels", f"K4 kernel A B={B} frame_chunk={fc}: emb, pad and h "
+                       f"columns of X {'equal' if exact else 'DIFFER'}, max "
+                       f"|ctx - plain| {float((ctx - ctx_want).abs().max()):.3e}"
+                       f"; kernel B on that X: max |h - plain| "
+                       f"{float((h_new.float() - h_want.float()).abs().max()):.3e}")
+        check(exact, "K4 kernel A: X's emb, pad or h columns differ")
+        check(torch.allclose(ctx, ctx_want, rtol=BF16_RTOL, atol=BF16_ATOL),
+              "K4 kernel A: ctx off its plain stage beyond 2 bf16 ulps")
+        check(torch.allclose(h_new.float(), h_want.float(), rtol=BF16_RTOL,
+                             atol=BF16_ATOL),
+              "K4 kernel B: h off its plain stage beyond 2 bf16 ulps")
     return err
 
 
@@ -496,6 +543,7 @@ def reset_counts():
                tp.outproj_topk, fs.fused_gru_attn_step):
         fn.n_launches = 0
     wd.whole_greedy_decode.variant_launches.clear()
+    fs.fused_gru_attn_step.body_launches.clear()
 
 
 def flagship_checkpoint_dir(tmp: Path, n_vocab: int) -> Path:
@@ -795,11 +843,40 @@ def eval_path(torch, tc, vocab, cfg, params_np, tmp: Path):
     return launches
 
 
+def pallas_loop(torch, cfg, params, enc, T, step):
+    """The loop of ``decoding.greedy_decode_pallas`` with ``step`` (K4's
+    plain twin, or K4 on a chosen body) in place of the wrapper's default,
+    on the same card tensors: tokens (T, B) of the embedding gather, the
+    step, the projection and the first-max argmax (random weights: no step
+    is all <PAD>, so nothing freezes)."""
+    from recnet_tpu_torch.ops.attention import precompute_uv
+    from recnet_tpu_torch.ops.cuda import fused_step as fs
+    a, r = params["attention"], params["rnn"][0]
+    uv = precompute_uv(a, enc)
+    bias3 = fs.pack_gru_bias(r["b_ih"], r["b_hh"])
+    h = torch.zeros((enc.shape[0], cfg.hidden_size), dtype=enc.dtype,
+                    device=enc.device)
+    token = torch.full((enc.shape[0],), cfg.sos_token, dtype=torch.int32,
+                       device=enc.device)
+    tokens = []
+    for _ in range(T):
+        emb = params["embedding"][token] * cfg.embedding_scale
+        h = step(emb, h, enc, uv, a["W"], a["w"], a["b"][None, :],
+                 r["w_ih"], r["w_hh"], bias3, emb_size=cfg.embedding_size)
+        logits = h @ params["out_w"] + params["out_b"]
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        tokens.append(token)
+    return torch.stack(tokens)
+
+
 def pallas_path(torch, tc, cfg, params_np):
     """``decoding.greedy_decode_pallas`` (the K4 loop) at B = TIME_B bf16,
-    with K4's launches counted; then its f32 tokens and n_steps at B =
-    CHECK_B against plain ``greedy_decode``'s, on the random weights, whose
-    rows run all T steps. Returns K4's launches."""
+    with K4's launches counted (all T on the tensor-core route), its tokens
+    held against the same loop through K4's twin (BF16_TOKENS), beside
+    that loop on K4's CUDA-core body; then its
+    f32 tokens and n_steps at B = CHECK_B against plain ``greedy_decode``'s,
+    on the random weights, whose rows run all T steps. Returns K4's
+    launches."""
     from recnet_tpu_torch import decoding
     from recnet_tpu_torch.ops.cuda import fused_step as fs
     from recnet_tpu_torch.weights import params_from_jax
@@ -811,13 +888,26 @@ def pallas_path(torch, tc, cfg, params_np):
     res = decoding.greedy_decode_pallas(params, cfg, enc, T - 1)
     torch.cuda.synchronize()
     launches = fs.fused_gru_attn_step.n_launches
+    bodies = dict(fs.fused_gru_attn_step.body_launches)
     log("pallas", f"greedy_decode_pallas B={TIME_B} bf16 T={T}: "
                   f"{time.perf_counter() - t0:.2f} s, n_steps {res.n_steps}, "
-                  f"K4 launches {launches}")
+                  f"K4 launches {launches} by body {bodies}")
     check(launches == T, f"K4 launched {launches} times, not T = {T}")
+    check(bodies == {"tensor_cores": T},
+          f"bf16 K4 did not run all {T} steps on the tensor-core route")
     check(tuple(res.tokens.shape) == (T, TIME_B)
           and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
           "greedy_decode_pallas tokens malformed")
+    twin = pallas_loop(torch, cfg, params, enc, T,
+                       fs.fused_gru_attn_step_reference)
+    cores = pallas_loop(torch, cfg, params, enc, T, functools.partial(
+        fs.fused_gru_attn_step, cuda_cores=True))
+    share = (res.tokens == twin).float().mean().item()
+    log("pallas", f"bf16 B={TIME_B}: tokens equal to the loop through K4's "
+                  f"twin {share:.4f}; the same loop on the CUDA-core body "
+                  f"{(cores == twin).float().mean().item():.4f}")
+    check(share >= BF16_TOKENS, f"greedy_decode_pallas bf16 tokens equal "
+                                f"{share} < {BF16_TOKENS}")
     f32 = params_from_jax(params_np, DEVICE, torch.float32)
     enc = seeded_features(torch, CHECK_B, L, cfg, torch.float32, 13)
     got = decoding.greedy_decode_pallas(f32, cfg, enc, T - 1)
@@ -985,6 +1075,41 @@ def timed(torch, fn, reps=3):
     return start.elapsed_time(end) / reps, wall
 
 
+def device_ms(torch, fn, names=("",), reps=10):
+    """{name: device ms per call} of the work on the card whose names
+    contain each of ``names`` ("" takes all of it), over ``reps`` calls of
+    ``fn`` after a warm-up, by torch.profiler: the kernels' own time, where
+    CUDA events around calls that the host paces read the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(names, 0.0)
+    for ev in prof.events():
+        for name in names:
+            if ev.device_type == DeviceType.CUDA and name in ev.name:
+                us[name] += ev.device_time
+    check(all(us.values()), f"the profiler saw no device time for {names}")
+    return {name: t / reps / 1000 for name, t in us.items()}
+
+
+def host_ms(torch, fn, reps=50):
+    """Host ms per call of ``fn``: the wall time to issue ``reps`` calls
+    back to back after a warm-up and a sync, not waiting for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1000 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def bound(flops, nbytes):
     """(bound ms, "operations" or "bytes"): the larger of the two times."""
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -1095,14 +1220,31 @@ def read_rates(torch):
         del buf
 
 
+def k4_work(cfg, L, B):
+    """(flops, bytes) of one fused step in bf16: the products W h, the
+    scores, ctx and the gates; each input read once (emb, h, enc, uv and
+    the weights), h' written once."""
+    E, F, H, A = (cfg.embedding_size, cfg.encoder_size, cfg.hidden_size,
+                  cfg.attn_size)
+    G = 3 * H
+    return (2 * B * ((E + F + H) * G + H * A + L * A + L * F),
+            2 * (B * E + 2 * B * H + B * L * F + B * L * A + H * A + 2 * A
+                 + (E + F + H) * G + 2 * G))
+
+
 def core_kernels(torch, tc, cfg, params, enc):
-    """K1, K2 (seg_len 4) and K3 at the timed shapes: B = enc's rows, K3 at
-    B x BEAM rows of GRU output (the flagship beam's). Each as (kernel,
-    plain twin, library route, (flops, bytes) of its work, timing reps);
-    K3's library route is ``beam_decode``'s plain one, cuBLAS then the
-    top-K. Imports the package first on sys.path, so that ``--compare``
-    times another tree's with it."""
+    """K1, K2 (seg_len 4), K3 and K4 at the timed shapes: B = enc's rows,
+    K3 at B x BEAM rows of GRU output (the flagship beam's). Each as
+    (kernel, plain twin, library route, (flops, bytes) of its work, timing
+    reps); K3's library route is ``beam_decode``'s plain one, cuBLAS then
+    the top-K; K4's is ``gru_attn_step_reference``, a composition of about
+    ten PyTorch calls (cuBLAS and einsum), since no single call computes
+    the step. K4 reads the parameter set's gate tiles where its wrapper
+    takes them. Imports the package first on sys.path, so that
+    ``--compare`` times another tree's with it."""
+    import inspect
     from recnet_tpu_torch import decoding
+    from recnet_tpu_torch.ops.cuda import fused_step as fs
     from recnet_tpu_torch.ops.cuda import topk_proj as tp
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     B, T, dtype = enc.shape[0], tc.caption_max_len + 1, enc.dtype
@@ -1119,6 +1261,14 @@ def core_kernels(torch, tc, cfg, params, enc):
     padded = (params.get("layouts") or {}).get("out_w_padded")
     k3 = dict(k=BEAM, **({"padded_w": padded} if padded is not None else {}))
     N, V = B * BEAM, cfg.vocab_size
+    k4 = k4_operands(torch, cfg, params, enc, 14)
+    tiles = (params.get("layouts") or {}).get("gates")
+    # a tree before K4's tensor-core route takes no tiles (this test goes
+    # once --compare's parent has them)
+    k4kw = dict(emb_size=cfg.embedding_size,
+                **({"tiles": tiles} if tiles is not None and "tiles" in
+                   inspect.signature(fs.fused_gru_attn_step).parameters
+                   else {}))
     return {
         "whole_greedy_decode": (
             lambda: wd.whole_greedy_decode(*ops, **k1),
@@ -1137,6 +1287,13 @@ def core_kernels(torch, tc, cfg, params, enc):
             lambda: tp.outproj_topk_reference(hidden, w, b, k=BEAM),
             lambda: tp.topk_rounds(hidden @ w + b, BEAM),
             (2 * N * H * V, 2 * (N * H + H * V + V) + 8 * N * BEAM), 10),
+        "fused_gru_attn_step": (
+            lambda: fs.fused_gru_attn_step(*k4, **k4kw),
+            lambda: fs.fused_gru_attn_step_reference(
+                *k4, emb_size=cfg.embedding_size),
+            lambda: fs.gru_attn_step_reference(
+                *k4[:9], k4[9][0], k4[9][1], cfg.embedding_size),
+            k4_work(cfg, L, B), 10),
     }
 
 
@@ -1155,7 +1312,7 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
     ops = decode_operands(params, enc)
     kw = dict(emb_size=cfg.embedding_size, cell_type=cfg.cell_type)
     card = card_line()
-    L, E, H = tc.encoder_output_len, cfg.embedding_size, cfg.hidden_size
+    L, E = tc.encoder_output_len, cfg.embedding_size
     N = B * BEAM
     entries = {}
 
@@ -1168,22 +1325,53 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=timed(torch, library, reps)[0] if library else None)
 
-    for name, args in core_kernels(torch, tc, cfg, params, enc).items():
+    core = core_kernels(torch, tc, cfg, params, enc)
+    for name, args in core.items():
         entry(name, *args)
     k1 = dict(max_len=T - 1, **kw)
     k1_twin = lambda: wd.whole_greedy_decode_reference(*ops, **k1)
     k1_library = lambda: decoding.greedy_decode(params, cfg, enc, T - 1)
     k1_work = decode_work(cfg, L, B, B * T, T)
-    # K4 per step (no library route); the K5 early exit on the PAD-timed
-    # weights, dual and the CUDA-core production step against K1
+    # K4 (in core_kernels): its ms and library_ms by CUDA events, as every
+    # row's. A call's checks and launches take about as long on the host as
+    # its kernels on the card, so the host paces repeated calls: the device
+    # time by the profiler (device_ms, library_device_ms, and the two
+    # kernels apart) and the host time of a call (host_ms; a launch of the
+    # loop's step_launcher, checked once a decode) beside them. Its
+    # CUDA-core body in the same run
+    route, _, library, _, _ = core["fused_gru_attn_step"]
     k4 = k4_operands(torch, cfg, params, enc, 14)
-    k4kw = dict(emb_size=E)
-    A, F, G = cfg.attn_size, cfg.encoder_size, 3 * H
-    entry("fused_gru_attn_step", lambda: fs.fused_gru_attn_step(*k4, **k4kw),
-          lambda: fs.fused_gru_attn_step_reference(*k4, **k4kw), None,
-          (2 * B * ((E + F + H) * G + H * A + L * A + L * F),
-           2 * (B * E + 2 * B * H + B * L * F + B * L * A + H * A + 2 * A
-                + (E + F + H) * G + 2 * G)), reps=10)
+    tiles = params["layouts"]["gates"]
+    cores = lambda: fs.fused_gru_attn_step(*k4, emb_size=E, cuda_cores=True)
+    step = fs.step_launcher(*k4, emb_size=E, tiles=tiles)
+    e = entries["fused_gru_attn_step"]
+    split = device_ms(torch, route, ("attn_pass", "gate_gemm"))
+    e.update(device_ms=sum(split.values()),
+             library_device_ms=device_ms(torch, library)[""],
+             attn_pass_ms=split["attn_pass"], gate_gemm_ms=split["gate_gemm"],
+             host_ms=host_ms(torch, route))
+    # the same two kernels at B = 8: the part of their time that does not
+    # shrink with the batch
+    k4_8 = k4_operands(torch, cfg, params, enc[:8].contiguous(), 14)
+    split8 = device_ms(torch, lambda: fs.fused_gru_attn_step(
+        *k4_8, emb_size=E, tiles=tiles), ("attn_pass", "gate_gemm"))
+    log("times", f"fused_gru_attn_step B={B} bf16 frame_chunk 1, by CUDA "
+                 f"events: tensor-core route {e['ms']:.4f} ms, CUDA-core body "
+                 f"(cuda_cores) {timed(torch, cores, 10)[0]:.4f} ms, library "
+                 f"route (a composition: gru_attn_step_reference, cuBLAS + "
+                 f"einsum) {e['library_ms']:.4f} ms; device time by the "
+                 f"profiler: route {e['device_ms']:.4f} ms (kernel A, the "
+                 f"attention pass, {e['attn_pass_ms']:.4f} ms; kernel B, the "
+                 f"gate GEMM + GRU cell, {e['gate_gemm_ms']:.4f} ms), "
+                 f"CUDA-core body {device_ms(torch, cores)['']:.4f} ms, "
+                 f"library {e['library_device_ms']:.4f} ms; host time a "
+                 f"call {e['host_ms']:.4f} ms, a step_launcher launch "
+                 f"{host_ms(torch, lambda: step(k4[0], k4[1])):.4f} ms; bound "
+                 f"{e['bound_ms']:.4f} ms ({e['bound_by']}); at B=8 kernel A "
+                 f"{split8['attn_pass']:.4f} ms, kernel B "
+                 f"{split8['gate_gemm']:.4f} ms ({card})")
+    # the K5 early exit on the PAD-timed weights, dual and the CUDA-core
+    # production step against K1
     pad_ops = decode_operands(pad_params, enc)
     early = dict(k1, early_exit=True)
     full_pad = wd.whole_greedy_decode(*pad_ops, **k1)
@@ -1255,6 +1443,16 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
                      f"{wall_ms:.3f} ms wall; {B / dev_ms * 1000:.0f} "
                      f"captions/s (events) {B / wall_ms * 1000:.0f} "
                      f"(wall) on {card}")
+    # the K4 loop: how much of a decode the card is busy (its kernels' own
+    # time by the profiler, against the events around a decode)
+    loop = paths["greedy_decode_pallas (K4 loop)"]
+    busy = device_ms(torch, loop, reps=3)[""]
+    decode_ms = timed(torch, loop)[0]
+    log("times", f"greedy_decode_pallas B={B} bf16: the card busy "
+                 f"{busy:.3f} ms of a {decode_ms:.3f} ms decode (idle share "
+                 f"{1 - busy / decode_ms:.3f}); K4 {T} x "
+                 f"{entries['fused_gru_attn_step']['device_ms']:.4f} ms of it "
+                 f"({card})")
     return entries
 
 
@@ -1326,14 +1524,15 @@ def ablate_sweep(torch, tc, cfg, params_np):
 # --------------------------------------------------------------------------
 
 def time_kernels(root: str) -> None:
-    """Time K1, K2 (seg_len 4) and K3 of the package under ``root`` and
-    their library routes, as ``times`` does (``core_kernels``, bf16, B =
-    TIME_B, on inputs from this script's seeds); print one JSON line. Runs
-    in a process of its own, so that ``root``'s package and its kernel
-    builds are the ones imported."""
+    """Time K1, K2 (seg_len 4), K3 and K4 of the package under ``root``
+    and their library routes, and the K4 loop, as ``times`` does
+    (``core_kernels``, bf16, B = TIME_B, on inputs from this script's
+    seeds); print one JSON line. Runs in a process of its own, so that
+    ``root``'s package and its kernel builds are the ones imported."""
     import importlib.util
     import torch
     sys.path.insert(0, str(Path(root).resolve()))
+    from recnet_tpu_torch import decoding
     from recnet_tpu_torch.models.decoder import config_from_train
     from recnet_tpu_torch.ops.cuda import build
     from recnet_tpu_torch.weights import params_from_jax, random_params
@@ -1347,17 +1546,28 @@ def time_kernels(root: str) -> None:
     cfg = config_from_train(tc, VOCAB)
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    for name in ("whole_decode", "topk_proj"):
+    for name in ("whole_decode", "topk_proj", "fused_step"):
         build.load(name)
     built = time.perf_counter() - t0
     params = params_from_jax(random_params(cfg, SEED), DEVICE, torch.bfloat16)
     enc = seeded_features(torch, TIME_B, tc.encoder_output_len, cfg,
                           torch.bfloat16, 3)
     ms = {}
-    for name, (kernel, _, library, _, reps) in core_kernels(
-            torch, tc, cfg, params, enc).items():
+    core = core_kernels(torch, tc, cfg, params, enc)
+    for name, (kernel, _, library, _, reps) in core.items():
         ms[name] = timed(torch, kernel, reps)[0]
         ms[f"{name} library"] = timed(torch, library, reps)[0]
+    # K4's call is host-paced (see times): its device and host time too;
+    # and its loop, greedy_decode_pallas, by events and by the card's busy
+    # time
+    kernel, _, library, _, _ = core["fused_gru_attn_step"]
+    ms["fused_gru_attn_step device"] = device_ms(torch, kernel)[""]
+    ms["fused_gru_attn_step host"] = host_ms(torch, kernel)
+    ms["fused_gru_attn_step library device"] = device_ms(torch, library)[""]
+    loop = lambda: decoding.greedy_decode_pallas(
+        params, cfg, enc, tc.caption_max_len)
+    ms["greedy_decode_pallas"] = timed(torch, loop)[0]
+    ms["greedy_decode_pallas device"] = device_ms(torch, loop, reps=3)[""]
     print(json.dumps({"root": root, "build_s": built, "ms": ms}), flush=True)
 
 

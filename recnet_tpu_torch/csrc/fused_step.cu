@@ -1,7 +1,7 @@
 // Fused attention + GRU decoder step for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel fused_gru_attn_step (K4) of
-// recnet_tpu/ops/pallas/fused_step.py (_kernel). One launch runs one GRU
+// recnet_tpu/ops/pallas/fused_step.py (_kernel). One call runs one GRU
 // decoder step for the whole batch: per row,
 //   wh = h W (f32 accumulate), score_f = w . tanh(wh + uv_f + b),
 //   ctx = sum over chunks of frame_chunk frames of (sum_f score_f enc_f),
@@ -11,26 +11,72 @@
 // The chunked ctx sum keeps the Pallas grid's order: each chunk's frames
 // are summed from zero and the chunk's sum added to the running ctx.
 //
-// What bounds it. On the TPU the weights (about 8 MB in bf16: w_ih 6.2 MB,
-// w_hh 1.6 MB, W 0.1 MB) sit in VMEM for the call while enc streams one
-// frame chunk at a time. Here the weights stay in the 50 MB L2 and every
-// block streams all of them once per launch; each weight element feeds
-// TB = 8 f32 FMAs on CUDA cores, so the FMA rate and the latency of the L2
-// loads bound it, as in the whole-decode kernel (whole_decode.cu), whose
-// plan this is without the embedding gather and the projection.
+// On the TPU the weights (about 8 MB in bf16: w_ih 6.2 MB, w_hh 1.6 MB, W
+// 0.1 MB) sit in VMEM for the call while enc streams one frame chunk at a
+// time. Two bodies share this file; the wrapper picks one by dtype and
+// shape (ops/cuda/fused_step.py step_body).
 //
-// What the design does about that. A block owns TB = 8 batch rows; the row
-// vectors (x = [emb, ctx], h) live in shared memory as [k][TB] f32 (about
-// 85 KB at the flagship width), so one weight load pairs with two
-// broadcast 16-byte shared loads. 16 warps and k loops unrolled 8 deep keep
-// many L2 loads in flight. A thread owns one hidden unit j across the three
-// gates, so the cell runs in registers. Rows past B are masked.
+// * The tensor-core route (bf16, H a multiple of 16): two kernels.
+//   What bounds it. K4 is one step, so nothing carries over inside the
+//   call and the gate product is an ordinary GEMM, [emb, ctx, h] (B x
+//   (E + F + H)) times [w_ih; w_hh] ((E + F + H) x 3H): 7.9 GFLOP at the
+//   flagship width and B = 1024, 8 us at the bf16 tensor-core peak. What
+//   is left is per row and bounded by device memory: enc (B L F, 88 MB)
+//   and uv (7.3 MB), 0.03 ms at the HBM rate, which is the call's bound.
+//   What the design does about that.
+//   - Kernel A, the attention pass (attn_pass_kernel): RA = 4 rows a block
+//     (256 blocks at B = 1024, two an SM). W h on CUDA cores from 8-byte
+//     loads of W, 16 rows of W in flight a thread (a load feeds 16 FMAs);
+//     the scores a warp 8 (row, frame) items at a time, all their uv loads
+//     in flight before the first tanh; then ctx from 16-byte streaming
+//     loads of enc (8 features a thread, 7 frames in flight). A loop whose
+//     loads sit between their uses and a branch issues them one after
+//     another, so every phase loads first and computes after. It writes
+//     each row's GEMM operand X = [emb, ctx / L in bf16, zero pad, h] to a
+//     scratch tensor, the columns laid out as layout.gate_tiles lays out
+//     the weights' rows. What is left above the bound: every block reads
+//     all of W (128 KB, 33.5 MB a call from L2), and W h and the scores
+//     run before the block's enc stream starts.
+//   - Kernel B, the gate GEMM (gate_gemm_kernel): a block owns BM = 64
+//     rows x UT = 4 unit tiles of 16 units x all three gates (128 blocks
+//     at the flagship width, one wave), so each weight tile is read B / BM
+//     times from L2 instead of once per 8 rows. The gate tiles come in the
+//     layout [unit tile][k16 step][gate][16 inputs][16 units] (made once
+//     per parameter set), so a k16 step of a unit tile's three gates is
+//     1536 contiguous bytes. A ring of 4 stages of 2 k16 steps brings the
+//     X tiles (64 x 16) and weight tiles to shared memory by cp.async;
+//     each thread's copy addresses are computed once, before the k loop
+//     (recomputed every step, their divisions and bounds tests took as
+//     long as the products). ldmatrix (X) and ldmatrix.trans (weights)
+//     give the fragments of mma.sync m16n8k16, X as A and the weights as
+//     B. A warp owns 32 rows x 16 units x 3 gates,
+//     with the w_ih x and w_hh h steps in separate accumulators (the n gate
+//     needs gh_n alone), so every (row, unit) has its three gates in one
+//     thread and the GRU cell runs in the epilogue, in registers. Each mma
+//     starts from a zero accumulator and its partial is added in f32, as in
+//     K1's tensor-core body (chained tensor-core accumulation cost K1 1.2-
+//     1.5 points of bf16 token agreement). Rows past B read zero-filled X
+//     rows and are not stored; X's zero pad past E + F meets zero rows of
+//     the tiles.
+// * The CUDA-core body (fused_step_kernel), the first design: f32 (mma on
+//   f32 is TF32), bf16 shapes the route does not take, and cuda_cores.
+//   What bounds it: every block of TB = 8 rows streams all gate weights
+//   from L2 (1.0 GB of L2 reads a call at B = 1024) and each 2-byte weight
+//   load feeds TB = 8 f32 FMAs, so the L2 load latency and the FMA rate
+//   bound it, as in the whole-decode kernel's CUDA-core body (whole_decode.
+//   cu), whose plan this is without the embedding gather and the
+//   projection. The row vectors (x = [emb, ctx], h) live in shared memory
+//   as [k][TB] f32, so one weight load pairs with two broadcast 16-byte
+//   shared loads; 16 warps and k loops unrolled 8 deep keep many L2 loads
+//   in flight; a thread owns one hidden unit j across the three gates, so
+//   the cell runs in registers. Rows past B are masked.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 
 #include "decode_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -39,6 +85,10 @@ using recnet::load_rows;
 using recnet::round_to;
 using recnet::sigmoid;
 using recnet::to_f;
+
+// ---------------------------------------------------------------------------
+// the CUDA-core body (f32, and bf16 under cuda_cores)
+// ---------------------------------------------------------------------------
 
 constexpr int TB = 8;          // batch rows per block
 constexpr int THREADS = 512;
@@ -211,6 +261,425 @@ int launch(const void* emb, const void* h, const void* enc, const void* uv,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core route (bf16): kernel A, the attention pass
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int RA = 4;              // rows per block
+constexpr int THREADS_A = 256;
+constexpr int NWARPS_A = THREADS_A / 32;
+constexpr int WB = 16;             // rows of W a thread loads at once
+constexpr int SB = 8;              // score items a warp loads at once
+constexpr int EB = 7;              // enc frames a thread loads at once
+
+// W h is split over (group of 4 columns, part of the k range) items, one
+// a thread; the parts' partial sums are added in part order
+__host__ __device__ inline int wh_parts(int A) {
+  const int groups = (A + 3) / 4;
+  return groups >= THREADS_A ? 1 : THREADS_A / groups;
+}
+
+size_t attn_smem_bytes(int L, int A, int H) {
+  const int groups = (A + 3) / 4;
+  return ((size_t)RA * H                               // h, f32
+          + (size_t)RA * A                             // W h
+          + (size_t)wh_parts(A) * RA * 4 * groups      // W h partials
+          + (size_t)RA * L                             // scores
+          + 2 * (size_t)A)                             // attn w, b
+         * sizeof(float);
+}
+
+// the 4 columns a0..a0+3 of a row of W (zero past A); one 8-byte load when
+// the row allows it
+__device__ __forceinline__ void load4(const bf16* p, int left, bool vec,
+                                      float w[4]) {
+  if (vec) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) w[c] = to_f(v[c]);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) w[c] = c < left ? to_f(p[c]) : 0.f;
+}
+
+__global__ void __launch_bounds__(THREADS_A)
+attn_pass_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ h,
+                 const bf16* __restrict__ enc, const bf16* __restrict__ uv,
+                 const bf16* __restrict__ attn_W,
+                 const bf16* __restrict__ attn_w,
+                 const bf16* __restrict__ attn_b, bf16* __restrict__ x,
+                 int B, int L, int F, int A, int E, int H, int ldx,
+                 int frame_chunk, int vec4, int vec_enc) {
+  extern __shared__ float4 smem_f4[];
+  const int groups = (A + 3) / 4, parts = wh_parts(A);
+  float* h_s = reinterpret_cast<float*>(smem_f4);   // [RA][H]
+  float* wh_s = h_s + RA * H;                       // [RA][A]
+  float* part_s = wh_s + RA * A;                    // [parts][RA][4 groups]
+  float* sc_s = part_s + parts * RA * 4 * groups;   // [RA][L]
+  float* aw_s = sc_s + RA * L;                      // attn w, then b
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = blockIdx.x * RA;
+  const int K = E + F;
+  const int kx = ldx - H;          // X's h columns start here (16 nKx)
+
+  // 0. h (shared, f32, and X's h columns, 16 bytes a copy: H is a multiple
+  //    of 16 and X's rows and h columns start 32-byte aligned), emb and
+  //    the zero pad to X; the loops unrolled so that their loads overlap
+  const int H8 = H / 8;
+#pragma unroll 4
+  for (int i = tid; i < RA * H8; i += THREADS_A) {
+    const int b = i / H8, j0 = (i % H8) * 8, row = row0 + b;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row < B) {
+      raw = *reinterpret_cast<const uint4*>(h + (size_t)row * H + j0);
+      *reinterpret_cast<uint4*>(x + (size_t)row * ldx + kx + j0) = raw;
+    }
+    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) h_s[b * H + j0 + q] = to_f(v[q]);
+  }
+#pragma unroll 8
+  for (int i = tid; i < RA * E; i += THREADS_A) {
+    const int b = i / E, k = i % E, row = row0 + b;
+    if (row < B) x[(size_t)row * ldx + k] = emb[(size_t)row * E + k];
+  }
+  const int pad = kx - K;
+  for (int i = tid; i < RA * pad; i += THREADS_A) {
+    const int b = i / pad, row = row0 + b;
+    if (row < B) x[(size_t)row * ldx + K + i % pad] = from_f<bf16>(0.f);
+  }
+  for (int a = tid; a < A; a += THREADS_A) {
+    aw_s[a] = to_f(attn_w[a]);
+    aw_s[A + a] = to_f(attn_b[a]);
+  }
+  __syncthreads();
+
+  // 1. W h (RA x A), f32 accumulate: item (group q of 4 columns, part p of
+  //    the k range k = p, p + parts, ...); a warp shares p, so its h reads
+  //    are broadcasts
+  for (int item = tid; item < groups * parts; item += THREADS_A) {
+    const int q = item % groups, p = item / groups, a0 = 4 * q;
+    float acc[RA][4] = {};
+    for (int k0 = p; k0 < H; k0 += WB * parts) {
+      float w[WB][4];                  // WB rows of W, all loads in flight
+#pragma unroll
+      for (int u = 0; u < WB; ++u) {
+        const int k = k0 + u * parts;
+        if (k < H)
+          load4(attn_W + (size_t)k * A + a0, A - a0, vec4, w[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < WB; ++u) {
+        const int k = k0 + u * parts;
+        if (k >= H) break;
+#pragma unroll
+        for (int b = 0; b < RA; ++b) {
+          const float hv = h_s[b * H + k];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[b][c] += hv * w[u][c];
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < RA; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        part_s[(p * RA + b) * 4 * groups + a0 + c] = acc[b][c];
+  }
+  __syncthreads();
+  for (int i = tid; i < RA * A; i += THREADS_A) {
+    const int b = i / A, a = i % A;
+    float s = 0.f;
+    for (int p = 0; p < parts; ++p)
+      s += part_s[(p * RA + b) * 4 * groups + a];
+    wh_s[i] = s;
+  }
+  __syncthreads();
+
+  // 2. scores: a warp takes SB (row, frame) items at a time, a lane 4
+  //    attention units of each, every item's uv loads issued before the
+  //    first tanh
+  for (int p0 = warp; p0 < RA * L; p0 += NWARPS_A * SB) {
+    float s[SB] = {};
+    for (int a0 = 4 * lane; a0 < A; a0 += 128) {
+      float v[SB][4];
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        const int p = p0 + u * NWARPS_A, row = row0 + p / L;
+        if (p < RA * L && row < B)
+          load4(uv + ((size_t)row * L + p % L) * A + a0, A - a0, vec4, v[u]);
+        else
+          v[u][0] = v[u][1] = v[u][2] = v[u][3] = 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        const int b = min((p0 + u * NWARPS_A) / L, RA - 1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (a0 + c < A)
+            s[u] += tanhf(wh_s[b * A + a0 + c] + v[u][c] + aw_s[A + a0 + c]) *
+                    aw_s[a0 + c];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SB; ++u) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s[u] += __shfl_down_sync(0xffffffffu, s[u], off);
+      const int p = p0 + u * NWARPS_A;
+      if (lane == 0 && p < RA * L) sc_s[p] = s[u];
+    }
+  }
+  __syncthreads();
+
+  // 3. ctx in chunks of frame_chunk frames (each chunk summed from zero,
+  //    then added to ctx), / L, rounded to bf16 into X. enc is read once:
+  //    streaming loads, so that it does not push the gate tiles out of L2
+  if (vec_enc) {   // 8 features, 16 bytes, a load
+    const int F8 = F / 8;
+    for (int i = tid; i < RA * F8; i += THREADS_A) {
+      const int b = i / F8, e0 = (i % F8) * 8, row = row0 + b;
+      if (row >= B) continue;
+      const bf16* ep = enc + (size_t)row * L * F + e0;
+      float ctx[8] = {}, acc[8] = {};
+      int left = frame_chunk;          // frames left in the current chunk
+      for (int f0 = 0; f0 < L; f0 += EB) {
+        uint4 raw[EB];                 // EB frames' loads, all in flight
+#pragma unroll
+        for (int u = 0; u < EB; ++u)
+          if (f0 + u < L)
+            raw[u] = __ldcs(reinterpret_cast<const uint4*>(
+                ep + (size_t)(f0 + u) * F));
+#pragma unroll
+        for (int u = 0; u < EB; ++u) {
+          if (f0 + u >= L) break;
+          const bf16* v = reinterpret_cast<const bf16*>(&raw[u]);
+          const float s = sc_s[b * L + f0 + u];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[q] += s * to_f(v[q]);
+          if (--left == 0) {           // the chunk's sum joins ctx
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              ctx[q] += acc[q];
+              acc[q] = 0.f;
+            }
+            left = frame_chunk;
+          }
+        }
+      }
+      bf16* xp = x + (size_t)row * ldx + E + e0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) xp[q] = from_f<bf16>(ctx[q] / (float)L);
+    }
+  } else {
+    for (int i = tid; i < RA * F; i += THREADS_A) {
+      const int b = i / F, e = i % F, row = row0 + b;
+      if (row >= B) continue;
+      const bf16* ep = enc + (size_t)row * L * F + e;
+      float ctx = 0.f, acc = 0.f;
+      int left = frame_chunk;
+#pragma unroll 4
+      for (int f = 0; f < L; ++f) {
+        acc += sc_s[b * L + f] * to_f(ep[(size_t)f * F]);
+        if (--left == 0) {
+          ctx += acc;
+          acc = 0.f;
+          left = frame_chunk;
+        }
+      }
+      x[(size_t)row * ldx + E + e] = from_f<bf16>(ctx / (float)L);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the tensor-core route (bf16): kernel B, the gate GEMM and the GRU cell
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 64;             // rows per block
+constexpr int UT = 4;              // 16-unit tiles per block, x 3 gates
+constexpr int THREADS_B = 256;     // 8 warps: 2 row halves x UT unit tiles
+constexpr int KSTEPS = 2;          // k16 steps per stage of the ring
+constexpr int STAGES = 4;          // stages of the cp.async ring
+constexpr int WTILE = 256;         // bf16 elements of a 16 x 16 tile
+constexpr int X_TILE = BM * 16;    // a k16 step's X tile, [BM rows][16]
+constexpr int SUB = X_TILE + UT * 3 * WTILE;   // a k16 step's tiles
+constexpr int SUB_CHUNKS = SUB / 8;            // their 16-byte copies
+constexpr int STAGE = KSTEPS * SUB;
+constexpr int CPT = SUB_CHUNKS / THREADS_B;    // a thread's copies a step
+static_assert(SUB_CHUNKS % THREADS_B == 0, "copies split evenly");
+static_assert(THREADS_B / 32 == 2 * UT, "a warp owns 32 rows x 1 unit tile");
+
+size_t gate_smem_bytes() { return sizeof(bf16) * STAGES * STAGE; }
+
+// one k16 step of a warp: its 32 rows x 16 units x 3 gates, each mma from a
+// zero accumulator and its partial added in f32
+__device__ __forceinline__ void gate_step(const bf16* st, const int a_off[2],
+                                          int b_off,
+                                          float (&acc)[2][3][2][4]) {
+  unsigned af[2][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) recnet::ldmatrix_x4<false>(af[mi], st + a_off[mi]);
+#pragma unroll
+  for (int gt = 0; gt < 3; ++gt) {
+    unsigned bw[4];   // units 0-7: bw[0..1], units 8-15: bw[2..3]
+    recnet::ldmatrix_x4<true>(bw, st + X_TILE + gt * WTILE + b_off);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        recnet::mma_bf16(d, af[mi], bw + 2 * ni);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][gt][ni][e] += d[e];
+      }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS_B, 1)
+gate_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
+                 const bf16* __restrict__ bias3, bf16* __restrict__ h_out,
+                 int B, int H, int ldx) {
+  extern __shared__ float4 smem_f4[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_f4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = blockIdx.x * BM;
+  const int ut0 = blockIdx.y * UT;
+  const int n_ut = H / 16;
+  const int nKg = ldx / 16;          // k16 steps: nKx of x, then n_ut of h
+  const int nKx = nKg - n_ut;
+
+  // A k16 step's copies: X's 64 rows x 2 16-byte halves, then the UT unit
+  // tiles' 3 gate tiles of 32 16-byte chunks, CPT a thread. Both are
+  // [16-element rows of 32 bytes], the halves XOR-swizzled by row / 4 so
+  // that ldmatrix's 8-row reads fall in distinct banks. Each copy's shared
+  // offset, source at step 0 and source stride per step are fixed for the
+  // thread; rows past B, unit tiles past H and steps past the last read
+  // zeros.
+  int c_dst[CPT], c_stride[CPT];
+  const bf16* c_src[CPT];
+  bool c_ok[CPT];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int c = tid + i * THREADS_B;
+    if (c < 2 * BM) {
+      const int r = c >> 1, half = c & 1, row = row0 + r;
+      c_ok[i] = row < B;
+      c_src[i] = x + (c_ok[i] ? (size_t)row * ldx + half * 8 : 0);
+      c_stride[i] = 16;
+      c_dst[i] = r * 16 + ((half ^ ((r >> 2) & 1)) << 3);
+    } else {
+      const int w = c - 2 * BM, u = w / 96, gt = (w % 96) >> 5, cc = w & 31,
+                k = cc >> 1, ug = ut0 + u;
+      c_ok[i] = ug < n_ut;
+      c_src[i] = wg + (c_ok[i] ? ((size_t)ug * nKg * 3 + gt) * WTILE + cc * 8
+                               : 0);
+      c_stride[i] = 3 * WTILE;
+      c_dst[i] = X_TILE + (u * 3 + gt) * WTILE + k * 16 +
+                 (((cc & 1) ^ ((k >> 2) & 1)) << 3);
+    }
+  }
+  // the copies of stage t (k16 steps t KSTEPS ..) into a ring slot
+  auto issue = [&](int slot, int t) {
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int s = t * KSTEPS + ks;
+      bf16* st = ring + slot * STAGE + ks * SUB;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        const bool ok = c_ok[i] && s < nKg;
+        recnet::cp_async16_zfill(
+            st + c_dst[i], ok ? c_src[i] + (size_t)s * c_stride[i] : c_src[i],
+            ok);
+      }
+    }
+  };
+
+  // this warp's rows rh * 32.. and unit tile u; ldmatrix row addresses:
+  // X (A operand) rows lane % 16, inputs +8 for lanes 16-31; a weight tile
+  // (B operand, transposed) inputs lane % 8 (+8 for lanes 8-15 and 24-31),
+  // units +8 for lanes 16-31
+  const int rh = warp & 1, u = warp >> 1;
+  int a_off[2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int r = rh * 32 + mi * 16 + (lane & 15), half = lane >> 4;
+    a_off[mi] = r * 16 + ((half ^ ((r >> 2) & 1)) << 3);
+  }
+  const int bk = (lane & 7) + (((lane >> 3) & 1) << 3), bh = lane >> 4;
+  const int b_off = u * 3 * WTILE + bk * 16 + ((bh ^ ((bk >> 2) & 1)) << 3);
+
+  float ai[2][3][2][4] = {}, ah[2][3][2][4] = {};
+  const int n_st = (nKg + KSTEPS - 1) / KSTEPS;
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_st) issue(t, t);
+    recnet::cp_async_commit();
+  }
+  for (int t = 0; t < n_st; ++t) {
+    recnet::cp_async_wait<STAGES - 2>();
+    __syncthreads();   // stage t landed for every thread; slot t - 1 is free
+    if (t + STAGES - 1 < n_st) issue((t + STAGES - 1) % STAGES, t + STAGES - 1);
+    recnet::cp_async_commit();
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int s = t * KSTEPS + ks;
+      const bf16* st = ring + (t % STAGES) * STAGE + ks * SUB;
+      if (s < nKx)
+        gate_step(st, a_off, b_off, ai);
+      else if (s < nKg)
+        gate_step(st, a_off, b_off, ah);
+    }
+  }
+  recnet::cp_async_wait<0>();
+
+  // the epilogue: biases, the GRU cell in f32, h' in bf16. Accumulator
+  // element e of (mi, ni) holds row g + 8 (e / 2) and unit 2 t4 + e % 2
+  const int ug = ut0 + u;
+  if (ug >= n_ut) return;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + rh * 32 + mi * 16 + g + hr * 8;
+      if (row >= B) continue;
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        const int j = ug * 16 + ni * 8 + 2 * t4;
+        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(
+            x + (size_t)row * ldx + 16 * nKx + j);
+        float hn[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = hr * 2 + c;
+          float gi[3], gh[3];
+#pragma unroll
+          for (int gt = 0; gt < 3; ++gt) {
+            gi[gt] = ai[mi][gt][ni][e] + to_f(bias3[gt * H + j + c]);
+            gh[gt] = ah[mi][gt][ni][e] + to_f(bias3[3 * H + gt * H + j + c]);
+          }
+          const float r = sigmoid(gi[0] + gh[0]);
+          const float z = sigmoid(gi[1] + gh[1]);
+          const float n = tanhf(gi[2] + r * gh[2]);
+          const float hp = to_f(c == 0 ? hv.x : hv.y);
+          hn[c] = (1.0f - z) * n + z * hp;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(h_out + (size_t)row * H + j) =
+            __floats2bfloat162_rn(hn[0], hn[1]);
+      }
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -219,8 +688,9 @@ const char* recnet_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. L must divide by frame_chunk (the
-// wrapper checks). Launches on `stream` and returns cudaGetLastError().
+// The CUDA-core body. dtype: 0 = float32, 1 = bfloat16. L must divide by
+// frame_chunk (the wrapper checks). Launches on `stream` and returns
+// cudaGetLastError().
 int recnet_fused_step(int dtype, const void* emb, const void* h,
                       const void* enc, const void* uv, const void* attn_W,
                       const void* attn_w, const void* attn_b,
@@ -238,6 +708,54 @@ int recnet_fused_step(int dtype, const void* emb, const void* h,
                                  w_ih, w_hh, bias3, h_out, B, L, F, A, E, H,
                                  frame_chunk, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route, bf16 throughout. kernels: 1 = kernel A (emb, h,
+// enc, uv and the attention weights -> x), 2 = kernel B (x, the gate tiles
+// and bias3 -> h_out), 3 = both, in that order on `stream`. x is (B, ldx)
+// with ldx = 16 ceil((E + F) / 16) + H; tiles as layout.gate_tiles makes
+// them. Returns the first launch error.
+int recnet_fused_step_tc(int kernels, const void* emb, const void* h,
+                         const void* enc, const void* uv, const void* attn_W,
+                         const void* attn_w, const void* attn_b,
+                         const void* tiles, const void* bias3, void* x,
+                         void* h_out, int B, int L, int F, int A, int E,
+                         int H, int ldx, int frame_chunk, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || H % 16 != 0 || ldx % 16 != 0 || ldx <= H)
+    return (int)cudaErrorInvalidValue;
+  if (kernels & 1) {
+    if (frame_chunk < 1 || L % frame_chunk != 0 ||
+        ldx != (E + F + 15) / 16 * 16 + H)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = attn_smem_bytes(L, A, H);
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int vec4 =
+        A % 4 == 0 && (size_t)attn_W % 8 == 0 && (size_t)uv % 8 == 0;
+    const int vec_enc = F % 8 == 0 && (size_t)enc % 16 == 0;
+    attn_pass_kernel<<<(B + RA - 1) / RA, THREADS_A, smem, s>>>(
+        (const bf16*)emb, (const bf16*)h, (const bf16*)enc, (const bf16*)uv,
+        (const bf16*)attn_W, (const bf16*)attn_w, (const bf16*)attn_b,
+        (bf16*)x, B, L, F, A, E, H, ldx, frame_chunk, vec4, vec_enc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (kernels & 2) {
+    const size_t smem = gate_smem_bytes();
+    cudaError_t err = cudaFuncSetAttribute(
+        gate_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((B + BM - 1) / BM, (H / 16 + UT - 1) / UT);
+    gate_gemm_kernel<<<grid, THREADS_B, smem, s>>>(
+        (const bf16*)x, (const bf16*)tiles, (const bf16*)bias3,
+        (bf16*)h_out, B, H, ldx);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Tensor-core and async-copy helpers shared by the bf16 bodies of
-// whole_decode.cu and topk_proj.cu: mma.sync m16n8k16 (bf16 in, f32
-// accumulators), ldmatrix fragment loads from shared memory, and 16-byte
-// cp.async copies from global to shared memory with their commit and wait.
+// whole_decode.cu, topk_proj.cu and fused_step.cu: mma.sync m16n8k16 (bf16
+// in, f32 accumulators), ldmatrix fragment loads from shared memory, and
+// 16-byte cp.async copies from global to shared memory with their commit
+// and wait.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 // A (16 x 16, row): a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..), a[2] =
@@ -60,6 +61,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src)
+               : "memory");
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !ok (src is not read)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
                : "memory");
 }
 

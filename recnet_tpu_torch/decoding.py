@@ -131,7 +131,9 @@ def greedy_decode_pallas(params: Dict, cfg: dec_mod.DecoderConfig,
     ``jnp.argmax``) in torch, as JAX leaves them to XLA. Once every token of
     a step is <PAD>, h, the output and ``n_steps`` freeze. A fixed T-step
     loop with no host sync but the final ``n_steps``. The 1-layer GRU only;
-    the name is the JAX counterpart's."""
+    the name is the JAX counterpart's. K4's tensor-core route reads the
+    parameter set's gate tiles (``params["layouts"]["gates"]``); its
+    operands are checked once, at the first step (``step_launcher``)."""
     if cfg.cell_type != "GRU" or cfg.n_layers != 1:
         raise ValueError("K4 takes the 1-layer GRU decoder, not "
                          f"{cfg.n_layers} layer(s) of {cfg.cell_type}")
@@ -141,17 +143,22 @@ def greedy_decode_pallas(params: Dict, cfg: dec_mod.DecoderConfig,
     uv = attn_ops.precompute_uv(a, encoder_outputs)
     bias3 = fused_step.pack_gru_bias(r["b_ih"], r["b_hh"])
     attn_b2 = a["b"][None, :]
+    tiles = (params.get("layouts") or {}).get("gates")
     h = torch.zeros((B, cfg.hidden_size), dtype=encoder_outputs.dtype,
                     device=dev)
     token = torch.full((B,), cfg.sos_token, dtype=torch.int32, device=dev)
     tokens = torch.full((T, B), cfg.pad_token, dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     n_steps = torch.zeros((), dtype=torch.int32, device=dev)
+    step = None
     for t in range(T):
         emb = params["embedding"][token] * cfg.embedding_scale
-        h_new = fused_step.fused_gru_attn_step(
-            emb, h, encoder_outputs, uv, a["W"], a["w"], attn_b2,
-            r["w_ih"], r["w_hh"], bias3, emb_size=cfg.embedding_size)
+        if step is None:   # K4's operands checked once a decode
+            step = fused_step.step_launcher(
+                emb, h, encoder_outputs, uv, a["W"], a["w"], attn_b2,
+                r["w_ih"], r["w_hh"], bias3, emb_size=cfg.embedding_size,
+                tiles=tiles)
+        h_new = step(emb, h)
         logits = h_new @ params["out_w"] + params["out_b"]
         out = torch.argmax(logits, dim=-1).to(torch.int32)
         out = torch.where(done, cfg.pad_token, out).to(torch.int32)

@@ -16,7 +16,8 @@ wrapper given params without them makes them for that one call.
   input-major layout a tile's rows lie a weight row apart; these copies
   put each tile, and each k16 step of a unit tile's gates, in one
   contiguous block (7.8 MB for w_ih and w_hh, 4.3 MB for out_w, 0.1 MB
-  for the attention's W at the flagship width, bf16).
+  for the attention's W at the flagship width, bf16). The fused step's
+  tensor-core route (K4) reads the same gate tiles.
 """
 
 from __future__ import annotations

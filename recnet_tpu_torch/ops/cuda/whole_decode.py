@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -128,8 +129,13 @@ def _check_cuda(named: Dict[str, torch.Tensor], dtype: torch.dtype,
             raise ValueError(f"{name} must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def _capability(device: torch.device) -> Tuple[int, int]:
+    return torch.cuda.get_device_capability(device)
+
+
 def check_sm90(device: torch.device, what: str) -> None:
-    major, minor = torch.cuda.get_device_capability(device)
+    major, minor = _capability(device)
     if major != 9:
         raise RuntimeError(
             f"the {what} kernel is built for sm_90a (Hopper); "

@@ -1,6 +1,8 @@
 """The CUDA kernels on the card, against their plain twins: the whole
 decode (K1/K2) with its K5 variants (early exit, dual, ablate), the fused
-projection + top-k (K3) and the fused attention + GRU step (K4).
+projection + top-k (K3) and the fused attention + GRU step (K4: its
+tensor-core route, each of the route's two kernels against its plain
+stage, and its CUDA-core body).
 
 Needs a CUDA card with sm_90a and nvcc; every test skips without a card.
 This file imports neither JAX nor the test conftest, so on the card run:
@@ -20,6 +22,7 @@ import torch
 from recnet_tpu_torch.models.decoder import DecoderConfig
 from recnet_tpu_torch.ops.attention import precompute_uv
 from recnet_tpu_torch.ops.cuda import fused_step as fs
+from recnet_tpu_torch.ops.cuda import layout
 from recnet_tpu_torch.ops.cuda import topk_proj
 from recnet_tpu_torch.ops.cuda import whole_decode as wd
 from recnet_tpu_torch.weights import params_from_jax, random_params
@@ -409,6 +412,217 @@ def test_k4_rejects_and_counts(cuda):
     fs.fused_gru_attn_step(*ops, emb_size=E)
     fs.fused_gru_attn_step_reference(*ops, emb_size=E)
     assert fs.fused_gru_attn_step.n_launches == n + 1
+
+
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-2)   # 2 bf16 ulps
+
+
+def _k4_flagship(device, b, seed):
+    """K4's operands at the flagship width (E = 468, F = 1536, H = 512,
+    A = 128, L = 28) in bf16, from random_params, with the parameter set's
+    gate tiles: (operands, tiles)."""
+    cfg = DecoderConfig(cell_type="GRU", vocab_size=V, embedding_size=468,
+                        encoder_size=1536, hidden_size=512, attn_size=128)
+    params = params_from_jax(random_params(cfg, seed), device,
+                             torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(seed)
+    enc = torch.randn((b, K4_L, 1536), generator=g, device=device).bfloat16()
+    h = torch.tanh(torch.randn((b, 512), generator=g, device=device))
+    tok = torch.randint(0, V, (b,), generator=g, device=device)
+    a, r = params["attention"], params["rnn"][0]
+    ops = (params["embedding"][tok], h.bfloat16(), enc,
+           precompute_uv(a, enc), a["W"], a["w"], a["b"][None, :], r["w_ih"],
+           r["w_hh"], fs.pack_gru_bias(r["b_ih"], r["b_hh"]))
+    return ops, params["layouts"]["gates"]
+
+
+@pytest.mark.parametrize("frame_chunk", [1, 4, 7, 28])
+@pytest.mark.parametrize("b", [13, 1001])
+def test_k4_tensor_cores_flagship_width(cuda, b, frame_chunk):
+    """bf16 at the flagship width runs the tensor-core route (one launch,
+    counted under "tensor_cores"): h within 2 bf16 ulps of the twin's."""
+    ops, tiles = _k4_flagship(cuda, b, 30 + frame_chunk)
+    n = fs.fused_gru_attn_step.body_launches["tensor_cores"]
+    got = fs.fused_gru_attn_step(*ops, emb_size=468, frame_chunk=frame_chunk,
+                                 tiles=tiles)
+    want = fs.fused_gru_attn_step_reference(*ops, emb_size=468,
+                                            frame_chunk=frame_chunk)
+    torch.cuda.synchronize()
+    assert fs.fused_gru_attn_step.body_launches["tensor_cores"] == n + 1
+    assert got.shape == (b, 512) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("frame_chunk", [1, 7])
+def test_k4_tensor_cores_odd_widths(cuda, frame_chunk):
+    """E = 13, F = 21, A = 6 on the tensor-core route: its scalar paths
+    (enc rows not a multiple of 8 features, W and uv rows not of 4 units,
+    odd emb rows, a pad of 14 columns) within 2 bf16 ulps of the twin."""
+    rng = np.random.default_rng(60 + frame_chunk)
+    t = lambda *shape: torch.from_numpy(
+        (rng.standard_normal(shape) * 0.3).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+    e, f, a = 13, 21, 6
+    ops = (t(B, e), t(B, H), t(B, K4_L, f), t(B, K4_L, a), t(H, a), t(a, 1),
+           t(1, a), t(e + f, 3 * H), t(H, 3 * H), t(2, 3 * H))
+    n = fs.fused_gru_attn_step.body_launches["tensor_cores"]
+    got = fs.fused_gru_attn_step(*ops, emb_size=e, frame_chunk=frame_chunk)
+    want = fs.fused_gru_attn_step_reference(*ops, emb_size=e,
+                                            frame_chunk=frame_chunk)
+    torch.cuda.synchronize()
+    assert fs.fused_gru_attn_step.body_launches["tensor_cores"] == n + 1
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("flagship", [False, True])
+def test_k4_kernels_match_their_stages(cuda, flagship):
+    """Kernel A against ``attention_pass_reference`` (emb, the zero pad and
+    h exact, ctx within 2 bf16 ulps), kernel B against
+    ``gate_cell_reference`` on the same X (within 2 bf16 ulps); tiles made
+    for the call give what the parameter set's give."""
+    if flagship:
+        ops, tiles = _k4_flagship(cuda, 1001, 40)
+    else:
+        ops = _k4_operands(cuda, torch.bfloat16, seed=40)
+        tiles = layout.gate_tiles(ops[7], ops[8], 3)
+    emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh, bias3 = ops
+    E_, F_, H_ = emb.shape[1], enc.shape[2], h.shape[1]
+    n = fs.fused_gru_attn_step.n_launches
+    x = fs._attention_pass(emb, h, enc, uv, attn_w, attn_v, attn_b,
+                          frame_chunk=7)
+    x_want = fs.attention_pass_reference(emb, h, enc, uv, attn_w, attn_v,
+                                         attn_b, frame_chunk=7)
+    h_new = fs._gate_cell(x, tiles, bias3)
+    h_want = fs.gate_cell_reference(x, tiles, bias3)
+    full = fs.fused_gru_attn_step(*ops, emb_size=E_, frame_chunk=7)
+    torch.cuda.synchronize()
+    assert fs.fused_gru_attn_step.n_launches == n + 1
+    assert x.shape == x_want.shape == (h.shape[0], fs.gate_width(E_ + F_, H_))
+    assert torch.equal(x[:, :E_], emb) and torch.equal(x[:, -H_:], h)
+    assert not x[:, E_ + F_:-H_].any()
+    torch.testing.assert_close(x[:, E_:E_ + F_].float(),
+                               x_want[:, E_:E_ + F_].float(), **BF16_TOL)
+    torch.testing.assert_close(h_new.float(), h_want.float(), **BF16_TOL)
+    assert torch.equal(full, fs.fused_gru_attn_step(
+        *ops, emb_size=E_, frame_chunk=7, tiles=tiles))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_cuda_cores_option(cuda, dtype):
+    """``cuda_cores=True`` runs the CUDA-core body: f32 within rtol 1e-5 /
+    atol 1e-6 of the twin, bf16 within 2 ulps; counted under
+    "cuda_cores"."""
+    ops = _k4_operands(cuda, dtype, seed=50)
+    n = fs.fused_gru_attn_step.body_launches["cuda_cores"]
+    got = fs.fused_gru_attn_step(*ops, emb_size=E, frame_chunk=4,
+                                 cuda_cores=True)
+    want = fs.fused_gru_attn_step_reference(*ops, emb_size=E, frame_chunk=4)
+    torch.cuda.synchronize()
+    assert fs.fused_gru_attn_step.body_launches["cuda_cores"] == n + 1
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
+           else BF16_TOL)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_k4_counts_launches_per_body(cuda):
+    """One call, one launch, under the body that ``step_body`` names: bf16
+    with H = 16 on the tensor cores, f32 and H = 24 on the CUDA cores."""
+    counts = fs.fused_gru_attn_step.body_launches
+    cases = [(_k4_operands(cuda, torch.bfloat16, seed=51), "tensor_cores"),
+             (_k4_operands(cuda, torch.float32, seed=52), "cuda_cores")]
+    rng = np.random.default_rng(53)
+    t = lambda *shape: torch.from_numpy(
+        (rng.standard_normal(shape) * 0.3).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+    cases.append(((t(B, E), t(B, 24), t(B, K4_L, F), t(B, K4_L, A), t(24, A),
+                   t(A, 1), t(1, A), t(E + F, 72), t(24, 72), t(2, 72)),
+                  "cuda_cores"))
+    for ops, body in cases:
+        before, n = dict(counts), fs.fused_gru_attn_step.n_launches
+        fs.fused_gru_attn_step(*ops, emb_size=E)
+        assert fs.step_body(ops[1].dtype, ops[1].shape[1]) == body
+        assert fs.fused_gru_attn_step.n_launches == n + 1
+        assert counts[body] == before.get(body, 0) + 1
+        assert sum(counts.values()) == sum(before.values()) + 1
+    with pytest.raises(ValueError, match="tiles has shape"):
+        ops = cases[0][0]
+        fs.fused_gru_attn_step(*ops, emb_size=E, tiles=ops[7])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_step_launcher_checks_once_and_each_step(cuda, dtype):
+    """A launcher's steps equal the wrapper's calls on the same emb and h
+    (the tensor-core route reusing its X scratch from step to step), count
+    one launch each under the body ``step_body`` names, and reject an emb
+    or h unlike the first step's."""
+    ops = _k4_operands(cuda, dtype, seed=54)
+    body = fs.step_body(dtype, H)
+    step = fs.step_launcher(*ops, emb_size=E, frame_chunk=7)
+    emb, h = ops[:2]
+    before, n = dict(fs.fused_gru_attn_step.body_launches), \
+        fs.fused_gru_attn_step.n_launches
+    for _ in range(3):
+        got = step(emb, h)
+        want = fs.fused_gru_attn_step(emb, h, *ops[2:], emb_size=E,
+                                      frame_chunk=7)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        emb, h = torch.flip(emb, [0]), got
+    counts = fs.fused_gru_attn_step.body_launches
+    assert fs.fused_gru_attn_step.n_launches == n + 6
+    assert counts[body] == before.get(body, 0) + 6
+    with pytest.raises(ValueError, match="h must be a contiguous"):
+        step(emb, h[:-1])
+    with pytest.raises(ValueError, match="emb must be a contiguous"):
+        step(emb.t().contiguous().t(), h)
+    with pytest.raises(ValueError, match="h must be a contiguous"):
+        step(emb, h.half())
+    with pytest.raises(ValueError, match="emb must be a contiguous"):
+        step(emb.cpu(), h)
+    assert fs.fused_gru_attn_step.n_launches == n + 6
+
+
+def test_greedy_decode_pallas_bf16_reads_the_layouts(cuda):
+    """bf16 on the tensor-core route: T launches, each counted under
+    "tensor_cores", the same tokens with the parameter set's gate tiles
+    as with tiles made per call, and tokens equal to a loop through K4's
+    twin on 98% of the tokens."""
+    from recnet_tpu_torch.decoding import greedy_decode_pallas
+
+    cfg = DecoderConfig(cell_type="GRU", vocab_size=V, embedding_size=E,
+                        encoder_size=F, hidden_size=H, attn_size=A)
+    p = random_params(cfg, 11)
+    p["out_w"] = p["out_w"] * 8.0
+    params = params_from_jax(p, cuda, torch.bfloat16)
+    assert "gates" in params["layouts"]
+    enc = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (45, K4_L, F)).astype(np.float32)).to(cuda, torch.bfloat16)
+    n = fs.fused_gru_attn_step.body_launches["tensor_cores"]
+    got = greedy_decode_pallas(params, cfg, enc, MAX_LEN)
+    assert (fs.fused_gru_attn_step.body_launches["tensor_cores"]
+            == n + MAX_LEN + 1)
+    bare = {k: v for k, v in params.items() if k != "layouts"}
+    again = greedy_decode_pallas(bare, cfg, enc, MAX_LEN)
+    assert torch.equal(got.tokens, again.tokens)
+    assert got.n_steps == again.n_steps
+    # the same loop with K4's twin
+    a, r = params["attention"], params["rnn"][0]
+    uv = precompute_uv(a, enc)
+    bias3 = fs.pack_gru_bias(r["b_ih"], r["b_hh"])
+    h = torch.zeros((45, H), dtype=torch.bfloat16, device=cuda)
+    tok = torch.full((45,), cfg.sos_token, dtype=torch.long, device=cuda)
+    toks = []
+    for _ in range(MAX_LEN + 1):
+        h = fs.fused_gru_attn_step_reference(
+            params["embedding"][tok], h, enc, uv, a["W"], a["w"],
+            a["b"][None, :], r["w_ih"], r["w_hh"], bias3, emb_size=E)
+        tok = torch.argmax(h @ params["out_w"] + params["out_b"], dim=-1)
+        toks.append(tok)
+    want = torch.stack(toks).int()
+    steps = got.n_steps
+    share = (got.tokens[:steps] == want[:steps]).float().mean().item()
+    assert share >= 0.98
 
 
 def test_greedy_decode_pallas_equals_plain_greedy(cuda):

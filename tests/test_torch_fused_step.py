@@ -1,6 +1,9 @@
 """The fused attention + GRU step (K4) of the port against the JAX module:
 its plain twin against the Pallas kernel in interpret mode and against the
-plain restatement, and ``greedy_decode_pallas`` against JAX's.
+plain restatement, the plain stages of its tensor-core route (the gate
+operand X, then the gate product over the gate tiles with the GRU cell)
+against both, the rule that picks the body, and ``greedy_decode_pallas``
+against JAX's.
 
 Mirrors tests/test_pallas_fused.py:36-111. f32: rtol 2e-5, atol 2e-6, the
 JAX test's own tolerance (the same casts, summed in another order); the
@@ -23,6 +26,8 @@ from recnet_tpu.ops.pallas import fused_step as j_fs
 from recnet_tpu_torch import decoding as t_decoding
 from recnet_tpu_torch.models import decoder as t_dec
 from recnet_tpu_torch.ops.cuda import fused_step as fs
+from recnet_tpu_torch.ops.cuda import layout
+from recnet_tpu_torch.ops.cuda import whole_decode as wd
 from recnet_tpu_torch.weights import params_from_jax
 
 B, L, F, E, H, A, V = 16, 7, 24, 12, 16, 8, 40
@@ -189,6 +194,160 @@ def test_wrapper_takes_the_twin_on_cpu():
     assert fs.fused_gru_attn_step.n_launches == n
 
 
+def test_wrapper_options_keep_the_twin_on_cpu():
+    """``tiles`` and ``cuda_cores`` choose a body on the card only."""
+    _, t_ops = _step_operands(_inputs(seed=10))
+    n, bodies = (fs.fused_gru_attn_step.n_launches,
+                 dict(fs.fused_gru_attn_step.body_launches))
+    want = fs.fused_gru_attn_step_reference(*t_ops, emb_size=E)
+    tiles = layout.gate_tiles(t_ops[7], t_ops[8], 3)
+    for kw in (dict(tiles=tiles), dict(cuda_cores=True)):
+        assert torch.equal(fs.fused_gru_attn_step(*t_ops, emb_size=E, **kw),
+                           want)
+    assert fs.fused_gru_attn_step.n_launches == n
+    assert dict(fs.fused_gru_attn_step.body_launches) == bodies
+
+
+@pytest.mark.parametrize("dtype,hidden,cuda_cores,body", [
+    (torch.bfloat16, 512, False, "tensor_cores"),
+    (torch.bfloat16, 16, False, "tensor_cores"),
+    (torch.bfloat16, 24, False, "cuda_cores"),
+    (torch.bfloat16, 512, True, "cuda_cores"),
+    (torch.float32, 512, False, "cuda_cores"),
+    (torch.float32, 16, True, "cuda_cores"),
+])
+def test_step_body_rule(dtype, hidden, cuda_cores, body):
+    """bf16 in 16-unit tiles takes the tensor-core route, as K1's body
+    does; f32 (the tensor cores' f32 is TF32), other shapes and
+    ``cuda_cores`` take the CUDA-core body."""
+    assert fs.step_body(dtype, hidden, cuda_cores) == body
+    assert (fs.step_body(dtype, hidden, cuda_cores) == "tensor_cores") == (
+        wd._tensor_cores(dtype, hidden) and not cuda_cores)
+
+
+# the tensor-core route's two stages: L = 28 frames (every frame_chunk of
+# the Pallas tests), E + F = 36 (a ragged k16 step), B = 13 (ragged)
+S_B, S_L = 13, 28
+
+
+def _stage_operands(seed, dtype=torch.float32, jdtype=jnp.float32):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: (rng.standard_normal(s) * 0.3).astype(np.float32)
+    arrays = (mk(S_B, E), mk(S_B, H), mk(S_B, S_L, F), mk(S_B, S_L, A),
+              mk(H, A), mk(A, 1), np.ones((1, A), np.float32),
+              mk(E + F, 3 * H), mk(H, 3 * H), mk(3 * H), mk(3 * H))
+    return _step_operands(arrays, jdtype, dtype)
+
+
+def _stages(t_ops, frame_chunk):
+    """h' through the plain restatements of the route's two kernels."""
+    emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh, bias3 = t_ops
+    x = fs.attention_pass_reference(emb, h, enc, uv, attn_w, attn_v, attn_b,
+                                    frame_chunk=frame_chunk)
+    return fs.gate_cell_reference(x, layout.gate_tiles(w_ih, w_hh, 3), bias3)
+
+
+@pytest.mark.parametrize("frame_chunk", [1, 4, 7, 28])
+def test_stages_match_twin(frame_chunk):
+    """The same products as the twin, summed in another order (k16 steps
+    of the gate tiles): F32_TOL."""
+    _, t_ops = _stage_operands(20 + frame_chunk)
+    want = fs.fused_gru_attn_step_reference(*t_ops, emb_size=E,
+                                            frame_chunk=frame_chunk)
+    got = _stages(t_ops, frame_chunk)
+    assert got.shape == (S_B, H) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("frame_chunk", [1, 4, 7, 28])
+def test_stages_match_pallas_interpret(frame_chunk):
+    """Against JAX's kernel in interpret mode, B = 13 in one tile."""
+    j_ops, t_ops = _stage_operands(30 + frame_chunk)
+    want = j_fs.fused_gru_attn_step(*j_ops, emb_size=E, block_b=S_B,
+                                    frame_chunk=frame_chunk, interpret=True)
+    got = _stages(t_ops, frame_chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("frame_chunk", [1, 7])
+def test_stages_bf16_at_rounding_level(frame_chunk):
+    j_ops, t_ops = _stage_operands(40 + frame_chunk, torch.bfloat16,
+                                   jnp.bfloat16)
+    want = j_fs.fused_gru_attn_step(*j_ops, emb_size=E, block_b=S_B,
+                                    frame_chunk=frame_chunk, interpret=True)
+    got = _stages(t_ops, frame_chunk)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=2.0 ** -7, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_operand_layout(dtype):
+    """X = [emb, ctx, zero pad to 48 columns, h]: emb and h exact, ctx the
+    twin's ctx / L cast to dtype; its columns are the rows of the gate
+    tiles (the gate product over the tiles equals [emb, ctx] W_ih and
+    h W_hh)."""
+    _, t_ops = _stage_operands(50, dtype)
+    emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh, bias3 = t_ops
+    x = fs.attention_pass_reference(emb, h, enc, uv, attn_w, attn_v, attn_b,
+                                    frame_chunk=4)
+    assert fs.gate_width(E + F, H) == 48 + H
+    assert x.shape == (S_B, 48 + H) and x.dtype == dtype
+    assert torch.equal(x[:, :E], emb) and torch.equal(x[:, -H:], h)
+    assert not x[:, E + F:48].any()
+    ctx = sum(sum((torch.tanh(h.float() @ attn_w.float()
+                              + uv[:, f].float() + attn_b[0].float())
+                   @ attn_v.float()) * enc[:, f].float()
+                  for f in range(j, j + 4)) for j in range(0, S_L, 4))
+    torch.testing.assert_close(x[:, E:E + F].float(),
+                               (ctx / S_L).to(dtype).float(),
+                               rtol=2.0 ** -7 if dtype != torch.float32
+                               else 1e-6, atol=1e-6)
+    tiles = layout.gate_tiles(w_ih, w_hh, 3).float()
+    steps = tiles.shape[1]
+    w = tiles.permute(1, 3, 2, 0, 4).reshape(16 * steps, 3 * H)
+    np.testing.assert_array_equal(w[:E + F].numpy(), w_ih.float().numpy())
+    np.testing.assert_array_equal(w[48:].numpy(), w_hh.float().numpy())
+    assert not w[E + F:48].any()
+
+
+def test_stage_wrappers_take_the_plain_stages_on_cpu():
+    _, t_ops = _stage_operands(60, torch.bfloat16, jnp.bfloat16)
+    emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh, bias3 = t_ops
+    n = fs.fused_gru_attn_step.n_launches
+    x = fs._attention_pass(emb, h, enc, uv, attn_w, attn_v, attn_b,
+                          frame_chunk=7)
+    assert torch.equal(x, fs.attention_pass_reference(
+        emb, h, enc, uv, attn_w, attn_v, attn_b, frame_chunk=7))
+    tiles = layout.gate_tiles(w_ih, w_hh, 3)
+    assert torch.equal(fs._gate_cell(x, tiles, bias3),
+                       fs.gate_cell_reference(x, tiles, bias3))
+    assert fs.fused_gru_attn_step.n_launches == n
+
+
+def test_stages_reject_what_the_kernels_do_not_take():
+    _, t_ops = _stage_operands(70)
+    emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh, bias3 = t_ops
+    attn = (h, enc, uv, attn_w, attn_v, attn_b)
+    with pytest.raises(ValueError, match="uv has shape"):
+        fs._attention_pass(emb, h, enc, uv[:, :, :-1], attn_w, attn_v, attn_b)
+    with pytest.raises(ValueError, match="frame_chunk"):
+        fs._attention_pass(emb, *attn, frame_chunk=3)
+    with pytest.raises(ValueError, match="emb is torch.bfloat16"):
+        fs._attention_pass(emb.bfloat16(), *attn)
+    x = fs._attention_pass(emb, *attn)
+    tiles = layout.gate_tiles(w_ih, w_hh, 3)
+    with pytest.raises(ValueError, match="bias3 has shape"):
+        fs._gate_cell(x, tiles, bias3[:, :-1])
+    with pytest.raises(ValueError, match="tiles is torch.bfloat16"):
+        fs._gate_cell(x, tiles.bfloat16(), bias3)
+    with pytest.raises(ValueError, match="x has shape"):
+        fs._gate_cell(x[:, :-3], tiles, bias3)
+    with pytest.raises(ValueError, match="tiles has shape"):
+        fs._gate_cell(x, layout.gate_tiles(w_ih[:-16], w_hh, 3), bias3)
+
+
 def test_wrapper_raises_where_jax_asserts():
     _, t_ops = _step_operands(_inputs(seed=9))
     with pytest.raises(ValueError, match="frame_chunk"):
@@ -204,3 +363,20 @@ def test_wrapper_raises_where_jax_asserts():
         fs.fused_gru_attn_step(*t_ops, emb_size=E + 1)
     with pytest.raises(ValueError, match="no fused-step route"):
         fs.fused_gru_attn_step(*[t.to("meta") for t in t_ops], emb_size=E)
+
+
+def test_step_launcher_runs_the_twin_on_cpu():
+    """A launcher's steps on CPU tensors are the twin's, each with its own
+    emb and h, and count no launch."""
+    _, t_ops = _step_operands(_inputs(seed=10))
+    emb, h = t_ops[:2]
+    n = fs.fused_gru_attn_step.n_launches
+    step = fs.step_launcher(*t_ops, emb_size=E, frame_chunk=7)
+    for _ in range(3):
+        h_new = step(emb, h)
+        assert torch.equal(h_new, fs.fused_gru_attn_step_reference(
+            emb, h, *t_ops[2:], emb_size=E, frame_chunk=7))
+        emb, h = torch.flip(emb, [0]), h_new
+    assert fs.fused_gru_attn_step.n_launches == n
+    with pytest.raises(ValueError, match="no fused-step route"):
+        fs.step_launcher(*[t.to("meta") for t in t_ops], emb_size=E)
