@@ -43,7 +43,18 @@ Phases, one line or more each; any failure exits non-zero before a result:
    apart; captions/s of the greedy and beam paths;
 6. ablate: the profiling sweep of K1's CUDA-core body at B=1024 bf16
    (its production step, each ablated part, dual), each part's cost as
-   full - variant and its tokens against its twin's.
+   full - variant and its tokens against its twin's;
+7. train: training at the flagship width on an in-memory corpus of random
+   features and captions (``examples/msvd_flagship.json``, data bundle
+   off, short cadences): (a) three f32 train steps on the card against
+   the same steps on the CPU from the same state, then 30 card steps on
+   one batch whose loss must fall; (b) ``training.loop.train`` with k = 10
+   steps a dispatch and the bf16 device feature cache, its val pass, its
+   test pass through ``evaluate`` (greedy and beam 5: K2 and K3, counted
+   from 0 around the pass), its checkpoints, and a resume from the last;
+   (c) ms a train step by CUDA events over k-step dispatches (median of
+   3) in f32 and bf16, the card's busy time and idle share by the
+   profiler, the peak memory and the bound.
 
 ``--compare`` times K1, K2 (seg_len 4), K3 and K4 with their library
 routes, and the K4 loop, for this tree and another (an unpacked parent, say) in turns: this,
@@ -109,6 +120,22 @@ PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 L2_PROBE_BYTES = 12 * 2 ** 20  # --read-rates: about one block-step of K1's
                                # weights
+# [train]: the in-memory corpus (videos of the train, val and test splits,
+# captions a video), the card-against-CPU steps and their tolerances (f32,
+# TF32 off): the largest relative difference of a loss, or of a leaf's sum
+# over its sum of |x| (params and Adam states); the grad norm's apart,
+# since torch's float32 norm on the CPU drifts about 2e-4 on leaves of
+# millions of elements where the per-leaf norms in float64 agree to 1e-9;
+# the steps on one batch whose loss must fall, the loop's dispatches, the
+# timed ones
+TRAIN_VIDEOS = (400, 50, 100)
+TRAIN_CAPTIONS = 3
+CARD_CPU_STEPS = 3
+TRAIN_RTOL = 1e-4
+NORM_RTOL = 1e-3
+REPEAT_STEPS = 30
+TRAIN_DISPATCHES = 4
+TIME_DISPATCHES = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -1172,9 +1199,9 @@ def read_probe_library(build):
     """READ_PROBE_SRC built with nvcc into ``build``'s directory and bound
     with ctypes."""
     import ctypes
-    src = build.BUILD_DIR / "read_probe.cu"
+    src = build.build_dir() / "read_probe.cu"
     lib_path = src.with_suffix(".so")
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.parent.mkdir(parents=True, exist_ok=True)
     src.write_text(READ_PROBE_SRC)
     subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
                     str(src)], check=True, capture_output=True)
@@ -1239,10 +1266,9 @@ def core_kernels(torch, tc, cfg, params, enc):
     reps); K3's library route is ``beam_decode``'s plain one, cuBLAS then
     the top-K; K4's is ``gru_attn_step_reference``, a composition of about
     ten PyTorch calls (cuBLAS and einsum), since no single call computes
-    the step. K4 reads the parameter set's gate tiles where its wrapper
-    takes them. Imports the package first on sys.path, so that
-    ``--compare`` times another tree's with it."""
-    import inspect
+    the step. K4 reads the parameter set's gate tiles. Imports the package
+    first on sys.path, so that ``--compare`` times another tree's with
+    it."""
     from recnet_tpu_torch import decoding
     from recnet_tpu_torch.ops.cuda import fused_step as fs
     from recnet_tpu_torch.ops.cuda import topk_proj as tp
@@ -1263,12 +1289,8 @@ def core_kernels(torch, tc, cfg, params, enc):
     N, V = B * BEAM, cfg.vocab_size
     k4 = k4_operands(torch, cfg, params, enc, 14)
     tiles = (params.get("layouts") or {}).get("gates")
-    # a tree before K4's tensor-core route takes no tiles (this test goes
-    # once --compare's parent has them)
     k4kw = dict(emb_size=cfg.embedding_size,
-                **({"tiles": tiles} if tiles is not None and "tiles" in
-                   inspect.signature(fs.fused_gru_attn_step).parameters
-                   else {}))
+                **({"tiles": tiles} if tiles is not None else {}))
     return {
         "whole_greedy_decode": (
             lambda: wd.whole_greedy_decode(*ops, **k1),
@@ -1520,6 +1542,308 @@ def ablate_sweep(torch, tc, cfg, params_np):
 
 
 # --------------------------------------------------------------------------
+# 8. training at the flagship width
+# --------------------------------------------------------------------------
+
+def train_config(tc):
+    """The flagship preset for the [train] phase: raw (in-memory) data,
+    no data bundle, short cadences on k = steps_per_dispatch boundaries."""
+    k = tc.steps_per_dispatch
+    return tc.replace(data_bundle=False, n_iterations=TRAIN_DISPATCHES * k,
+                      log_every=k, validate_every=2 * k,
+                      test_every=TRAIN_DISPATCHES * k, save_every=2 * k)
+
+
+def train_corpus(tc, vocab):
+    """An in-memory Corpus of random features (28-60 frames of the
+    encoder's width) and captions (4-20 words of the vocab), TRAIN_VIDEOS
+    per split, TRAIN_CAPTIONS captions a video, from a seed."""
+    from recnet_tpu_torch.data import Corpus
+    rng = np.random.default_rng(SEED + 50)
+    words = np.asarray([vocab.idx2word[i] for i in range(3, vocab.n_vocabs)])
+    splits = {}
+    for split, n in zip(("train", "val", "test"), TRAIN_VIDEOS):
+        vids = [f"{split}{i}" for i in range(n)]
+        splits[split] = (
+            {v: rng.standard_normal((int(rng.integers(28, 61)),
+                                     tc.encoder_output_size)
+                                    ).astype(np.float32) for v in vids},
+            {v: [" ".join(rng.choice(words, int(rng.integers(4, 21))))
+                 for _ in range(TRAIN_CAPTIONS)] for v in vids})
+    return Corpus(tc, vocab=vocab, splits=splits)
+
+
+def checksums(leaves):
+    """Per leaf (sum, sum of |x|) in float64."""
+    return [(float(np.sum(x, dtype=np.float64)),
+             float(np.sum(np.abs(x), dtype=np.float64))) for x in leaves]
+
+
+def train_card_against_cpu(torch, tc, corpus):
+    """(a) The same f32 train steps on the card and on the CPU from the
+    same state (dropout off, so both draw nothing): losses and per-leaf
+    checksums (params and Adam moments) within TRAIN_RTOL; then
+    REPEAT_STEPS more card steps on the one batch, whose loss must fall.
+    Returns the batch (videos, captions) as numpy arrays."""
+    from recnet_tpu_torch.checkpoint import state_leaves
+    from recnet_tpu_torch.training import step as S
+    tc = tc.replace(embedding_dropout=0.0, decoder_dropout=0.0,
+                    decoder_out_dropout=0.0, reconstructor_dropout=0.0,
+                    reconstructor_decoder_dropout=0.0,
+                    train_precision="float32")
+    _, videos, captions = next(iter(corpus.train_batcher))
+    videos = corpus.train_dataset.feature_cache()[videos] if \
+        corpus.train_batcher.index_mode else videos
+    runs = {}
+    for device in ("cpu", DEVICE):
+        state, dcfg, rcfg = S.init_train_state(SEED, tc, corpus.vocab.n_vocabs,
+                                               device)
+        step = S.build_train_step(tc, dcfg, rcfg)
+        v = torch.from_numpy(videos).to(device)
+        c = torch.from_numpy(captions).to(device)
+        t0 = time.perf_counter()
+        ms = [step(state, v, c) for _ in range(CARD_CPU_STEPS)]
+        runs[device] = dict(
+            losses=[(float(m["loss"]), float(m["grad_norm"])) for m in ms],
+            sums=checksums(state_leaves(state)),
+            seconds=time.perf_counter() - t0)
+    cpu, card = runs["cpu"], runs[DEVICE]
+    rel = lambda i: max(abs(x[i] - y[i]) / abs(y[i])
+                        for x, y in zip(card["losses"], cpu["losses"]))
+    loss_err, norm_err = rel(0), rel(1)
+    sum_err = max(abs(a[0] - b[0]) / max(b[1], 1e-30)
+                  for a, b in zip(card["sums"], cpu["sums"]))
+    log("train", f"(a) {CARD_CPU_STEPS} f32 steps, B={tc.batch_size}, "
+                 f"card against CPU: (loss, grad_norm) card "
+                 f"{card['losses']}, cpu {cpu['losses']}; largest relative "
+                 f"loss difference {loss_err:.3g} and leaf checksum "
+                 f"difference {sum_err:.3g} of the leaf's sum |x| "
+                 f"(tolerance {TRAIN_RTOL:g}), grad norm {norm_err:.3g} "
+                 f"(tolerance {NORM_RTOL:g}; TF32 off; "
+                 f"{len(card['sums'])} leaves: params and Adam states); "
+                 f"CPU {cpu['seconds']:.2f} s, card {card['seconds']:.2f} s")
+    check(loss_err <= TRAIN_RTOL and sum_err <= TRAIN_RTOL
+          and norm_err <= NORM_RTOL,
+          "card and CPU train steps disagree")
+    losses = [float(step(state, v, c)["loss"]) for _ in range(REPEAT_STEPS)]
+    log("train", f"(a) {REPEAT_STEPS} more card steps on the one batch: "
+                 f"loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+                 f"({', '.join(f'{x:.5f}' for x in losses[::5])}, ...)")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          "the loss on a repeated batch did not fall")
+    return videos, captions
+
+
+def train_loop_path(torch, tc, corpus, tmp: Path):
+    """(b) ``training.loop.train`` as the CLI calls it (k-step dispatches,
+    the bf16 device feature cache, val, test through ``evaluate`` with
+    greedy and beam 5, save), then a resume from the saved checkpoint.
+    The launch counts are set to 0 just before the test pass and read
+    just after it. Returns the test pass's launches."""
+    import os
+    from recnet_tpu_torch import checkpoint as ckpt
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.training import loop
+    launches = {}
+    test = loop._test
+
+    def counted_test(*args, **kw):
+        reset_counts()
+        test(*args, **kw)
+        torch.cuda.synchronize()
+        launches.update(whole_greedy_decode_segment=(
+            wd.whole_greedy_decode_segment.n_launches),
+            outproj_topk=tp.outproj_topk.n_launches)
+    loop._test = counted_test
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)          # the test pass writes predictions.txt here
+        t0 = time.perf_counter()
+        final = loop.train(tc, corpus=corpus, log_dir=str(tmp / "log"),
+                           save_dir=str(tmp / "ck"), device=DEVICE)
+        run_s = time.perf_counter() - t0
+        last = tmp / "ck" / str(tc.n_iterations)
+        t0 = time.perf_counter()
+        resumed = loop.train(
+            tc.replace(n_iterations=tc.n_iterations + tc.steps_per_dispatch),
+            corpus=corpus, resume_from=str(last), log_dir=str(tmp / "log"),
+            save_dir=str(tmp / "ck"), device=DEVICE)
+        resume_s = time.perf_counter() - t0
+    finally:
+        loop._test = test
+        os.chdir(cwd)
+    records = [json.loads(x) for x in
+               (tmp / "log" / "metrics.jsonl").read_text().splitlines()]
+    losses = {(r["tag"], r["step"]): r["value"] for r in records
+              if r["tag"].startswith("loss/")}
+    log("train", f"(b) loop.train, k={tc.steps_per_dispatch}, "
+                 f"{tc.n_iterations} iterations + {tc.steps_per_dispatch} "
+                 f"resumed, bf16 feature cache: losses {losses}")
+    check(losses and all(np.isfinite(v) for v in losses.values()),
+          "a non-finite loss in the loop")
+    check(any(t == tc.tx_val_loss for t, _ in losses),
+          "the loop logged no val loss")
+    scores = {r["tag"]: round(r["value"], 4) for r in records
+              if r["tag"].startswith("score")}
+    log("train", f"(b) test pass launches {launches}, scores {scores}; "
+                 f"{run_s:.2f} s for the run (val, test and 2 saves "
+                 f"included), {resume_s:.2f} s for the resume")
+    check(launches.get("whole_greedy_decode_segment", 0) > 0,
+          "K2 never launched in the loop's test pass")
+    check(launches.get("outproj_topk", 0) > 0,
+          "K3 never launched in the loop's test pass")
+    check(len(scores) == 2 * len(tc.scores), f"test scores {scores}")
+    saved, meta = ckpt.load_checkpoint(str(last), tc, corpus.vocab.n_vocabs,
+                                       DEVICE)
+    equal = all(np.array_equal(a, b) for a, b in zip(
+        ckpt.state_leaves(saved), ckpt.state_leaves(final)))
+    log("train", f"(b) checkpoint {last.name}: step {meta['step']}, its "
+                 f"{meta['n_leaves']} leaves equal to the trained state: "
+                 f"{equal}; the resume ran to step {resumed.step}")
+    check(meta["step"] == final.step == tc.n_iterations and equal,
+          "the saved checkpoint is not the trained state")
+    check(resumed.step == tc.n_iterations + tc.steps_per_dispatch,
+          "the resumed loop did not continue from the checkpoint")
+    return launches
+
+
+def train_work(tc, dcfg, rcfg, B):
+    """(flops, bytes) of one train step: forward multiply-adds x 2 x 3
+    (the backward takes two products per forward product); bytes: the
+    batch's feature rows (bf16 cache) and captions read, every param and
+    Adam moment read and written once."""
+    T, L = tc.caption_max_len + 1, tc.encoder_output_len
+    E, F, H, A, V = (dcfg.embedding_size, dcfg.encoder_size,
+                     dcfg.hidden_size, dcfg.attn_size, dcfg.vocab_size)
+    G = (3 if dcfg.cell_type == "GRU" else 4) * H
+    dec = H * A + L * A + L * F + (E + F + H) * G + H * V   # a row-step
+    macs = B * (T * dec + L * F * A)                         # + U v
+    Hr = rcfg.hidden_size
+    Gr = (3 if rcfg.cell_type == "GRU" else 4) * Hr
+    if rcfg.kind == "global":
+        rec_steps, rec = T, (2 * H + Hr) * Gr + Hr * Hr
+    else:
+        rec_steps = L
+        rec = Hr * rcfg.attn_size + T * rcfg.attn_size + T * H \
+            + (H + Hr) * Gr + Hr * Hr
+        macs += B * T * H * rcfg.attn_size
+    macs += B * rec_steps * rec
+    n_dec = (V * E + (H + F) * A + 2 * A + (E + F + H) * G + 2 * G
+             + H * V + V)
+    n_rec = ((2 * H if rcfg.kind == "global" else H) + Hr) * Gr + 2 * Gr \
+        + Hr * Hr + Hr
+    if rcfg.kind == "local":
+        n_rec += (Hr + H) * rcfg.attn_size + 2 * rcfg.attn_size
+    moments = (3 if tc.decoder_use_amsgrad else 2) * n_dec + \
+        (3 if tc.reconstructor_use_amsgrad else 2) * n_rec
+    nbytes = 2 * 4 * (n_dec + n_rec + moments) + 2 * B * L * F + 4 * T * B
+    return 6 * macs, nbytes
+
+
+def f32_rate(torch):
+    """The card's float32 matmul rate (TF32 off), FLOP/s, by CUDA events
+    over an 8192^3 product."""
+    n = 8192
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    a = torch.randn((n, n), generator=g, device=DEVICE)
+    b = torch.randn((n, n), generator=g, device=DEVICE)
+    ms = timed(torch, lambda: a @ b, reps=5)[0]
+    return 2 * n ** 3 / (ms / 1e3)
+
+
+def train_times(torch, tc, corpus):
+    """(c) ms a step by CUDA events over k-step dispatches of the cached
+    step (the loop's), the median of TIME_DISPATCHES, for f32 and bf16;
+    the card's busy time a step by torch.profiler (kernels only) and its
+    idle share; peak memory; the bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from recnet_tpu_torch.training import step as S
+    k, B = tc.steps_per_dispatch, tc.batch_size
+    cache = torch.from_numpy(corpus.train_dataset.feature_cache()).to(
+        DEVICE, torch.bfloat16)
+    from recnet_tpu_torch.data import cycle
+    it = cycle(corpus.train_batcher)
+    batches = [next(it) for _ in range(k)]
+    rows = torch.from_numpy(np.stack([b[1] for b in batches])).to(DEVICE)
+    caps = torch.from_numpy(np.stack([b[2] for b in batches])).to(DEVICE)
+    card = card_line()
+    peak_f32 = f32_rate(torch)
+    log("train", f"(c) float32 matmul rate, TF32 off: "
+                 f"{peak_f32 / 1e12:.2f} TFLOP/s (8192^3, CUDA events; "
+                 f"{card})")
+    out = {}
+    for prec in ("float32", "bfloat16"):
+        ptc = tc.replace(train_precision=prec)
+        torch.cuda.reset_peak_memory_stats()
+        state, dcfg, rcfg = S.init_train_state(SEED, ptc,
+                                               corpus.vocab.n_vocabs, DEVICE)
+        fn = S.build_train_multi_step_cached(ptc, dcfg, rcfg, k)
+        run = lambda: fn(state, cache, rows, caps)
+        run()                                       # warm-up
+        torch.cuda.synchronize()
+        per_step = []
+        for _ in range(TIME_DISPATCHES):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = run()
+            end.record()
+            torch.cuda.synchronize()
+            per_step.append(start.elapsed_time(end) / k)
+        check(bool(torch.isfinite(m["loss"]).all()), f"{prec}: loss {m}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA]
+        busy = sum(ev.device_time for ev in kernels) / 1000 / k
+        check(busy > 0, "the profiler saw no device time")
+        med = float(np.median(per_step))
+        flops, nbytes = train_work(ptc, dcfg, rcfg, B)
+        peak = PEAK_BF16_FLOPS if prec == "bfloat16" else peak_f32
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[prec] = dict(ms=med, steps_s=1000 / med, busy_ms=busy,
+                         idle=1 - busy / med, kernels=len(kernels) / k,
+                         bound_ms=bound_ms, peak_gib=mem)
+        log("train", f"(c) {prec}, B={B}, k={k}: "
+                     f"{', '.join(f'{x:.3f}' for x in per_step)} ms a step "
+                     f"by CUDA events (median {med:.3f} ms, "
+                     f"{1000 / med:.2f} steps/s); the card busy "
+                     f"{busy:.3f} ms a step ({len(kernels) / k:.0f} device "
+                     f"activities a step; idle share {1 - busy / med:.3f}); "
+                     f"peak memory {mem:.2f} GiB; bound {bound_ms:.3f} ms "
+                     f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
+                     f"{flops / 1e9:.1f} GFLOP at {peak / 1e12:.1f} "
+                     f"TFLOP/s, {nbytes / 1e6:.0f} MB at "
+                     f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) on {card}")
+        del state, fn
+    return out
+
+
+def train_phase(torch, tc, vocab):
+    """[train]: (a) card against CPU, (b) the loop with val, test, save
+    and resume, (c) times."""
+    ttc = train_config(tc)
+    ttc.validate()
+    corpus = train_corpus(ttc, vocab)
+    log("train", f"flagship preset, data_bundle off, in-memory corpus: "
+                 f"{len(corpus.train_dataset)} train pairs of "
+                 f"{TRAIN_VIDEOS[0]} videos, {len(corpus.val_dataset)} val, "
+                 f"{TRAIN_VIDEOS[2]} test videos; B={ttc.batch_size}, "
+                 f"k={ttc.steps_per_dispatch}, cache "
+                 f"{ttc.feature_cache_dtype}")
+    train_card_against_cpu(torch, ttc, corpus)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = train_loop_path(torch, ttc, corpus, Path(tmp))
+    train_times(torch, ttc, corpus)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # 7. two trees in turns: python3 chip_smoke.py --compare <other tree>
 # --------------------------------------------------------------------------
 
@@ -1632,6 +1956,7 @@ def main() -> int:
     variant_launches.update(sweep_launches)
     for name, err in sweep_errs.items():
         variant_errs[name] = max(variant_errs.get(name, 0.0), err)
+    train_phase(torch, tc, vocab)
     T, L = tc.caption_max_len + 1, tc.encoder_output_len
     for part in ABLATE_PARTS:
         ms, plain = sweep_ms[f"ablate={part}"]

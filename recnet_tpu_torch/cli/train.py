@@ -1,0 +1,79 @@
+"""CLI: python -m recnet_tpu_torch.cli.train [--debug] [--loss_only]
+[--config f.json] [--resume <step dir>] [--device cuda|cpu]
+
+The flags of ``recnet_tpu.cli.train`` (reference train.py:200-204, plus
+config files, resume and the dispatch and cache knobs) less the multi-host
+and orbax ones, and ``--device``: the card by default, the CPU only when
+asked; without a card ``--device cuda`` raises. ``--mesh`` raises: the
+multi-GPU path is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from recnet_tpu_torch.config import TrainConfig
+from recnet_tpu_torch.training.loop import train
+
+
+def main(argv=None):
+    a = argparse.ArgumentParser()
+    a.add_argument("--debug", "-D", action="store_true")
+    a.add_argument("--loss_only", "-L", action="store_true")
+    a.add_argument("--config", type=str, default=None,
+                   help="TrainConfig JSON file (defaults match the reference)")
+    a.add_argument("--resume", type=str, default=None,
+                   help="checkpoint step directory to resume from")
+    a.add_argument("--mesh", action="store_true",
+                   help="shard over several devices (not ported yet)")
+    a.add_argument("--mesh_shape", type=str, default=None,
+                   help='e.g. "data=4,model=2" (implies --mesh)')
+    a.add_argument("--keep_last_k", type=int, default=0,
+                   help="checkpoint retention (0 = keep all)")
+    a.add_argument("--profile_dir", type=str, default=None,
+                   help="torch.profiler trace directory (traces iters 10-14)")
+    a.add_argument("--steps_per_dispatch", type=int, default=None,
+                   help="train steps per dispatch (cadences must divide by k)")
+    a.add_argument("--device_feature_cache", action="store_true",
+                   help="keep all train video features on the device and "
+                        "send only row indices per step (requires uniform "
+                        "frame sampling)")
+    a.add_argument("--feature_cache_dtype", type=str, default=None,
+                   choices=["float32", "bfloat16", "float16"],
+                   help="storage dtype of the device feature caches; "
+                        "compute stays float32")
+    a.add_argument("--data_bundle", action="store_true",
+                   help="the preprocessed-corpus bundle (not ported yet)")
+    a.add_argument("--device", type=str, default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    args = a.parse_args(argv)
+
+    if args.config:
+        with open(args.config) as f:
+            tc = TrainConfig.from_json(f.read())
+    else:
+        tc = TrainConfig()
+    use_mesh = args.mesh
+    if args.mesh_shape:
+        tc = tc.replace(mesh_shape=tuple(
+            (kv.split("=")[0], int(kv.split("=")[1]))
+            for kv in args.mesh_shape.split(",")))
+        use_mesh = True
+    if args.steps_per_dispatch is not None:
+        tc = tc.replace(steps_per_dispatch=args.steps_per_dispatch)
+    if args.device_feature_cache:
+        tc = tc.replace(device_feature_cache=True)
+    if args.feature_cache_dtype is not None:
+        tc = tc.replace(feature_cache_dtype=args.feature_cache_dtype)
+    if args.data_bundle:
+        tc = tc.replace(data_bundle=True)
+    # die on incompatible knobs before any data or device is touched
+    tc.validate(debug=args.debug)
+    train(tc, debug=args.debug, loss_only=args.loss_only,
+          resume_from=args.resume, use_mesh=use_mesh,
+          profile_dir=args.profile_dir, keep_last_k=args.keep_last_k,
+          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,10 @@
-"""Vocab, frame and text transforms, datasets and the evaluation corpus:
-copies of the jax-free parts of ``recnet_tpu.data`` that the port reads,
-under the same module names."""
+"""Vocab, frame and text transforms, datasets, batchers and the corpus:
+copies of ``recnet_tpu.data`` under the same module names, with the
+device prefetch in PyTorch."""
 
+from recnet_tpu_torch.data.batcher import Batcher, cycle, prefetch_to_device
 from recnet_tpu_torch.data.corpus import Corpus, ScoreBatcher
 from recnet_tpu_torch.data.vocab import Vocab
 
-__all__ = ["Corpus", "ScoreBatcher", "Vocab"]
+__all__ = ["Batcher", "Corpus", "ScoreBatcher", "Vocab", "cycle",
+           "prefetch_to_device"]

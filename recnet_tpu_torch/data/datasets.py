@@ -1,13 +1,12 @@
 """Caption and feature files to (vid, video, caption) datasets: a copy of
-the parts of ``recnet_tpu/data/datasets.py`` that evaluation and captioning
-read.
+``recnet_tpu/data/datasets.py``.
 
 Reproduces reference dataset/MSVD.py:209-303 semantics: the whole per-split
 HDF5 is loaded into host RAM; the video key is "{VideoID}_{Start}_{End}";
-the test split's (video, caption) pairs keep HDF5 key order; a caption-less
+one example per (video, caption) pair, in HDF5 key order; a caption-less
 score dataset feeds the decoder. MSR-VTT reads JSON sentence annotations
-keyed by video id. The JAX package's device feature cache
-(``feature_cache``, ``get_indexed``) is a training path and is not copied.
+keyed by video id. ``feature_cache`` and ``get_indexed`` serve the device
+feature cache (config.device_feature_cache).
 """
 
 from __future__ import annotations
@@ -74,19 +73,63 @@ def load_videos_hdf5(video_fpath: str) -> Dict[str, np.ndarray]:
 
 
 class CaptionDataset:
-    """The (vid, caption) pairs of a split, one per caption, in HDF5 key
-    order (reference: dataset/MSVD.py:255-264). Evaluation reads only
-    ``video_caption_pairs`` and ``videos``."""
+    """(vid, video, caption) pairs with per-item transforms, one per
+    caption, in HDF5 key order (reference: dataset/MSVD.py:209-264)."""
 
     def __init__(self, videos: Dict[str, np.ndarray],
-                 captions: Dict[str, List[str]]):
+                 captions: Dict[str, List[str]],
+                 transform_frame: Optional[Callable] = None,
+                 transform_caption: Optional[Callable] = None):
         self.videos = videos
         self.captions = captions
+        self.transform_frame = transform_frame
+        self.transform_caption = transform_caption
         self.video_caption_pairs: List[Tuple[str, str]] = [
             (vid, cap) for vid in videos for cap in captions.get(vid, [])]
+        self._vid_to_row: Optional[Dict[str, int]] = None
 
     def __len__(self) -> int:
         return len(self.video_caption_pairs)
+
+    def get(self, idx: int):
+        vid, caption = self.video_caption_pairs[idx]
+        video = self.videos[vid]
+        if self.transform_frame is not None:
+            video = self.transform_frame(video)
+        if self.transform_caption is not None:
+            caption = self.transform_caption(caption)
+        return vid, video, caption
+
+    def feature_cache(self) -> np.ndarray:
+        """Every video transformed once, stacked to (V, frames, feat)
+        float32 in ``videos`` order, the rows :meth:`get_indexed` gives.
+        Valid only for a deterministic frame transform (uniform sampling):
+        a cache would freeze one random draw for the whole run."""
+        out: Optional[np.ndarray] = None
+        for i, vid in enumerate(self.videos):
+            x = self.videos[vid]
+            if self.transform_frame is not None:
+                x = self.transform_frame(x)
+            x = np.asarray(x, np.float32)
+            if out is None:
+                out = np.empty((len(self.videos),) + x.shape, np.float32)
+            if x.shape != out.shape[1:]:
+                raise ValueError(f"video {vid!r} has shape {x.shape}, "
+                                 f"expected {out.shape[1:]}")
+            out[i] = x
+        if out is None:
+            raise ValueError("feature_cache() of an empty dataset")
+        return out
+
+    def get_indexed(self, idx: int):
+        """(vid, the video's row in :meth:`feature_cache`, caption): the
+        caption transform runs, the video is not materialised."""
+        if self._vid_to_row is None:
+            self._vid_to_row = {v: i for i, v in enumerate(self.videos)}
+        vid, caption = self.video_caption_pairs[idx]
+        if self.transform_caption is not None:
+            caption = self.transform_caption(caption)
+        return vid, self._vid_to_row[vid], caption
 
 
 class ScoreDataset:

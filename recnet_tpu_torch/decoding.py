@@ -12,9 +12,9 @@ Port of ``recnet_tpu.decoding`` (reference eval.py:19-120):
 * ``greedy_decode_whole_segmented``: K2 segments chained with a stop check
   between them (all <PAD>, or with ``eos_stop`` every row has seen <EOS>);
 * ``beam_decode``: batched beam search with the reference's scoring, its
-  per-beam top-K either plain or through kernel K3 (``use_pallas_topk``).
-
-Sampling is not ported yet (ROADMAP Queue 1, item 6).
+  per-beam top-K either plain or through kernel K3 (``use_pallas_topk``);
+* ``sample_decode``: temperature / top-k sampling with greedy's freeze,
+  its draws from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -396,6 +396,47 @@ def beam_decode(params: Dict, cfg: dec_mod.DecoderConfig,
         n_steps = torch.where(done, n_steps, t + 1)
         done = done | (word == cfg.pad_token).all()
     return BeamResult(history[:, 0, :], int(n_steps), cum_prob)
+
+
+@torch.no_grad()
+def sample_decode(params: Dict, cfg: dec_mod.DecoderConfig,
+                  encoder_outputs: torch.Tensor, max_len: int,
+                  generator: torch.Generator, temperature: float = 1.0,
+                  top_k: int = 0) -> GreedyResult:
+    """Stochastic decoding over the softmax of logits / temperature (the
+    temperature floored at 1e-6); ``top_k`` > 0 keeps the logits at or
+    above the k-th largest. One draw a step (the Gumbel-max trick, as
+    ``jax.random.categorical``) from ``generator``, which lies on the
+    features' device. Greedy's freeze once every token is <PAD>. A new
+    capability of the JAX package (the reference has greedy and beam
+    only); the draws differ from JAX's."""
+    B, dev = encoder_outputs.shape[0], encoder_outputs.device
+    T = max_len + 1
+    uv = attn_ops.precompute_uv(params["attention"], encoder_outputs)
+    step_logits = _make_step_logits(params, cfg, encoder_outputs, uv)
+    state = dec_mod.zero_state(cfg, B, encoder_outputs.dtype, dev)
+    token = torch.full((B,), cfg.sos_token, dtype=torch.int32, device=dev)
+    tokens = torch.full((T, B), cfg.pad_token, dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    n_steps = torch.zeros((), dtype=torch.int32, device=dev)
+    tiny = torch.finfo(torch.float32).tiny
+    for t in range(T):
+        logits, new_state = step_logits(token, state)
+        logits = logits.float() / max(temperature, 1e-6)
+        if top_k > 0:
+            kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+            logits = torch.where(logits < kth, -torch.inf, logits)
+        u = torch.rand(logits.shape, generator=generator, device=dev)
+        gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
+        out = torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+        out = torch.where(done, cfg.pad_token, out).to(torch.int32)
+        n_steps = torch.where(done, n_steps, t + 1).to(torch.int32)
+        state = tuple(torch.where(done, o, n)
+                      for n, o in zip(new_state, state))
+        done = done | (out == cfg.pad_token).all()
+        tokens[t] = out
+        token = out
+    return GreedyResult(tokens, int(n_steps))
 
 
 def tokens_to_sentences(idxs, idx2word, eos_token: int) -> List[str]:

@@ -6,7 +6,7 @@ beam search on the device the decoder params lie on, truncates to the first
 copy of the JAX package's scorer (``recnet_tpu_torch.metrics``). ``use_pallas`` routes greedy to the
 whole-decode kernels (K1, or K2 with ``greedy_segment``) and beam to the
 projection + top-K kernel (K3), as in the JAX package. Multi-device
-evaluation is not ported yet (ROADMAP Queue 1, item 11).
+evaluation is not ported yet (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations

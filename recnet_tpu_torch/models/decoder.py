@@ -1,9 +1,15 @@
-"""Attention RNN caption decoder, eval mode.
+"""Attention RNN caption decoder.
 
-Port of ``recnet_tpu.models.decoder``: embedding * scale, *unnormalised*
-additive attention over the encoder features (scores mean-pool the values),
-an LSTM/GRU stack, and the vocab projection. Dropout and the teacher-forced
-training rollouts are not ported yet (ROADMAP Queue 1, item 8).
+Port of ``recnet_tpu.models.decoder``: embedding * scale + dropout,
+*unnormalised* additive attention over the encoder features (scores
+mean-pool the values), an LSTM/GRU stack with inter-layer dropout, and the
+vocab projection + dropout. The training side: ``init_decoder_params``, the
+train path of ``decoder_step`` and the two teacher-forced rollouts
+(``teacher_forced_rollout``, one teacher-forcing decision per iteration,
+and ``teacher_forced_rollout_fast`` for ratio 1.0, with the embedding
+gather, the embedding-side gate term (one layer) and the vocab projection
+hoisted out of the loop). Dropout masks come from a ``torch.Generator``;
+autograd gives the gradients.
 
 Parameters are a nested dict in the JAX layout:
 ``embedding (V, E)``, ``attention{W (H,A), U (F,A), b (A,), w (A,1)}``,
@@ -13,7 +19,7 @@ Parameters are a nested dict in the JAX layout:
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -62,6 +68,31 @@ def config_from_train(tc, vocab_size: int) -> DecoderConfig:
     )
 
 
+def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig,
+                        dtype=torch.float32) -> Dict:
+    """The JAX initialiser's distributions, drawn from ``generator`` on its
+    device: embedding N(0, 1), attention and RNN as their modules' inits,
+    out_w and out_b U(-1/sqrt(H), 1/sqrt(H))."""
+    dev = generator.device
+    bound = 1.0 / cfg.hidden_size ** 0.5
+    emb = torch.empty((cfg.vocab_size, cfg.embedding_size), dtype=dtype,
+                      device=dev).normal_(generator=generator)
+    attention = attn_ops.init_attention_params(
+        generator, cfg.hidden_size, cfg.encoder_size, cfg.attn_size, dtype)
+    rnn = [rnn_ops.init_rnn_params(
+        generator, cfg.cell_type,
+        cfg.embedding_size + cfg.encoder_size if li == 0
+        else cfg.hidden_size, cfg.hidden_size, dtype)
+        for li in range(cfg.n_layers)]
+
+    def u(*shape):
+        return torch.empty(shape, dtype=dtype, device=dev).uniform_(
+            -bound, bound, generator=generator)
+    return {"embedding": emb, "attention": attention, "rnn": rnn,
+            "out_w": u(cfg.hidden_size, cfg.vocab_size),
+            "out_b": u(cfg.vocab_size)}
+
+
 def zero_state(cfg: DecoderConfig, batch_size: int, dtype=torch.float32,
                device="cpu") -> State:
     """(h, c), each (L, B, H), zero."""
@@ -70,9 +101,25 @@ def zero_state(cfg: DecoderConfig, batch_size: int, dtype=torch.float32,
     return z, z
 
 
-def _multilayer_rnn(cfg: DecoderConfig, params_layers, x: torch.Tensor,
-                    state: State):
-    """Stacked cells (eval mode: no inter-layer dropout)."""
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator],
+             train: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). Identity unless training with a
+    generator and rate > 0."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def _multilayer_rnn(cfg, params_layers, x: torch.Tensor, state: State,
+                    generator: Optional[torch.Generator] = None,
+                    train: bool = False):
+    """Stacked cells with dropout between layers (nn.RNN's ``dropout``);
+    ``cfg`` needs ``cell_type`` and ``dropout`` (the decoder's and the
+    reconstructors' configs have both)."""
     h, c = state
     new_h, new_c = [], []
     inp = x
@@ -81,23 +128,117 @@ def _multilayer_rnn(cfg: DecoderConfig, params_layers, x: torch.Tensor,
         new_h.append(hi)
         new_c.append(ci)
         inp = hi
+        if li + 1 < len(params_layers):
+            inp = _dropout(inp, cfg.dropout, generator, train)
     return inp, (torch.stack(new_h), torch.stack(new_c))
 
 
 def decoder_step(params: Dict, cfg: DecoderConfig, token: torch.Tensor,
                  state: State, encoder_outputs: torch.Tensor,
-                 uv: torch.Tensor) -> Tuple[torch.Tensor, State]:
-    """One eval-mode decode step.
+                 uv: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 train: bool = False) -> Tuple[torch.Tensor, State]:
+    """One decode step; ``train`` with a ``generator`` applies the
+    embedding, inter-layer and output dropout.
 
     token (B,) int; state (h, c) each (L, B, H); encoder_outputs (B, F, enc);
     uv (B, F, A). Returns (logits (B, V), new_state).
     """
     emb = params["embedding"][token] * cfg.embedding_scale
+    emb = _dropout(emb, cfg.embedding_dropout, generator, train)
     context = attn_ops.attend_mean(params["attention"], state[0][-1],
                                    encoder_outputs, uv)
     x = torch.cat([emb, context], dim=-1)
-    output, new_state = _multilayer_rnn(cfg, params["rnn"], x, state)
-    return output @ params["out_w"] + params["out_b"], new_state
+    output, new_state = _multilayer_rnn(cfg, params["rnn"], x, state,
+                                        generator, train)
+    logits = output @ params["out_w"] + params["out_b"]
+    return _dropout(logits, cfg.out_dropout, generator, train), new_state
+
+
+class DecoderRollout(NamedTuple):
+    logits: torch.Tensor          # (T, B, V)
+    hiddens: torch.Tensor         # (T, L, B, H): every layer's h per step
+    greedy_tokens: torch.Tensor   # (T, B) int32 argmax chain
+
+
+def teacher_forced_rollout(params: Dict, cfg: DecoderConfig,
+                           encoder_outputs: torch.Tensor,
+                           targets: torch.Tensor, use_teacher_forcing: bool,
+                           generator: Optional[torch.Generator] = None,
+                           train: bool = False) -> DecoderRollout:
+    """The T-step rollout (reference train.py:41-67). targets (T, B) int.
+    ``use_teacher_forcing`` is one decision for the whole batch and
+    sequence (the reference draws one Bernoulli per iteration,
+    train.py:37-38): feed the targets, or else each step's argmax."""
+    T, B = targets.shape
+    uv = attn_ops.precompute_uv(params["attention"], encoder_outputs)
+    state = zero_state(cfg, B, encoder_outputs.dtype, encoder_outputs.device)
+    token = torch.full((B,), cfg.sos_token, dtype=torch.int32,
+                       device=encoder_outputs.device)
+    logits, hiddens, greedy = [], [], []
+    for t in range(T):
+        step_logits, state = decoder_step(params, cfg, token, state,
+                                          encoder_outputs, uv, generator,
+                                          train)
+        out = torch.argmax(step_logits, dim=-1).to(torch.int32)
+        token = targets[t] if use_teacher_forcing else out
+        logits.append(step_logits)
+        hiddens.append(state[0])
+        greedy.append(out)
+    return DecoderRollout(torch.stack(logits), torch.stack(hiddens),
+                          torch.stack(greedy))
+
+
+def teacher_forced_rollout_fast(params: Dict, cfg: DecoderConfig,
+                                encoder_outputs: torch.Tensor,
+                                targets: torch.Tensor,
+                                generator: Optional[torch.Generator] = None,
+                                train: bool = False) -> DecoderRollout:
+    """``teacher_forced_rollout`` for teacher forcing always on: every
+    step's input token is known up front, so the embedding gather (and, at
+    one layer, its gate term emb @ w_ih[:E] + b_ih) and the vocab
+    projection run once for all T steps; the loop keeps the attention, the
+    context's gate term and the cell. Equal to the generic rollout in eval
+    mode; the dropout masks are drawn in another order."""
+    T, B = targets.shape
+    dev = encoder_outputs.device
+    uv = attn_ops.precompute_uv(params["attention"], encoder_outputs)
+    inputs = torch.cat([torch.full((1, B), cfg.sos_token,
+                                   dtype=targets.dtype, device=dev),
+                        targets[:-1]])
+    emb_all = params["embedding"][inputs] * cfg.embedding_scale  # (T, B, E)
+    emb_all = _dropout(emb_all, cfg.embedding_dropout, generator, train)
+    att = params["attention"]
+    if cfg.n_layers == 1:
+        r0, E = params["rnn"][0], cfg.embedding_size
+        gi_emb = emb_all @ r0["w_ih"][:E] + r0["b_ih"]          # (T, B, G)
+        w_enc = r0["w_ih"][E:]
+        F = encoder_outputs.shape[1]
+        h, c = rnn_ops.zero_state(B, cfg.hidden_size, encoder_outputs.dtype,
+                                  dev)
+        hs = []
+        for t in range(T):
+            scores = attn_ops.attention_scores(att, h, uv)
+            ctx = torch.einsum("bf,bfe->be", scores, encoder_outputs) / F
+            h, c = rnn_ops.rnn_step_pre(cfg.cell_type, r0,
+                                        gi_emb[t] + ctx @ w_enc, (h, c))
+            hs.append(h)
+        hiddens = torch.stack(hs)[:, None]                      # (T, 1, B, H)
+    else:
+        state = zero_state(cfg, B, encoder_outputs.dtype, dev)
+        hs = []
+        for t in range(T):
+            context = attn_ops.attend_mean(att, state[0][-1],
+                                           encoder_outputs, uv)
+            _, state = _multilayer_rnn(
+                cfg, params["rnn"], torch.cat([emb_all[t], context], -1),
+                state, generator, train)
+            hs.append(state[0])
+        hiddens = torch.stack(hs)
+    logits = hiddens[:, -1] @ params["out_w"] + params["out_b"]  # (T, B, V)
+    logits = _dropout(logits, cfg.out_dropout, generator, train)
+    return DecoderRollout(logits, hiddens,
+                          torch.argmax(logits, dim=-1).to(torch.int32))
 
 
 def hoisted_decode_tables(params: Dict, cfg: DecoderConfig,

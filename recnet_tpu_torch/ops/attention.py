@@ -3,6 +3,8 @@
 Port of ``recnet_tpu.ops.attention``. Scores ``w . tanh(W h + U v + b)``
 multiply the values and are mean-pooled over time. ``U v`` does not depend
 on the query, so it is computed once per sequence (``precompute_uv``).
+``init_attention_params`` draws nn.Linear's default init for W, U and w and
+ones for the bias b (reference: models/decoder.py:25-29).
 """
 
 from __future__ import annotations
@@ -12,6 +14,23 @@ from typing import Dict, Optional
 import torch
 
 Params = Dict[str, torch.Tensor]
+
+
+def init_attention_params(generator: torch.Generator, query_size: int,
+                          value_size: int, attn_size: int,
+                          dtype=torch.float32) -> Params:
+    """W (query, A), U (value, A), w (A, 1) ~ U(-1/sqrt(fan_in), ...),
+    b = ones (A,); drawn from ``generator`` on its device."""
+    dev = generator.device
+
+    def linear(fan_in, fan_out):
+        bound = 1.0 / fan_in ** 0.5
+        return torch.empty((fan_in, fan_out), dtype=dtype, device=dev
+                           ).uniform_(-bound, bound, generator=generator)
+    return {"W": linear(query_size, attn_size),
+            "U": linear(value_size, attn_size),
+            "b": torch.ones((attn_size,), dtype=dtype, device=dev),
+            "w": linear(attn_size, 1)}
 
 
 def precompute_uv(params: Params, values: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,15 @@
 """Build the CUDA sources of ``recnet_tpu_torch/csrc`` and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface. ``load(name)`` compiles it
-with nvcc for ``sm_90a`` into a shared library under
-``build/recnet_tpu_torch/`` at the repository root, named by a hash of the
+with nvcc for ``sm_90a`` into a shared library named by a hash of the
 sources and flags (so a changed source rebuilds), and loads it with ctypes.
-The build runs at first use. Without nvcc, or when nvcc fails, it raises
-with nvcc's output; there is no other route to the kernels.
+The library goes under ``build/recnet_tpu_torch/`` at the root of the
+checkout the package sits in; where there is no checkout (an installed
+copy) or that directory cannot be written, under the per-user cache
+(``$XDG_CACHE_HOME`` or ``~/.cache``, then ``recnet_tpu_torch``). The
+build runs at first use. Without nvcc, or when nvcc fails, it raises with
+nvcc's output and the build directory; there is no other route to the
+kernels.
 """
 
 from __future__ import annotations
@@ -16,11 +20,15 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "recnet_tpu_torch"
+# the directory that holds the package; a checkout when setup.py is there
+CHECKOUT_ROOT = Path(__file__).resolve().parents[3]
+# where the libraries go: resolved at the first build (``build_dir``)
+BUILD_DIR: Optional[Path] = None
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -30,6 +38,36 @@ _libraries: Dict[str, ctypes.CDLL] = {}
 
 class BuildError(RuntimeError):
     """nvcc is missing or refused a kernel source."""
+
+
+def _writable(path: Path) -> bool:
+    """Whether ``path`` can be made and a file written in it."""
+    try:
+        path.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryFile(dir=path):
+            pass
+    except OSError:
+        return False
+    return True
+
+
+def user_cache_dir() -> Path:
+    """The per-user build directory: $XDG_CACHE_HOME or ~/.cache."""
+    base = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(base) / "recnet_tpu_torch"
+
+
+def build_dir() -> Path:
+    """The checkout's ``build/recnet_tpu_torch`` when the package sits in a
+    writable checkout, else the per-user cache directory; resolved once."""
+    global BUILD_DIR
+    if BUILD_DIR is None:
+        checkout = CHECKOUT_ROOT / "build" / "recnet_tpu_torch"
+        if (CHECKOUT_ROOT / "setup.py").is_file() and _writable(checkout):
+            BUILD_DIR = checkout
+        else:
+            BUILD_DIR = user_cache_dir()
+    return BUILD_DIR
 
 
 def find_nvcc() -> str:
@@ -43,7 +81,8 @@ def find_nvcc() -> str:
     raise BuildError(
         "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
         "recnet_tpu_torch CUDA kernels build only where the CUDA toolkit "
-        "is installed, for an sm_90a (Hopper) card")
+        f"is installed, for an sm_90a (Hopper) card (build directory "
+        f"{BUILD_DIR or 'not resolved yet'})")
 
 
 def library_path(name: str) -> Path:
@@ -52,7 +91,7 @@ def library_path(name: str) -> Path:
     for src in sorted(CSRC.iterdir()):
         if src.suffix in (".cu", ".cuh"):
             digest.update(src.name.encode() + src.read_bytes())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -63,14 +102,15 @@ def build(name: str) -> Path:
     if out.is_file():
         return out
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         print(proc.stderr, file=sys.stderr)
         raise BuildError(f"nvcc failed on {name}.cu (exit "
-                         f"{proc.returncode}):\n{proc.stderr}")
+                         f"{proc.returncode}; build directory "
+                         f"{out.parent}):\n{proc.stderr}")
     os.replace(tmp, out)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     return out

@@ -1,13 +1,15 @@
-"""Single-step LSTM/GRU cells with PyTorch's gate semantics.
+"""LSTM/GRU cells with PyTorch's gate semantics, their initialiser, and a
+rollout over precomputed input gates.
 
-Port of the eval-mode cells of ``recnet_tpu.ops.rnn``:
+Port of ``recnet_tpu.ops.rnn``:
 
 * LSTM gate order i, f, g, o;  c' = f*c + i*g;  h' = o * tanh(c')
 * GRU  gate order r, z, n;     n = tanh(i_n + r * (W_hn h + b_hn));
                                h' = (1-z)*n + z*h
 
 Weights are input-major, as in the JAX package: ``w_ih (input, nG*H)``,
-``w_hh (H, nG*H)``.
+``w_hh (H, nG*H)``. ``rnn_rollout_pre`` is a plain loop over T; autograd
+gives the gradient that the JAX package's custom VJP computes by hand.
 """
 
 from __future__ import annotations
@@ -18,6 +20,23 @@ import torch
 
 Params = Dict[str, torch.Tensor]
 State = Tuple[torch.Tensor, torch.Tensor]
+
+
+def init_rnn_params(generator: torch.Generator, cell_type: str,
+                    input_size: int, hidden_size: int,
+                    dtype=torch.float32) -> Params:
+    """PyTorch's default RNN init, U(-1/sqrt(H), 1/sqrt(H)) for every weight
+    and bias, drawn from ``generator`` on its device."""
+    n_gates = 4 if cell_type == "LSTM" else 3
+    bound = 1.0 / hidden_size ** 0.5
+    G = n_gates * hidden_size
+
+    def u(*shape):
+        return torch.empty(shape, dtype=dtype,
+                           device=generator.device).uniform_(
+                               -bound, bound, generator=generator)
+    return {"w_ih": u(input_size, G), "w_hh": u(hidden_size, G),
+            "b_ih": u(G), "b_hh": u(G)}
 
 
 def lstm_cell_pre(params: Params, gi: torch.Tensor, state: State) -> State:
@@ -77,3 +96,14 @@ def zero_state(batch_size: int, hidden_size: int, dtype=torch.float32,
     """Zero (h, c) carry."""
     z = torch.zeros((batch_size, hidden_size), dtype=dtype, device=device)
     return z, z
+
+
+def rnn_rollout_pre(cell_type: str, params: Params, gi_all: torch.Tensor,
+                    h0: torch.Tensor, c0: torch.Tensor) -> torch.Tensor:
+    """Roll one layer over precomputed input gates ``gi_all (T, B, nG*H)``
+    from (h0, c0); returns the hidden states (T, B, H)."""
+    state, hs = (h0, c0), []
+    for gi in gi_all:
+        state = rnn_step_pre(cell_type, params, gi, state)
+        hs.append(state[0])
+    return torch.stack(hs)

@@ -48,7 +48,7 @@ class Captioner:
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving is not ported yet "
-                "(ROADMAP Queue 1, item 11)")
+                "(ROADMAP Queue 1, item 9)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is "

@@ -1,9 +1,11 @@
-"""The weight bridge between the JAX decoder param tree and the port.
+"""The weight bridge between the JAX package's param trees and the port.
 
 Both packages keep one layout (input-major weights, see
 ``models.decoder``), so the bridge is a copy: numpy arrays in, tensors out,
-and back. Converting to the reference's torch ``(out, in)`` layout belongs
-to the later ``import_torch`` port.
+and back. ``train_state_from_jax`` carries a whole JAX ``TrainState``
+(both models' params and Adam states) across. Converting to the
+reference's torch ``(out, in)`` layout belongs to the later
+``import_torch`` port.
 """
 
 from __future__ import annotations
@@ -106,3 +108,29 @@ def random_params(cfg: DecoderConfig, seed: int) -> Dict:
         "out_w": uniform((H, V), H),
         "out_b": uniform((V,), H),
     }
+
+
+def _adam_fields(opt_state):
+    """(count, mu, nu, nu_max) of the ``TorchAdamState`` inside a JAX
+    optax chain state (a tuple with empty states around it)."""
+    adam = next(s for s in opt_state if hasattr(s, "nu_max"))
+    to_np = lambda tree: (None if tree is None
+                          else _map(tree, lambda x: np.asarray(x)))
+    return (int(np.asarray(adam.count)), to_np(adam.mu), to_np(adam.nu),
+            to_np(adam.nu_max))
+
+
+def train_state_from_jax(jax_state, tc, device="cuda"):
+    """The JAX package's ``TrainState`` (step, dec_params, dec_opt,
+    rec_params, rec_opt) as the port's ``training.step.TrainState`` on
+    ``device``: params and both Adam states copied bit for bit. Reads the
+    JAX state's fields as numpy arrays; needs no JAX import."""
+    from recnet_tpu_torch.training.step import make_train_state
+    to_np = lambda tree: _map(tree, lambda x: np.asarray(x))
+    rec = tc.use_recon
+    return make_train_state(
+        tc, int(np.asarray(jax_state.step)), to_np(jax_state.dec_params),
+        to_np(jax_state.rec_params) if rec else None,
+        dec_adam=_adam_fields(jax_state.dec_opt),
+        rec_adam=_adam_fields(jax_state.rec_opt) if rec else None,
+        device=device)

@@ -12,7 +12,7 @@ setup(
     description="TPU-native RecNet video-captioning framework (JAX/Pallas)",
     packages=find_packages(include=["recnet_tpu", "recnet_tpu.*",
                                     "recnet_tpu_torch", "recnet_tpu_torch.*"]),
-    package_data={"recnet_tpu_torch": ["csrc/*.cu"]},
+    package_data={"recnet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension(
             "recnet_tpu.native._fastmetrics",
@@ -37,6 +37,7 @@ setup(
             "recnet-import-torch = recnet_tpu.cli.import_torch:main",
             "recnet-export-torch = recnet_tpu.cli.export_torch:main",
             "recnet-torch-serve = recnet_tpu_torch.cli.serve:main",
+            "recnet-torch-train = recnet_tpu_torch.cli.train:main",
         ],
     },
 )

@@ -782,3 +782,66 @@ def test_k3_split_boundaries_inside_equal_logits(cuda, dtype, k):
     assert torch.equal(got[1], torch.arange(k, device=cuda, dtype=torch.int32)
                        .expand(n, k))
     assert torch.equal(got[0], want[0])
+
+
+# --------------------------------------------------------------------------
+# training on the card (no kernel of its own: plain autograd and Adam)
+# --------------------------------------------------------------------------
+
+def _train_config(recon, **kw):
+    from recnet_tpu_torch.config import TrainConfig
+    return TrainConfig(caption_max_len=8, batch_size=B, embedding_size=E,
+                       encoder_output_size=F, encoder_output_len=L,
+                       decoder_hidden_size=H, decoder_attn_size=A,
+                       use_recon=recon is not None,
+                       reconstructor_type=recon or "global",
+                       reconstructor_hidden_size=F,
+                       reconstructor_attn_size=A, embedding_dropout=0.0,
+                       decoder_out_dropout=0.0,
+                       reconstructor_decoder_dropout=0.0,
+                       decoder_learning_rate=1e-2, **kw)
+
+
+@pytest.mark.parametrize("recon", [None, "global", "local"])
+@pytest.mark.parametrize("prec", ["float32", "bfloat16"])
+def test_train_steps_on_the_card_match_the_cpu(cuda, recon, prec):
+    """Three steps from one state, dropout off: f32 losses and params as
+    the CPU's; bf16 autocast within 5% of the CPU's f32 losses."""
+    from recnet_tpu_torch.checkpoint import state_leaves
+    from recnet_tpu_torch.training import step as S
+    rng = np.random.default_rng(3)
+    videos = rng.standard_normal((B, L, F)).astype(np.float32)
+    captions = rng.integers(3, V, (9, B)).astype(np.int32)
+    captions[6:] = 0
+    runs = {}
+    for dev, p in (("cpu", "float32"), ("cuda", prec)):
+        tc = _train_config(recon, train_precision=p)
+        state, dcfg, rcfg = S.init_train_state(0, tc, V, dev)
+        fn = S.build_train_step(tc, dcfg, rcfg)
+        losses = [float(fn(state, torch.from_numpy(videos).to(dev),
+                           torch.from_numpy(captions).to(dev))["loss"])
+                  for _ in range(3)]
+        runs[dev] = losses, state_leaves(state)
+    if prec == "float32":
+        np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0],
+                                   rtol=1e-5)
+        for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+    else:
+        np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0],
+                                   rtol=0.05)
+
+
+def test_prefetch_pins_and_copies_to_the_card(cuda):
+    from recnet_tpu_torch.data import prefetch_to_device
+    src = [(["v"], np.full((4, 3), i, np.float32),
+            np.full((2, 4), i, np.int32)) for i in range(6)]
+    pf = prefetch_to_device(iter(src), size=2, device="cuda")
+    got = list(pf)
+    assert len(got) == 6
+    for i, (vids, x, y) in enumerate(got):
+        assert vids == ["v"] and x.is_cuda and y.is_cuda
+        assert y.dtype == torch.int32
+        assert float(x.sum()) == 12.0 * i
+    pf.close()
+    assert not pf.thread.is_alive()

@@ -18,7 +18,8 @@ FORBIDDEN = ("recnet_tpu", "jax", "jaxlib")
 SOURCES = sorted((REPO / "recnet_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 ENTRY_POINTS = ("recnet_tpu_torch.cli.eval", "recnet_tpu_torch.cli.serve",
-                "recnet_tpu_torch.cli.caption", "recnet_tpu_torch.evaluation")
+                "recnet_tpu_torch.cli.caption", "recnet_tpu_torch.evaluation",
+                "recnet_tpu_torch.cli.train", "recnet_tpu_torch.checkpoint")
 
 
 def _imported_modules(tree: ast.AST):

@@ -112,7 +112,7 @@ def test_beam_captions_match_jax_captioner():
 
 
 def test_unported_modes_raise(captioner, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         _captioner(mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
