@@ -54,7 +54,22 @@ Phases, one line or more each; any failure exits non-zero before a result:
    from 0 around the pass), its checkpoints, and a resume from the last;
    (c) ms a train step by CUDA events over k-step dispatches (median of
    3) in f32 and bf16, the card's busy time and idle share by the
-   profiler, the peak memory and the bound.
+   profiler, the peak memory and the bound;
+8. data: the data and checkpoint side. (a) A flagship-width reference
+   (hobincar PyTorch) ``*_checkpoint.tar`` written from seeded numpy in
+   the reference's keys, layout and parameter order, imported by
+   ``cli.import_torch``, captioned on the card (256 videos, f32, greedy
+   through K2 and beam 5 through K3, counted from 0) against the same
+   Captioner on params this script transposes itself (equal captions on
+   every row), then exported by ``cli.export_torch``'s main and compared
+   with the original bit for bit (weights and every Adam moment). (b) The
+   [train] corpus packed as a data bundle (from memory: the card's machine
+   has no h5py), and ``training.loop.train`` on it with the bf16 device
+   feature cache against the loop on the raw corpus: equal losses bit for
+   bit, one upload of the score split for two test passes, the test pass
+   with and without the device cache. (c) ``CaptionScorer.evaluate()`` at
+   MSR-VTT test scale with the metrics' C++ core and on the pure-Python
+   paths: bit-equal scores, host seconds of each.
 
 ``--compare`` times K1, K2 (seg_len 4), K3 and K4 with their library
 routes, and the K4 loop, for this tree and another (an unpacked parent, say) in turns: this,
@@ -136,6 +151,13 @@ NORM_RTOL = 1e-3
 REPEAT_STEPS = 30
 TRAIN_DISPATCHES = 4
 TIME_DISPATCHES = 3
+# [data]: the videos captioned from the imported reference checkpoint; the
+# scoring corpus at MSR-VTT test scale (videos, references a video, words
+# of its Zipf vocabulary)
+DATA_VIDEOS = 256
+SCORE_VIDEOS = 2990
+SCORE_REFS = 20
+SCORE_WORDS = 3000
 
 
 class SmokeFailure(RuntimeError):
@@ -1555,10 +1577,16 @@ def train_config(tc):
 
 
 def train_corpus(tc, vocab):
-    """An in-memory Corpus of random features (28-60 frames of the
-    encoder's width) and captions (4-20 words of the vocab), TRAIN_VIDEOS
-    per split, TRAIN_CAPTIONS captions a video, from a seed."""
+    """An in-memory Corpus of ``train_splits``."""
     from recnet_tpu_torch.data import Corpus
+    return Corpus(tc, vocab=vocab, splits=train_splits(tc, vocab))
+
+
+def train_splits(tc, vocab):
+    """In-memory splits of random features (28-60 frames of the encoder's
+    width) and captions (4-20 words of the vocab), TRAIN_VIDEOS per split,
+    TRAIN_CAPTIONS captions a video, from a seed: {split: (videos,
+    captions)}."""
     rng = np.random.default_rng(SEED + 50)
     words = np.asarray([vocab.idx2word[i] for i in range(3, vocab.n_vocabs)])
     splits = {}
@@ -1570,7 +1598,7 @@ def train_corpus(tc, vocab):
                                     ).astype(np.float32) for v in vids},
             {v: [" ".join(rng.choice(words, int(rng.integers(4, 21))))
                  for _ in range(TRAIN_CAPTIONS)] for v in vids})
-    return Corpus(tc, vocab=vocab, splits=splits)
+    return splits
 
 
 def checksums(leaves):
@@ -1844,6 +1872,414 @@ def train_phase(torch, tc, vocab):
 
 
 # --------------------------------------------------------------------------
+# 9. the data and checkpoint side
+# --------------------------------------------------------------------------
+
+def reference_tensors(tc, n_vocab):
+    """A flagship-width reference checkpoint's contents from seeded numpy,
+    with the reference's own keys, its (out, in) layout and its parameter
+    order (``model.parameters()``: the root-level ``attn_b`` first):
+    {"dec": [(key, array)], "rec": [...], "dec_opt": (step, amsgrad,
+    [{moment: array}]), "rec_opt": ...}. Weights uniform in
+    +-1/sqrt(fan-in) as torch initialises them, the embedding N(0, 1);
+    moments of an optimizer past step 0."""
+    rng = np.random.default_rng(SEED + 70)
+    H, E, F = tc.decoder_hidden_size, tc.embedding_size, \
+        tc.encoder_output_size
+    A, Hr = tc.decoder_attn_size, tc.reconstructor_hidden_size
+    f32 = lambda x: np.asarray(x, np.float32)
+    u = lambda fan, *shape: f32(rng.uniform(-fan ** -0.5, fan ** -0.5,
+                                            shape))
+    dec = [("attn_b", u(A, A)),
+           ("embedding.weight", f32(rng.standard_normal((n_vocab, E)))),
+           ("attn_W.weight", u(H, A, H)), ("attn_U.weight", u(F, A, F)),
+           ("attn_w.weight", u(A, 1, A)),
+           ("rnn.weight_ih_l0", u(H, 3 * H, E + F)),
+           ("rnn.weight_hh_l0", u(H, 3 * H, H)),
+           ("rnn.bias_ih_l0", u(H, 3 * H)), ("rnn.bias_hh_l0", u(H, 3 * H)),
+           ("out.weight", u(H, n_vocab, H)), ("out.bias", u(H, n_vocab))]
+    rec = [("rnn.weight_ih_l0", u(Hr, 4 * Hr, 2 * H)),
+           ("rnn.weight_hh_l0", u(Hr, 4 * Hr, Hr)),
+           ("rnn.bias_ih_l0", u(Hr, 4 * Hr)), ("rnn.bias_hh_l0", u(Hr, 4 * Hr)),
+           ("out.weight", u(Hr, Hr, Hr)), ("out.bias", u(Hr, Hr))]
+
+    def moments(params, amsgrad):
+        out = []
+        for _, p in params:
+            m = {"exp_avg": f32(rng.standard_normal(p.shape) * 1e-3),
+                 "exp_avg_sq": f32(rng.random(p.shape) * 1e-6)}
+            if amsgrad:
+                m["max_exp_avg_sq"] = m["exp_avg_sq"] + f32(
+                    rng.random(p.shape) * 1e-7)
+            out.append(m)
+        return out
+    return {"dec": dec, "rec": rec,
+            "dec_opt": (1234, tc.decoder_use_amsgrad,
+                        moments(dec, tc.decoder_use_amsgrad)),
+            "rec_opt": (1234, tc.reconstructor_use_amsgrad,
+                        moments(rec, tc.reconstructor_use_amsgrad))}
+
+
+def write_reference_tar(torch, tc, ref, path):
+    """torch.save ``ref`` as the reference writes its *_checkpoint.tar: the
+    legacy format, pickle protocol 2, int steps, and ``'config'`` the
+    ``config.TrainConfig`` class pickled by reference (a stub module
+    here)."""
+    import types
+    groups = {"dec_opt": (tc.decoder_learning_rate, tc.decoder_weight_decay),
+              "rec_opt": (tc.reconstructor_learning_rate,
+                          tc.reconstructor_weight_decay)}
+    out = {"iteration": 1234, "loss": 2.5}
+    for mod in ("dec", "rec"):
+        out[mod] = {k: torch.from_numpy(v) for k, v in ref[mod]}
+        step, amsgrad, moments = ref[f"{mod}_opt"]
+        lr, wd = groups[f"{mod}_opt"]
+        out[f"{mod}_opt"] = {
+            "state": {i: dict({"step": step}, **{
+                name: torch.from_numpy(m) for name, m in entry.items()})
+                for i, entry in enumerate(moments)},
+            "param_groups": [{"lr": lr, "betas": (0.9, 0.999), "eps": 1e-8,
+                              "weight_decay": wd, "amsgrad": amsgrad,
+                              "params": list(range(len(moments)))}]}
+    stub = types.ModuleType("config")
+    stub.TrainConfig = type("TrainConfig", (), {"__module__": "config"})
+    sys.modules["config"] = stub
+    try:
+        out["config"] = stub.TrainConfig
+        torch.save(out, path, pickle_protocol=2,
+                   _use_new_zipfile_serialization=False)
+    finally:
+        del sys.modules["config"]
+
+
+def read_reference_tar(torch, path):
+    """torch.load a reference-format .tar (full pickle, py2-tolerant)."""
+    import types
+    stub = types.ModuleType("config")
+    stub.TrainConfig = type("TrainConfig", (), {"__module__": "config"})
+    sys.modules["config"] = stub
+    try:
+        return torch.load(path, map_location="cpu", weights_only=False,
+                          encoding="latin1")
+    finally:
+        del sys.modules["config"]
+
+
+def transposed_params(ref):
+    """The decoder params in the port's (JAX) layout, mapped by plain
+    transposition of the reference's (out, in) weights."""
+    d = dict(ref["dec"])
+    return {"attention": {"W": d["attn_W.weight"].T, "U": d["attn_U.weight"].T,
+                          "b": d["attn_b"], "w": d["attn_w.weight"].T},
+            "embedding": d["embedding.weight"],
+            "rnn": [{"w_ih": d["rnn.weight_ih_l0"].T,
+                     "w_hh": d["rnn.weight_hh_l0"].T,
+                     "b_ih": d["rnn.bias_ih_l0"], "b_hh": d["rnn.bias_hh_l0"]}],
+            "out_w": d["out.weight"].T, "out_b": d["out.bias"]}
+
+
+def bits_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def run_cli(module, *args):
+    """``python -m module args`` from the checkout; returns its seconds and
+    last output line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout + proc.stderr, file=sys.stderr)
+        raise SmokeFailure(f"{module} exited {proc.returncode}")
+    return seconds, proc.stdout.strip().splitlines()[-1]
+
+
+def data_checkpoint(torch, tc, vocab, tmp: Path):
+    """(a) A reference checkpoint at the flagship width, imported by
+    ``cli.import_torch``, captioned on the card (greedy through K2, beam 5
+    through K3, counted from 0), against the same Captioner on params this
+    phase transposes itself (f32: equal captions on every row); then
+    ``cli.export_torch`` and a bit-exact comparison with the original."""
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.serving import Captioner
+    t0 = time.perf_counter()
+    ref = reference_tensors(tc, vocab.n_vocabs)
+    tar = tmp / "1234_checkpoint.tar"
+    write_reference_tar(torch, tc, ref, tar)
+    vocab_json = tmp / "vocab.json"
+    vocab_json.write_text(vocab.to_json())
+    log("data", f"(a) reference checkpoint: decoder {tc.decoder_model} "
+                f"{tc.decoder_hidden_size}, vocab {vocab.n_vocabs}, global "
+                f"{tc.reconstructor_model} {tc.reconstructor_hidden_size} "
+                f"reconstructor, Adam at step 1234 (AMSGrad: decoder "
+                f"{tc.decoder_use_amsgrad}, reconstructor "
+                f"{tc.reconstructor_use_amsgrad}); "
+                f"{tar.stat().st_size / 2 ** 20:.1f} MiB written in "
+                f"{time.perf_counter() - t0:.2f} s")
+    import_s, said = run_cli("recnet_tpu_torch.cli.import_torch", "--ckpt",
+                             str(tar), "--out", str(tmp / "imported"),
+                             "--vocab", str(vocab_json))
+    step_dir = tmp / "imported" / "1234"
+    log("data", f"(a) cli.import_torch in {import_s:.2f} s: {said}")
+
+    kw = dict(dtype="float32", device=DEVICE, use_pallas=True,
+              greedy_segment=tc.greedy_segment)
+    imported = Captioner.from_checkpoint(str(step_dir), **kw)
+    check(imported.params["out_w"].device.type == torch.device(DEVICE).type,
+          "the imported checkpoint does not decode on the card")
+    mapped = Captioner(imported.tc, imported.vocab, transposed_params(ref),
+                       **kw)
+    feats = request_features(SEED + 71, DATA_VIDEOS, tc.encoder_output_size)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = {"greedy": imported.caption(feats),
+           "beam": imported.caption(feats, beam_width=BEAM)}
+    torch.cuda.synchronize()
+    caption_s = time.perf_counter() - t0
+    launches = {"whole_greedy_decode_segment":
+                wd.whole_greedy_decode_segment.n_launches,
+                "outproj_topk": tp.outproj_topk.n_launches}
+    want = {"greedy": mapped.caption(feats),
+            "beam": mapped.caption(feats, beam_width=BEAM)}
+    same = {k: sum(g == w for g, w in zip(got[k], want[k])) for k in got}
+    log("data", f"(a) {DATA_VIDEOS} videos captioned from the imported "
+                f"checkpoint on {imported.params['out_w'].device} (f32, "
+                f"use_pallas, greedy_segment {tc.greedy_segment}): greedy "
+                f"and beam {BEAM} in {caption_s:.2f} s, launches "
+                f"{launches}; equal to the transposed params' captions on "
+                f"{same} of {DATA_VIDEOS} rows; sample "
+                f"{got['greedy'][0][:60]!r} | {got['beam'][0][:60]!r}")
+    check(launches["whole_greedy_decode_segment"] > 0,
+          "K2 never launched on the imported checkpoint")
+    check(launches["outproj_topk"] > 0,
+          "K3 never launched on the imported checkpoint")
+    check(all(n == DATA_VIDEOS for n in same.values()),
+          "the imported checkpoint captions differently from the "
+          "transposed params")
+
+    # the export CLI's main in this process: a second interpreter would add
+    # its start and torch import to the phase
+    from recnet_tpu_torch.cli import export_torch
+    out = tmp / "exported.tar"
+    t0 = time.perf_counter()
+    export_torch.main(["--ckpt", str(step_dir), "--out", str(out)])
+    export_s = time.perf_counter() - t0
+    back = read_reference_tar(torch, out)
+    bad = []
+    for mod in ("dec", "rec"):
+        if [k for k in back[mod]] != [k for k, _ in ref[mod]]:
+            bad.append(f"{mod} keys")
+        bad += [f"{mod}.{k}" for k, v in ref[mod]
+                if not bits_equal(back[mod][k].numpy(), v)]
+        step, amsgrad, moments = ref[f"{mod}_opt"]
+        sd = back[f"{mod}_opt"]
+        group = sd["param_groups"][0]
+        if (group["amsgrad"] != amsgrad
+                or list(group["params"]) != list(range(len(moments)))):
+            bad.append(f"{mod}_opt param_groups")
+        for i, entry in enumerate(moments):
+            got_e = sd["state"][i]
+            if int(got_e["step"]) != step or set(got_e) != set(entry) | {
+                    "step"}:
+                bad.append(f"{mod}_opt[{i}] keys or step")
+            bad += [f"{mod}_opt[{i}].{name}" for name, m in entry.items()
+                    if not bits_equal(got_e[name].numpy(), m)]
+    n_moments = sum(len(ref[f"{m}_opt"][2][0]) * len(ref[m])
+                    for m in ("dec", "rec"))
+    log("data", f"(a) cli.export_torch (its main, in this process) in "
+                f"{export_s:.2f} s "
+                f"({out.stat().st_size / 2 ** 20:.1f} MiB, legacy format: "
+                f"{out.read_bytes()[:2] != b'PK'}); "
+                f"{len(ref['dec']) + len(ref['rec'])} weights and "
+                f"{n_moments} Adam moments against the original, bit for "
+                f"bit: {'equal' if not bad else bad}; iteration "
+                f"{back['iteration']}")
+    check(not bad, f"the export round trip changed {bad}")
+    check(back["iteration"] == 1234, "the export lost the iteration")
+
+
+def data_bundle(torch, tc, vocab, tmp: Path):
+    """(b) The [train] phase's corpus packed as a bundle, and the loop on
+    it (data_bundle, the bf16 device feature cache, k-step dispatches, a
+    test pass at each of two dispatches) against the same loop on the raw
+    in-memory corpus: equal losses bit for bit; one upload of the score
+    split for both test passes."""
+    import importlib.util
+    import os
+    from recnet_tpu_torch.data import Corpus
+    from recnet_tpu_torch.data import bundle as B
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.training import loop
+    k = tc.steps_per_dispatch
+    btc = train_config(tc).replace(
+        data_bundle=True, n_iterations=2 * k, log_every=k, test_every=k,
+        validate_every=2 * k, save_every=tc.save_every)
+    btc.validate()
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    log("data", f"(b) h5py {'is' if has_h5py else 'is not'} installed; the "
+                f"bundle is packed from the in-memory corpus through the "
+                f"writer build_bundle feeds from HDF5 "
+                f"(bundle._pack_in_memory)")
+    t0 = time.perf_counter()
+    splits = train_splits(btc, vocab)
+    raw = Corpus(btc.replace(data_bundle=False), vocab=vocab, splits=splits)
+    raw_corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = B._pack_in_memory(btc, str(tmp / "bundles" / "flagship"), vocab,
+                             splits, log=lambda m: None)
+    pack_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in Path(path).iterdir())
+    del splits
+    t0 = time.perf_counter()
+    bundled = Corpus(btc, bundle=path)
+    bundle_corpus_s = time.perf_counter() - t0
+
+    passes, launches = [], {}
+    test = loop._test
+
+    def timed_test(*args, **kw):
+        reset_counts()
+        t = time.perf_counter()
+        test(*args, **kw)
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t)
+        for name, fn in (("whole_greedy_decode_segment",
+                          wd.whole_greedy_decode_segment),
+                         ("outproj_topk", tp.outproj_topk)):
+            launches[name] = launches.get(name, 0) + fn.n_launches
+    cwd = os.getcwd()
+    losses, setup = {}, {}
+    try:
+        os.chdir(tmp)
+        for name, corpus, loss_only in (("raw", raw, True),
+                                        ("bundle", bundled, False)):
+            loop._test = timed_test
+            loop.train(btc.replace(data_bundle=name == "bundle"),
+                       corpus=corpus, loss_only=loss_only,
+                       log_dir=str(tmp / name), save_dir=str(tmp / name),
+                       device=DEVICE)
+            setup[name] = loop.LAST_SETUP_SECONDS
+            records = [json.loads(x) for x in (tmp / name / "metrics.jsonl")
+                       .read_text().splitlines()]
+            losses[name] = {(r["tag"], r["step"]): r["value"]
+                            for r in records if r["tag"].startswith("loss/")}
+    finally:
+        loop._test = test
+        os.chdir(cwd)
+    log("data", f"(b) bundle: {size / 2 ** 20:.1f} MiB packed in "
+                f"{pack_s:.2f} s (train/val features "
+                f"{btc.feature_cache_dtype}); time to the first iteration: "
+                f"bundled corpus {bundle_corpus_s:.3f} s + loop setup "
+                f"{setup['bundle']:.3f} s, raw in-memory corpus "
+                f"{raw_corpus_s:.3f} s + loop setup {setup['raw']:.3f} s")
+    log("data", f"(b) loop.train, k={k}, {btc.n_iterations} iterations, "
+                f"{btc.train_precision}, bf16 device cache: losses bundled "
+                f"{losses['bundle']}, raw {losses['raw']}")
+    check(losses["bundle"] and losses["bundle"] == losses["raw"],
+          "the bundled loop's losses differ from the raw corpus's")
+    check(all(np.isfinite(v) for v in losses["bundle"].values()),
+          "a non-finite loss in the bundled loop")
+    log("data", f"(b) {len(passes)} test passes (greedy and beam "
+                f"{BEAM}, {TRAIN_VIDEOS[2]} videos) in "
+                f"{', '.join(f'{s:.3f}' for s in passes)} s; score split "
+                f"uploads {bundled.score_uploads}; launches {launches}")
+    check(len(passes) == 2, f"{len(passes)} test passes, not 2")
+    check(bundled.score_uploads == 1,
+          f"the score split went to the card {bundled.score_uploads} times")
+    check(launches.get("whole_greedy_decode_segment", 0) > 0
+          and launches.get("outproj_topk", 0) > 0,
+          "K2 or K3 never launched in the bundled loop's test passes")
+
+    # a test pass on the bundled corpus without the device cache and from
+    # it, timed the same way
+    from recnet_tpu_torch.evaluation import evaluate
+    from recnet_tpu_torch.training.step import init_train_state
+    from recnet_tpu_torch.utils.misc import tree_fill, tree_leaves
+    state, dcfg, _ = init_train_state(SEED, btc, vocab.n_vocabs, DEVICE)
+    params = tree_fill(state.dec_params, iter(
+        [p.detach() for p in tree_leaves(state.dec_params)]))
+    times = {}
+    for cache in (False, True):
+        etc = btc.replace(device_feature_cache=cache)
+        t0 = time.perf_counter()
+        for search in btc.search_methods:
+            evaluate(etc, bundled, params, dcfg, search,
+                     predictions_fpath=None)
+        torch.cuda.synchronize()
+        times[cache] = time.perf_counter() - t0
+    log("data", f"(b) a test pass (greedy and beam {BEAM}) with fresh "
+                f"params: {times[False]:.3f} s uploading every batch, "
+                f"{times[True]:.3f} s from the device cache")
+
+
+def score_corpus():
+    """Synthetic MSR-VTT-test-scale predictions: SCORE_VIDEOS videos,
+    SCORE_REFS references each (5-15 words), one prediction each (6-12
+    words), words drawn from a Zipf law over SCORE_WORDS words, from a
+    seed."""
+    rng = np.random.default_rng(SEED + 72)
+    words = [f"w{i}" for i in range(SCORE_WORDS)]
+    sent = lambda lo, hi: " ".join(
+        words[i] for i in (rng.zipf(1.3, int(rng.integers(lo, hi + 1)))
+                           - 1) % SCORE_WORDS)
+    gts = {f"video{v}": [{"caption": sent(5, 15)}
+                         for _ in range(SCORE_REFS)]
+           for v in range(SCORE_VIDEOS)}
+    res = {v: [{"caption": sent(6, 12)}] for v in gts}
+    return gts, res
+
+
+def data_scoring():
+    """(c) CaptionScorer.evaluate() at MSR-VTT test scale with the C++
+    core and on the pure-Python paths: equal scores, bit for bit."""
+    from recnet_tpu_torch import native
+    from recnet_tpu_torch.metrics import CaptionScorer
+    built = native.HAVE_FASTMETRICS
+    log("data", f"(c) the metrics' C++ core built: {built} (g++ "
+                f"{' '.join(native.CXX_FLAGS)}; {native.library_path().name}"
+                f", at its first use by an earlier phase's scoring)")
+    check(built, f"the metrics' C++ core did not build: "
+                 f"{native.BUILD_ERROR}")
+    gts, res = score_corpus()
+    scores, seconds = {}, {}
+    t0 = time.perf_counter()
+    scores["cpp"] = CaptionScorer(gts, res).evaluate()
+    seconds["cpp"] = time.perf_counter() - t0
+    native.HAVE_FASTMETRICS = False          # the pure-Python paths
+    try:
+        t0 = time.perf_counter()
+        scores["python"] = CaptionScorer(gts, res).evaluate()
+        seconds["python"] = time.perf_counter() - t0
+    finally:
+        del native.HAVE_FASTMETRICS          # read afresh: the core again
+    log("data", f"(c) CaptionScorer.evaluate(), {SCORE_VIDEOS} videos x "
+                f"{SCORE_REFS} references (host): C++ core "
+                f"{seconds['cpp']:.2f} s, Python paths "
+                f"{seconds['python']:.2f} s; scores "
+                f"{ {k: round(v, 6) for k, v in scores['cpp'].items()} }, "
+                f"bit-equal: {scores['cpp'] == scores['python']}")
+    check(scores["cpp"] == scores["python"],
+          "the C++ core's scores differ from the Python paths'")
+
+
+def data_phase(torch, tc, vocab):
+    """[data]: (a) a reference checkpoint imported, captioned and
+    exported; (b) the bundle and the loop on it; (c) scoring."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_checkpoint(torch, tc, vocab, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        data_bundle(torch, tc, vocab, Path(tmp))
+    data_scoring()
+    log("data", f"the phase took {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
 # 7. two trees in turns: python3 chip_smoke.py --compare <other tree>
 # --------------------------------------------------------------------------
 
@@ -1957,6 +2393,7 @@ def main() -> int:
     for name, err in sweep_errs.items():
         variant_errs[name] = max(variant_errs.get(name, 0.0), err)
     train_phase(torch, tc, vocab)
+    data_phase(torch, tc, vocab)
     T, L = tc.caption_max_len + 1, tc.encoder_output_len
     for part in ABLATE_PARTS:
         ms, plain = sweep_ms[f"ablate={part}"]

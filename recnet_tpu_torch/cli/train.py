@@ -43,7 +43,10 @@ def main(argv=None):
                    help="storage dtype of the device feature caches; "
                         "compute stays float32")
     a.add_argument("--data_bundle", action="store_true",
-                   help="the preprocessed-corpus bundle (not ported yet)")
+                   help="build/load the preprocessed-corpus bundle (packed "
+                        "features + tokenized captions + vocab, mmapped; "
+                        "built at first use, or by recnet_tpu_torch.cli."
+                        "bundle build)")
     a.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default) or cpu")
     args = a.parse_args(argv)

@@ -1,12 +1,12 @@
-"""The run configuration: a copy of ``recnet_tpu/config.py``'s
-``TrainConfig``, so that the port reads a checkpoint's ``config.json``
-without importing the JAX package.
+"""The run configuration: copies of ``recnet_tpu/config.py``'s
+``SplitConfig`` and ``TrainConfig``, so that the port reads a checkpoint's
+``config.json`` and splits a corpus without importing the JAX package.
 
-The dataclass is copied whole, every field, default, derived id and the
+``TrainConfig`` is copied whole, every field, default, derived id and the
 ``validate`` checks, so ``from_json`` takes every key a JAX checkpoint
-holds and ``replace`` works as there. The split and eval pointers
-(``SplitConfig``, ``EvalConfig``) are not copied: the port has no split
-or training CLI.
+holds and ``replace`` works as there. ``SplitConfig`` holds the paths and
+sizes of ``cli/split.py``. The eval pointer (``EvalConfig``) is not
+copied: the port's eval CLI takes its flags directly.
 """
 
 from __future__ import annotations
@@ -20,6 +20,45 @@ from typing import Any, Dict, Tuple
 
 def _asdict(obj) -> Dict[str, Any]:
     return dataclasses.asdict(obj)
+
+
+@dataclass(frozen=True)
+class SplitConfig:
+    """Dataset split paths + sizes (reference: config.py:6-24)."""
+
+    corpus: str = "MSVD"
+    encoder_model: str = "InceptionV4"
+    data_root: str = "data"
+
+    random_seed: int = 42
+    n_train: int = 1200
+    n_val: int = 100
+    n_test: int = 670
+
+    @property
+    def video_fpath(self) -> str:
+        return f"{self.data_root}/{self.corpus}/features/{self.encoder_model}.hdf5"
+
+    @property
+    def caption_fpath(self) -> str:
+        if self.corpus == "MSR-VTT":
+            return f"{self.data_root}/{self.corpus}/metadata/videodatainfo.json"
+        return f"{self.data_root}/{self.corpus}/metadata/MSR Video Description Corpus.csv"
+
+    def split_video_fpath(self, split: str) -> str:
+        return f"{self.data_root}/{self.corpus}/features/{self.encoder_model}_{split}.hdf5"
+
+    def split_metadata_fpath(self, split: str) -> str:
+        ext = "json" if self.corpus == "MSR-VTT" else "csv"
+        return f"{self.data_root}/{self.corpus}/metadata/{split}.{ext}"
+
+    def to_json(self) -> str:
+        return json.dumps(_asdict(self), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SplitConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 @dataclass(frozen=True)

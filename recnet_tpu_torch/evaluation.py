@@ -5,8 +5,11 @@ beam search on the device the decoder params lie on, truncates to the first
 ``n_test`` videos, writes predictions.txt and scores with the port's
 copy of the JAX package's scorer (``recnet_tpu_torch.metrics``). ``use_pallas`` routes greedy to the
 whole-decode kernels (K1, or K2 with ``greedy_segment``) and beam to the
-projection + top-K kernel (K3), as in the JAX package. Multi-device
-evaluation is not ported yet (ROADMAP Queue 1, item 9).
+projection + top-K kernel (K3), as in the JAX package. With
+``device_feature_cache`` and uniform frame sampling, the score split goes
+to the params' device once (``Corpus.score_batches_device``) and every
+later call decodes from there. Multi-device evaluation is not ported yet
+(ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -70,8 +73,17 @@ def evaluate(tc, corpus, decoder_params, dcfg, search_method,
     n_test = n_test if n_test is not None else tc.n_test
     eos = corpus.vocab.word2idx["<EOS>"]
 
+    # device-resident score features: one upload reused across the
+    # periodic test passes (deterministic sampling only)
+    batches = corpus.score_batcher
+    if (getattr(tc, "device_feature_cache", False)
+            and tc.frame_sampling_method == "uniform"
+            and hasattr(corpus, "score_batches_device")):
+        batches = corpus.score_batches_device(
+            decoder_params["out_w"].device)
+
     total_vids, total_pd = [], []
-    for vids, videos in corpus.score_batcher:
+    for vids, videos in batches:
         tokens = decode_batch(decoder_params, dcfg, videos, search_method,
                               tc.caption_max_len,
                               use_pallas=getattr(tc, "use_pallas", False),

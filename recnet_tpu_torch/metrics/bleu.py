@@ -1,5 +1,6 @@
 """Corpus BLEU-1..4 — Python 3 reimplementation of the vendored scorer
-(a copy of ``recnet_tpu/metrics/bleu.py``'s pure-Python path).
+(a copy of ``recnet_tpu/metrics/bleu.py``, with its C++ fast path through
+``recnet_tpu_torch.native``).
 
 Matches reference coco_caption/pycocoevalcap/bleu/bleu_scorer.py semantics:
 'closest' effective reference length (bleu_scorer.py:71), the tiny=1e-15 /
@@ -13,6 +14,8 @@ from __future__ import annotations
 import math
 from collections import defaultdict
 from typing import Dict, List
+
+from recnet_tpu_torch import native
 
 
 def _ngram_counts(words: List[str], n: int = 4) -> Dict[tuple, int]:
@@ -35,7 +38,16 @@ def _cook_refs(refs: List[str], n: int = 4):
 
 
 def _image_stats(hyp: str, refs, n: int = 4):
-    """Per-image sufficient statistics."""
+    """Per-image sufficient statistics; C++ fast path when built."""
+    if native.has("bleu_stats"):
+        table = {}
+        intern = lambda ws: [table.setdefault(w, len(table)) for w in ws]
+        hyp_ids = intern(hyp.split())
+        ref_ids = [intern(r.split()) for r in refs]
+        testlen, reflen, guess, correct = native.fastmetrics.bleu_stats(
+            hyp_ids, ref_ids, n)
+        return {"testlen": testlen, "reflen": reflen,
+                "guess": guess, "correct": correct}
     reflen, maxcounts = _cook_refs(refs, n)
     return _cook_test(hyp, reflen, maxcounts, n)
 

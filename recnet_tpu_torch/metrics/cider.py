@@ -1,5 +1,6 @@
 """CIDEr — Python 3 reimplementation of the vendored scorer
-(a copy of ``recnet_tpu/metrics/cider.py``'s pure-Python path).
+(a copy of ``recnet_tpu/metrics/cider.py``, with its C++ core through
+``recnet_tpu_torch.native``).
 
 Matches reference coco_caption/pycocoevalcap/cider/cider_scorer.py: document
 frequency over reference sets (:93-104), tf·idf vectors with
@@ -16,6 +17,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from recnet_tpu_torch import native
+
 
 def _ngram_counts(s: str, n: int = 4) -> Dict[tuple, int]:
     words = tuple(s.split())          # tuple-slice below yields the key directly
@@ -27,13 +30,44 @@ def _ngram_counts(s: str, n: int = 4) -> Dict[tuple, int]:
 
 
 class Cider:
-    def __init__(self, n: int = 4, sigma: float = 6.0):
+    def __init__(self, n: int = 4, sigma: float = 6.0,
+                 use_native: bool = None):
         self.n = n
         self.sigma = sigma
+        # None = auto (C++ when built); tests force both paths explicitly
+        self.use_native = use_native
 
     def compute_score(self, gts: Dict[str, List[str]],
                       res: Dict[str, List[str]]):
         assert gts.keys() == res.keys()
+        # auto takes the core only when it has cider_stats: a module built
+        # from an older source stays on Python instead of failing here
+        use = (native.has("cider_stats") if self.use_native is None
+               else self.use_native)
+        if use:
+            return self._compute_score_native(gts, res)
+        return self._compute_score_py(gts, res)
+
+    def _compute_score_native(self, gts, res):
+        """C++ core (native/fastmetrics.cpp cider_stats) — bit-identical
+        to the Python path: it keeps the per-k first-occurrence summation
+        order the dict-based scorer's float results depend on, and calls
+        the same libm functions (tests/test_torch_fastmetrics.py pins exact
+        equality on randomized corpora)."""
+        ids = list(gts.keys())
+        table: Dict[str, int] = {}
+        intern = lambda s: [table.setdefault(w, len(table))
+                            for w in s.split()]
+        tests = [intern(res[iid][0]) for iid in ids]
+        refss = [[intern(r) for r in gts[iid]] for iid in ids]
+        stats = native.fastmetrics.cider_stats(tests, refss, self.n,
+                                               self.sigma)
+        scores = [float(np.mean(score) / len(gts[iid]) * 10.0)
+                  for iid, score in zip(ids, stats)]
+        return float(np.mean(scores)), np.asarray(scores)
+
+    def _compute_score_py(self, gts: Dict[str, List[str]],
+                          res: Dict[str, List[str]]):
         ids = list(gts.keys())
         crefs = [[_ngram_counts(r, self.n) for r in gts[iid]] for iid in ids]
         ctest = [_ngram_counts(res[iid][0], self.n) for iid in ids]

@@ -1,5 +1,6 @@
 """ROUGE-L — Python 3 reimplementation of the vendored scorer
-(a copy of ``recnet_tpu/metrics/rouge.py``'s pure-Python path).
+(a copy of ``recnet_tpu/metrics/rouge.py``, with its C++ LCS through
+``recnet_tpu_torch.native``).
 
 Matches reference coco_caption/pycocoevalcap/rouge/rouge.py: LCS DP (:13-34),
 F-beta with beta=1.2 and max precision/recall over references (:45-75).
@@ -11,8 +12,25 @@ from typing import Dict, List
 
 import numpy as np
 
+from recnet_tpu_torch import native
+
+
+def _intern(*seqs):
+    table: Dict[str, int] = {}
+    out = []
+    for seq in seqs:
+        out.append([table.setdefault(w, len(table)) for w in seq])
+    return out
+
 
 def lcs_length(a: List[str], b: List[str]) -> int:
+    if native.has("lcs"):
+        ia, ib = _intern(a, b)
+        return int(native.fastmetrics.lcs(ia, ib))
+    return _lcs_length_py(a, b)
+
+
+def _lcs_length_py(a: List[str], b: List[str]) -> int:
     if len(a) < len(b):
         a, b = b, a
     prev = [0] * (len(b) + 1)

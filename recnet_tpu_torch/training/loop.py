@@ -28,6 +28,7 @@ import torch
 from recnet_tpu_torch import checkpoint as ckpt
 from recnet_tpu_torch.config import TrainConfig
 from recnet_tpu_torch.data import Corpus, cycle, prefetch_to_device
+from recnet_tpu_torch.data.bundle import as_tensor
 from recnet_tpu_torch.decoding import tokens_to_sentences
 from recnet_tpu_torch.evaluation import evaluate
 from recnet_tpu_torch.training.step import (
@@ -54,8 +55,9 @@ def train(tc: TrainConfig, debug: bool = False, loss_only: bool = False,
           corpus=None, device="cuda"):
     """Run the training loop on ``device`` (the card unless the caller asks
     for "cpu"); returns the final ``TrainState``. ``corpus`` defaults to
-    ``Corpus(tc)``, read from the raw files; any object with the same
-    attributes (an in-memory ``Corpus``) does."""
+    ``Corpus(tc)``, read from the raw files or, with ``tc.data_bundle``,
+    from the preprocessed bundle; any object with the same attributes (an
+    in-memory ``Corpus``) does."""
     if use_mesh:
         raise NotImplementedError(
             "mesh and multi-host training are not ported yet (ROADMAP "
@@ -89,8 +91,9 @@ def train(tc: TrainConfig, debug: bool = False, loss_only: bool = False,
 
     def device_cache(dataset, what):
         # half-width storage halves the upload and the residency; the
-        # steps widen gathered rows back to float32 (step.gather_f32)
-        x = torch.from_numpy(dataset.feature_cache()).to(cache_dtype)
+        # steps widen gathered rows back to float32 (step.gather_f32); a
+        # bundle built for this config stores the dtype already
+        x = as_tensor(dataset.feature_cache()).to(cache_dtype)
         if (cache_dtype == torch.float16
                 and not bool(torch.isfinite(x).all())):
             raise ValueError(

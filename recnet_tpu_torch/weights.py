@@ -42,10 +42,13 @@ def _map(tree, fn):
 def params_from_jax(tree: Dict, device="cpu", dtype=None) -> Dict:
     """JAX decoder params (nested dict/list of arrays) -> nested dict of
     tensors on ``device``. Floating arrays are cast to ``dtype`` when given;
-    the values are copied bit for bit otherwise. bf16 params on a CUDA card
-    also carry ``"layouts"``, the weight copies the kernels read
+    the values are copied bit for bit otherwise, into contiguous tensors
+    whatever the arrays' strides (a transposed view included: the kernels
+    take contiguous operands only). bf16 params on a CUDA card also carry
+    ``"layouts"``, the weight copies the kernels read
     (``ops.cuda.layout.kernel_layouts``), made here once."""
-    params = _map(tree, lambda x: torch.from_numpy(np.array(x, copy=True)))
+    params = _map(tree, lambda x: torch.from_numpy(
+        np.array(x, copy=True, order="C")))
     if dtype is not None:
         params = cast_params(params, dtype)
     params = _map(params, lambda t: t.to(device))

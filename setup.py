@@ -12,7 +12,8 @@ setup(
     description="TPU-native RecNet video-captioning framework (JAX/Pallas)",
     packages=find_packages(include=["recnet_tpu", "recnet_tpu.*",
                                     "recnet_tpu_torch", "recnet_tpu_torch.*"]),
-    package_data={"recnet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"recnet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                       "native/*.cpp"]},
     ext_modules=[
         Extension(
             "recnet_tpu.native._fastmetrics",
@@ -38,6 +39,10 @@ setup(
             "recnet-export-torch = recnet_tpu.cli.export_torch:main",
             "recnet-torch-serve = recnet_tpu_torch.cli.serve:main",
             "recnet-torch-train = recnet_tpu_torch.cli.train:main",
+            "recnet-torch-split = recnet_tpu_torch.cli.split:main",
+            "recnet-torch-bundle = recnet_tpu_torch.cli.bundle:main",
+            "recnet-torch-import = recnet_tpu_torch.cli.import_torch:main",
+            "recnet-torch-export = recnet_tpu_torch.cli.export_torch:main",
         ],
     },
 )

@@ -43,6 +43,27 @@ def test_the_train_console_script_is_declared():
     assert "recnet-torch-train = recnet_tpu_torch.cli.train:main" in text
 
 
+@pytest.mark.parametrize("script,module", [
+    ("recnet-torch-split", "split"), ("recnet-torch-bundle", "bundle"),
+    ("recnet-torch-import", "import_torch"),
+    ("recnet-torch-export", "export_torch")])
+def test_the_data_console_scripts_are_declared(script, module):
+    text = (REPO / "setup.py").read_text()
+    assert f"{script} = recnet_tpu_torch.cli.{module}:main" in text
+
+
+def test_the_metrics_core_ships_and_builds_beside_the_kernels():
+    """native/*.cpp ships with the package, and the built module goes to
+    the build directory the kernels use."""
+    from recnet_tpu_torch import native
+    sources = sorted((REPO / "recnet_tpu_torch" / "native").glob("*.cpp"))
+    assert sources
+    for src in sources:
+        assert any(fnmatch.fnmatch(f"native/{src.name}", g)
+                   for g in _package_data()), src.name
+    assert native.library_path().parent == build.build_dir()
+
+
 @pytest.fixture
 def fresh_build_dir(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", None)

@@ -845,3 +845,43 @@ def test_prefetch_pins_and_copies_to_the_card(cuda):
         assert float(x.sum()) == 12.0 * i
     pf.close()
     assert not pf.thread.is_alive()
+
+
+def test_evaluate_uploads_the_score_split_to_the_card_once(cuda):
+    """With the device feature cache, evaluate takes the score batches to
+    the params' device (the card) once, in float32, and writes what the
+    CPU run writes (f32 greedy, K2's segments on the card)."""
+    from recnet_tpu_torch.data import Corpus
+    from recnet_tpu_torch.data.vocab import Vocab
+    from recnet_tpu_torch.evaluation import decode_batch, evaluate
+    from recnet_tpu_torch.models.decoder import config_from_train
+    tc = _train_config(None, device_feature_cache=True, use_pallas=True,
+                       greedy_segment=4)
+    words = [f"w{i}" for i in range(V - 3)]
+    vocab = Vocab(tc.init_word2idx_dict, 1)
+    vocab.build([" ".join(words)], lambda s: s.split())
+    rng = np.random.default_rng(4)
+    split = lambda n: (
+        {f"v{i}": rng.standard_normal((9, F)).astype(np.float32)
+         for i in range(n)},
+        {f"v{i}": [" ".join(rng.choice(words, 5))] for i in range(n)})
+    splits = {"train": split(4), "val": split(4), "test": split(6)}
+    dcfg = config_from_train(tc, vocab.n_vocabs)
+    p = random_params(dcfg, 0)
+    p["out_w"] = p["out_w"] * 8.0
+    preds = {}
+    for dev in ("cpu", "cuda"):
+        corpus = Corpus(tc, vocab=vocab, splits=splits)
+        params = params_from_jax(p, dev, torch.float32)
+        for _ in range(2):
+            evaluate(tc, corpus, params, dcfg, "greedy",
+                     predictions_fpath=None, score_on_host=False)
+        batches = corpus.score_batches_device(dev)
+        assert all(x.device.type == dev and x.dtype == torch.float32
+                   for _, x in batches)
+        assert corpus.score_uploads == 1
+        preds[dev] = [decode_batch(params, dcfg, x, "greedy",
+                                   tc.caption_max_len, use_pallas=True,
+                                   greedy_segment=4) for _, x in batches]
+    for a, b in zip(preds["cpu"], preds["cuda"]):
+        np.testing.assert_array_equal(a, b)

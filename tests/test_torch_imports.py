@@ -19,7 +19,11 @@ SOURCES = sorted((REPO / "recnet_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 ENTRY_POINTS = ("recnet_tpu_torch.cli.eval", "recnet_tpu_torch.cli.serve",
                 "recnet_tpu_torch.cli.caption", "recnet_tpu_torch.evaluation",
-                "recnet_tpu_torch.cli.train", "recnet_tpu_torch.checkpoint")
+                "recnet_tpu_torch.cli.train", "recnet_tpu_torch.checkpoint",
+                "recnet_tpu_torch.cli.split", "recnet_tpu_torch.cli.bundle",
+                "recnet_tpu_torch.cli.import_torch",
+                "recnet_tpu_torch.cli.export_torch",
+                "recnet_tpu_torch.native")
 
 
 def _imported_modules(tree: ast.AST):

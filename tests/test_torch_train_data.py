@@ -76,10 +76,22 @@ def test_in_memory_corpus_equals_the_files(fixture_root):
         Corpus(ttc, splits=splits)
 
 
-def test_data_bundle_raises_for_training(fixture_root):
-    _, ttc = _configs(fixture_root, data_bundle=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Corpus(ttc)
+def test_data_bundle_raises_for_training(fixture_root, tmp_path):
+    """The bundle is ported: a training corpus with data_bundle gives the
+    JAX package's bundled train batches; only an in-memory corpus, which
+    has no files to pack, raises on it."""
+    jtc, ttc = _configs(fixture_root, data_bundle=True,
+                        data_bundle_root=str(tmp_path / "bundles"))
+    tc, jc = Corpus(ttc), JaxCorpus(jtc)
+    assert tc._bundle is not None and jc._bundle is not None
+    for (jv, jx, jy), (tv, tx, ty) in zip(jc.train_batcher,
+                                          tc.train_batcher):
+        assert tv == jv
+        np.testing.assert_array_equal(tx, jx)
+        np.testing.assert_array_equal(ty, jy)
+    splits = {s: ({}, {}) for s in ("train", "val", "test")}
+    with pytest.raises(ValueError, match="no data bundle"):
+        Corpus(ttc, vocab=tc.vocab, splits=splits)
 
 
 def test_prefetch_copies_batches_in_order():
