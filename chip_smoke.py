@@ -69,7 +69,23 @@ Phases, one line or more each; any failure exits non-zero before a result:
    bit, one upload of the score split for two test passes, the test pass
    with and without the device cache. (c) ``CaptionScorer.evaluate()`` at
    MSR-VTT test scale with the metrics' C++ core and on the pure-Python
-   paths: bit-equal scores, host seconds of each.
+   paths: bit-equal scores, host seconds of each;
+9. dist: multi-device at the [train] width (dropout off, DIST_ITERS
+   iterations of ``training.loop.train`` with val, test and a save). The
+   card is one, and NCCL refuses two ranks on one card, so NCCL across
+   cards is not run here. (a) A one-rank NCCL group on a data=1 mesh
+   against the loop without a mesh: equal losses, leaf checksums, K2/K3
+   in the test pass, ms a step of both by CUDA events. (b) Two ranks
+   (``torch.multiprocessing``) sharing the card over gloo, asked for by
+   name, on a data=2 mesh: losses and leaves against (a)'s run, one digest
+   on both ranks, checkpoints and predictions.txt on rank 0 alone, K2/K3
+   on each rank; the two ranks first build ``topk_proj.cu`` at once into
+   one directory. (c) The same ranks on a model=2 mesh (the vocabulary
+   split, its collectives on the card's tensors through gloo). (d) The
+   mesh Captioner, a mesh of the card alone and one listing it twice:
+   DIST_VIDEOS videos, greedy (K2 segments) and beam 5 (K3), f32 captions
+   equal to the plain Captioner's, bf16 words on BF16_TOKENS, the
+   launches per shard.
 
 ``--compare`` times K1, K2 (seg_len 4), K3 and K4 with their library
 routes, and the K4 loop, for this tree and another (an unpacked parent, say) in turns: this,
@@ -2280,6 +2296,382 @@ def data_phase(torch, tc, vocab):
 
 
 # --------------------------------------------------------------------------
+# 10. multi-device: a process group, the mesh and mesh serving
+# --------------------------------------------------------------------------
+
+DIST_ITERS = 20                # two k = 10 dispatches a loop
+DIST_VIDEOS = 300              # the mesh Captioner's requests
+DIST_LOSS_RTOL = 1e-5
+DIST_LEAF_RTOL, DIST_LEAF_ATOL = 1e-4, 1e-6
+DIST_SUM_TOL = 1e-6            # (a): leaf checksums, of the leaf's sum |x|
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def on_a_free_port(start, tries: int = 3):
+    """``start(port)`` on a port free a moment ago; another process can
+    take it before the rendezvous binds it (EADDRINUSE), and then a new
+    port is tried."""
+    for attempt in range(tries):
+        try:
+            return start(free_port())
+        except Exception as e:  # noqa: BLE001 -- only EADDRINUSE retries
+            if "EADDRINUSE" not in str(e) or attempt == tries - 1:
+                raise
+            log("dist", f"the rendezvous port was taken; attempt "
+                        f"{attempt + 2} of {tries}")
+
+
+def dist_config(tc):
+    """The flagship preset for [dist]: raw (in-memory) data, dropout off,
+    DIST_ITERS iterations logged every dispatch, val, test and a save at
+    the end."""
+    k = tc.steps_per_dispatch
+    return tc.replace(data_bundle=False, n_iterations=DIST_ITERS,
+                      log_every=k, validate_every=DIST_ITERS,
+                      test_every=DIST_ITERS, save_every=DIST_ITERS,
+                      embedding_dropout=0.0, decoder_dropout=0.0,
+                      decoder_out_dropout=0.0, reconstructor_dropout=0.0,
+                      reconstructor_decoder_dropout=0.0)
+
+
+def dist_loop(torch, tc, vocab, out: Path, use_mesh: bool = True):
+    """``training.loop.train`` on a fresh [train] corpus (its batchers'
+    shuffles start from the seed), run in ``out`` (its logs, checkpoints
+    and predictions.txt land there), K2 and K3 counted from 0 just before
+    its test pass and read just after. Returns (state, result): the
+    launches, the seconds and the logged losses."""
+    import os
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.training import loop
+    out.mkdir(parents=True, exist_ok=True)
+    launches = {}
+    test = loop._test
+
+    def counted_test(*args, **kw):
+        reset_counts()
+        test(*args, **kw)
+        torch.cuda.synchronize()
+        launches.update(K2=wd.whole_greedy_decode_segment.n_launches,
+                        K3=tp.outproj_topk.n_launches)
+    loop._test = counted_test
+    cwd = os.getcwd()
+    try:
+        os.chdir(out)
+        t0 = time.perf_counter()
+        state = loop.train(tc, corpus=train_corpus(tc, vocab),
+                           use_mesh=use_mesh,
+                           log_dir=str(out / "log"),
+                           save_dir=str(out / "ck"), device=DEVICE)
+        seconds = time.perf_counter() - t0
+    finally:
+        loop._test = test
+        os.chdir(cwd)
+    metrics = out / "log" / "metrics.jsonl"
+    losses = {}
+    if metrics.exists():
+        for line in metrics.read_text().splitlines():
+            r = json.loads(line)
+            if r["tag"].startswith("loss/"):
+                losses[f"{r['tag']}@{r['step']}"] = r["value"]
+    return state, dict(launches=launches, seconds=seconds, losses=losses)
+
+
+def dist_step_ms(torch, tc, vocab):
+    """ms a step by CUDA events over k-step dispatches of the loop's cached
+    step, without a mesh and on ``tc.mesh_shape`` over the process group
+    (the rank's rows of the same batches; the all-reduce of the gradients
+    and loss terms, the vocabulary collectives), in turns (plain, mesh,
+    mesh, plain, plain, mesh)."""
+    from recnet_tpu_torch.data import cycle
+    from recnet_tpu_torch.parallel.mesh import (batch_sharding, make_mesh,
+                                                shard_state)
+    from recnet_tpu_torch.training import step as S
+    k = tc.steps_per_dispatch
+    corpus = train_corpus(tc, vocab)
+    cache = torch.from_numpy(corpus.train_dataset.feature_cache()).to(
+        DEVICE, torch.bfloat16)
+    it = cycle(corpus.train_batcher)
+    batches = [next(it) for _ in range(k)]
+    rows = np.stack([b[1] for b in batches])                 # (k, B)
+    caps = np.stack([b[2] for b in batches])                 # (k, T, B)
+    mesh = make_mesh(tc.mesh_shape)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        state, dcfg, rcfg = S.init_train_state(SEED, tc,
+                                               corpus.vocab.n_vocabs, DEVICE)
+        if m is not None:
+            state = shard_state(state, m)
+            rows_, caps_ = (batch_sharding(m, 1).part(rows),
+                            batch_sharding(m, 2).part(caps))
+        else:
+            rows_, caps_ = rows, caps
+        fn = S.build_train_multi_step_cached(tc, dcfg, rcfg, k, m)
+        runs[name] = functools.partial(
+            fn, state, cache, torch.from_numpy(rows_.copy()).to(DEVICE),
+            torch.from_numpy(caps_.copy()).to(DEVICE))
+        runs[name]()                                  # warm-up
+    ms = {"plain": [], "mesh": []}
+    for name in ("plain", "mesh", "mesh", "plain", "plain", "mesh"):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        runs[name]()
+        end.record()
+        torch.cuda.synchronize()
+        ms[name].append(start.elapsed_time(end) / k)
+    return ms
+
+
+def dist_one_rank(torch, tc, vocab, tmp: Path, card: str):
+    """(a) A one-rank NCCL group on cuda:0 (``initialize`` takes a count of
+    1 for a single-process run, so the group is made directly): the loop
+    on the data=1 mesh against the loop without a mesh. Returns the
+    mesh-less run's final leaves and result."""
+    from recnet_tpu_torch.checkpoint import state_leaves
+    from recnet_tpu_torch.parallel import distributed as dist
+    on_a_free_port(lambda port: torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0))
+    try:
+        check(dist.device() == torch.device("cuda", 0),
+              f"the rank's device is {dist.device()}")
+        plain, rp = dist_loop(torch, tc, vocab, tmp / "plain",
+                              use_mesh=False)
+        meshed, rm = dist_loop(torch, tc, vocab, tmp / "mesh")
+        ms = dist_step_ms(torch, tc, vocab)
+    finally:
+        dist.shutdown()
+    leaves = state_leaves(plain)
+    sum_err = max(abs(a[0] - b[0]) / max(b[1], 1e-30) for a, b in zip(
+        checksums(state_leaves(meshed)), checksums(leaves)))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log("dist", f"(a) one rank, NCCL, cuda:0, data=1 mesh against no mesh, "
+                f"{tc.n_iterations} iterations, B={tc.batch_size}: losses "
+                f"equal {rm['losses'] == rp['losses']} ({rm['losses']}); "
+                f"largest leaf checksum difference {sum_err:.3g} of the "
+                f"leaf's sum |x| (tolerance {DIST_SUM_TOL:g}, "
+                f"{len(leaves)} leaves); test pass launches {rm['launches']}"
+                f"; loop {rp['seconds']:.2f} s plain, {rm['seconds']:.2f} s "
+                f"mesh; ms a step by CUDA events over k="
+                f"{tc.steps_per_dispatch} dispatches, in turns: plain "
+                f"{', '.join(f'{x:.3f}' for x in ms['plain'])} (median "
+                f"{med['plain']:.3f}), mesh "
+                f"{', '.join(f'{x:.3f}' for x in ms['mesh'])} (median "
+                f"{med['mesh']:.3f}, with the all-reduce) on {card}")
+    check(rp["losses"] and rm["losses"] == rp["losses"],
+          "(a) the mesh loop's losses differ from the plain loop's")
+    check(sum_err <= DIST_SUM_TOL, "(a) the mesh loop's leaves differ")
+    check(rm["launches"].get("K2", 0) > 0 and rm["launches"].get("K3", 0)
+          > 0, f"(a) K2/K3 not launched in the test pass: {rm['launches']}")
+    return leaves, rp
+
+
+def dist_build_race(torch, tmp: Path):
+    """Both ranks build ``topk_proj.cu`` at once into one directory that
+    holds the other two libraries already: each nvcc writes a temporary
+    named by its pid and renames it over the library; both load it."""
+    from recnet_tpu_torch.ops.cuda import build
+    build.BUILD_DIR = tmp / "build_race"
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    path = build.build("topk_proj")
+    for name in ("whole_decode", "topk_proj", "fused_step"):
+        build.load(name)
+    return dict(library=path.name, seconds=time.perf_counter() - t0)
+
+
+def dist_rank(rank: int, port: int, tmp: str):
+    """One of two ranks sharing cuda:0 over gloo (asked for by name): the
+    build race, then (b) the loop on a data=2 mesh and (c) on a model=2
+    mesh; writes its results to <tmp>/rank<rank>.json."""
+    import torch
+    from recnet_tpu_torch.checkpoint import (load_config_and_vocab,
+                                             state_leaves)
+    from recnet_tpu_torch.parallel import distributed as dist
+    from recnet_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = Path(tmp)
+    dist.initialize(coordinator_address=f"localhost:{port}",
+                    num_processes=2, process_id=rank, local_device_ids=[0],
+                    cpu_collectives="gloo")
+    try:
+        result = {"race": dist_build_race(torch, tmp),
+                  "backend": torch.distributed.get_backend(),
+                  "device": str(dist.device())}
+        with tempfile.TemporaryDirectory() as t:
+            tc, vocab = load_config_and_vocab(
+                str(flagship_checkpoint_dir(Path(t), VOCAB)))
+        tc = dist_config(tc)
+        for name, shape in (("b", (("data", 2),)), ("c", (("model", 2),))):
+            stc = tc.replace(mesh_shape=shape)
+            state, r = dist_loop(torch, stc, vocab,
+                                 tmp / name / f"rank{rank}")
+            leaves = state_leaves(state, make_mesh(shape), vocab.n_vocabs)
+            r["digest"] = sum(float(np.abs(x).sum(dtype=np.float64))
+                              for x in leaves)
+            r["shard_rows"] = int(state.dec_params["embedding"].shape[0])
+            del state, leaves
+            r["ms"] = dist_step_ms(torch, stc, vocab)
+            result[name] = r
+        (tmp / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.shutdown()
+
+
+def dist_two_ranks(torch, tc, want_leaves, want, tmp: Path, card: str):
+    """(b) and (c): two ranks spawned on the card, held against (a)'s
+    mesh-less run."""
+    import torch.multiprocessing as mp
+    from recnet_tpu_torch.ops.cuda import build
+    race = tmp / "build_race"
+    race.mkdir()
+    for name in ("whole_decode", "fused_step"):
+        shutil.copy(build.library_path(name), race)
+    t0 = time.perf_counter()
+    on_a_free_port(lambda port: mp.spawn(dist_rank, args=(port, str(tmp)),
+                                         nprocs=2, join=True))
+    seconds = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(2)]
+    libs = sorted(p.name for p in race.iterdir())
+    kernels = [x for x in libs if x.endswith(".so") and x.split("-")[0]
+               in ("whole_decode", "topk_proj", "fused_step")]
+    log("dist", f"(b, c) two ranks on cuda:0 over {ranks[0]['backend']} "
+                f"({ranks[0]['device']}, {ranks[1]['device']}), "
+                f"{seconds:.1f} s with the spawn; both built "
+                f"{ranks[0]['race']['library']} at once "
+                f"({ranks[0]['race']['seconds']:.1f} s, "
+                f"{ranks[1]['race']['seconds']:.1f} s): the directory holds "
+                f"{libs} on {card}")
+    check(len(kernels) == 3 and not any(".tmp." in x for x in libs),
+          f"the build race left {libs}")
+    for name, what in (("b", "data=2"), ("c", "model=2")):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        loss_err = max(abs(r0["losses"].get(k, np.inf) - v) / abs(v)
+                       for k, v in want["losses"].items())
+        step_dir = tmp / name / "rank0" / "ck" / str(tc.n_iterations)
+        with np.load(step_dir / "state.npz") as data:
+            got = [data[f"leaf_{i}"] for i in range(len(data.files))]
+        # the largest |diff| / (atol + rtol |x|): at most 1 passes
+        worst = max(float(np.max(np.abs(a - b) / (
+            DIST_LEAF_ATOL + DIST_LEAF_RTOL * np.abs(b))))
+            for a, b in zip(got, want_leaves))
+        diff = max(float(np.max(np.abs(a - b)))
+                   for a, b in zip(got, want_leaves))
+        med = {k: float(np.median(v)) for k, v in r0["ms"].items()}
+        rank1 = tmp / name / "rank1"
+        quiet = not any((rank1 / x).exists()
+                        for x in ("ck", "log", "predictions.txt"))
+        wrote = (tmp / name / "rank0" / "predictions.txt").exists()
+        log("dist", f"({name}) {what} mesh, 2 ranks on cuda:0 over gloo: "
+                    f"loop {r0['seconds']:.2f} s / {r1['seconds']:.2f} s; "
+                    f"largest relative loss difference from (a) "
+                    f"{loss_err:.3g} (tolerance {DIST_LOSS_RTOL:g}); the "
+                    f"checkpoint's {len(got)} leaves against (a)'s: largest "
+                    f"|diff| {diff:.3g}, largest |diff| / (atol "
+                    f"{DIST_LEAF_ATOL:g} + rtol {DIST_LEAF_RTOL:g} |x|) "
+                    f"{worst:.3g} (at most 1); ms a step on rank 0 by CUDA "
+                    f"events, in turns, both ranks stepping on the card: "
+                    f"no mesh (B={tc.batch_size} a rank) "
+                    f"{', '.join(f'{x:.3f}' for x in r0['ms']['plain'])} "
+                    f"(median {med['plain']:.3f}), {what} "
+                    f"{', '.join(f'{x:.3f}' for x in r0['ms']['mesh'])} "
+                    f"(median {med['mesh']:.3f}); digests "
+                    f"{r0['digest']:.6f} / {r1['digest']:.6f}; embedding "
+                    f"rows a rank {r0['shard_rows']}; test pass launches "
+                    f"{r0['launches']} / {r1['launches']}; rank 0 wrote "
+                    f"checkpoint {step_dir.name} and predictions.txt: "
+                    f"{wrote}, rank 1 wrote nothing: {quiet} on {card}")
+        check(len(got) == len(want_leaves) and worst <= 1,
+              f"({name}) leaves differ from the one-rank run")
+        check(loss_err <= DIST_LOSS_RTOL, f"({name}) losses differ")
+        check(r0["digest"] == r1["digest"], f"({name}) the ranks disagree")
+        check(quiet and wrote, f"({name}) side effects off rank 0")
+        for r in (r0, r1):
+            check(r["launches"].get("K2", 0) > 0
+                  and r["launches"].get("K3", 0) > 0,
+                  f"({name}) a rank's test pass launched no K2/K3: "
+                  f"{r['launches']}")
+
+
+def dist_captioner(torch, tc, vocab, cfg, params_np, card: str):
+    """(d) The mesh Captioner on a mesh of cuda:0 alone and on one listing
+    it twice, against the plain Captioner: greedy through K2 segments and
+    beam 5 through K3, f32 and bf16; the launches per shard."""
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.parallel.mesh import make_mesh
+    from recnet_tpu_torch.serving import Captioner
+    feats = request_features(SEED + 60, DIST_VIDEOS, cfg.encoder_size)
+    for dtype in ("float32", "bfloat16"):
+        kw = dict(dtype=dtype, use_pallas=True,
+                  greedy_segment=tc.greedy_segment, device=DEVICE)
+        plain = Captioner(tc, vocab, params_np, **kw)
+        entry = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+        meshes = {n: Captioner(tc, vocab, params_np, mesh=make_mesh(
+            (("data", n),), [entry] * n), **kw) for n in (1, 2)}
+        for beam in (None, BEAM):
+            counter = (tp.outproj_topk if beam
+                       else wd.whole_greedy_decode_segment)
+            what = (f"beam {beam} (K3)" if beam else
+                    f"greedy (K2, segments of {tc.greedy_segment})")
+            want = plain.caption(feats, beam_width=beam)
+            parts, launches = [], {}
+            for n, cap in meshes.items():
+                reset_counts()
+                t0 = time.perf_counter()
+                got = cap.caption(feats, beam_width=beam)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches[n] = counter.n_launches
+                videos = sum(a == b for a, b in zip(got, want)) / len(want)
+                words = word_share(got, want)
+                parts.append(f"{n} shard{'s' if n > 1 else ''}: "
+                             f"{launches[n]} launches "
+                             f"({launches[n] // n} a shard), videos equal "
+                             f"{videos:.4f}, words {words:.4f}, "
+                             f"{seconds:.3f} s")
+                if dtype == "float32":
+                    check(videos == 1.0, f"(d) f32 {n}-shard captions "
+                                         "differ from the plain Captioner's")
+                else:
+                    check(words >= BF16_TOKENS, f"(d) bf16 {n}-shard words "
+                                                f"{words} < {BF16_TOKENS}")
+            log("dist", f"(d) mesh Captioner, {DIST_VIDEOS} videos, {dtype}, "
+                        f"{what}: {'; '.join(parts)} on {card}")
+            check(launches[1] > 0 and launches[2] == 2 * launches[1],
+                  f"(d) launches a shard {launches}")
+        del plain, meshes
+
+
+def dist_phase(torch, tc, vocab, cfg, params_np):
+    """[dist]: (a) one rank over NCCL, (b, c) two ranks on the card over
+    gloo, (d) the mesh Captioner."""
+    t0 = time.perf_counter()
+    card = card_line()
+    dtc = dist_config(tc)
+    log("dist", f"flagship preset, dropout off, the [train] in-memory "
+                f"corpus; B={dtc.batch_size}, k={dtc.steps_per_dispatch}, "
+                f"{dtc.n_iterations} iterations; one card: NCCL across cards "
+                f"is not run here")
+    with tempfile.TemporaryDirectory() as tmp:
+        leaves, want = dist_one_rank(torch, dtc, vocab, Path(tmp) / "a",
+                                     card)
+        (Path(tmp) / "bc").mkdir()
+        dist_two_ranks(torch, dtc, leaves, want, Path(tmp) / "bc", card)
+    del leaves
+    dist_captioner(torch, tc, vocab, cfg, params_np, card)
+    log("dist", f"the phase took {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
 # 7. two trees in turns: python3 chip_smoke.py --compare <other tree>
 # --------------------------------------------------------------------------
 
@@ -2394,6 +2786,7 @@ def main() -> int:
         variant_errs[name] = max(variant_errs.get(name, 0.0), err)
     train_phase(torch, tc, vocab)
     data_phase(torch, tc, vocab)
+    dist_phase(torch, tc, vocab, cfg, eos_np)
     T, L = tc.caption_max_len + 1, tc.encoder_output_len
     for part in ABLATE_PARTS:
         ms, plain = sweep_ms[f"ablate={part}"]

@@ -24,6 +24,12 @@ hash differs. ``structure_string`` writes that string for the port's
 configs without JAX. ``load_decoder_params`` reads the decoder for serving
 and evaluation; ``save_checkpoint`` / ``load_checkpoint`` write and read
 the whole training state (``--resume``). Orbax checkpoints are JAX-only.
+
+On a mesh (``parallel.mesh``) the file keeps this layout: a save gathers
+the vocabulary shards over 'model' (every rank takes part) and the primary
+alone writes; a load reads the whole leaves on every rank and keeps the
+rank's shards. A single-process run and the JAX package load such a
+checkpoint as any other.
 """
 
 from __future__ import annotations
@@ -43,6 +49,8 @@ from recnet_tpu_torch.models.decoder import DecoderConfig, config_from_train
 from recnet_tpu_torch.models.reconstructors import ReconstructorConfig
 from recnet_tpu_torch.models.reconstructors import \
     config_from_train as rec_config_from_train
+from recnet_tpu_torch.parallel import distributed as dist
+from recnet_tpu_torch.parallel import mesh as mesh_lib
 from recnet_tpu_torch.training.optim import adam_state
 from recnet_tpu_torch.training.step import TrainState, make_train_state
 from recnet_tpu_torch.utils.misc import tree_fill, tree_leaves
@@ -138,29 +146,43 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def state_leaves(state: TrainState) -> list:
-    """The TrainState as numpy leaves in the JAX flatten order."""
-    leaves = [np.asarray(state.step, np.int32)]
+def state_leaves(state: TrainState, mesh=None,
+                 vocab_size: Optional[int] = None) -> list:
+    """The TrainState as numpy leaves in the JAX flatten order. On a
+    'model' axis the vocabulary shards are gathered first (a collective:
+    every rank of the group calls it), which needs ``vocab_size``."""
+    items = [state.step]
     models = [(state.dec_params, state.dec_opt)]
     if state.rec_params is not None:
         models.append((state.rec_params, state.rec_opt))
     for params, opt in models:
-        leaves += [_numpy(p) for p in tree_leaves(params)]
+        items += tree_leaves(params)
         count, mu, nu, nu_max = adam_state(opt)
-        leaves.append(np.asarray(count, np.int32))
+        items.append(count)
         for moment in (mu, nu) + ((nu_max,) if nu_max is not None else ()):
-            leaves += [_numpy(m) for m in moment]
-    return leaves
+            items += list(moment)
+    if mesh_lib.use_tp(mesh):
+        specs = [spec for _, spec in mesh_lib.state_shardings(state, mesh)]
+        items = mesh_lib.gather_leaves(items, specs, mesh, vocab_size)
+    return [_numpy(x) if torch.is_tensor(x) else np.asarray(x, np.int32)
+            for x in items]
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, tc, vocab,
-                    extra: Optional[dict] = None) -> str:
+                    extra: Optional[dict] = None,
+                    mesh=None) -> Optional[str]:
     """Write <ckpt_dir>/<step>/ {state.npz, config.json, vocab.json,
     meta.json} in the JAX package's npz layout; returns the step
-    directory. ``recnet_tpu.checkpoint.load_checkpoint`` restores it."""
+    directory. ``recnet_tpu.checkpoint.load_checkpoint`` restores it.
+    On a process group every rank calls it: the vocabulary shards are
+    gathered over 'model', the primary writes, the others return None."""
+    if not dist.is_primary() and not mesh_lib.use_tp(mesh):
+        return None
+    leaves = state_leaves(state, mesh, vocab.n_vocabs)
+    if not dist.is_primary():
+        return None
     step_dir = os.path.join(ckpt_dir, str(step))
     os.makedirs(step_dir, exist_ok=True)
-    leaves = state_leaves(state)
     np.savez(os.path.join(step_dir, "state.npz"),
              **{f"leaf_{i}": leaf for i, leaf in enumerate(leaves)})
     with open(os.path.join(step_dir, "config.json"), "w") as f:
@@ -175,11 +197,13 @@ def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, tc, vocab,
     return step_dir
 
 
-def load_checkpoint(step_dir: str, tc, vocab_size: int, device="cuda"
-                    ) -> Tuple[TrainState, dict]:
+def load_checkpoint(step_dir: str, tc, vocab_size: int, device="cuda",
+                    mesh=None) -> Tuple[TrainState, dict]:
     """The whole TrainState of an npz checkpoint (the port's or the JAX
     package's) for ``tc``, on ``device``; returns (state, meta). Raises
-    when the structure, a leaf count or a shape disagrees with ``tc``."""
+    when the structure, a leaf count or a shape disagrees with ``tc``.
+    On a 'model' axis (``mesh``) the rank keeps its shards of the
+    vocabulary leaves."""
     with open(os.path.join(step_dir, "meta.json")) as f:
         meta = json.load(f)
     if os.path.isdir(os.path.join(step_dir, "state_orbax")):
@@ -219,7 +243,8 @@ def load_checkpoint(step_dir: str, tc, vocab_size: int, device="cuda"
     state = make_train_state(tc, step, parts[0][0], rec[0],
                              dec_adam=parts[0][1], rec_adam=rec[1],
                              device=device)
-    return state, meta
+    return (mesh_lib.shard_state(state, mesh) if mesh is not None
+            else state), meta
 
 
 def prune_old(ckpt_dir: str, keep_last_k: int) -> None:

@@ -1,9 +1,9 @@
 """CLI: python -m recnet_tpu_torch.cli.caption --ckpt <dir> --features f.hdf5
 
 Port of ``recnet_tpu.cli.caption``: caption every video of an HDF5 feature
-file with a ``Captioner`` on ``--device`` and write "<vid>\\t\\t<caption>"
-lines, the predictions.txt format of reference eval.py:158-160. There is no
-``--mesh``: multi-device serving is not ported yet.
+file with a ``Captioner`` on ``--device`` (``--mesh``: data parallel over
+every visible card) and write "<vid>\\t\\t<caption>" lines, the
+predictions.txt format of reference eval.py:158-160.
 """
 
 from __future__ import annotations
@@ -31,13 +31,20 @@ def main(argv=None):
                         "(-1 = the exact full-length search)")
     a.add_argument("--device", type=str, default="cuda",
                    help="torch device to decode on (default cuda)")
+    a.add_argument("--mesh", action="store_true",
+                   help="data parallel over every visible card "
+                        "(batch_size must divide by the card count)")
     args = a.parse_args(argv)
 
     margin = (None if args.beam_length_margin < 0
               else args.beam_length_margin)
+    mesh = None
+    if args.mesh:
+        from recnet_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh()
     captioner = Captioner.from_checkpoint(
         args.ckpt, dtype=args.dtype, batch_size=args.batch_size,
-        beam_length_margin=margin, device=args.device)
+        beam_length_margin=margin, device=args.device, mesh=mesh)
     videos = load_videos_hdf5(args.features)
     vids = list(videos.keys())
     captions = captioner.caption(

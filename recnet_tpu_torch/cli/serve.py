@@ -95,6 +95,10 @@ def main(argv=None):
     a.add_argument("--port", type=int, default=8000)
     a.add_argument("--device", default="cuda",
                    help="torch device to decode on (default cuda)")
+    a.add_argument("--mesh", action="store_true",
+                   help="data parallel over every visible card: each "
+                        "chunk split into equal shards, one a card "
+                        "(batch_size must divide by the card count)")
     a.add_argument("--batch_size", type=int, default=1024)
     a.add_argument("--dtype", choices=["bfloat16", "float32"],
                    default="bfloat16")
@@ -128,9 +132,13 @@ def main(argv=None):
         a.error("--max_queue/--deadline_s need the micro-batched "
                 "front (drop --sequential)")
 
+    mesh = None
+    if args.mesh:
+        from recnet_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh()
     cap = Captioner.from_checkpoint(
         args.ckpt, dtype=args.dtype, batch_size=args.batch_size,
-        use_pallas=args.use_pallas, device=args.device,
+        use_pallas=args.use_pallas, device=args.device, mesh=mesh,
         greedy_segment=args.greedy_segment or None,
         beam_length_margin=(None if args.beam_length_margin < 0
                             else args.beam_length_margin))
@@ -147,8 +155,10 @@ def main(argv=None):
         mode = (f"micro-batched (flush {args.flush_ms}ms, "
                 f"max_queue {args.max_queue or 'inf'}, "
                 f"deadline {args.deadline_s or 'none'})")
+    where = (", ".join(map(str, cap.devices)) if mesh is not None
+             else args.device)
     print(f"serving {cap.tc.id} on http://{args.host}:{args.port} "
-          f"[{mode}, {args.device}]")
+          f"[{mode}, {where}]")
     server.serve_forever()
 
 

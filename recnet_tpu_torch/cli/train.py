@@ -1,11 +1,18 @@
 """CLI: python -m recnet_tpu_torch.cli.train [--debug] [--loss_only]
-[--config f.json] [--resume <step dir>] [--device cuda|cpu]
+[--config f.json] [--resume <step dir>] [--device cuda|cpu] [--mesh]
 
 The flags of ``recnet_tpu.cli.train`` (reference train.py:200-204, plus
-config files, resume and the dispatch and cache knobs) less the multi-host
-and orbax ones, and ``--device``: the card by default, the CPU only when
-asked; without a card ``--device cuda`` raises. ``--mesh`` raises: the
-multi-GPU path is not ported yet.
+config files, resume, the mesh and multi-process flags and the dispatch
+and cache knobs) less the orbax ones, and ``--device``: the card by
+default, the CPU only when asked; without a card ``--device cuda`` raises.
+
+Several processes, one a card, train one model over a mesh:
+
+    torchrun --nproc_per_node 4 -m recnet_tpu_torch.cli.train \
+        --config c.json --mesh_shape data=2,model=2
+
+torchrun's environment is enough; without it, give every process
+``--coordinator host:port --num_processes N --process_id i``.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ def main(argv=None):
     a.add_argument("--resume", type=str, default=None,
                    help="checkpoint step directory to resume from")
     a.add_argument("--mesh", action="store_true",
-                   help="shard over several devices (not ported yet)")
+                   help="shard over the process group's devices (data "
+                        "parallel)")
     a.add_argument("--mesh_shape", type=str, default=None,
                    help='e.g. "data=4,model=2" (implies --mesh)')
     a.add_argument("--keep_last_k", type=int, default=0,
@@ -47,16 +55,43 @@ def main(argv=None):
                         "features + tokenized captions + vocab, mmapped; "
                         "built at first use, or by recnet_tpu_torch.cli."
                         "bundle build)")
+    a.add_argument("--coordinator", type=str, default=None,
+                   help="multi-process: rank 0's address host:port "
+                        "(torchrun sets MASTER_ADDR/MASTER_PORT instead)")
+    a.add_argument("--num_processes", type=int, default=None,
+                   help="multi-process: total process count (implies "
+                        "--mesh)")
+    a.add_argument("--process_id", type=int, default=None,
+                   help="multi-process: this process's rank")
+    a.add_argument("--cpu_collectives", type=str, default=None,
+                   choices=["gloo"],
+                   help="collectives through gloo on the card too (NCCL by "
+                        "default there; gloo always on the CPU)")
     a.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default) or cpu")
     args = a.parse_args(argv)
 
+    # before anything touches a device; a no-op unless the flags or
+    # torchrun's environment ask for a process group
+    from recnet_tpu_torch.parallel import distributed as dist
+    dist.initialize(coordinator_address=args.coordinator,
+                    num_processes=args.num_processes,
+                    process_id=args.process_id,
+                    cpu_collectives=args.cpu_collectives,
+                    device=args.device)
+    try:
+        _run(args, dist.is_multihost())
+    finally:
+        dist.shutdown()
+
+
+def _run(args, multihost: bool):
     if args.config:
         with open(args.config) as f:
             tc = TrainConfig.from_json(f.read())
     else:
         tc = TrainConfig()
-    use_mesh = args.mesh
+    use_mesh = args.mesh or multihost
     if args.mesh_shape:
         tc = tc.replace(mesh_shape=tuple(
             (kv.split("=")[0], int(kv.split("=")[1]))

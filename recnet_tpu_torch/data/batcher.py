@@ -11,17 +11,20 @@ of its features.
 ``prefetch_to_device`` is a thread that turns each batch's arrays into
 tensors in pinned host memory and copies them to the device with
 ``non_blocking=True``, so the host assembles batch N+1 while the card runs
-batch N.
+batch N. On a mesh (``sharding``) each rank copies only its slice of the
+global batch.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator, Sequence
+from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+from recnet_tpu_torch.parallel.distributed import to_device
 
 
 class Batcher:
@@ -79,14 +82,18 @@ def cycle(iterable: Iterable) -> Iterator:
 
 class Prefetcher:
     """Iterator over ``iterator``'s batches with their numpy arrays on
-    ``device``; other leaves (vid lists) pass through. A worker thread
-    keeps up to ``size`` batches ready. An error in the producer is raised
-    in the consumer; ``close()`` stops the thread."""
+    ``device``; other leaves (vid lists) pass through. ``sharding``, one
+    ``parallel.mesh`` sharding per leaf, cuts each array to this rank's
+    part first. A worker thread keeps up to ``size`` batches ready. An
+    error in the producer is raised in the consumer; ``close()`` stops the
+    thread."""
 
     _DONE = object()
 
-    def __init__(self, iterator: Iterator, size: int = 2, device="cuda"):
+    def __init__(self, iterator: Iterator, size: int = 2, device="cuda",
+                 sharding: Optional[Sequence] = None):
         self.device = torch.device(device)
+        self.sharding = sharding
         self._q: queue.Queue = queue.Queue(maxsize=size)
         self._stop = threading.Event()
         self._ended = False
@@ -94,20 +101,15 @@ class Prefetcher:
                                        daemon=True, name="prefetch_to_device")
         self.thread.start()
 
-    def _to_device(self, x):
-        if not isinstance(x, np.ndarray):
-            return x
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cuda":
-            # the caching host allocator keeps the pinned block until the
-            # copy that reads it has run
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _work(self, iterator: Iterator) -> None:
         try:
             for batch in iterator:
-                item = tuple(self._to_device(x) for x in batch)
+                if self.sharding is not None:
+                    batch = [s.part(x) if isinstance(x, np.ndarray) else x
+                             for x, s in zip(batch, self.sharding)]
+                item = tuple(to_device(x, self.device)
+                             if isinstance(x, np.ndarray) else x
+                             for x in batch)
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.1)
@@ -152,9 +154,12 @@ class Prefetcher:
         self.thread.join(timeout=5)
 
 
-def prefetch_to_device(iterator: Iterator, size: int = 2,
-                       device="cuda") -> Prefetcher:
+def prefetch_to_device(iterator: Iterator, size: int = 2, device="cuda",
+                       sharding: Optional[Sequence] = None) -> Prefetcher:
     """Overlap host batch assembly and the host-to-device copy with the
     device's compute (replaces DataLoader(num_workers=4),
-    reference: config.py:53)."""
-    return Prefetcher(iterator, size, device)
+    reference: config.py:53). ``sharding``: per leaf, the
+    ``parallel.mesh.batch_sharding`` (or ``replicated``) whose part of the
+    global batch this rank keeps; a batch that does not divide over 'data'
+    raises ValueError naming both sizes."""
+    return Prefetcher(iterator, size, device, sharding)

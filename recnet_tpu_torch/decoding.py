@@ -15,6 +15,12 @@ Port of ``recnet_tpu.decoding`` (reference eval.py:19-120):
   per-beam top-K either plain or through kernel K3 (``use_pallas_topk``);
 * ``sample_decode``: temperature / top-k sampling with greedy's freeze,
   its draws from a ``torch.Generator``.
+
+Each stop and freeze reads a batch-wide value (all <PAD>, every row past
+its <EOS>, the latest first <EOS>). ``across`` reduces such a value over
+the shards of a batch that is decoded in pieces on several devices
+(``serving.Captioner`` on a mesh), so that every piece stops where the
+whole batch does; by default the batch is whole and the value is kept.
 """
 
 from __future__ import annotations
@@ -30,6 +36,13 @@ from recnet_tpu_torch.ops import attention as attn_ops
 from recnet_tpu_torch.ops import rnn as rnn_ops
 from recnet_tpu_torch.ops.cuda import fused_step, topk_proj
 from recnet_tpu_torch.ops.cuda import whole_decode as wd
+
+
+def whole_batch(x: torch.Tensor, op) -> torch.Tensor:
+    """The default ``across``: the batch is whole on this device, so a
+    value reduced over it with ``op`` (``torch.all``, ``torch.amax``) is
+    already the batch-wide one."""
+    return x
 
 
 class GreedyResult(NamedTuple):
@@ -78,7 +91,8 @@ def _make_step_logits(params: Dict, cfg: dec_mod.DecoderConfig,
 @torch.no_grad()
 def greedy_decode(params: Dict, cfg: dec_mod.DecoderConfig,
                   encoder_outputs: torch.Tensor, max_len: int,
-                  early_exit: bool = False) -> GreedyResult:
+                  early_exit: bool = False,
+                  across=whole_batch) -> GreedyResult:
     """Greedy argmax chain. Once every token of a step is <PAD> the state
     freezes and later steps emit <PAD>; ``n_steps`` counts the steps up to
     and including that one. ``early_exit`` stops the loop there instead,
@@ -102,7 +116,7 @@ def greedy_decode(params: Dict, cfg: dec_mod.DecoderConfig,
         n_steps = torch.where(done, n_steps, t + 1).to(torch.int32)
         state = tuple(torch.where(done, o, n)
                       for n, o in zip(new_state, state))
-        done = done | (out == cfg.pad_token).all()
+        done = done | across((out == cfg.pad_token).all(), torch.all)
         tokens[t] = out
         token = out
     return GreedyResult(tokens, int(n_steps))
@@ -113,10 +127,11 @@ def _bias2(params: Dict) -> torch.Tensor:
     return torch.stack([r["b_ih"], r["b_hh"]])
 
 
-def _steps_to_first_all_pad(tokens: torch.Tensor, pad: int) -> int:
+def _steps_to_first_all_pad(tokens: torch.Tensor, pad: int,
+                            across=whole_batch) -> int:
     """n_steps of the reference's whole-batch break: the first step whose
     tokens are all <PAD>, counted inclusively; T when there is none."""
-    all_pad = (tokens == pad).all(dim=1)
+    all_pad = across((tokens == pad).all(dim=1), torch.all)
     hits = torch.nonzero(all_pad)
     return int(hits[0, 0]) + 1 if len(hits) else tokens.shape[0]
 
@@ -173,7 +188,8 @@ def greedy_decode_pallas(params: Dict, cfg: dec_mod.DecoderConfig,
 @torch.no_grad()
 def greedy_decode_whole(params: Dict, cfg: dec_mod.DecoderConfig,
                         encoder_outputs: torch.Tensor, max_len: int,
-                        early_exit: bool = False) -> GreedyResult:
+                        early_exit: bool = False,
+                        across=whole_batch) -> GreedyResult:
     """Greedy decode with the whole loop in one launch of K1. Rows evolve
     independently, so the tokens equal ``greedy_decode``'s on the executed
     prefix; n_steps comes from the first all-<PAD> step.
@@ -190,15 +206,16 @@ def greedy_decode_whole(params: Dict, cfg: dec_mod.DecoderConfig,
         emb_size=cfg.embedding_size, max_len=max_len, sos=cfg.sos_token,
         cell_type=cfg.cell_type, emb_scale=cfg.embedding_scale,
         early_exit=early_exit).T
-    return GreedyResult(tokens,
-                        _steps_to_first_all_pad(tokens, cfg.pad_token))
+    return GreedyResult(tokens, _steps_to_first_all_pad(
+        tokens, cfg.pad_token, across))
 
 
 @torch.no_grad()
 def greedy_decode_whole_segmented(params: Dict, cfg: dec_mod.DecoderConfig,
                                   encoder_outputs: torch.Tensor,
                                   max_len: int, segment: int = 8,
-                                  eos_stop: bool = False) -> GreedyResult:
+                                  eos_stop: bool = False,
+                                  across=whole_batch) -> GreedyResult:
     """K2 segments of ``segment`` steps, carrying (h, c, token), until every
     current token is <PAD> or, with ``eos_stop``, every row has emitted an
     <EOS>. Tokens past the stop are <PAD>; with ``eos_stop`` the sentences
@@ -220,9 +237,9 @@ def greedy_decode_whole_segmented(params: Dict, cfg: dec_mod.DecoderConfig,
     toks = torch.full((B, n_seg * segment), cfg.pad_token,
                       dtype=torch.int32, device=dev)
     for s in range(n_seg):
-        stop = (tok == cfg.pad_token).all()
+        stop = across((tok == cfg.pad_token).all(), torch.all)
         if eos_stop:
-            stop = stop | seen_eos.all()
+            stop = stop | across(seen_eos.all(), torch.all)
         if bool(stop):                           # host sync
             break
         tseg, h, c, tok = wd.whole_greedy_decode_segment(
@@ -232,8 +249,8 @@ def greedy_decode_whole_segmented(params: Dict, cfg: dec_mod.DecoderConfig,
         toks[:, s * segment:(s + 1) * segment] = tseg
         seen_eos |= (tseg == cfg.eos_token).any(dim=1, keepdim=True)
     tokens = toks[:, :T].T
-    return GreedyResult(tokens,
-                        _steps_to_first_all_pad(tokens, cfg.pad_token))
+    return GreedyResult(tokens, _steps_to_first_all_pad(
+        tokens, cfg.pad_token, across))
 
 
 class BeamResult(NamedTuple):
@@ -252,7 +269,8 @@ def beam_decode(params: Dict, cfg: dec_mod.DecoderConfig,
                 encoder_outputs: torch.Tensor, beam_width: int,
                 max_len: int, use_pallas_topk: bool = False,
                 early_exit: bool = False,
-                length_cutoff_margin: Optional[int] = None) -> BeamResult:
+                length_cutoff_margin: Optional[int] = None,
+                across=whole_batch) -> BeamResult:
     """Batched beam search of width K (reference eval.py:36-120).
 
     Port of ``recnet_tpu.decoding.beam_decode`` with its quirks:
@@ -356,8 +374,10 @@ def beam_decode(params: Dict, cfg: dec_mod.DecoderConfig,
         if early_exit:
             stop = done
             if length_cutoff_margin is not None:
-                stop = stop | ((first_eos >= 0).all() & (
-                    t >= first_eos.max() + 1 + length_cutoff_margin))
+                stop = stop | (
+                    across((first_eos >= 0).all(), torch.all)
+                    & (t >= across(first_eos.max(), torch.amax) + 1
+                       + length_cutoff_margin))
             if bool(stop):                   # host sync
                 break
         out, nh, nc = beam_decoder_step(tokens, h, c)
@@ -394,7 +414,7 @@ def beam_decode(params: Dict, cfg: dec_mod.DecoderConfig,
         first_eos = keep(new_first_eos, first_eos)
         history = keep(new_hist, history)
         n_steps = torch.where(done, n_steps, t + 1)
-        done = done | (word == cfg.pad_token).all()
+        done = done | across((word == cfg.pad_token).all(), torch.all)
     return BeamResult(history[:, 0, :], int(n_steps), cum_prob)
 
 

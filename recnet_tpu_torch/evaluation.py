@@ -8,8 +8,12 @@ whole-decode kernels (K1, or K2 with ``greedy_segment``) and beam to the
 projection + top-K kernel (K3), as in the JAX package. With
 ``device_feature_cache`` and uniform frame sampling, the score split goes
 to the params' device once (``Corpus.score_batches_device``) and every
-later call decodes from there. Multi-device evaluation is not ported yet
-(ROADMAP Queue 1, item 9).
+later call decodes from there.
+
+On a process group's mesh every rank decodes the whole split on its own
+device, as the JAX package's replicated program does (the params' vocabulary
+shards gathered over 'model' first), and only the primary scores; the
+device feature cache stays off there.
 """
 
 from __future__ import annotations
@@ -26,14 +30,21 @@ from recnet_tpu_torch.decoding import (beam_decode, greedy_decode,
                                        kernels_supported, tokens_to_sentences)
 from recnet_tpu_torch.metrics import (CaptionScorer, gts_from_pairs,
                                      res_from_dict)
+from recnet_tpu_torch.parallel import mesh as mesh_lib
 
 
 def decode_batch(decoder_params, dcfg, videos, search_method, max_len: int,
-                 use_pallas: bool = False,
+                 use_pallas: bool = False, mesh=None,
                  greedy_segment: int = 0) -> np.ndarray:
     """Decode one batch of videos (B, L, F), numpy or a tensor, on the
     params' device and in their dtype. Returns (n_steps, B) int tokens,
-    truncated like the reference."""
+    truncated like the reference.
+
+    ``mesh``: a process group's mesh; the rank decodes the whole batch,
+    its vocabulary shards gathered over 'model' first (every rank of the
+    group calls it)."""
+    decoder_params = mesh_lib.gather_params(decoder_params, mesh,
+                                            dcfg.vocab_size)
     out_w = decoder_params["out_w"]
     videos = torch.as_tensor(videos).to(out_w.device, out_w.dtype)
     if isinstance(search_method, str) and search_method == "greedy":
@@ -62,21 +73,24 @@ def decode_batch(decoder_params, dcfg, videos, search_method, max_len: int,
 
 def evaluate(tc, corpus, decoder_params, dcfg, search_method,
              predictions_fpath: Optional[str] = "predictions.txt",
-             n_test: Optional[int] = None,
+             n_test: Optional[int] = None, mesh=None,
              score_on_host: bool = True) -> Dict[str, float]:
     """Decode the whole score set and score it (reference eval.py:123-169).
 
     ``corpus`` needs ``score_batcher`` (an iterable of (vids, videos)
     batches), ``vocab`` and ``test_dataset.video_caption_pairs``, as
     ``recnet_tpu_torch.data.Corpus`` has. ``score_on_host=False`` writes the
-    predictions and returns ``{}`` without scoring."""
+    predictions and returns ``{}`` without scoring: the non-primary ranks
+    of a process group's ``mesh``, which decode the split as well."""
     n_test = n_test if n_test is not None else tc.n_test
     eos = corpus.vocab.word2idx["<EOS>"]
+    decoder_params = mesh_lib.gather_params(decoder_params, mesh,
+                                            dcfg.vocab_size)
 
     # device-resident score features: one upload reused across the
-    # periodic test passes (deterministic sampling only)
+    # periodic test passes (deterministic sampling only; not on a mesh)
     batches = corpus.score_batcher
-    if (getattr(tc, "device_feature_cache", False)
+    if (getattr(tc, "device_feature_cache", False) and mesh is None
             and tc.frame_sampling_method == "uniform"
             and hasattr(corpus, "score_batches_device")):
         batches = corpus.score_batches_device(
@@ -87,6 +101,7 @@ def evaluate(tc, corpus, decoder_params, dcfg, search_method,
         tokens = decode_batch(decoder_params, dcfg, videos, search_method,
                               tc.caption_max_len,
                               use_pallas=getattr(tc, "use_pallas", False),
+                              mesh=mesh,
                               greedy_segment=getattr(tc, "greedy_segment", 0))
         total_vids += list(vids)
         total_pd += tokens_to_sentences(tokens, corpus.vocab.idx2word, eos)

@@ -11,6 +11,13 @@ gather, the embedding-side gate term (one layer) and the vocab projection
 hoisted out of the loop). Dropout masks come from a ``torch.Generator``;
 autograd gives the gradients.
 
+On a mesh the training side takes the step's ``parallel.mesh.Shard``: the
+batch rows are this rank's, the embedding, ``out_w`` and ``out_b`` may be
+its vocabulary shards (``parallel.vocab`` does the lookup, the projection
+and the argmax), and each dropout mask is drawn at the global shape from
+the step's shared generator and cut to the rank's rows and columns, so
+that every rank keeps the mask a single-device run draws.
+
 Parameters are a nested dict in the JAX layout:
 ``embedding (V, E)``, ``attention{W (H,A), U (F,A), b (A,), w (A,1)}``,
 ``rnn[i]{w_ih (in, nG*H), w_hh (H, nG*H), b_ih, b_hh}``, ``out_w (H, V)``,
@@ -26,6 +33,7 @@ from torch import nn
 
 from recnet_tpu_torch.ops import attention as attn_ops
 from recnet_tpu_torch.ops import rnn as rnn_ops
+from recnet_tpu_torch.parallel import vocab as vocab_par
 
 State = Tuple[torch.Tensor, torch.Tensor]
 
@@ -103,20 +111,31 @@ def zero_state(cfg: DecoderConfig, batch_size: int, dtype=torch.float32,
 
 def _dropout(x: torch.Tensor, rate: float,
              generator: Optional[torch.Generator],
-             train: bool) -> torch.Tensor:
+             train: bool, shard=None, batch_dim: int = 0,
+             vocab_dim: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate). Identity unless training with a
-    generator and rate > 0."""
+    generator and rate > 0. With a ``shard`` the mask is drawn at the
+    global shape (the whole batch along ``batch_dim``, the whole vocabulary
+    along ``vocab_dim``) and cut to this rank's part."""
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape, part = list(x.shape), [slice(None)] * x.dim()
+    if shard is not None:
+        start, stop, shape[batch_dim] = shard.rows
+        part[batch_dim] = slice(start, stop)
+        if vocab_dim is not None:
+            start, stop, shape[vocab_dim] = shard.cols
+            part[vocab_dim] = slice(start, stop)
+    mask = torch.rand(shape, generator=generator,
+                      device=x.device)[tuple(part)] < keep
     return torch.where(mask, x / keep, 0.0)
 
 
 def _multilayer_rnn(cfg, params_layers, x: torch.Tensor, state: State,
                     generator: Optional[torch.Generator] = None,
-                    train: bool = False):
+                    train: bool = False, shard=None):
     """Stacked cells with dropout between layers (nn.RNN's ``dropout``);
     ``cfg`` needs ``cell_type`` and ``dropout`` (the decoder's and the
     reconstructors' configs have both)."""
@@ -129,7 +148,7 @@ def _multilayer_rnn(cfg, params_layers, x: torch.Tensor, state: State,
         new_c.append(ci)
         inp = hi
         if li + 1 < len(params_layers):
-            inp = _dropout(inp, cfg.dropout, generator, train)
+            inp = _dropout(inp, cfg.dropout, generator, train, shard)
     return inp, (torch.stack(new_h), torch.stack(new_c))
 
 
@@ -137,22 +156,27 @@ def decoder_step(params: Dict, cfg: DecoderConfig, token: torch.Tensor,
                  state: State, encoder_outputs: torch.Tensor,
                  uv: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
-                 train: bool = False) -> Tuple[torch.Tensor, State]:
+                 train: bool = False,
+                 shard=None) -> Tuple[torch.Tensor, State]:
     """One decode step; ``train`` with a ``generator`` applies the
     embedding, inter-layer and output dropout.
 
     token (B,) int; state (h, c) each (L, B, H); encoder_outputs (B, F, enc);
-    uv (B, F, A). Returns (logits (B, V), new_state).
+    uv (B, F, A). Returns (logits (B, V), new_state); on a 'model' axis
+    (``shard``) the logits are the rank's vocabulary columns.
     """
-    emb = params["embedding"][token] * cfg.embedding_scale
-    emb = _dropout(emb, cfg.embedding_dropout, generator, train)
+    emb = vocab_par.embed(params["embedding"], token, shard) \
+        * cfg.embedding_scale
+    emb = _dropout(emb, cfg.embedding_dropout, generator, train, shard)
     context = attn_ops.attend_mean(params["attention"], state[0][-1],
                                    encoder_outputs, uv)
     x = torch.cat([emb, context], dim=-1)
     output, new_state = _multilayer_rnn(cfg, params["rnn"], x, state,
-                                        generator, train)
-    logits = output @ params["out_w"] + params["out_b"]
-    return _dropout(logits, cfg.out_dropout, generator, train), new_state
+                                        generator, train, shard)
+    logits = vocab_par.project(output, params["out_w"], params["out_b"],
+                               shard)
+    return _dropout(logits, cfg.out_dropout, generator, train, shard,
+                    vocab_dim=1), new_state
 
 
 class DecoderRollout(NamedTuple):
@@ -165,11 +189,13 @@ def teacher_forced_rollout(params: Dict, cfg: DecoderConfig,
                            encoder_outputs: torch.Tensor,
                            targets: torch.Tensor, use_teacher_forcing: bool,
                            generator: Optional[torch.Generator] = None,
-                           train: bool = False) -> DecoderRollout:
+                           train: bool = False,
+                           shard=None) -> DecoderRollout:
     """The T-step rollout (reference train.py:41-67). targets (T, B) int.
     ``use_teacher_forcing`` is one decision for the whole batch and
     sequence (the reference draws one Bernoulli per iteration,
-    train.py:37-38): feed the targets, or else each step's argmax."""
+    train.py:37-38): feed the targets, or else each step's argmax (over
+    the whole vocabulary on a 'model' axis)."""
     T, B = targets.shape
     uv = attn_ops.precompute_uv(params["attention"], encoder_outputs)
     state = zero_state(cfg, B, encoder_outputs.dtype, encoder_outputs.device)
@@ -179,8 +205,8 @@ def teacher_forced_rollout(params: Dict, cfg: DecoderConfig,
     for t in range(T):
         step_logits, state = decoder_step(params, cfg, token, state,
                                           encoder_outputs, uv, generator,
-                                          train)
-        out = torch.argmax(step_logits, dim=-1).to(torch.int32)
+                                          train, shard)
+        out = vocab_par.argmax(step_logits, shard)
         token = targets[t] if use_teacher_forcing else out
         logits.append(step_logits)
         hiddens.append(state[0])
@@ -193,7 +219,8 @@ def teacher_forced_rollout_fast(params: Dict, cfg: DecoderConfig,
                                 encoder_outputs: torch.Tensor,
                                 targets: torch.Tensor,
                                 generator: Optional[torch.Generator] = None,
-                                train: bool = False) -> DecoderRollout:
+                                train: bool = False,
+                                shard=None) -> DecoderRollout:
     """``teacher_forced_rollout`` for teacher forcing always on: every
     step's input token is known up front, so the embedding gather (and, at
     one layer, its gate term emb @ w_ih[:E] + b_ih) and the vocab
@@ -206,8 +233,10 @@ def teacher_forced_rollout_fast(params: Dict, cfg: DecoderConfig,
     inputs = torch.cat([torch.full((1, B), cfg.sos_token,
                                    dtype=targets.dtype, device=dev),
                         targets[:-1]])
-    emb_all = params["embedding"][inputs] * cfg.embedding_scale  # (T, B, E)
-    emb_all = _dropout(emb_all, cfg.embedding_dropout, generator, train)
+    emb_all = vocab_par.embed(params["embedding"], inputs, shard) \
+        * cfg.embedding_scale                                    # (T, B, E)
+    emb_all = _dropout(emb_all, cfg.embedding_dropout, generator, train,
+                       shard, batch_dim=1)
     att = params["attention"]
     if cfg.n_layers == 1:
         r0, E = params["rnn"][0], cfg.embedding_size
@@ -232,13 +261,14 @@ def teacher_forced_rollout_fast(params: Dict, cfg: DecoderConfig,
                                            encoder_outputs, uv)
             _, state = _multilayer_rnn(
                 cfg, params["rnn"], torch.cat([emb_all[t], context], -1),
-                state, generator, train)
+                state, generator, train, shard)
             hs.append(state[0])
         hiddens = torch.stack(hs)
-    logits = hiddens[:, -1] @ params["out_w"] + params["out_b"]  # (T, B, V)
-    logits = _dropout(logits, cfg.out_dropout, generator, train)
-    return DecoderRollout(logits, hiddens,
-                          torch.argmax(logits, dim=-1).to(torch.int32))
+    logits = vocab_par.project(hiddens[:, -1], params["out_w"],
+                               params["out_b"], shard)           # (T, B, V)
+    logits = _dropout(logits, cfg.out_dropout, generator, train, shard,
+                      batch_dim=1, vocab_dim=2)
+    return DecoderRollout(logits, hiddens, vocab_par.argmax(logits, shard))
 
 
 def hoisted_decode_tables(params: Dict, cfg: DecoderConfig,

@@ -17,6 +17,11 @@ hidden states, RecNet's reconstruction loss. The quirks kept:
 T_eff, the reference's number of executed decoder steps, is a tensor
 computed from the caption mask, so shapes stay fixed. Losses reduce in
 float32.
+
+On a mesh (the step's ``parallel.mesh.Shard``) the hiddens are this rank's
+rows; the caller's step mask and T_eff are the whole batch's, each loss is
+this rank's share of the mean over the global batch, and each dropout mask
+is cut from the global one (``decoder._dropout``).
 """
 
 from __future__ import annotations
@@ -77,11 +82,20 @@ def _zero_state(cfg: ReconstructorConfig, batch: int, like: torch.Tensor):
     return z, z
 
 
+def _batch_mean(x: torch.Tensor, shard) -> torch.Tensor:
+    """The mean over the global batch of which ``x`` holds this rank's
+    rows: the local mean times the rank's share of the rows."""
+    if shard is None:
+        return x.mean()
+    start, stop, total = shard.rows
+    return x.mean() * ((stop - start) / total)
+
+
 def global_reconstruct(params: Dict, cfg: ReconstructorConfig,
                        decoder_hiddens: torch.Tensor, step_mask: torch.Tensor,
                        t_eff: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
-                       train: bool = False) -> torch.Tensor:
+                       train: bool = False, shard=None) -> torch.Tensor:
     """decoder_hiddens (T, L, B, Hdec); step_mask (T,) 1.0 for executed
     steps; t_eff = sum(step_mask). Returns outputs (T, B, hidden)."""
     T, L, B, Hd = decoder_hiddens.shape
@@ -90,7 +104,7 @@ def global_reconstruct(params: Dict, cfg: ReconstructorConfig,
     mean_pooled = mean_pooled / t_eff * cfg.caption_max_len
     # a fresh dropout mask at every step (global_reconstructor.py:38)
     mp_all = _dropout(mean_pooled.expand(T, B, Hd), cfg.decoder_dropout,
-                      generator, train)
+                      generator, train, shard, batch_dim=1)
     if cfg.n_layers == 1:
         # every step's input is known before the loop: the input-side gate
         # product and the output projection run once for all T steps
@@ -106,7 +120,7 @@ def global_reconstruct(params: Dict, cfg: ReconstructorConfig,
         # (global_reconstructor.py:40 takes the first layer)
         x = torch.cat([decoder_hiddens[t, 0], mp_all[t]], -1)
         out, state = _multilayer_rnn(cfg, params["rnn"], x, state,
-                                     generator, train)
+                                     generator, train, shard)
         outs.append(out)
     return torch.stack(outs) @ params["out_w"] + params["out_b"]
 
@@ -116,20 +130,20 @@ def global_recon_loss(params: Dict, cfg: ReconstructorConfig,
                       encoder_outputs: torch.Tensor, step_mask: torch.Tensor,
                       t_eff: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
-                      train: bool = False) -> torch.Tensor:
+                      train: bool = False, shard=None) -> torch.Tensor:
     """MSE(mean_t outputs, mean_f enc) / T_eff (train.py:92-102)."""
     outputs = global_reconstruct(params, cfg, decoder_hiddens, step_mask,
-                                 t_eff, generator, train).float()
+                                 t_eff, generator, train, shard).float()
     out_mean = (outputs * step_mask[:, None, None]).sum(0) / t_eff
     enc_mean = encoder_outputs.float().mean(dim=1)
-    return (out_mean - enc_mean).square().mean() / t_eff
+    return _batch_mean((out_mean - enc_mean).square(), shard) / t_eff
 
 
 def local_reconstruct(params: Dict, cfg: ReconstructorConfig,
                       decoder_hiddens: torch.Tensor, step_mask: torch.Tensor,
                       t_eff: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
-                      train: bool = False) -> torch.Tensor:
+                      train: bool = False, shard=None) -> torch.Tensor:
     """encoder_output_len steps of attention over the decoder hiddens
     (T, 1, B, Hdec): the reference feeds the layer axis as a length-1
     sequence (local_reconstructor.py:49-52), so one decoder layer only.
@@ -145,9 +159,9 @@ def local_reconstruct(params: Dict, cfg: ReconstructorConfig,
     for _ in range(cfg.encoder_output_len):
         x = attn_ops.attend_mean(att, state[0][-1], hs, uv, mask=mask_bt,
                                  denom=t_eff)
-        x = _dropout(x, cfg.decoder_dropout, generator, train)
+        x = _dropout(x, cfg.decoder_dropout, generator, train, shard)
         out, state = _multilayer_rnn(cfg, params["rnn"], x, state,
-                                     generator, train)
+                                     generator, train, shard)
         outs.append(out)
     # the output projection runs once for all steps
     return torch.stack(outs) @ params["out_w"] + params["out_b"]
@@ -158,26 +172,27 @@ def local_recon_loss(params: Dict, cfg: ReconstructorConfig,
                      encoder_outputs: torch.Tensor, step_mask: torch.Tensor,
                      t_eff: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
-                     train: bool = False) -> torch.Tensor:
+                     train: bool = False, shard=None) -> torch.Tensor:
     """MSE(outputs^T, enc), not divided by the steps (train.py:127-130)."""
     outputs = local_reconstruct(params, cfg, decoder_hiddens, step_mask,
-                                t_eff, generator, train).float()
-    return (outputs.transpose(0, 1) - encoder_outputs.float()).square().mean()
+                                t_eff, generator, train, shard).float()
+    return _batch_mean(
+        (outputs.transpose(0, 1) - encoder_outputs.float()).square(), shard)
 
 
 def recon_loss(params: Dict, cfg: ReconstructorConfig,
                decoder_hiddens: torch.Tensor, encoder_outputs: torch.Tensor,
                step_mask: torch.Tensor, t_eff: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               train: bool = False) -> torch.Tensor:
+               train: bool = False, shard=None) -> torch.Tensor:
     if cfg.kind == "global":
         return global_recon_loss(params, cfg, decoder_hiddens,
                                  encoder_outputs, step_mask, t_eff,
-                                 generator, train)
+                                 generator, train, shard)
     if cfg.kind == "local":
         return local_recon_loss(params, cfg, decoder_hiddens,
                                 encoder_outputs, step_mask, t_eff,
-                                generator, train)
+                                generator, train, shard)
     raise ValueError(f"Unknown reconstructor kind: {cfg.kind}")
 
 

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -34,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _libraries: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 class BuildError(RuntimeError):
@@ -117,7 +119,10 @@ def build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/<name>.cu``'s library."""
-    if name not in _libraries:
-        _libraries[name] = ctypes.CDLL(str(build(name)))
-    return _libraries[name]
+    """Build (at first use) and load ``csrc/<name>.cu``'s library. Threads
+    of one process (a mesh Captioner's shards) build it once: they share
+    the pid that names the temporary."""
+    with _LOAD_LOCK:
+        if name not in _libraries:
+            _libraries[name] = ctypes.CDLL(str(build(name)))
+        return _libraries[name]

@@ -25,6 +25,7 @@ so any N and V work.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -36,6 +37,9 @@ MAX_K = 128
 SPLIT_MAX_K = 8        # the split kernel keeps each row's k best in registers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS, _COLS = 64, 128  # the kernel's row block and vocab tile
+
+
+_COUNT_LOCK = threading.Lock()
 
 
 def _library() -> ctypes.CDLL:
@@ -169,7 +173,8 @@ def outproj_topk(out: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
         raise RuntimeError(
             f"top-k projection kernel launch failed: "
             f"{lib.recnet_topk_error_string(err).decode()} ({err})")
-    outproj_topk.n_launches += 1      # split + merge count as one
+    with _COUNT_LOCK:    # a mesh Captioner's shards launch from threads
+        outproj_topk.n_launches += 1      # split + merge count as one
     return vals, idxs
 
 

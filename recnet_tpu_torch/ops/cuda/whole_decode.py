@@ -32,6 +32,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -88,6 +89,9 @@ def _check_options(early_exit: bool, dual: bool, ablate: str,
         raise ValueError("dual=True does not support early_exit or ablate")
     if cuda_cores and (early_exit or dual or ablate):
         raise ValueError("cuda_cores=True is the production step only")
+
+
+_COUNT_LOCK = threading.Lock()
 
 
 def _library() -> ctypes.CDLL:
@@ -420,10 +424,11 @@ def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
                      variant=_variant(early_exit, dual, ablate),
                      cuda_cores=cuda_cores, **kw)[0]
     name = _variant_name(early_exit, dual, ablate, cuda_cores)
-    if name:
-        whole_greedy_decode.variant_launches[name] += 1
-    else:
-        whole_greedy_decode.n_launches += 1
+    with _COUNT_LOCK:         # a mesh Captioner's shards launch from threads
+        if name:
+            whole_greedy_decode.variant_launches[name] += 1
+        else:
+            whole_greedy_decode.n_launches += 1
     return tokens
 
 
@@ -444,7 +449,8 @@ def whole_greedy_decode_segment(
         return whole_greedy_decode_segment_reference(
             params, enc, uv, bias2, h, c, token, seg_len=seg_len, **kw)
     out = _launch(params, enc, uv, bias2, h, c, token, n_steps=seg_len, **kw)
-    whole_greedy_decode_segment.n_launches += 1
+    with _COUNT_LOCK:
+        whole_greedy_decode_segment.n_launches += 1
     return out
 
 

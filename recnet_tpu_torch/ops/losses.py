@@ -9,34 +9,54 @@ Every loss reduces in float32.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from recnet_tpu_torch.parallel import vocab as vocab_par
+from recnet_tpu_torch.parallel.mesh import data_sum
 from recnet_tpu_torch.utils.misc import tree_leaves
 
 
 def step_mean_ce(logits: torch.Tensor, targets: torch.Tensor,
-                 mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                 mask: torch.Tensor, shard=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (T, B, V), targets (T, B) int, mask (T, B) bool/float.
 
     Returns (loss, n_tokens) with
     loss = sum_t mean_{b: mask}(CE_tb) / sum_tb mask. A step whose mask is
-    all zero adds 0, which matches the reference's early loop break."""
-    logits = logits.float()
-    mask = mask.to(logits.dtype)
-    logz = torch.logsumexp(logits, dim=-1)                       # (T, B)
-    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
-    per_step_sum = ((logz - tgt) * mask).sum(dim=1)              # (T,)
-    per_step_cnt = mask.sum(dim=1)
+    all zero adds 0, which matches the reference's early loop break.
+
+    On a mesh (``shard``, ``parallel.mesh.Shard``) the per-step counts and
+    ``n_tokens`` are the whole batch's (summed over 'data'), so that the
+    loss is this rank's share of the global loss and the shares, and their
+    gradients, sum to the single-device ones; the logits may be the rank's
+    vocabulary columns (``parallel.vocab.token_nll``)."""
+    mask = mask.to(torch.float32)
+    per_step_sum = (vocab_par.token_nll(logits, targets, shard)
+                    * mask).sum(dim=1)                           # (T,)
+    per_step_cnt = data_sum(mask.sum(dim=1), shard)
     per_step_mean = per_step_sum / per_step_cnt.clamp(min=1.0)
     n_tokens = per_step_cnt.sum()
     return per_step_mean.sum() / n_tokens.clamp(min=1.0), n_tokens
 
 
-def l2_norm_sum(params) -> torch.Tensor:
-    """sum_p ||p||_2 over every leaf of a parameter tree (train.py:69)."""
-    return sum(p.float().square().sum().sqrt() for p in tree_leaves(params))
+def l2_norm_sum(params, shard=None,
+                specs: Optional[Sequence[tuple]] = None) -> torch.Tensor:
+    """sum_p ||p||_2 over every leaf of a parameter tree (train.py:69).
+    On a 'model' axis a leaf split over it (``specs``, from
+    ``parallel.mesh.param_specs``) has the norm of its whole: the square
+    root of its squares summed over the group; the others are counted once
+    on every rank."""
+    leaves = tree_leaves(params)
+    specs = specs or [()] * len(leaves)
+    total = 0
+    for p, spec in zip(leaves, specs):
+        sq = p.float().square().sum()
+        if "model" in spec:
+            sq = vocab_par.sum_over_model(sq, shard)
+        total = total + sq.sqrt()
+    return total
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -7,14 +7,21 @@ power-of-two buckets and decodes them on an explicit ``device``, and a
 ``use_pallas`` keeps its name because ``TrainConfig`` and the CLI carry it;
 here it selects the hand-written decode kernels: K1, or K2 with
 ``greedy_segment``, for greedy requests, and K3 for beam requests.
-Multi-device serving is not ported yet and raises ``NotImplementedError``.
+
+With a ``mesh`` of this process's devices (``parallel.mesh.make_mesh(
+devices=[...])``) the Captioner serves data parallel: each device holds
+its own copy of the params (with its kernels' weight layouts), and each
+chunk is split into equal shards, one a device, decoded side by side, one
+thread each, then put back in order. The shards' decode loops meet at
+every batch-wide stop and freeze (``decoding.whole_batch``'s
+``across``), so the captions are those of the whole chunk on one device.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeout
 from typing import List, Optional, Sequence
 
@@ -26,9 +33,37 @@ from recnet_tpu_torch import checkpoint as ckpt
 from recnet_tpu_torch.decoding import (beam_decode, greedy_decode,
                                        greedy_decode_whole,
                                        greedy_decode_whole_segmented,
-                                       kernels_supported, tokens_to_sentences)
+                                       kernels_supported, tokens_to_sentences,
+                                       whole_batch)
 from recnet_tpu_torch.models import decoder as dec_mod
+from recnet_tpu_torch.parallel import mesh as mesh_lib
 from recnet_tpu_torch.weights import params_from_jax, torch_dtype
+
+
+class _ShardJoin:
+    """The batch-wide values of a chunk decoded in shards, one thread a
+    shard: each shard's loop hands in its value, waits for the others and
+    gets the reduction over all of them on its own device."""
+
+    def __init__(self, n: int):
+        self._barrier = threading.Barrier(n)
+        self._parts: List[Optional[torch.Tensor]] = [None] * n
+
+    def across(self, i: int):
+        """The ``across`` of shard ``i`` (see ``decoding.whole_batch``)."""
+        def join(x: torch.Tensor, op) -> torch.Tensor:
+            self._parts[i] = x
+            self._barrier.wait()
+            out = op(torch.stack([p.to(x.device) for p in self._parts]),
+                     dim=0)
+            self._barrier.wait()      # every shard has read every value
+            return out
+        return join
+
+    def abort(self) -> None:
+        """Release the other shards of a failed one (they raise
+        ``threading.BrokenBarrierError``)."""
+        self._barrier.abort()
 
 
 class Captioner:
@@ -39,20 +74,32 @@ class Captioner:
                  mesh=None, beam_length_margin: Optional[int] = None,
                  greedy_segment: Optional[int] = None, device="cuda"):
         """``dec_params``: the decoder params in the JAX layout (nested
-        dict/list of arrays or tensors), cast to ``dtype`` on ``device``.
+        dict/list of arrays or tensors), cast to ``dtype`` on ``device``,
+        or on each device of ``mesh`` (a 'data' mesh of local devices;
+        ``batch_size`` must divide by its size).
         ``greedy_segment``: with ``use_pallas``, decode in K2 segments of
         this many steps and stop once every row has an <EOS>.
         ``beam_length_margin``: the approximate beam cutoff of
         ``decoding.beam_decode``'s ``length_cutoff_margin``; None runs the
         exact search."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving is not ported yet "
-                "(ROADMAP Queue 1, item 9)")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but CUDA is "
-                               "not available")
+        self.mesh = mesh
+        if mesh is None:
+            self.devices = [torch.device(device)]
+        else:
+            if mesh.distributed or mesh.size("model") > 1:
+                raise ValueError(
+                    "a Captioner splits batches over a 'data' mesh of this "
+                    f"process's devices (make_mesh(devices=...)); got {mesh}")
+            if batch_size % mesh.size("data"):
+                raise ValueError(
+                    f"batch_size {batch_size} does not divide over the "
+                    f"mesh's 'data' axis of size {mesh.size('data')}")
+            self.devices = mesh.local_devices()
+        for dev in self.devices:
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(f"device {str(dev)!r} requested but CUDA "
+                                   "is not available")
+        self.device = self.devices[0]
         self.tc = tc
         self.vocab = vocab
         self.dcfg = dec_mod.config_from_train(tc, vocab.n_vocabs)
@@ -61,9 +108,14 @@ class Captioner:
         self.greedy_segment = greedy_segment
         self.beam_length_margin = beam_length_margin
         self._dtype = torch_dtype(dtype)
-        self.decoder = dec_mod.Decoder(self.dcfg, params_from_jax(
-            dec_params, self.device, self._dtype))
-        self.params = self.decoder.params()
+        decoders = {}                 # one copy of the params a device
+        for dev in self.devices:
+            if dev not in decoders:
+                decoders[dev] = dec_mod.Decoder(self.dcfg, params_from_jax(
+                    dec_params, dev, self._dtype))
+        self.param_sets = [decoders[dev].params() for dev in self.devices]
+        self.decoder = decoders[self.device]
+        self.params = self.param_sets[0]
 
     @classmethod
     def from_checkpoint(cls, step_dir: str, **kw) -> "Captioner":
@@ -71,34 +123,62 @@ class Captioner:
         params = ckpt.load_decoder_params(step_dir, tc, vocab.n_vocabs)
         return cls(tc, vocab, params, **kw)
 
-    def _decode(self, videos: torch.Tensor,
-                beam_width: Optional[int]) -> np.ndarray:
-        """videos (B, L, F) on the device -> tokens (n_steps, B)."""
+    def _decode(self, videos: torch.Tensor, beam_width: Optional[int],
+                params=None, across=whole_batch) -> np.ndarray:
+        """videos (B, L, F) on the params' device -> tokens (n_steps, B)."""
+        params = params if params is not None else self.params
         max_len = self.tc.caption_max_len
         if beam_width:
             # only a margin stops early (and pays a host sync per step):
             # the all-<PAD> stop rarely fires
             res = beam_decode(
-                self.params, self.dcfg, videos, beam_width, max_len,
+                params, self.dcfg, videos, beam_width, max_len,
                 use_pallas_topk=(self.use_pallas
                                  and kernels_supported(self.dcfg,
                                                        "beam_topk")),
-                length_cutoff_margin=self.beam_length_margin)
+                length_cutoff_margin=self.beam_length_margin,
+                across=across)
             return res.tokens[:, : res.n_steps].T.cpu().numpy()
         if self.use_pallas and kernels_supported(self.dcfg, "greedy_whole"):
             if self.greedy_segment:
                 # eos_stop: the sentences are exact and the all-<PAD> break
                 # almost never fires on a trained model
                 res = greedy_decode_whole_segmented(
-                    self.params, self.dcfg, videos, max_len,
-                    segment=self.greedy_segment, eos_stop=True)
+                    params, self.dcfg, videos, max_len,
+                    segment=self.greedy_segment, eos_stop=True,
+                    across=across)
             else:
-                res = greedy_decode_whole(self.params, self.dcfg, videos,
-                                          max_len)
+                res = greedy_decode_whole(params, self.dcfg, videos,
+                                          max_len, across=across)
         else:
-            res = greedy_decode(self.params, self.dcfg, videos, max_len,
-                                early_exit=True)
+            res = greedy_decode(params, self.dcfg, videos, max_len,
+                                early_exit=True, across=across)
         return res.tokens[: res.n_steps].cpu().numpy()
+
+    def _decode_chunk(self, chunk: np.ndarray,
+                      beam_width: Optional[int]) -> np.ndarray:
+        """A padded chunk (B, L, F) -> tokens (n_steps, B): on the one
+        device, or split into equal shards decoded side by side on the
+        mesh's devices (every shard issued before any waits for its
+        results) and put back in order."""
+        if self.mesh is None:
+            videos = torch.from_numpy(chunk).to(self.device, self._dtype)
+            return self._decode(videos, beam_width)
+        slices = mesh_lib.batch_sharding(self.mesh).slices(len(chunk))
+        join = _ShardJoin(len(slices))
+
+        def shard(i: int) -> np.ndarray:
+            try:
+                videos = torch.from_numpy(chunk[slices[i]]).to(
+                    self.devices[i], self._dtype)
+                return self._decode(videos, beam_width, self.param_sets[i],
+                                    join.across(i))
+            except BaseException:
+                join.abort()
+                raise
+        with ThreadPoolExecutor(len(slices)) as pool:
+            parts = list(pool.map(shard, range(len(slices))))
+        return np.concatenate(parts, axis=1)
 
     def validate_features(self, features: Sequence[np.ndarray]) -> None:
         """Raise ValueError unless every entry is a non-empty
@@ -130,18 +210,23 @@ class Captioner:
             pad = self._bucket_size(len(chunk)) - len(chunk)
             if pad:
                 chunk = np.concatenate([chunk, chunk[-1:].repeat(pad, 0)])
-            videos = torch.from_numpy(chunk).to(self.device, self._dtype)
-            tokens = self._decode(videos, beam_width)
+            tokens = self._decode_chunk(chunk, beam_width)
             sents = tokens_to_sentences(tokens, self.vocab.idx2word, eos)
             out.extend(sents[: len(sents) - pad] if pad else sents)
         return out
 
     def _bucket_size(self, n: int) -> int:
-        """Smallest power of two >= n (at least 8), capped at batch_size."""
+        """Smallest power of two >= n (at least 8), capped at batch_size;
+        on a mesh, rounded up to a multiple of its 'data' size, so that
+        chunks split evenly (batch_size divides, so the cap holds)."""
         b = 8
         while b < n:
             b *= 2
-        return min(b, self.batch_size)
+        b = min(b, self.batch_size)
+        if self.mesh is not None:
+            d = self.mesh.size("data")
+            b = min(-(-b // d) * d, self.batch_size)
+        return b
 
 
 class ServiceOverloaded(RuntimeError):

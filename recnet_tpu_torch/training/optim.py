@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as tdist
 
 from recnet_tpu_torch.utils.misc import tree_leaves
 
@@ -75,9 +76,29 @@ def load_adam_state(opt: torch.optim.Adam, count: int, mu: Sequence,
     opt.load_state_dict(sd)
 
 
-def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params, max_norm: float, shard=None,
+                        specs: Optional[Sequence[tuple]] = None
+                        ) -> torch.Tensor:
     """``clip_grad_norm_`` over a parameter tree's gradients; returns the
     norm before clipping. The coefficient max_norm / (norm + 1e-6) is
     clamped to 1, which equals the JAX package's ``where(norm > max_norm,
-    ...)`` except for norms within 1e-6 below the limit."""
-    return torch.nn.utils.clip_grad_norm_(tree_leaves(params), max_norm)
+    ...)`` except for norms within 1e-6 below the limit.
+
+    On a 'model' axis (``shard`` with a model group) the norm is global:
+    the squares of the leaves split over the axis (``specs``, from
+    ``parallel.mesh.param_specs``) summed over its group, the others
+    counted once."""
+    leaves = tree_leaves(params)
+    if shard is None or shard.model_group is None:
+        return torch.nn.utils.clip_grad_norm_(leaves, max_norm)
+    squares = [p.grad.float().square().sum() for p in leaves]
+    whole = torch.stack([q for q, s in zip(squares, specs)
+                         if "model" not in s]).sum()
+    split = torch.stack([q for q, s in zip(squares, specs)
+                         if "model" in s]).sum()
+    tdist.all_reduce(split, group=shard.model_group)
+    norm = (whole + split).sqrt()
+    coef = (max_norm / (norm + 1e-6)).clamp(max=1.0)
+    for p in leaves:
+        p.grad.mul_(coef.to(p.grad.dtype))
+    return norm

@@ -18,6 +18,17 @@ come from a device generator seeded from that one, so a resumed run draws
 what an unbroken run would. ``train_precision="bfloat16"`` runs the
 rollouts under ``torch.autocast`` over the float32 masters; the losses and
 the regularisers stay in float32.
+
+On a mesh (``parallel.mesh``, one process per device) a train step takes
+this rank's rows of the batch. The loss is the rank's share of the global
+one (the token counts and the step mask are the whole batch's; the
+regularisers, which every data rank computes alike, are added on the rank
+with the first rows); after the backward pass one all-reduce sums the
+gradients and the loss terms over 'data'. The clip's norm is global over
+'model' and both Adam updates run elementwise on the rank's shards. The
+val step decodes the whole batch on every rank. Averaging per-rank means,
+as ``DistributedDataParallel`` does, would weigh the ranks' tokens
+unequally whenever their token counts differ.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from recnet_tpu_torch.config import TrainConfig
 from recnet_tpu_torch.models import decoder as dec_mod
 from recnet_tpu_torch.models import reconstructors as rec_mod
 from recnet_tpu_torch.ops.losses import l2_norm_sum, step_mean_ce
+from recnet_tpu_torch.parallel import mesh as mesh_lib
 from recnet_tpu_torch.training.optim import (clip_by_global_norm,
                                              load_adam_state, make_adam)
 from recnet_tpu_torch.utils.misc import tree_fill, tree_leaves
@@ -112,36 +124,44 @@ def init_train_state(seed: int, tc: TrainConfig, vocab_size: int,
 def _forward(dec_params, rec_params, dcfg, rcfg, tc_pad, lambda_recon,
              dec_lambda_reg, rec_lambda_reg, videos, captions, use_tf: bool,
              generator: Optional[torch.Generator], train: bool,
-             always_tf: bool = False, compute_dtype=None):
+             always_tf: bool = False, compute_dtype=None, shard=None,
+             dec_specs=None):
     """Joint forward; returns (total, aux).
 
     ``always_tf`` takes the rollout with the vocab projection hoisted out
     of the loop (teacher forcing always on). ``compute_dtype`` (bf16) runs
     the rollouts under autocast; the regularisers read the float32 masters
-    and the losses reduce in float32."""
-    dec_reg = dec_lambda_reg * l2_norm_sum(dec_params)
-    rec_reg = (rec_lambda_reg * l2_norm_sum(rec_params)
-               if rec_params is not None else None)
+    and the losses reduce in float32. ``shard`` (``parallel.mesh.Shard``)
+    is this rank's place on a mesh; ``dec_specs`` the decoder leaves'
+    specs there."""
+    if shard is None or shard.owns_replicated:
+        dec_reg = dec_lambda_reg * l2_norm_sum(dec_params, shard, dec_specs)
+        rec_reg = (rec_lambda_reg * l2_norm_sum(rec_params)
+                   if rec_params is not None else None)
+    else:
+        dec_reg = rec_reg = torch.zeros((), device=videos.device)
     mask = captions > tc_pad                                      # (T, B)
     with torch.autocast(videos.device.type, dtype=compute_dtype,
                         enabled=compute_dtype is not None):
         if always_tf:
             rollout = dec_mod.teacher_forced_rollout_fast(
-                dec_params, dcfg, videos, captions, generator, train)
+                dec_params, dcfg, videos, captions, generator, train, shard)
         else:
             rollout = dec_mod.teacher_forced_rollout(
-                dec_params, dcfg, videos, captions, use_tf, generator, train)
-        ce, n_tok = step_mean_ce(rollout.logits, captions, mask)
+                dec_params, dcfg, videos, captions, use_tf, generator, train,
+                shard)
+        ce, n_tok = step_mean_ce(rollout.logits, captions, mask, shard)
         dec_loss = ce + dec_reg
         aux = {"n_tokens": n_tok, "greedy_tokens": rollout.greedy_tokens,
                "dec_loss": dec_loss}
         if rec_params is None:
             aux["rec_loss"] = torch.zeros((), device=videos.device)
             return dec_loss, aux
-        step_mask = (mask.float().sum(dim=1) > 0).float()           # (T,)
+        step_mask = (mesh_lib.data_sum(mask.float().sum(dim=1), shard)
+                     > 0).float()                                   # (T,)
         t_eff = step_mask.sum().clamp(min=1.0)
         rec = rec_mod.recon_loss(rec_params, rcfg, rollout.hiddens, videos,
-                                 step_mask, t_eff, generator, train)
+                                 step_mask, t_eff, generator, train, shard)
     rec_loss = rec + rec_reg
     aux["rec_loss"] = rec_loss
     return dec_loss + lambda_recon * rec_loss, aux
@@ -160,7 +180,7 @@ def _step_draws(seed: int, step: int, ratio: float, device
 
 
 def _make_step_fn(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
-                  rcfg: Optional[rec_mod.ReconstructorConfig]):
+                  rcfg: Optional[rec_mod.ReconstructorConfig], mesh=None):
     if tc.train_precision not in ("float32", "bfloat16"):
         raise ValueError(
             f"Unknown train_precision {tc.train_precision!r}; "
@@ -174,6 +194,8 @@ def _make_step_fn(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
     always_tf = ratio >= 1.0
 
     def step_fn(state: TrainState, videos, captions) -> Dict:
+        shard = mesh_lib.step_shard(mesh, videos.shape[0], dcfg.vocab_size)
+        specs = mesh_lib.param_specs(state.dec_params, ".dec_params", mesh)
         use_tf, generator = _step_draws(tc.seed + 1, state.step, ratio,
                                         videos.device)
         opts = [state.dec_opt] + ([state.rec_opt] if tc.use_recon else [])
@@ -183,16 +205,25 @@ def _make_step_fn(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
             state.dec_params, state.rec_params if tc.use_recon else None,
             dcfg, rcfg, pad, tc.lambda_recon, tc.decoder_lambda_reg,
             tc.reconstructor_lambda_reg, videos, captions, use_tf, generator,
-            train=True, always_tf=always_tf, compute_dtype=compute_dtype)
+            train=True, always_tf=always_tf, compute_dtype=compute_dtype,
+            shard=shard, dec_specs=specs)
         total.backward()
-        gnorm = (clip_by_global_norm(state.dec_params, tc.gradient_clip)
+        losses = [total.detach(), aux["dec_loss"].detach(),
+                  aux["rec_loss"].detach()]
+        if shard is not None and shard.data_group is not None:
+            # the ranks' shares: one sum of every gradient and loss term
+            losses = mesh_lib.all_reduce_grads(
+                [p for opt in opts for p in opt.param_groups[0]["params"]],
+                losses, shard.data_group)
+        gnorm = (clip_by_global_norm(state.dec_params, tc.gradient_clip,
+                                     shard, specs)
                  if tc.use_gradient_clip
                  else torch.zeros((), device=videos.device))
         for opt in opts:
             opt.step()
         state.step += 1
-        return {"loss": total.detach(), "dec_loss": aux["dec_loss"].detach(),
-                "rec_loss": aux["rec_loss"].detach(), "grad_norm": gnorm,
+        return {"loss": losses[0], "dec_loss": losses[1],
+                "rec_loss": losses[2], "grad_norm": gnorm,
                 "n_tokens": aux["n_tokens"]}
 
     return step_fn
@@ -206,20 +237,21 @@ def gather_f32(cache: torch.Tensor, vid_rows: torch.Tensor) -> torch.Tensor:
 
 
 def build_train_step(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
-                     rcfg: Optional[rec_mod.ReconstructorConfig]):
+                     rcfg: Optional[rec_mod.ReconstructorConfig], mesh=None):
     """fn(state, videos (B, F, E), captions (T, B)) -> metrics; updates
-    ``state`` in place."""
-    return _make_step_fn(tc, dcfg, rcfg)
+    ``state`` in place. On a process group's ``mesh`` the videos and
+    captions are this rank's rows and the metrics the global ones."""
+    return _make_step_fn(tc, dcfg, rcfg, mesh)
 
 
 def build_train_multi_step(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
                            rcfg: Optional[rec_mod.ReconstructorConfig],
-                           k: int):
+                           k: int, mesh=None):
     """k train steps per call over stacked batches: fn(state, videos
     (k, B, F, E), captions (k, T, B)) -> metrics with a leading (k,) axis.
     Equal to k calls of :func:`build_train_step` (the draws depend on the
     step only); nothing inside waits for the card."""
-    step_fn = _make_step_fn(tc, dcfg, rcfg)
+    step_fn = _make_step_fn(tc, dcfg, rcfg, mesh)
 
     def multi_fn(state: TrainState, videos, captions) -> Dict:
         ms = [step_fn(state, videos[i], captions[i]) for i in range(k)]
@@ -229,11 +261,13 @@ def build_train_multi_step(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
 
 
 def build_train_step_cached(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
-                            rcfg: Optional[rec_mod.ReconstructorConfig]):
+                            rcfg: Optional[rec_mod.ReconstructorConfig],
+                            mesh=None):
     """The device-feature-cache variant (config.device_feature_cache):
     fn(state, cache (V, F, E), vid_rows (B,), captions) -> metrics. The
-    train features stay on the card; each step gathers its rows."""
-    step_fn = _make_step_fn(tc, dcfg, rcfg)
+    train features stay on the card; each step gathers its rows (on a
+    mesh: the whole cache on every rank, the rank's rows of indices)."""
+    step_fn = _make_step_fn(tc, dcfg, rcfg, mesh)
     return lambda state, cache, vid_rows, captions: step_fn(
         state, gather_f32(cache, vid_rows), captions)
 
@@ -241,10 +275,10 @@ def build_train_step_cached(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
 def build_train_multi_step_cached(tc: TrainConfig,
                                   dcfg: dec_mod.DecoderConfig,
                                   rcfg: Optional[rec_mod.ReconstructorConfig],
-                                  k: int):
+                                  k: int, mesh=None):
     """k cached steps per call: fn(state, cache, vid_rows (k, B), captions
     (k, T, B))."""
-    multi_fn = build_train_multi_step(tc, dcfg, rcfg, k)
+    multi_fn = build_train_multi_step(tc, dcfg, rcfg, k, mesh)
 
     def fn(state: TrainState, cache, vid_rows, captions) -> Dict:
         B = vid_rows.shape[1]
@@ -255,11 +289,13 @@ def build_train_multi_step_cached(tc: TrainConfig,
 
 
 def build_val_step(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
-                   rcfg: Optional[rec_mod.ReconstructorConfig]):
+                   rcfg: Optional[rec_mod.ReconstructorConfig], mesh=None):
     """Eval-mode forward with teacher forcing off (the reference's
     forward_decoder at ratio 0, train.py:327-328): the decoder feeds its
     own argmax. fn(dec_params, rec_params, videos, captions) -> losses and
-    the greedy token chain (T, B)."""
+    the greedy token chain (T, B). On a mesh every rank takes the whole
+    batch (the losses are then the global ones), its vocabulary shards
+    summed over 'model'."""
     pad = tc.init_word2idx_dict["<PAD>"]
 
     @torch.no_grad()
@@ -268,7 +304,10 @@ def build_val_step(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
             dec_params, rec_params if tc.use_recon else None, dcfg, rcfg,
             pad, tc.lambda_recon, tc.decoder_lambda_reg,
             tc.reconstructor_lambda_reg, videos, captions, use_tf=False,
-            generator=None, train=False)
+            generator=None, train=False,
+            shard=mesh_lib.step_shard(mesh, videos.shape[0],
+                                      dcfg.vocab_size, split_batch=False),
+            dec_specs=mesh_lib.param_specs(dec_params, ".dec_params", mesh))
         return {"loss": total, "dec_loss": aux["dec_loss"],
                 "rec_loss": aux["rec_loss"],
                 "greedy_tokens": aux["greedy_tokens"]}
@@ -277,9 +316,10 @@ def build_val_step(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
 
 
 def build_val_step_cached(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
-                          rcfg: Optional[rec_mod.ReconstructorConfig]):
+                          rcfg: Optional[rec_mod.ReconstructorConfig],
+                          mesh=None):
     """:func:`build_val_step` on a device feature cache: fn(dec_params,
     rec_params, cache, vid_rows (B,), captions)."""
-    val_fn = build_val_step(tc, dcfg, rcfg)
+    val_fn = build_val_step(tc, dcfg, rcfg, mesh)
     return lambda dp, rp, cache, vid_rows, captions: val_fn(
         dp, rp, gather_f32(cache, vid_rows), captions)

@@ -111,3 +111,33 @@ def test_build_error_names_the_build_directory(fresh_build_dir,
     with pytest.raises(build.BuildError,
                        match=str(fresh_build_dir / "cache")):
         build.load("whole_decode")
+
+
+def test_load_builds_once_across_threads(monkeypatch, tmp_path):
+    """A mesh Captioner's shards reach a kernel's first load from threads
+    of one process, whose builds would share the pid-named temporary:
+    ``load`` builds each library once. 16 threads, more than the cores,
+    a short switch interval."""
+    import sys
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    calls = []
+
+    def slow_build(name):
+        calls.append(name)
+        threading.Event().wait(0.05)
+        return tmp_path / f"{name}.so"
+    monkeypatch.setattr(build, "build", slow_build)
+    monkeypatch.setattr(build, "_libraries", {})
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(16) as pool:
+            got = list(pool.map(build.load, ["topk_proj", "whole_decode"] * 8,
+                                timeout=60))
+    finally:
+        sys.setswitchinterval(interval)
+    assert sorted(calls) == ["topk_proj", "whole_decode"]
+    assert set(got) == {str(tmp_path / "topk_proj.so"),
+                        str(tmp_path / "whole_decode.so")}

@@ -885,3 +885,81 @@ def test_evaluate_uploads_the_score_split_to_the_card_once(cuda):
                                    greedy_segment=4) for _, x in batches]
     for a, b in zip(preds["cpu"], preds["cuda"]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_one_rank_nccl_step_equals_the_step_without_a_mesh(cuda):
+    """A process group of one rank over NCCL and a data=1 mesh: the step
+    goes through the all-reduce of its gradients and loss terms, and its
+    losses and leaves equal the mesh-less step's bit for bit (a sum over
+    one rank changes nothing)."""
+    import socket
+    from recnet_tpu_torch.checkpoint import state_leaves
+    from recnet_tpu_torch.parallel import distributed as dist
+    from recnet_tpu_torch.parallel import mesh as mesh_lib
+    from recnet_tpu_torch.training import step as S
+    rng = np.random.default_rng(5)
+    videos = torch.from_numpy(rng.standard_normal((B, L, F)).astype(
+        np.float32)).to(cuda)
+    captions = rng.integers(3, V, (9, B)).astype(np.int32)
+    captions[5:] = 0
+    captions = torch.from_numpy(captions).to(cuda)
+    tc = _train_config("global").replace(mesh_shape=(("data", 1),))
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    # initialize() takes a count of 1 for a single-process run: make the
+    # one-rank group directly
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        assert dist.device() == torch.device("cuda",
+                                             torch.cuda.current_device())
+        runs = {}
+        for name in ("plain", "mesh"):
+            mesh = (mesh_lib.make_mesh(tc.mesh_shape) if name == "mesh"
+                    else None)
+            state, dcfg, rcfg = S.init_train_state(0, tc, V, cuda)
+            fn = S.build_train_step(tc, dcfg, rcfg, mesh)
+            losses = [float(fn(state, videos, captions)["loss"])
+                      for _ in range(3)]
+            runs[name] = losses, state_leaves(state)
+        assert mesh_lib.step_shard(mesh, B, V).data_group is not None
+    finally:
+        dist.shutdown()
+    assert runs["mesh"][0] == runs["plain"][0]
+    for a, b in zip(runs["mesh"][1], runs["plain"][1]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mesh_captioner_on_two_entries_of_the_card(cuda, dtype):
+    """A 'data' mesh listing the card twice: each chunk in two shards, one
+    parameter set (with its kernels' layouts) per entry, K2 for greedy and
+    K3 for beam 5 launched by both shards; the tokens equal the plain
+    Captioner's."""
+    from recnet_tpu_torch.data.vocab import Vocab
+    from recnet_tpu_torch.models.decoder import config_from_train
+    from recnet_tpu_torch.parallel.mesh import make_mesh
+    from recnet_tpu_torch.serving import Captioner
+    tc = _train_config(None)
+    vocab = Vocab(tc.init_word2idx_dict, 1)
+    vocab.build([" ".join(f"w{i}" for i in range(V - 3))], str.split)
+    p = random_params(config_from_train(tc, vocab.n_vocabs), 0)
+    p["out_w"] = p["out_w"] * 8.0
+    rng = np.random.default_rng(6)
+    feats = [rng.standard_normal((int(rng.integers(5, 12)), F)).astype(
+        np.float32) for _ in range(21)]
+    kw = dict(dtype=dtype, batch_size=16, use_pallas=True, greedy_segment=4,
+              device="cuda")
+    plain = Captioner(tc, vocab, p, **kw)
+    meshed = Captioner(tc, vocab, p, mesh=make_mesh(
+        (("data", 2),), ["cuda:0", "cuda:0"]), **kw)
+    for beam in (None, 5):
+        k2 = wd.whole_greedy_decode_segment.n_launches
+        k3 = topk_proj.outproj_topk.n_launches
+        got = meshed.caption(feats, beam_width=beam)
+        launched = (wd.whole_greedy_decode_segment.n_launches - k2,
+                    topk_proj.outproj_topk.n_launches - k3)
+        assert launched[0 if beam is None else 1] > 0
+        assert got == plain.caption(feats, beam_width=beam)

@@ -4,6 +4,7 @@ against the originals, on the same inputs."""
 
 import dataclasses
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -34,7 +35,11 @@ def fixture_root(tmp_path_factory):
 
 
 @pytest.mark.parametrize("path", PRESETS, ids=lambda p: p.name)
-def test_train_config_reads_every_preset_like_jax(path):
+def test_train_config_reads_every_preset_like_jax(path, monkeypatch):
+    # a preset without "timestamp" gets the current second in each package:
+    # hold the clock, or a second boundary between the two reads fails it
+    now = time.gmtime()
+    monkeypatch.setattr(time, "gmtime", lambda secs=None: now)
     text = path.read_text()
     want = j_config.TrainConfig.from_json(text)
     got = t_config.TrainConfig.from_json(text)

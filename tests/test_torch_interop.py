@@ -14,6 +14,7 @@ tests/test_interop.py's."""
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -175,8 +176,19 @@ def test_adam_state_resume_matches_torch(tmp_path, amsgrad):
 # Whole-checkpoint import + CLI round trip
 # --------------------------------------------------------------------------
 
+@pytest.fixture
+def still_clock(monkeypatch):
+    """Hold the wall clock at one second. A new ``TrainConfig`` of either
+    package stamps ``timestamp`` with the current second, so two configs
+    built a moment apart differ whenever a second boundary falls between
+    them; with the clock held, they are compared on what they were built
+    from."""
+    now = time.gmtime()
+    monkeypatch.setattr(time, "gmtime", lambda secs=None: now)
+
+
 @pytest.mark.parametrize("kind", ["global", "local", None])
-def test_train_state_from_reference(tmp_path, kind):
+def test_train_state_from_reference(tmp_path, kind, still_clock):
     """A reference checkpoint imported by both packages: equal configs and
     equal leaves (params, Adam counts and moments) in flatten order."""
     dec, dopt = _trained_decoder("GRU")

@@ -112,8 +112,13 @@ def test_beam_captions_match_jax_captioner():
 
 
 def test_unported_modes_raise(captioner, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _captioner(mesh=object())
+    # a mesh is served over its 'data' axis, whose size batch_size divides
+    from recnet_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="does not divide"):
+        _captioner(mesh=make_mesh((("data", 3),), devices=["cpu"] * 3))
+    with pytest.raises(ValueError, match="'data' mesh"):
+        _captioner(mesh=make_mesh((("data", 2), ("model", 2)),
+                                  devices=["cpu"] * 4))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tc = tiny_train_config("unused")

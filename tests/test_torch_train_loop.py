@@ -127,8 +127,10 @@ def test_cli_defaults_to_the_card(fixture_root, tmp_path):
     cfg.write_text(tc.to_json())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_cli.main(["--config", str(cfg)])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_cli.main(["--config", str(cfg), "--device", "cpu", "--mesh"])
+    # one process holds one device: a mesh over more needs a process group
+    with pytest.raises(ValueError, match="mesh needs 2 devices, have 1"):
+        t_cli.main(["--config", str(cfg), "--device", "cpu",
+                    "--mesh_shape", "data=2"])
 
 
 def test_non_finite_loss_saves_an_emergency_checkpoint(fixture_root,
