@@ -19,8 +19,10 @@ Phases, one line or more each; any failure exits non-zero before a result:
    step) against its twin, frame chunks 1 and 7: f32 (CUDA-core body),
    bf16 on the tensor-core route at B=256 and 1024 (and each of its two
    kernels against its plain stage), bf16 under ``cuda_cores``; the K5
-   variants of K1: ``dual`` bit-equal to K1's CUDA-core step, each
-   ``ablate`` part against its twin;
+   variants of K1 on both bodies: ``dual`` bit-equal to K1's tensor-core
+   tokens (bf16, B=256 and a ragged B) and to the CUDA-core step (f32,
+   and bf16 under ``cuda_cores``), each ``ablate`` part against its twin
+   (tensor-core body bf16, CUDA-core body f32);
 4. main paths, each with the launch counts set to 0 before it and read
    after it: greedy requests through the port's HTTP handler behind the
    MicroBatcher, from a flagship-width bf16 Captioner (use_pallas,
@@ -41,9 +43,11 @@ Phases, one line or more each; any failure exits non-zero before a result:
    its bound (operations at the bf16 peak or bytes at the device-memory
    rate); K4's CUDA-core body and the tensor-core route's two kernels
    apart; captions/s of the greedy and beam paths;
-6. ablate: the profiling sweep of K1's CUDA-core body at B=1024 bf16
-   (its production step, each ablated part, dual), each part's cost as
-   full - variant and its tokens against its twin's;
+6. ablate: the profiling sweep of K1 at B=1024 bf16 on the tensor-core
+   body (its production step first and last, each ablated part, dual),
+   each part's cost as full - variant (the phase split of production K1)
+   and its tokens against its twin's, dual also at B=2048 beside K1 in
+   turns; then the same sweep on the CUDA-core body (``cuda_cores``);
 7. train: training at the flagship width on an in-memory corpus of random
    features and captions (``examples/msvd_flagship.json``, data bundle
    off, short cadences): (a) three f32 train steps on the card against
@@ -120,6 +124,8 @@ SEED = 0
 DEVICE = "cuda"
 VOCAB = 4188           # the flagship vocabulary size (MSVD, min_count 5)
 CHECK_B = 256          # batch of the kernel-against-twin checks
+DUAL_BIG_B = 2048      # dual's 16-row blocks fill one wave of 128 here
+RAGGED_B = 1004        # dual's ragged check: the last 16-row block holds 12
 TIME_B = 1024          # batch of the timed decodes
 F32_ROWS = 0.99        # share of rows whose f32 tokens must equal the twin's
 BF16_TOKENS = 0.98     # share of bf16 tokens that must equal the twin's
@@ -216,14 +222,20 @@ def build_kernels():
     """One nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from recnet_tpu_torch.ops.cuda import build
-    sources = ("whole_decode", "topk_proj", "fused_step")
+    sources = ("whole_decode", "whole_decode_probes", "topk_proj",
+               "fused_step")
     t0 = time.perf_counter()
+
+    def timed_build(name):
+        start = time.perf_counter()
+        return build.build(name), time.perf_counter() - start
+
     with ThreadPoolExecutor(len(sources)) as pool:
-        paths = list(pool.map(build.build, sources))
+        paths, seconds = zip(*pool.map(timed_build, sources))
     for name in sources:
         build.load(name)
-    log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: "
-                 f"{', '.join(p.name for p in paths)} in "
+    built = ", ".join(f"{p.name} {t:.1f} s" for p, t in zip(paths, seconds))
+    log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: {built}; all in "
                  f"{time.perf_counter() - t0:.2f} s")
     for path in paths:
         kernel = ""
@@ -544,54 +556,84 @@ def fused_step_against_twin(torch, tc, cfg):
 
 
 def variants_against_k1(torch, tc, cfg_base):
-    """K5: ``dual`` tokens equal K1's on every row (GRU and LSTM, f32 and
-    bf16); each ``ablate`` part against its twin in f32 (GRU and LSTM), and
-    ``nativeargmax`` equal to production. Returns max |token - twin token|
-    per variant."""
+    """K5 on both bodies, GRU and LSTM. ``dual``: on the tensor-core body
+    (bf16, 16 rows a block) its tokens equal production K1's tensor-core
+    tokens on every row, at CHECK_B and at a ragged batch (RAGGED_B: half
+    1 of the last block partly empty); on the CUDA-core body they equal
+    that body's production step's in f32 and in bf16 (``cuda_cores``).
+    ``ablate``: each part on the tensor-core body (bf16) against its twin
+    on BF16_TOKENS, and on the CUDA-core body (f32) on F32_ROWS of rows;
+    ``nativeargmax`` equal to its body's production step. Returns max
+    |token - twin token| per variant, keyed as ``variant_launches``."""
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     T, L = tc.caption_max_len + 1, tc.encoder_output_len
     errs = {}
+
+    def note(name, got, want):
+        errs[name] = max(errs.get(name, 0.0), float((got - want).abs().max()))
+
     for cell in ("GRU", "LSTM"):
         cfg = cfg_base._replace(cell_type=cell)
-        for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(emb_size=cfg.embedding_size, max_len=T - 1, cell_type=cell)
+        for B in (CHECK_B, RAGGED_B):     # dual on the tensor-core body
+            ops = decode_operands(seeded_params(cfg, torch.bfloat16),
+                                  seeded_features(torch, B, L, cfg,
+                                                  torch.bfloat16, 1))
+            dual = wd.whole_greedy_decode(*ops, dual=True, **kw)
+            full = wd.whole_greedy_decode(*ops, **kw)
+            torch.cuda.synchronize()
+            rows = (dual == full).all(dim=1).float().mean().item()
+            log("kernels", f"K5 dual {cell} bf16 B={B}, tensor-core body: "
+                           f"rows equal to K1's tensor-core tokens "
+                           f"{rows:.4f}")
+            check(rows == 1.0, f"K5 dual {cell} bf16 B={B} differs from K1 "
+                               f"on the tensor-core body")
+            note("dual", dual, full)
+        for dtype in (torch.float32, torch.bfloat16):   # the CUDA-core body
             ops = decode_operands(seeded_params(cfg, dtype),
                                   seeded_features(torch, CHECK_B, L, cfg,
                                                   dtype, 1))
-            kw = dict(emb_size=cfg.embedding_size, max_len=T - 1,
-                      cell_type=cell)
-            dual = wd.whole_greedy_decode(*ops, dual=True, **kw)
+            dual = wd.whole_greedy_decode(*ops, dual=True, cuda_cores=True,
+                                          **kw)
             full = wd.whole_greedy_decode(*ops, cuda_cores=True, **kw)
             torch.cuda.synchronize()
             rows = (dual == full).all(dim=1).float().mean().item()
             dname = "f32" if dtype == torch.float32 else "bf16"
-            log("kernels", f"K5 dual {cell} {dname} B={CHECK_B}: rows equal "
-                           f"to K1 on the CUDA-core body {rows:.4f}")
-            check(rows == 1.0, f"K5 dual {cell} {dname} differs from K1")
-            errs["dual"] = max(errs.get("dual", 0.0),
-                               float((dual - full).abs().max()))
-    for cell in ("GRU", "LSTM"):
-        cfg = cfg_base._replace(cell_type=cell)
-        ops = decode_operands(seeded_params(cfg, torch.float32),
-                              seeded_features(torch, CHECK_B, L, cfg,
-                                              torch.float32, 1))
-        kw = dict(emb_size=cfg.embedding_size, max_len=T - 1, cell_type=cell)
-        production = wd.whole_greedy_decode(*ops, **kw)
-        for part in ABLATE_PARTS:
-            got = wd.whole_greedy_decode(*ops, ablate=part, **kw)
-            want = wd.whole_greedy_decode_reference(*ops, ablate=part, **kw)
-            torch.cuda.synchronize()
-            rows = (got == want).all(dim=1).float().mean().item()
-            name = f"ablate={part}"
-            errs[name] = max(errs.get(name, 0.0),
-                             float((got - want).abs().max()))
-            log("kernels", f"K5 ablate={part} {cell} f32 B={CHECK_B}: rows "
-                           f"equal to the twin {rows:.4f}")
-            check(rows >= F32_ROWS, f"K5 ablate={part} {cell}: rows equal "
-                                    f"{rows} < {F32_ROWS}")
-            if part == "nativeargmax":
-                check(torch.equal(got, production),
-                      f"K5 ablate=nativeargmax {cell} differs from "
-                      f"production")
+            log("kernels", f"K5 dual {cell} {dname} B={CHECK_B}, CUDA-core "
+                           f"body: rows equal to K1 on that body {rows:.4f}")
+            check(rows == 1.0, f"K5 dual {cell} {dname} differs from K1 on "
+                               f"the CUDA-core body")
+            note("dual[cuda_cores]", dual, full)
+        for dtype in (torch.bfloat16, torch.float32):
+            ops = decode_operands(seeded_params(cfg, dtype),
+                                  seeded_features(torch, CHECK_B, L, cfg,
+                                                  dtype, 1))
+            f32 = dtype == torch.float32
+            body = "CUDA-core body f32" if f32 else "tensor-core body bf16"
+            production = wd.whole_greedy_decode(*ops, **kw)
+            for part in ABLATE_PARTS:
+                got = wd.whole_greedy_decode(*ops, ablate=part, **kw)
+                want = wd.whole_greedy_decode_reference(*ops, ablate=part,
+                                                        **kw)
+                torch.cuda.synchronize()
+                rows = (got == want).all(dim=1).float().mean().item()
+                share = (got == want).float().mean().item()
+                note(f"ablate={part}" + ("[cuda_cores]" if f32 else ""),
+                     got, want)
+                log("kernels", f"K5 ablate={part} {cell} {body} "
+                               f"B={CHECK_B}: rows equal to the twin "
+                               f"{rows:.4f}, tokens {share:.4f}")
+                if f32:
+                    check(rows >= F32_ROWS, f"K5 ablate={part} {cell} f32: "
+                                            f"rows equal {rows} < {F32_ROWS}")
+                else:
+                    check(share >= BF16_TOKENS,
+                          f"K5 ablate={part} {cell} bf16: tokens equal "
+                          f"{share} < {BF16_TOKENS}")
+                if part == "nativeargmax":
+                    check(torch.equal(got, production),
+                          f"K5 ablate=nativeargmax {cell} ({body}) differs "
+                          f"from production")
     return errs
 
 
@@ -1430,8 +1472,8 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
                  f"{e['bound_ms']:.4f} ms ({e['bound_by']}); at B=8 kernel A "
                  f"{split8['attn_pass']:.4f} ms, kernel B "
                  f"{split8['gate_gemm']:.4f} ms ({card})")
-    # the K5 early exit on the PAD-timed weights, dual and the CUDA-core
-    # production step against K1
+    # the K5 early exit on the PAD-timed weights, dual on both bodies and
+    # the CUDA-core production step against K1
     pad_ops = decode_operands(pad_params, enc)
     early = dict(k1, early_exit=True)
     full_pad = wd.whole_greedy_decode(*pad_ops, **k1)
@@ -1450,6 +1492,9 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
     entry("whole_greedy_decode[dual]",
           lambda: wd.whole_greedy_decode(*ops, dual=True, **k1), k1_twin,
           k1_library, k1_work)
+    entry("whole_greedy_decode[dual[cuda_cores]]",
+          lambda: wd.whole_greedy_decode(*ops, dual=True, cuda_cores=True,
+                                         **k1), k1_twin, k1_library, k1_work)
     entry("whole_greedy_decode[cuda_cores]",
           lambda: wd.whole_greedy_decode(*ops, cuda_cores=True, **k1),
           k1_twin, k1_library, k1_work)
@@ -1465,8 +1510,10 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
                  f"{entries['whole_greedy_decode[early_exit]']['ms']:.3f} ms "
                  f"({row_steps} of {B * T} row-steps), full K1 "
                  f"{full_pad_ms:.3f} ms; dual "
-                 f"{entries['whole_greedy_decode[dual]']['ms']:.3f} ms and "
-                 f"the CUDA-core step "
+                 f"{entries['whole_greedy_decode[dual]']['ms']:.3f} ms "
+                 f"(tensor-core body) and "
+                 f"{entries['whole_greedy_decode[dual[cuda_cores]]']['ms']:.3f}"
+                 f" ms (CUDA-core body), the CUDA-core step "
                  f"{entries['whole_greedy_decode[cuda_cores]']['ms']:.3f} ms "
                  f"against production K1 "
                  f"{entries['whole_greedy_decode']['ms']:.3f} ms ({card})")
@@ -1522,60 +1569,110 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
 
 def ablate_sweep(torch, tc, cfg, params_np):
     """The profiling sweep of benchmarks/profile_whole_decode.py on the
-    card: K1 at B = TIME_B bf16 on the CUDA-core body (the body the probes
-    are variants of: its production step, each ablated part and dual),
-    through the ops-level wrapper, launches counted; then each timed, the
-    production step first and last, and each part's cost as full -
-    variant. The production step's and each ablated part's tokens are held
-    against their twins' (BF16_TOKENS of tokens equal), dual's against the
-    production step's (all equal). Returns (launches by variant, {variant:
-    (ms, twin ms)}, {variant: max |token - twin token|})."""
+    card, K1 at B = TIME_B bf16 through the ops-level wrapper, on each
+    body: the tensor-core body (its production step, each ablated part,
+    dual), then the CUDA-core body (the same set under ``cuda_cores``).
+    Every variant is launched once with the counts from 0; then each
+    body's set is timed, its production step first and last, and each
+    part's cost printed as full - variant: on the tensor-core body, the
+    phase split of the production K1. Each ablated part's tokens are held
+    against its twin's (BF16_TOKENS of tokens equal), dual's against its
+    body's production step's (all equal). The tensor-core dual is also
+    timed at B = DUAL_BIG_B beside production K1, in turns (K1, dual, dual,
+    K1), its tokens equal. Returns (launches by variant, {variant: (ms,
+    twin ms)} of the ablated parts, {variant: max |token - twin token|}),
+    keyed as ``variant_launches``."""
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     from recnet_tpu_torch.weights import params_from_jax
-    T, dtype = tc.caption_max_len + 1, torch.bfloat16
+    T, L, dtype = tc.caption_max_len + 1, tc.encoder_output_len, torch.bfloat16
     params = params_from_jax(params_np, DEVICE, dtype)
-    enc = seeded_features(torch, TIME_B, tc.encoder_output_len, cfg, dtype,
-                          3)
-    ops = decode_operands(params, enc)
+    ops = decode_operands(params, seeded_features(torch, TIME_B, L, cfg,
+                                                  dtype, 3))
     kw = dict(emb_size=cfg.embedding_size, max_len=T - 1,
               cell_type=cfg.cell_type)
-    variants = ([("cuda_cores", {"cuda_cores": True})]
-                + [(f"ablate={p}", {"ablate": p}) for p in ABLATE_PARTS]
-                + [("dual", {"dual": True})])
+    run = lambda vkw, o=ops: wd.whole_greedy_decode(*o, **vkw, **kw)
+    # each body: (the suffix of its variants' names, [(name, options)]),
+    # its production step first
+    sweeps = {}
+    for body, suffix, base, bkw in (
+            ("tensor-core", "", "", {}),
+            ("CUDA-core", "[cuda_cores]", "cuda_cores", {"cuda_cores": True})):
+        sweeps[body] = (suffix, [(base, bkw)]
+                        + [(f"ablate={p}{suffix}", dict(bkw, ablate=p))
+                           for p in ABLATE_PARTS]
+                        + [(f"dual{suffix}", dict(bkw, dual=True))])
     reset_counts()
-    tokens = {name: wd.whole_greedy_decode(*ops, **vkw, **kw)
-              for name, vkw in variants}
+    tokens = {name: run(vkw) for _, sweep in sweeps.values()
+              for name, vkw in sweep}
     torch.cuda.synchronize()
     launches = dict(wd.whole_greedy_decode.variant_launches)
-    log("ablate", f"sweep launches: {launches}")
-    check(all(launches.get(name) == 1 for name, _ in variants),
+    log("ablate", f"sweep launches: {launches}, production K1 on the "
+                  f"tensor-core body {wd.whole_greedy_decode.n_launches}")
+    check(wd.whole_greedy_decode.n_launches == 1
+          and all(launches.get(name) == 1 for _, sweep in sweeps.values()
+                  for name, _ in sweep if name),
           "the ablation sweep missed a variant")
-    ms = {name: timed(torch, lambda vkw=vkw: wd.whole_greedy_decode(
-              *ops, **vkw, **kw))[0] for name, vkw in variants}
-    full = (ms["cuda_cores"] + timed(torch, lambda: wd.whole_greedy_decode(
-        *ops, cuda_cores=True, **kw))[0]) / 2
+    twins = {p: wd.whole_greedy_decode_reference(*ops, ablate=p, **kw)
+             for p in ABLATE_PARTS}
+    # the CUDA-core production step (the tensor-core one is held in
+    # [kernels]) against the production twin
+    production = wd.whole_greedy_decode_reference(*ops, **kw)
+    equal = (tokens["cuda_cores"] == production).float().mean().item()
+    errs = {"cuda_cores": float((tokens["cuda_cores"] - production)
+                                .abs().max())}
+    log("ablate", f"cuda_cores: tokens equal to the twin's {equal:.4f}")
+    check(equal >= BF16_TOKENS, f"cuda_cores bf16 B={TIME_B}: tokens equal "
+                                f"{equal}")
+    twin_ms = {p: timed(torch, lambda p=p: wd.whole_greedy_decode_reference(
+        *ops, ablate=p, **kw))[0] for p in ABLATE_PARTS}
     card = card_line()
-    log("ablate", f"K1's CUDA-core production step B={TIME_B} bf16: "
-                  f"{full:.3f} ms (mean of the first and last timing) on "
-                  f"{card}")
-    out, errs = {}, {}
-    for name, vkw in variants:
-        if name == "dual":     # the production step's tokens
-            want, plain = tokens["cuda_cores"], None
-        else:                  # against its twin, on the timed inputs
-            twin_kw = {k: v for k, v in vkw.items() if k == "ablate"}
-            want = wd.whole_greedy_decode_reference(*ops, **twin_kw, **kw)
-            plain = timed(torch, lambda twin_kw=twin_kw: (
-                wd.whole_greedy_decode_reference(*ops, **twin_kw, **kw)))[0]
-        equal = (tokens[name] == want).float().mean().item()
-        errs[name] = float((tokens[name] - want).abs().max())
-        cost = full - ms[name]
-        log("ablate", f"{name}: {ms[name]:.3f} ms; full - variant "
-                      f"{cost:.3f} ms ({100 * cost / full:.1f}% of the step); "
-                      f"tokens equal to its twin's {equal:.4f}")
-        check(equal >= (1.0 if name == "dual" else BF16_TOKENS),
-              f"{name} bf16 B={TIME_B}: tokens equal {equal}")
-        out[name] = (ms[name], plain)
+    out = {}
+    for body, (suffix, sweep) in sweeps.items():
+        ms = {name: timed(torch, lambda vkw=vkw: run(vkw))[0]
+              for name, vkw in sweep}
+        base, bkw = sweep[0]
+        full = (ms[base] + timed(torch, lambda: run(bkw))[0]) / 2
+        log("ablate", f"K1's production step on the {body} body B={TIME_B} "
+                      f"bf16: {full:.3f} ms (mean of the first and last "
+                      f"timing) on {card}")
+        for name, vkw in sweep[1:]:
+            part = vkw.get("ablate")
+            want = twins[part] if part else tokens[base]
+            equal = (tokens[name] == want).float().mean().item()
+            errs[name] = float((tokens[name] - want).abs().max())
+            cost = full - ms[name]
+            log("ablate", f"{name}: {ms[name]:.3f} ms; full - variant "
+                          f"{cost:.3f} ms ({100 * cost / full:.1f}% of the "
+                          f"step); tokens equal to "
+                          f"{'its twin' if part else 'production'}'s "
+                          f"{equal:.4f}")
+            check(equal >= (BF16_TOKENS if part else 1.0),
+                  f"{name} bf16 B={TIME_B}: tokens equal {equal}")
+            if part:
+                out[name] = (ms[name], twin_ms[part])
+        split = {p: full - ms[f"ablate={p}{suffix}"]
+                 for p in ("emb", "attn", "proj")}
+        rest = full - sum(split.values())
+        log("ablate", f"phase split of the {body} body: embedding gather "
+                      f"{split['emb']:.3f} ms, attention (W h, scores, enc "
+                      f"reads) {split['attn']:.3f} ms, projection and argmax "
+                      f"{split['proj']:.3f} ms, the rest (gates, cell, "
+                      f"barriers) {rest:.3f} ms of {full:.3f} ms"
+                      + (" (the parts add to more than the whole: phases "
+                         "overlap)" if rest < 0 else ""))
+    # dual's grid fills the card at DUAL_BIG_B; production K1 takes two
+    # waves there
+    big = decode_operands(params, seeded_features(torch, DUAL_BIG_B, L, cfg,
+                                                  dtype, 4))
+    k1, dual = run({}, big), run({"dual": True}, big)
+    torch.cuda.synchronize()
+    check(torch.equal(k1, dual), f"dual B={DUAL_BIG_B} differs from K1")
+    turns = [timed(torch, lambda vkw=vkw: run(vkw, big))[0]
+             for vkw in ({}, {"dual": True}, {"dual": True}, {})]
+    log("ablate", f"B={DUAL_BIG_B} bf16, tensor-core body, in turns: K1 "
+                  f"{turns[0]:.3f} ms, dual {turns[1]:.3f} ms, dual "
+                  f"{turns[2]:.3f} ms, K1 {turns[3]:.3f} ms; dual tokens "
+                  f"equal to K1's on every row ({card})")
     return launches, out, errs
 
 
@@ -2789,12 +2886,13 @@ def main() -> int:
     dist_phase(torch, tc, vocab, cfg, eos_np)
     T, L = tc.caption_max_len + 1, tc.encoder_output_len
     for part in ABLATE_PARTS:
-        ms, plain = sweep_ms[f"ablate={part}"]
         bound_ms, bound_by = bound(*decode_work(cfg, L, TIME_B, TIME_B * T,
                                                 T, ablate=part))
-        entries[f"whole_greedy_decode[ablate={part}]"] = dict(
-            ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms,
-            bound_by=bound_by)
+        for suffix in ("", "[cuda_cores]"):
+            ms, plain = sweep_ms[f"ablate={part}{suffix}"]
+            entries[f"whole_greedy_decode[ablate={part}{suffix}]"] = dict(
+                ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
 
     pallas = "recnet_tpu/ops/pallas/"
     csrc = "recnet_tpu_torch/csrc/"
@@ -2804,10 +2902,17 @@ def main() -> int:
              "whole_decode.py:360"),
             ("outproj_topk", "topk_proj.cu", "topk_proj.py:77"),
             ("fused_gru_attn_step", "fused_step.cu", "fused_step.py:92")]
-    rows += [(f"whole_greedy_decode[{variant}]", "whole_decode.cu",
-              "whole_decode.py:497")
-             for variant in ["early_exit", "dual", "cuda_cores"]
-             + [f"ablate={p}" for p in ABLATE_PARTS]]
+    # the K5 variants, each under its variant_launches key: the
+    # tensor-core probes are built from whole_decode_probes.cu, the rest
+    # (the early exit, and the CUDA-core body's variants) from
+    # whole_decode.cu
+    variants = (["early_exit", "dual", "dual[cuda_cores]", "cuda_cores"]
+                + [f"ablate={p}{suffix}" for suffix in ("", "[cuda_cores]")
+                   for p in ABLATE_PARTS])
+    rows += [(f"whole_greedy_decode[{v}]",
+              "whole_decode.cu" if v == "early_exit" or "cuda_cores" in v
+              else "whole_decode_probes.cu", "whole_decode.py:497")
+             for v in variants]
     counts = dict(launches, **{f"whole_greedy_decode[{v}]": n
                                for v, n in variant_launches.items()})
     errors = dict(errs, **{f"whole_greedy_decode[{v}]": e
@@ -2816,6 +2921,10 @@ def main() -> int:
                      "replaces": pallas + tpu, "launches": counts[name],
                      "max_abs_err": errors[name]}, **entries[name])
                for name, src, tpu in rows]
+    for k in kernels:     # the body each whole-decode row ran on
+        if k["name"].startswith("whole_greedy_decode"):
+            k["body"] = ("cuda_cores" if "cuda_cores" in k["name"]
+                         else "tensor_cores")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// Greedy whole-decode kernel for NVIDIA Hopper (sm_90a).
+// Greedy whole-decode kernels for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels whole_greedy_decode (K1, with its
 // early_exit, dual and ablate variants, K5) and whole_greedy_decode_segment
@@ -31,10 +31,15 @@
 // Each step also reads the rows' encoder features (88 MB at B = 1024) from
 // device memory, since they do not fit in L2 beside the weights.
 //
-// Two bodies share the entry point:
+// Two bodies; the wrapper (ops/cuda/whole_decode.py, kernel_route) picks
+// one for each launch, and every K5 variant exists on both:
 //
-// * The tensor-core body (tc_decode_kernel): bf16 K1, K2 and the early
-//   exit, the production path. A block owns TB = 8 batch rows, which are
+// * The tensor-core body (tc_decode_kernel, whole_decode_tc.cuh) runs
+//   every bf16 launch with H a multiple of 16 unless cuda_cores asks for
+//   the other: production K1/K2 and the early exit, instantiated here, and
+//   the K5 probes dual and ablate, instantiated in whole_decode_probes.cu
+//   (a source of their own, so that their 16 instantiations build beside
+//   this file and not after it). A block owns TB = 8 batch rows, which are
 //   the N = 8 of mma.sync m16n8k16 (bf16 in, f32 accumulators); the
 //   weights are A, 16 output units x 16 inputs. A warp owns 16 hidden units
 //   and runs every gate tile of them (r, z, n or i, f, g, o; w_ih x and
@@ -63,31 +68,48 @@
 //   16-unit tile of A a warp (on CUDA cores it cost 1.2 ms of an 8.6 ms
 //   decode). The ctx reads of enc take 8 features (16 bytes) a thread,
 //   frames summed f = 0..L-1 in order, 4 in flight.
-// * The CUDA-core body (whole_decode_kernel), the first design: f32 (no
-//   TF32, so the f32 tokens equal the plain twin's), the K5 probes dual and
-//   ablate, the bf16 production step under cuda_cores (the baseline ablate
-//   subtracts from), and bf16 shapes the tensor-core body does not take (H
-//   not a multiple of 16); the wrapper picks the body. A thread owns one
-//   hidden unit across all gates and each weight load feeds TB = 8 f32 FMAs,
-//   one per row, from [k][TB] f32 row vectors in shared memory.
+// * The CUDA-core body (whole_decode_kernel, below), the first design: f32
+//   (no TF32, so the f32 tokens equal the plain twin's), bf16 shapes the
+//   tensor-core body does not take (H not a multiple of 16), and any
+//   variant asked for with cuda_cores (in bf16: the first design's
+//   production step and its probes, kept as the redesign's baseline). A
+//   thread owns one hidden unit across all gates and each weight load
+//   feeds TB = 8 f32 FMAs, one per row, from [k][TB] f32 row vectors in
+//   shared memory.
 //
-// Next step (ROADMAP): a cluster of 2 blocks with TMA multicast of each
-// weight tile, so that one L2 read feeds 16 rows.
+// dual on the tensor-core body. The production step's blocks each read all
+// 12.15 MB of weight tiles from L2 every step, so the L2 read stream bounds
+// it (48.2 GB a decode at B = 1024). dual's block takes 16 rows as two
+// 8-row halves that share each weight tile in shared memory (one copy,
+// one ldmatrix.trans, two mma.sync back to back: the Pallas kernel's "A's
+// matmul adjacent to B's"), which halves the L2 bytes a row (24.1 GB a
+// decode). Its grid is half as wide (64 blocks at B = 1024 on 132 SMs).
+// On an H100 80GB HBM3 at 700 W (flagship GRU, bf16) it takes production's
+// time at B = 1024 (7.45-7.67 ms against 7.65-7.68) and 0.58 of it at
+// B = 2048 (8.80-8.84 ms against 15.27-15.30, production in two waves of
+// 128 blocks): what bounds the decode is each SM's own read stream, about
+// 50 GB/s an SM, not the L2's aggregate rate, so sharing a tile pays only
+// where it lets one wave of blocks hold more rows. An LSTM under dual
+// takes a 3-slot ring to fit 16 rows beside it (whole_decode_tc.cuh,
+// tc_slots).
 //
-// The K5 variants of the CUDA-core body are compile-time variants (template
+// The K5 variants are compile-time variants of each body (template
 // parameter VAR; VAR = 0 carries none of their code):
 // * EARLY_EXIT: the block stops its step loop once every one of its real
 //   rows has current token 0 (the Pallas per-tile while_loop; its tile is
 //   this block's 8 rows). Every thread reads the flag after a barrier, so
 //   the break is uniform across the block.
 // * DUAL: the Hopper reading of the Pallas _dual_kernel's two row-halves.
-//   The block's two 4-row halves each run on 256 threads and sync on their
-//   own named barrier (bar.sync 1 / bar.sync 2), so one half's projection
-//   can overlap the other half's gates. Each row's arithmetic is the
-//   production step's, so the tokens are bit-identical.
+//   On the tensor-core body, two 8-row halves sharing each weight tile (as
+//   above). On the CUDA-core body, the block's two 4-row halves each run on
+//   256 threads and sync on their own named barrier (bar.sync 1 / bar.sync
+//   2), so one half's projection can overlap the other half's gates. Each
+//   row's arithmetic is its body's production step's, so the tokens are
+//   bit-identical to that body's production tokens.
 // * ABL_*: the profiling stubs of _make_step (emb, attn / score1 / fma,
 //   proj / nativeargmax / argmax), one part at a time, for cost attribution
-//   by subtraction.
+//   by subtraction: full - variant on the tensor-core body splits the
+//   production step by phase.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,44 +117,16 @@
 #include <cstddef>
 
 #include "decode_common.cuh"
-#include "hopper_mma.cuh"
+#include "whole_decode_tc.cuh"
 
 namespace {
 
-using recnet::from_f;
 using recnet::load_rows;
 using recnet::round_to;
-using recnet::sigmoid;
-using recnet::to_f;
 
-constexpr int TB = 8;          // batch rows per block
-// 16 warps and 8 loads in flight per k loop keep enough L2 requests
-// outstanding; at 512 threads the registers stay under 128 with no spills
-constexpr int THREADS = 512;
+// 8 loads in flight per k loop of the CUDA-core body; at 512 threads the
+// registers stay under 128 with no spills
 constexpr int UNROLL = 8;
-constexpr int NWARPS = THREADS / 32;
-
-// variant bits (VAR); the wrapper builds the same code
-constexpr int EARLY_EXIT = 1;
-constexpr int DUAL = 2;
-constexpr int ABL_EMB = 4;          // zero embedding
-constexpr int ABL_ATTN_SHIFT = 3;   // 1 zero ctx, 2 score = act[0],
-                                    // 3 ctx = sum_f score_f (no enc, no / L)
-constexpr int ABL_PROJ_SHIFT = 5;   // 1 the token stays, 2 float first-max
-                                    // argmax, 3 token = int(max logit)
-constexpr int TENSOR_CORES = 256;   // bf16 K1/K2 and early exit: the
-                                    // tensor-core body
-
-// order-preserving f32 -> int32 key (whole_decode.py:251-252); the map is
-// its own inverse
-__device__ __forceinline__ int order_key(float x) {
-  int bits = __float_as_int(x);
-  return bits ^ ((bits >> 31) & 0x7FFFFFFF);
-}
-
-__device__ __forceinline__ bool key_wins(int k, int i, int bk, int bi) {
-  return k > bk || (k == bk && i < bi);
-}
 
 // the barrier of a thread group: the whole block, or under DUAL one half
 // on its own named barrier (ids 1 and 2; 0 is __syncthreads')
@@ -441,451 +435,6 @@ whole_decode_kernel(const T* __restrict__ enc, const T* __restrict__ uv,
   if (tid < RB && row0 + tid < B) tok_out[row0 + tid] = tok_g[tid];
 }
 
-// ---------------------------------------------------------------------------
-// the tensor-core body (bf16)
-// ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-using recnet::cp_async16;
-using recnet::ldmatrix_x2;
-using recnet::ldmatrix_x4;
-using recnet::mma_bf16;
-
-constexpr int PT = 3;        // 16-column tiles of out_w per projection item
-constexpr int TILE = 256;    // bf16 elements of a 16 x 16 weight tile
-
-// Slots of each warp's cp.async ring (3 items in flight); on the weight
-// tiles deeper rings gained nothing for the GRU (kernel_probes.py).
-constexpr int RING_SLOTS = 4;
-
-// row stride (elements) of the rows' bf16 vectors in shared memory: whole
-// k16 steps, then +8 so that the 8 rows' 16-byte ldmatrix reads fall in
-// distinct banks (a stride of 16 bytes modulo 128)
-__host__ __device__ inline int padded_ld(int n) {
-  return (n + 63) / 64 * 64 + 8;
-}
-
-__host__ __device__ inline size_t align16(size_t n) {
-  return (n + 15) / 16 * 16;
-}
-
-// byte offsets of the tensor-core body's shared arrays
-struct TcSmem {
-  int xld, hld;
-  size_t x, h, c, wh, att, sc, red, tok, ring, total;
-  __host__ __device__ TcSmem(int L, int A, int K, int H, int NG) {
-    xld = padded_ld(K);
-    hld = padded_ld(H);
-    size_t o = 0;
-    x = o;   o = align16(o + sizeof(bf16) * TB * xld);          // [TB][xld]
-    h = o;   o = align16(o + sizeof(bf16) * 2 * TB * hld);      // [2][TB][hld]
-    c = o;   o = align16(o + sizeof(bf16) * TB * H);            // [TB][H]
-    wh = o;  o = align16(o + sizeof(float) * TB * A);           // [TB][A]
-    att = o; o = align16(o + sizeof(float) * 2 * A);            // w, b
-    sc = o;  o = align16(o + sizeof(float) * TB * L);           // [TB][L]
-    red = o; o = align16(o + sizeof(int) * 2 * NWARPS * TB);
-    tok = o; o = align16(o + sizeof(int) * TB);
-    ring = o;
-    total = o + sizeof(bf16) * NWARPS * RING_SLOTS * NG * TILE;
-  }
-};
-
-// d = one k16 slice of A B, from a zero accumulator. The callers add d to
-// their sums in IEEE f32 on the CUDA cores: the tensor cores' own f32
-// accumulation across slices rounds less exactly, and with it the bf16
-// tokens of the flagship decode agreed with the twin's on 97.5% (GRU)
-// where the CUDA-core body's do on 98.4-98.9%; this way on 98.8-99.0%.
-__device__ __forceinline__ void fresh_mma(float d[4], const unsigned a[4],
-                                          const unsigned b[2]) {
-  d[0] = d[1] = d[2] = d[3] = 0.f;
-  mma_bf16(d, a, b);
-}
-
-// A warp's software pipeline over n items: issue(slot) starts the copies
-// of the next item into a ring slot, consume(slot) multiplies the item in
-// a slot; STAGES - 1 items stay in flight. Every item commits one cp.async
-// group (empty past n), so wait_group<STAGES - 2> means "item i arrived".
-template <int STAGES, typename Issue, typename Consume>
-__device__ __forceinline__ void warp_pipeline(int n, Issue& issue,
-                                              Consume& consume) {
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n) issue(s);
-    recnet::cp_async_commit();
-  }
-  for (int i = 0; i < n; ++i) {
-    recnet::cp_async_wait<STAGES - 2>();
-    __syncwarp();   // every lane's copies landed; slot i - 1 was read
-    if (i + STAGES - 1 < n) issue((i + STAGES - 1) % STAGES);
-    recnet::cp_async_commit();
-    consume(i % STAGES);
-  }
-}
-
-template <int NG, bool EARLY>
-__global__ void __launch_bounds__(THREADS, 1)
-tc_decode_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ uv,
-                 const bf16* __restrict__ emb, const bf16* __restrict__ wa,
-                 const bf16* __restrict__ attn_w,
-                 const bf16* __restrict__ attn_b,
-                 const bf16* __restrict__ wg, const bf16* __restrict__ bias2,
-                 const bf16* __restrict__ wo,
-                 const bf16* __restrict__ out_b, const bf16* __restrict__ h0,
-                 const bf16* __restrict__ c0, const int* __restrict__ tok0,
-                 int* __restrict__ tokens, bf16* __restrict__ h_out,
-                 bf16* __restrict__ c_out, int* __restrict__ tok_out, int B,
-                 int L, int F, int A, int E, int H, int V, int n_steps,
-                 float emb_scale, int vec_enc) {
-  extern __shared__ float4 smem_f4[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(smem_f4);
-  const int K = E + F;
-  const int G = NG * H;
-  const TcSmem lay(L, A, K, H, NG);
-  const int xld = lay.xld, hld = lay.hld;
-  bf16* x_s = reinterpret_cast<bf16*>(sm + lay.x);
-  bf16* h_s = reinterpret_cast<bf16*>(sm + lay.h);
-  bf16* c_s = reinterpret_cast<bf16*>(sm + lay.c);      // bf16, as stored
-  float* wh_s = reinterpret_cast<float*>(sm + lay.wh);
-  float* sc_s = reinterpret_cast<float*>(sm + lay.sc);
-  float* aw_s = reinterpret_cast<float*>(sm + lay.att);  // attn w, then b
-  int* red_key = reinterpret_cast<int*>(sm + lay.red);  // [NWARPS][TB]
-  int* red_idx = red_key + NWARPS * TB;
-  int* tok_s = reinterpret_cast<int*>(sm + lay.tok);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * TB;
-  bf16* ring = reinterpret_cast<bf16*>(sm + lay.ring)
-               + (size_t)warp * RING_SLOTS * NG * TILE;
-
-  // fragment coordinates of this lane. Accumulator element e holds unit
-  // g + 8 (e / 2) of the tile and row 2 t4 + e % 2.
-  const int g = lane >> 2, t4 = lane & 3;
-  // ldmatrix.trans row of a swizzled [16 inputs][16 units] tile: lanes
-  // 0-7 / 8-15 / 16-23 / 24-31 read inputs 0-7 / 0-7 / 8-15 / 8-15 at
-  // units 0-7 / 8-15 / 0-7 / 8-15 (a[0..3])
-  const int a_k = (lane & 7) + ((lane >> 4) << 3);
-  const int a_off = a_k * 16 + ((((lane >> 3) & 1) ^ ((a_k >> 2) & 1)) << 3);
-  // ldmatrix row of the rows' vectors: row lane % 8, inputs +8 for 8-15
-  const int b_row = lane & 7, b_k = ((lane >> 3) & 1) << 3;
-  // this lane's 16-byte chunk of a tile (row-major [16 inputs][16 units]
-  // in the weight tiles): input lane / 2, units +8 if odd, swizzled
-  const int c_k = lane >> 1;
-  const int c_off = c_k * 16 + (((lane & 1) ^ ((c_k >> 2) & 1)) << 3);
-
-  for (int i = tid; i < TB * xld; i += THREADS) x_s[i] = from_f<bf16>(0.f);
-  for (int i = tid; i < TB * H; i += THREADS) {
-    const int b = i / H, j = i % H, row = row0 + b;
-    const bool ok = row < B;
-    h_s[b * hld + j] = ok ? h0[(size_t)row * H + j] : from_f<bf16>(0.f);
-    c_s[i] = ok ? c0[(size_t)row * H + j] : from_f<bf16>(0.f);
-  }
-  if (tid < TB) tok_s[tid] = row0 + tid < B ? tok0[row0 + tid] : 0;
-  for (int a = tid; a < A; a += THREADS) {
-    aw_s[a] = to_f(attn_w[a]);
-    aw_s[A + a] = to_f(attn_b[a]);
-  }
-  __syncthreads();
-
-  const int nKx = (K + 15) / 16, nKh = H / 16, nKg = nKx + nKh;
-  const int n_vg = (V + 16 * PT - 1) / (16 * PT);
-  const int n_at = (A + 15) / 16;   // 16-unit tiles of W h
-  int cur = 0;
-  for (int t = 0; t < n_steps; ++t) {
-    if constexpr (EARLY) {
-      // the Pallas condition hard-codes token 0 (whole_decode.py:302)
-      bool stop = true;
-#pragma unroll
-      for (int b = 0; b < TB; ++b) stop &= row0 + b >= B || tok_s[b] == 0;
-      if (stop) break;
-    }
-    const bf16* hc = h_s + (size_t)cur * TB * hld;
-    bf16* hn = h_s + (size_t)(cur ^ 1) * TB * hld;
-
-    // 1. embedding rows (a zero row outside [0, V)), scaled, in bf16; and
-    //    W h on tensor cores, one 16-unit tile of A a warp
-    for (int i = tid; i < TB * E; i += THREADS) {
-      const int b = i / E, k = i % E, tk = tok_s[b];
-      float v = 0.f;
-      if ((unsigned)tk < (unsigned)V)
-        v = to_f(emb[(size_t)tk * E + k]) * emb_scale;
-      x_s[b * xld + k] = from_f<bf16>(v);
-    }
-    {
-      float acc[4] = {};
-      const int n_items = (n_at - warp + NWARPS - 1) / NWARPS * nKh;
-      int is = 0, iu = warp;
-      auto issue = [&](int slot) {
-        cp_async16(ring + slot * (NG * TILE) + c_off,
-                   wa + (size_t)(iu * nKh + is) * TILE + lane * 8);
-        if (++is == nKh) {
-          is = 0;
-          iu += NWARPS;
-        }
-      };
-      int cs = 0, cu = warp;
-      auto consume = [&](int slot) {
-        unsigned bfr[2], af[4];
-        ldmatrix_x2(bfr, hc + b_row * hld + cs * 16 + b_k);
-        ldmatrix_x4<true>(af, ring + slot * (NG * TILE) + a_off);
-        float d[4];
-        fresh_mma(d, af, bfr);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[e] += d[e];
-        if (++cs < nKh) return;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int a = cu * 16 + g + (e >> 1) * 8;
-          if (a < A) wh_s[(2 * t4 + (e & 1)) * A + a] = acc[e];
-          acc[e] = 0.f;
-        }
-        cs = 0;
-        cu += NWARPS;
-      };
-      warp_pipeline<RING_SLOTS>(n_items, issue, consume);
-    }
-    __syncthreads();
-
-    // 2. scores: one warp per (row, frame), two in flight
-#pragma unroll 2
-    for (int p = warp; p < TB * L; p += NWARPS) {
-      const int b = p / L, f = p % L, row = row0 + b;
-      float s = 0.f;
-      if (row < B) {
-        const bf16* uvp = uv + ((size_t)row * L + f) * A;
-        for (int a = lane; a < A; a += 32) {
-          s += tanhf(wh_s[b * A + a] + to_f(uvp[a]) + aw_s[A + a]) * aw_s[a];
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_down_sync(0xffffffffu, s, off);
-      if (lane == 0) sc_s[b * L + f] = s;
-    }
-    __syncthreads();
-
-    // 3. ctx = sum_f score_f enc_f / L in f32 (f in order), cast to bf16
-    if (vec_enc) {   // 8 features, 16 bytes, a load
-      const int F8 = F / 8;
-      for (int i = tid; i < TB * F8; i += THREADS) {
-        const int b = i / F8, e0 = (i % F8) * 8, row = row0 + b;
-        float acc[8] = {};
-        if (row < B) {
-          const bf16* ep = enc + (size_t)row * L * F + e0;
-#pragma unroll 4
-          for (int f = 0; f < L; ++f) {
-            const uint4 raw =
-                *reinterpret_cast<const uint4*>(ep + (size_t)f * F);
-            const bf16* v = reinterpret_cast<const bf16*>(&raw);
-            const float s = sc_s[b * L + f];
-#pragma unroll
-            for (int q = 0; q < 8; ++q) acc[q] += s * to_f(v[q]);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          x_s[b * xld + E + e0 + q] = from_f<bf16>(acc[q] / (float)L);
-      }
-    } else {
-      for (int i = tid; i < TB * F; i += THREADS) {
-        const int b = i / F, e = i % F, row = row0 + b;
-        float acc = 0.f;
-        if (row < B) {
-          const bf16* ep = enc + (size_t)row * L * F + e;
-#pragma unroll 4
-          for (int f = 0; f < L; ++f)
-            acc += sc_s[b * L + f] * to_f(ep[(size_t)f * F]);
-        }
-        x_s[b * xld + E + e] = from_f<bf16>(acc / (float)L);
-      }
-    }
-    __syncthreads();
-
-    // 4. gates on tensor cores: the warp's unit tiles ut = warp, warp +
-    //    NWARPS, ..., each nKx k16 steps of w_ih x, then nKh of w_hh h
-    {
-      float ai[NG][4] = {}, ah[NG][4] = {};
-      const int n_ut = H / 16;
-      const int n_items = (n_ut - warp + NWARPS - 1) / NWARPS * nKg;
-      int is = 0, iu = warp;
-      auto issue = [&](int slot) {   // 512 contiguous bytes a gate
-        const bf16* src = wg + (size_t)(iu * nKg + is) * NG * TILE + lane * 8;
-        bf16* dst = ring + slot * (NG * TILE) + c_off;
-#pragma unroll
-        for (int gt = 0; gt < NG; ++gt)
-          cp_async16(dst + gt * TILE, src + gt * TILE);
-        if (++is == nKg) {
-          is = 0;
-          iu += NWARPS;
-        }
-      };
-      int cs = 0, cu = warp;
-      auto consume = [&](int slot) {
-        const bool hp = cs >= nKx;
-        unsigned bfr[2];
-        ldmatrix_x2(bfr, hp ? hc + b_row * hld + (cs - nKx) * 16 + b_k
-                            : x_s + b_row * xld + cs * 16 + b_k);
-        const bf16* tile = ring + slot * (NG * TILE) + a_off;
-#pragma unroll
-        for (int gt = 0; gt < NG; ++gt) {
-          unsigned af[4];
-          ldmatrix_x4<true>(af, tile + gt * TILE);
-          float d[4];
-          fresh_mma(d, af, bfr);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (hp)
-              ah[gt][e] += d[e];
-            else
-              ai[gt][e] += d[e];
-          }
-        }
-        if (++cs < nKg) return;
-        // the cell of units cu * 16.., in registers
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = cu * 16 + g + (e >> 1) * 8, b = 2 * t4 + (e & 1);
-          float gi[NG], gh[NG];
-#pragma unroll
-          for (int gt = 0; gt < NG; ++gt) {
-            gi[gt] = ai[gt][e] + to_f(bias2[gt * H + j]);
-            gh[gt] = ah[gt][e] + to_f(bias2[G + gt * H + j]);
-            ai[gt][e] = ah[gt][e] = 0.f;
-          }
-          if constexpr (NG == 3) {  // GRU
-            const float r = sigmoid(gi[0] + gh[0]);
-            const float z = sigmoid(gi[1] + gh[1]);
-            const float n = tanhf(gi[2] + r * gh[2]);
-            hn[b * hld + j] =
-                from_f<bf16>((1.0f - z) * n + z * to_f(hc[b * hld + j]));
-          } else {                  // LSTM
-            const float ig = sigmoid(gi[0] + gh[0]);
-            const float fg = sigmoid(gi[1] + gh[1]);
-            const float gg = tanhf(gi[2] + gh[2]);
-            const float og = sigmoid(gi[3] + gh[3]);
-            const float c = fg * to_f(c_s[b * H + j]) + ig * gg;
-            hn[b * hld + j] = from_f<bf16>(og * tanhf(c));
-            c_s[b * H + j] = from_f<bf16>(c);
-          }
-        }
-        cs = 0;
-        cu += NWARPS;
-      };
-      warp_pipeline<RING_SLOTS>(n_items, issue, consume);
-    }
-    __syncthreads();
-
-    // 5. logits = h' @ out_w + out_b on tensor cores, PT column tiles an
-    //    item, and a running (max key, first index) of the thread's two
-    //    rows over the accumulator fragments
-    int best_key[2] = {INT_MIN, INT_MIN}, best_idx[2] = {INT_MAX, INT_MAX};
-    {
-      float acc[PT][4] = {};
-      const int n_items = (n_vg - warp + NWARPS - 1) / NWARPS * nKh;
-      int is = 0, iv = warp;
-      auto issue = [&](int slot) {
-        const bf16* src = wo + (size_t)(iv * nKh + is) * PT * TILE + lane * 8;
-        bf16* dst = ring + slot * (NG * TILE) + c_off;
-#pragma unroll
-        for (int p = 0; p < PT; ++p) cp_async16(dst + p * TILE, src + p * TILE);
-        if (++is == nKh) {
-          is = 0;
-          iv += NWARPS;
-        }
-      };
-      int cs = 0, cv = warp;
-      auto consume = [&](int slot) {
-        unsigned bfr[2];
-        ldmatrix_x2(bfr, hn + b_row * hld + cs * 16 + b_k);
-        const bf16* tile = ring + slot * (NG * TILE) + a_off;
-#pragma unroll
-        for (int p = 0; p < PT; ++p) {
-          unsigned af[4];
-          ldmatrix_x4<true>(af, tile + p * TILE);
-          float d[4];
-          fresh_mma(d, af, bfr);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[p][e] += d[e];
-        }
-        if (++cs < nKh) return;
-#pragma unroll
-        for (int p = 0; p < PT; ++p)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int v = (cv * PT + p) * 16 + g + (e >> 1) * 8;
-            if (v < V) {
-              const int key = order_key(acc[p][e] + to_f(out_b[v]));
-              const int q = e & 1;
-              if (key_wins(key, v, best_key[q], best_idx[q])) {
-                best_key[q] = key;
-                best_idx[q] = v;
-              }
-            }
-            acc[p][e] = 0.f;
-          }
-        cs = 0;
-        cv += NWARPS;
-      };
-      warp_pipeline<RING_SLOTS>(n_items, issue, consume);
-    }
-    // the 8 lanes with the same t4 hold rows 2 t4 and 2 t4 + 1
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      int k = best_key[q], i = best_idx[q];
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        const int k2 = __shfl_xor_sync(0xffffffffu, k, off);
-        const int i2 = __shfl_xor_sync(0xffffffffu, i, off);
-        if (key_wins(k2, i2, k, i)) {
-          k = k2;
-          i = i2;
-        }
-      }
-      if (g == 0) {
-        red_key[warp * TB + 2 * t4 + q] = k;
-        red_idx[warp * TB + 2 * t4 + q] = i;
-      }
-    }
-    __syncthreads();
-    if (tid < TB) {
-      int k = red_key[tid], i = red_idx[tid];
-      for (int w = 1; w < NWARPS; ++w) {
-        if (key_wins(red_key[w * TB + tid], red_idx[w * TB + tid], k, i)) {
-          k = red_key[w * TB + tid];
-          i = red_idx[w * TB + tid];
-        }
-      }
-      tok_s[tid] = i;
-      if (row0 + tid < B) tokens[(size_t)(row0 + tid) * n_steps + t] = i;
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  const bf16* h_fin = h_s + (size_t)cur * TB * hld;
-  for (int i = tid; i < TB * H; i += THREADS) {
-    const int b = i / H, j = i % H, row = row0 + b;
-    if (row < B) {
-      h_out[(size_t)row * H + j] = h_fin[b * hld + j];
-      c_out[(size_t)row * H + j] = c_s[i];
-    }
-  }
-  if (tid < TB && row0 + tid < B) tok_out[row0 + tid] = tok_s[tid];
-}
-
-// the launch's operands, as the C entry point takes them
-struct Operands {
-  const void *enc, *uv, *emb, *attn_W, *attn_w, *attn_b, *w_ih, *w_hh,
-      *bias2, *out_w, *out_b, *h0, *c0;
-  const int* tok0;
-  int* tokens;
-  void *h_out, *c_out;
-  int* tok_out;
-  int B, L, F, A, E, H, V, n_steps;
-  float emb_scale;
-};
-
 template <typename T, int NG, int VAR>
 int launch(const Operands& o, cudaStream_t stream) {
   const size_t smem = smem_bytes(o.L, o.F, o.A, o.E, o.H);
@@ -904,7 +453,8 @@ int launch(const Operands& o, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the built variants: production, early exit, dual, and one ablated part
+// the CUDA-core body's built variants: production, early exit, dual, and
+// one ablated part
 template <typename T, int NG>
 int launch_variant(int variant, const Operands& o, cudaStream_t s) {
   switch (variant) {
@@ -922,32 +472,13 @@ int launch_variant(int variant, const Operands& o, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <int NG, bool EARLY>
-int launch_tc(const Operands& o, cudaStream_t stream) {
-  const size_t smem = TcSmem(o.L, o.A, o.E + o.F, o.H, NG).total;
-  auto kernel = tc_decode_kernel<NG, EARLY>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int vec_enc = o.F % 8 == 0 && (size_t)o.enc % 16 == 0;
-  const dim3 grid((o.B + TB - 1) / TB);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      (const bf16*)o.enc, (const bf16*)o.uv, (const bf16*)o.emb,
-      (const bf16*)o.attn_W, (const bf16*)o.attn_w, (const bf16*)o.attn_b,
-      (const bf16*)o.w_ih, (const bf16*)o.bias2, (const bf16*)o.out_w,
-      (const bf16*)o.out_b, (const bf16*)o.h0, (const bf16*)o.c0, o.tok0,
-      o.tokens, (bf16*)o.h_out, (bf16*)o.c_out, o.tok_out, o.B, o.L, o.F,
-      o.A, o.E, o.H, o.V, o.n_steps, o.emb_scale, vec_enc);
-  return (int)cudaGetLastError();
-}
-
-// the tensor-core body: production or the early exit, on the weight tiles
+// the tensor-core body's production step and early exit, on the weight
+// tiles (the probes are whole_decode_probes.cu's)
 template <int NG>
 int launch_bf16_tc(int variant, const Operands& o, cudaStream_t s) {
-  if (o.H % 16 != 0 || (size_t)o.w_ih % 16 != 0 || (size_t)o.out_w % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (variant == TENSOR_CORES) return launch_tc<NG, false>(o, s);
-  if (variant == (TENSOR_CORES | EARLY_EXIT)) return launch_tc<NG, true>(o, s);
+  if (variant == TENSOR_CORES) return launch_tc<NG, 0>(o, s);
+  if (variant == (TENSOR_CORES | EARLY_EXIT))
+    return launch_tc<NG, EARLY_EXIT>(o, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -962,6 +493,14 @@ const char* recnet_cuda_error_string(int err) {
 // The width of out_w's column groups in the tensor-core body's weight tiles.
 int recnet_whole_decode_out_group() { return 16 * PT; }
 
+// The tensor-core body's shared memory in bytes for n_gates and a variant
+// (the TENSOR_CORES bit ignored), K = E + F; the wrapper's tc_smem_bytes
+// mirrors it.
+long long recnet_whole_decode_tc_smem(int n_gates, int variant, int L, int A,
+                                      int K, int H) {
+  return (long long)tc_smem(n_gates, variant, L, A, K, H);
+}
+
 // dtype: 0 = float32, 1 = bfloat16; n_gates: 3 = GRU, 4 = LSTM; variant:
 // 0 for K1/K2, else the K5 variant bits (EARLY_EXIT, DUAL, one ABL_ part),
 // all on the CUDA-core body; bf16 TENSOR_CORES (| EARLY_EXIT) runs the
@@ -970,7 +509,9 @@ int recnet_whole_decode_out_group() { return 16 * PT; }
 // rows zero-padded to nKx * 16, then w_hh's rows; nKx = ceil((E + F) / 16),
 // nKh = H / 16), out_w the column tiles [ceil(V / out_group)][H / 16]
 // [out_group / 16][16][16] (columns zero-padded), attn_W the column tiles
-// of W with groups of 16 columns, and w_hh is not read.
+// of W with groups of 16 columns, and w_hh is not read. The tensor-core
+// probes (TENSOR_CORES | DUAL or an ABL_ part) are
+// recnet_whole_decode_probe's, in whole_decode_probes.cu.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 int recnet_whole_decode(int dtype, int n_gates, int variant, const void* enc,
                         const void* uv, const void* emb, const void* attn_W,

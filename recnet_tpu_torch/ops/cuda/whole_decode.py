@@ -1,30 +1,42 @@
 """The greedy whole-decode on Hopper: wrappers of ``csrc/whole_decode.cu``
-and their plain-PyTorch twins.
+(and ``csrc/whole_decode_probes.cu``) and their plain-PyTorch twins.
 
 Counterpart of ``recnet_tpu/ops/pallas/whole_decode.py``:
 
 * ``whole_greedy_decode`` (K1) runs the whole T-step greedy loop in one
   launch and returns tokens (B, T); its keywords ``early_exit``, ``dual``
   and ``ablate`` select the K5 variants of the same kernel, and
-  ``cuda_cores`` the bf16 production step of the CUDA-core body (the
-  baseline that the ``ablate`` probes are subtracted from);
+  ``cuda_cores`` the CUDA-core body for any of them;
 * ``whole_greedy_decode_segment`` (K2) runs ``seg_len`` steps from a
   carried (h, c, token) and returns (tokens (B, seg_len), h, c, token).
 
-Both launch the one CUDA entry point (K1 from a zero state and <SOS>):
-bf16 production and the early exit run on its tensor-core body, f32 and
-the probes on its CUDA-core body (``csrc/whole_decode.cu``). A wrapper
-launches it for CUDA tensors and raises on anything the kernel does not
-take; for CPU tensors it runs its plain twin (``*_reference``), which
-mirrors the Pallas step's casts in plain PyTorch. Each wrapper counts its
-launches in ``n_launches``; K1 counts its K5 variants apart, in
-``variant_launches``.
+Both launch one CUDA kernel (K1 from a zero state and <SOS>) on one of two
+bodies, chosen by ``kernel_route``: every bf16 launch with H a multiple of
+16 runs on the tensor-core body, production, the early exit and the K5
+probes ``dual`` and ``ablate`` alike (the probes from a library of their
+own, ``whole_decode_probes``); f32, bf16 with other H, and any launch asked
+for with ``cuda_cores`` run on the CUDA-core body. ``dual`` on the
+tensor-core body takes 16 rows a block as two 8-row halves that share each
+weight tile read from L2, half the production step's L2 bytes a row; each
+SM's own read stream, not the L2 bytes in total, bounds the decode, so it
+takes production's time where both fit one wave (B = 1024 on an H100) and
+gains where production needs two (B = 2048: 0.58 of its time). The
+``ablate`` parts there split the production step by phase (full -
+variant).
+A build or launch failure on either body raises; nothing falls back to the
+other body or to the twin. A wrapper launches the kernel for CUDA tensors
+and raises on anything the kernel does not take; for CPU tensors it runs
+its plain twin (``*_reference``), which mirrors the Pallas step's casts in
+plain PyTorch. Each wrapper counts its launches in ``n_launches``; K1
+counts its K5 variants apart, in ``variant_launches``, each under its name
+and, on the CUDA-core body, with "[cuda_cores]" after it.
 
-Unlike the Pallas wrappers there is no ``block_b``: a block owns 8 rows and
-masks the ragged tail, so any B works. ``emb_scale`` multiplies the gathered
-embedding row, as ``decoder_step`` does (the Pallas step leaves it out,
-which is exact only at the shipped scale 1.0). A token outside [0, V)
-gathers a zero embedding row, as the Pallas one-hot product does.
+Unlike the Pallas wrappers there is no ``block_b``: a block owns 8 rows (16
+under the tensor-core ``dual``) and masks the ragged tail, so any B works.
+``emb_scale`` multiplies the gathered embedding row, as ``decoder_step``
+does (the Pallas step leaves it out, which is exact only at the shipped
+scale 1.0). A token outside [0, V) gathers a zero embedding row, as the
+Pallas one-hot product does.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ import collections
 import ctypes
 import functools
 import threading
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -44,13 +56,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _N_GATES = {"GRU": 3, "LSTM": 4}
 ROWS_PER_BLOCK = 8     # the kernel's tile: the early exit stops per block
 
-# the kernel's variant bits (csrc/whole_decode.cu)
+# the kernel's variant bits (csrc/whole_decode_tc.cuh)
 _EARLY_EXIT, _DUAL, _ABL_EMB, _TENSOR_CORES = 1, 2, 4, 256
 _ABL_ATTN_SHIFT, _ABL_PROJ_SHIFT = 3, 5
 _BUILT_VARIANTS = frozenset(
     [0, _EARLY_EXIT, _DUAL, _ABL_EMB]
     + [m << _ABL_ATTN_SHIFT for m in (1, 2, 3)]
     + [m << _ABL_PROJ_SHIFT for m in (1, 2, 3)])
+
+# the two bodies (``kernel_route``)
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+# the shared memory a Hopper block can have, and the tensor-core body's
+# warps (csrc/whole_decode_tc.cuh SMEM_LIMIT, NWARPS)
+SMEM_LIMIT = 232_448
+_TC_WARPS = 16
 
 
 def _ablated(ablate: str) -> Tuple[bool, int, int]:
@@ -74,36 +93,122 @@ def _variant(early_exit: bool, dual: bool, ablate: str) -> int:
             | proj << _ABL_PROJ_SHIFT)
 
 
+class Route(NamedTuple):
+    """Where a launch goes: the body (TENSOR_CORES or CUDA_CORES), the
+    variant bits the C entry point takes, and the library that holds it."""
+    body: str
+    variant: int
+    library: str
+
+
+def _tensor_cores(dtype: torch.dtype, H: int) -> bool:
+    """Whether the tensor-core body takes these operands: bf16 in 16-unit
+    tiles."""
+    return dtype == torch.bfloat16 and H % 16 == 0
+
+
+def kernel_route(dtype: torch.dtype, H: int, *, early_exit: bool = False,
+                 dual: bool = False, ablate: str = "",
+                 cuda_cores: bool = False) -> Route:
+    """The body and variant bits of a launch. Every variant (production,
+    ``early_exit``, ``dual``, one ``ablate`` part) runs on the tensor-core
+    body where it takes the operands (bf16, H % 16 == 0), unless
+    ``cuda_cores`` asks for the CUDA-core body, which takes any of them;
+    the tensor-core probes (``dual``, ``ablate``) live in the library
+    ``whole_decode_probes``. Raises ``ValueError`` on options the kernel is
+    not built for."""
+    _check_options(early_exit, dual, ablate)
+    variant = _variant(early_exit, dual, ablate)
+    if variant not in _BUILT_VARIANTS:
+        raise ValueError("the kernel is built for one ablated part at a "
+                         "time (emb, attn, score1, fma, proj, nativeargmax, "
+                         "argmax)")
+    if cuda_cores or not _tensor_cores(dtype, H):
+        return Route(CUDA_CORES, variant, "whole_decode")
+    probe = (variant & ~_EARLY_EXIT) != 0
+    return Route(TENSOR_CORES, variant | _TENSOR_CORES,
+                 "whole_decode_probes" if probe else "whole_decode")
+
+
+def tc_smem_bytes(n_gates: int, variant: int, L: int, A: int, K: int,
+                  H: int) -> int:
+    """The tensor-core body's shared memory in bytes (K = E + F): the rows'
+    buffers, 8 rows or 16 under ``dual``, and each warp's ring of weight
+    tiles, 4 slots (3 for an LSTM under ``dual``). Mirrors ``TcSmem`` in
+    ``csrc/whole_decode_tc.cuh`` (``recnet_whole_decode_tc_smem``)."""
+    rows = 2 * ROWS_PER_BLOCK if variant & _DUAL else ROWS_PER_BLOCK
+    slots = 3 if variant & _DUAL and n_gates == 4 else 4
+    ld = lambda n: -(-n // 64) * 64 + 8    # whole k16 steps, +8
+    align16 = lambda n: -(-n // 16) * 16
+    o = 0
+    for nbytes in (2 * rows * ld(K),       # x = [emb, ctx]
+                   2 * 2 * rows * ld(H),   # h, double-buffered
+                   2 * rows * H,           # c
+                   4 * rows * A,           # W h
+                   4 * 2 * A,              # attn w, b
+                   4 * rows * L,           # scores
+                   4 * 2 * _TC_WARPS * rows,   # argmax reduction
+                   4 * rows):              # tokens
+        o = align16(o + nbytes)
+    return o + 2 * _TC_WARPS * slots * n_gates * 256
+
+
+def check_tc_fits(n_gates: int, variant: int, L: int, A: int, K: int,
+                  H: int) -> int:
+    """The tensor-core body's shared memory for these shapes; raises
+    ``ValueError`` where a block cannot have it."""
+    need = tc_smem_bytes(n_gates, variant, L, A, K, H)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"the tensor-core body needs {need} bytes of shared memory at "
+            f"L={L}, A={A}, E+F={K}, H={H} ({n_gates} gates"
+            f"{', dual' if variant & _DUAL else ''}); a Hopper block has "
+            f"{SMEM_LIMIT}")
+    return need
+
+
 def _variant_name(early_exit: bool, dual: bool, ablate: str,
-                  cuda_cores: bool = False) -> str:
-    """The key of ``variant_launches``: "early_exit", "dual",
-    "ablate=<part>" or "cuda_cores"; "" is the production kernel."""
-    return ("early_exit" if early_exit else "dual" if dual
+                  cuda_cores: bool = False, body: str = TENSOR_CORES) -> str:
+    """The key of ``variant_launches``: "early_exit", "dual" or
+    "ablate=<part>", followed by "[cuda_cores]" where it ran on the
+    CUDA-core body; "cuda_cores" for the production step asked for on
+    that body; "" is the production kernel."""
+    name = ("early_exit" if early_exit else "dual" if dual
             else f"ablate={ablate}" if _variant(False, False, ablate)
-            else "cuda_cores" if cuda_cores else "")
+            else "")
+    if not name:
+        return "cuda_cores" if cuda_cores else ""
+    return name if body == TENSOR_CORES else f"{name}[cuda_cores]"
 
 
-def _check_options(early_exit: bool, dual: bool, ablate: str,
-                   cuda_cores: bool = False) -> None:
+def _check_options(early_exit: bool, dual: bool, ablate: str) -> None:
     if dual and (early_exit or ablate):
         raise ValueError("dual=True does not support early_exit or ablate")
-    if cuda_cores and (early_exit or dual or ablate):
-        raise ValueError("cuda_cores=True is the production step only")
 
 
 _COUNT_LOCK = threading.Lock()
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("whole_decode")
+def _library(name: str = "whole_decode") -> ctypes.CDLL:
+    """The built library ``name``: "whole_decode" (production, the early
+    exit, the CUDA-core probes) or "whole_decode_probes" (the tensor-core
+    probes), bound at first use."""
+    lib = build.load(name)
     if getattr(lib, "_recnet_bound", False):
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.recnet_whole_decode.argtypes = ([i, i, i] + [p] * 18 + [i] * 8
-                                        + [ctypes.c_float, p])
+    args = [i, i, i] + [p] * 18 + [i] * 8 + [ctypes.c_float, p]
+    if name == "whole_decode_probes":
+        lib.recnet_whole_decode_probe.argtypes = args
+        lib.recnet_whole_decode_probe.restype = i
+        lib._recnet_bound = True
+        return lib
+    lib.recnet_whole_decode.argtypes = args
+    lib.recnet_whole_decode.restype = i
     lib.recnet_whole_decode_out_group.argtypes = []
     lib.recnet_whole_decode_out_group.restype = i
-    lib.recnet_whole_decode.restype = i
+    lib.recnet_whole_decode_tc_smem.argtypes = [i] * 6
+    lib.recnet_whole_decode_tc_smem.restype = ctypes.c_longlong
     lib.recnet_cuda_error_string.argtypes = [i]
     lib.recnet_cuda_error_string.restype = ctypes.c_char_p
     if lib.recnet_whole_decode_out_group() != layout.PROJ_GROUP:
@@ -146,28 +251,18 @@ def check_sm90(device: torch.device, what: str) -> None:
             f"{torch.cuda.get_device_name(device)} is sm_{major}{minor}")
 
 
-def _tensor_cores(dtype: torch.dtype, H: int) -> bool:
-    """Whether the tensor-core body takes these operands: bf16 in 16-unit
-    tiles."""
-    return dtype == torch.bfloat16 and H % 16 == 0
-
-
 def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
             n_steps: int, cell_type: str, emb_scale: float,
-            variant: int = 0, cuda_cores: bool = False):
-    """Run the CUDA kernel for ``n_steps`` steps; returns
-    (tokens (B, n_steps), h, c, token (B, 1)). Token columns a block never
-    reached (early exit) read 0. Production and the early exit run on the
-    tensor-core body where it takes the operands, unless ``cuda_cores``."""
+            route: Route = None):
+    """Run the CUDA kernel for ``n_steps`` steps on ``route`` (the
+    production step's route when None); returns (tokens (B, n_steps), h,
+    c, token (B, 1)). Token columns a block never reached (early exit)
+    read 0."""
     device, dtype = enc.device, enc.dtype
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {dtype}")
     if cell_type not in _N_GATES:
         raise ValueError(f"the kernel takes a GRU or LSTM, not {cell_type!r}")
-    if variant not in _BUILT_VARIANTS:
-        raise ValueError("the kernel is built for one ablated part at a "
-                         "time (emb, attn, score1, fma, proj, nativeargmax, "
-                         "argmax)")
     check_sm90(device, "whole-decode")
     emb, W, w, b, w_ih, w_hh, out_w, out_b = _weights(params)
     _check_cuda(dict(enc=enc, uv=uv, embedding=emb, attn_W=W, attn_w=w,
@@ -177,7 +272,8 @@ def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
     B, L, F = enc.shape
     V, E = emb.shape
     H, A = W.shape
-    G = _N_GATES[cell_type] * H
+    n_gates = _N_GATES[cell_type]
+    G = n_gates * H
     shapes = dict(uv=(uv.shape, (B, L, A)), attn_w=(w.shape, (A, 1)),
                   attn_b=(b.shape, (A,)), w_ih=(w_ih.shape, (E + F, G)),
                   w_hh=(w_hh.shape, (H, G)), bias2=(bias2.shape, (2, G)),
@@ -192,12 +288,16 @@ def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
         raise ValueError(f"embedding width {E} != emb_size {emb_size}")
     if B < 1 or n_steps < 1:
         raise ValueError(f"empty decode: B={B}, n_steps={n_steps}")
+    if route is None:
+        route = kernel_route(dtype, H)
     lib = _library()
-    if (variant in (0, _EARLY_EXIT) and not cuda_cores
-            and _tensor_cores(dtype, H)):
+    entry = lib.recnet_whole_decode
+    if route.body == TENSOR_CORES:
+        check_tc_fits(n_gates, route.variant, L, A, E + F, H)
+        if route.library != "whole_decode":
+            entry = _library(route.library).recnet_whole_decode_probe
         # the body reads weight tiles: the parameter set's, made where it
         # was built, or made for this call
-        variant |= _TENSOR_CORES
         tiles = params.get("layouts") or {}
         if "gates" not in tiles:
             tiles = layout.decode_tiles(params)
@@ -209,8 +309,8 @@ def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.recnet_whole_decode(
-            _DTYPE_CODES[dtype], _N_GATES[cell_type], variant, ptr(enc),
+        err = entry(
+            _DTYPE_CODES[dtype], n_gates, route.variant, ptr(enc),
             ptr(uv), ptr(emb), ptr(W), ptr(w), ptr(b), ptr(w_ih), ptr(w_hh),
             ptr(bias2), ptr(out_w), ptr(out_b), ptr(h), ptr(c), ptr(token),
             ptr(tokens), ptr(h_out), ptr(c_out), ptr(tok_out), B, L, F, A,
@@ -218,7 +318,7 @@ def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
-            f"whole-decode kernel launch failed: "
+            f"whole-decode kernel launch failed ({route.body} body): "
             f"{lib.recnet_cuda_error_string(err).decode()} ({err})")
     return tokens, h_out, c_out, tok_out
 
@@ -395,35 +495,39 @@ def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
 
     The K5 variants, as in JAX: ``early_exit`` stops a block of 8 rows
     once all its tokens are 0 (the Pallas condition: 0, not the config's
-    <PAD>), later columns reading 0; ``dual`` runs each block as two 4-row
-    halves on their own barriers, with the production tokens; ``ablate``
-    (profiling) stubs parts of the step: "emb", "attn" / "score1" / "fma",
-    "proj" / "nativeargmax" / "argmax", one part at a time on the card
-    (the twin takes any comma-joined set). ``dual`` with ``early_exit`` or
-    ``ablate`` raises ``ValueError``. ``cuda_cores`` runs the production
-    step on the CUDA-core body (in bf16 the tensor-core body runs
-    otherwise; f32 always runs on CUDA cores): the same tokens up to the
-    sum order, kept as the baseline of the ``ablate`` probes. The
-    tensor-core body reads the tiles in ``params["layouts"]`` (see
-    ``layout.kernel_layouts``), or makes them for the call where they are
-    missing."""
-    _check_options(early_exit, dual, ablate, cuda_cores)
+    <PAD>), later columns reading 0; ``dual`` runs each block as two
+    row-halves with the production tokens (tensor-core body: two 8-row
+    halves sharing each weight tile; CUDA-core body: two 4-row halves on
+    their own barriers); ``ablate`` (profiling) stubs parts of the step:
+    "emb", "attn" / "score1" / "fma", "proj" / "nativeargmax" / "argmax",
+    one part at a time on the card (the twin takes any comma-joined set).
+    ``dual`` with ``early_exit`` or ``ablate`` raises ``ValueError``.
+
+    The body (``kernel_route``): bf16 with H % 16 == 0 runs every variant
+    on the tensor-core body; f32 and other H on the CUDA-core body;
+    ``cuda_cores`` asks for the CUDA-core body for any variant (the first
+    design, kept as the redesign's baseline: in bf16 the same tokens up to
+    the sum order). The tensor-core body reads the tiles in
+    ``params["layouts"]`` (see ``layout.kernel_layouts``), or makes them
+    for the call where they are missing; a launch whose shared memory a
+    block cannot have raises ``ValueError``."""
+    _check_options(early_exit, dual, ablate)
     kw = dict(emb_size=emb_size, cell_type=cell_type, emb_scale=emb_scale)
     if _device_route(enc) == "cpu":
         return whole_greedy_decode_reference(
             params, enc, uv, bias2, max_len=max_len, sos=sos,
             early_exit=early_exit, dual=dual, ablate=ablate, **kw)
     B, H = enc.shape[0], params["attention"]["W"].shape[0]
+    route = kernel_route(enc.dtype, H, early_exit=early_exit, dual=dual,
+                         ablate=ablate, cuda_cores=cuda_cores)
     V = params["embedding"].shape[0]
     if not 0 <= sos < V:
         raise ValueError(f"sos token {sos} outside the vocab of {V}")
     z = torch.zeros((B, H), dtype=enc.dtype, device=enc.device)
     tok = torch.full((B, 1), sos, dtype=torch.int32, device=enc.device)
     tokens = _launch(params, enc, uv, bias2, z, z, tok,
-                     n_steps=max_len + 1,
-                     variant=_variant(early_exit, dual, ablate),
-                     cuda_cores=cuda_cores, **kw)[0]
-    name = _variant_name(early_exit, dual, ablate, cuda_cores)
+                     n_steps=max_len + 1, route=route, **kw)[0]
+    name = _variant_name(early_exit, dual, ablate, cuda_cores, route.body)
     with _COUNT_LOCK:         # a mesh Captioner's shards launch from threads
         if name:
             whole_greedy_decode.variant_launches[name] += 1

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card, against their plain twins: the whole
-decode (K1/K2) with its K5 variants (early exit, dual, ablate), the fused
+decode (K1/K2) with its K5 variants (early exit, dual, ablate) on both
+bodies (tensor cores, and CUDA cores under ``cuda_cores``), the fused
 projection + top-k (K3) and the fused attention + GRU step (K4: its
 tensor-core route, each of the route's two kernels against its plain
 stage, and its CUDA-core body).
@@ -248,11 +249,12 @@ def test_beam_kernel_route_equals_plain_route(cuda, cell):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cell", ["GRU", "LSTM"])
 def test_k5_dual_is_bit_equal_to_k1(cuda, cell, dtype):
-    """dual against K1's production step on the same (CUDA-core) body;
-    bf16 K1 itself runs on the tensor cores."""
+    """dual against K1's production step on the same (CUDA-core) body,
+    asked for by ``cuda_cores`` (bf16 runs on the tensor cores otherwise;
+    f32 always runs on CUDA cores)."""
     ops = _operands(cell, cuda, dtype=dtype, seed=6)
     kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell)
-    got = wd.whole_greedy_decode(*ops, dual=True, **kw)
+    got = wd.whole_greedy_decode(*ops, dual=True, cuda_cores=True, **kw)
     want = wd.whole_greedy_decode(*ops, cuda_cores=True, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -267,11 +269,12 @@ def test_k5_early_exit_matches_twin_with_a_zero_tail(cuda, cell):
     params["out_b"][0] += 2.0
     kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell, early_exit=True)
     ops = (params, enc, uv, bias2)
-    n = wd.whole_greedy_decode.variant_launches["early_exit"]
+    n = wd.whole_greedy_decode.variant_launches["early_exit[cuda_cores]"]
     got = wd.whole_greedy_decode(*ops, **kw)
     want = wd.whole_greedy_decode_reference(*ops, **kw)
     torch.cuda.synchronize()
-    assert wd.whole_greedy_decode.variant_launches["early_exit"] == n + 1
+    assert (wd.whole_greedy_decode.variant_launches["early_exit[cuda_cores]"]
+            == n + 1)    # f32 runs on the CUDA-core body
     assert torch.equal(got, want)
     assert (got[:, -1] == 0).all()
 
@@ -321,13 +324,14 @@ def test_k5_early_exit_stops_blocks_at_different_steps(cuda):
                                         ("GRU", torch.bfloat16),
                                         ("LSTM", torch.float32)])
 def test_k5_ablate_matches_twin(cuda, part, cell, dtype):
-    """f32: tokens equal the twin's. bf16: h within 2 bf16 ulps of the
-    twin's can flip a near tie and the row's later tokens with it, so at
-    least 90% of the tokens must be equal. ``nativeargmax`` equals the
-    production step of its body exactly."""
+    """The CUDA-core body's probes (bf16 by ``cuda_cores``). f32: tokens
+    equal the twin's. bf16: h within 2 bf16 ulps of the twin's can flip a
+    near tie and the row's later tokens with it, so at least 90% of the
+    tokens must be equal. ``nativeargmax`` equals the production step of
+    its body exactly."""
     ops = _operands(cell, cuda, dtype=dtype, seed=8)
     kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell)
-    got = wd.whole_greedy_decode(*ops, ablate=part, **kw)
+    got = wd.whole_greedy_decode(*ops, ablate=part, cuda_cores=True, **kw)
     want = wd.whole_greedy_decode_reference(*ops, ablate=part, **kw)
     torch.cuda.synchronize()
     if dtype == torch.float32:
@@ -651,14 +655,14 @@ TC_B, TC_E, TC_F, TC_H, TC_A = 45, 468, 48, 32, 16
 TC_SHARE = 0.98   # bf16 tokens equal to the twin's (2 ulps of h flip ties)
 
 
-def _tc_operands(cell, device, v, seed):
+def _tc_operands(cell, device, v, seed, b=TC_B):
     cfg = DecoderConfig(cell_type=cell, vocab_size=v, embedding_size=TC_E,
                         encoder_size=TC_F, hidden_size=TC_H, attn_size=TC_A)
     p = random_params(cfg, seed)
     p["out_w"] = p["out_w"] * 8.0
     params = params_from_jax(p, device, torch.bfloat16)
     enc = torch.from_numpy(np.random.default_rng(seed).standard_normal(
-        (TC_B, L, TC_F)).astype(np.float32)).to(device, torch.bfloat16)
+        (b, L, TC_F)).astype(np.float32)).to(device, torch.bfloat16)
     r = params["rnn"][0]
     return (params, enc, precompute_uv(params["attention"], enc),
             torch.stack([r["b_ih"], r["b_hh"]]))
@@ -721,6 +725,61 @@ def test_k1_tensor_cores_early_exit(cuda):
     after = (torch.arange(T, device=cuda)[None, :]
              > stop.repeat_interleave(8)[:TC_B, None])
     assert torch.equal(got, torch.where(after, 0, full))
+
+
+@pytest.mark.parametrize("b", [8, 24, 256])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_k5_dual_tensor_cores_bit_equal_to_k1(cuda, cell, b):
+    """dual on the tensor-core body (16 rows a block, two 8-row halves
+    sharing each weight tile) gives production K1's tensor-core tokens on
+    every row: B = 8 leaves half 1 empty, B = 24 the second block's half 1
+    empty; the LSTM takes the 3-slot ring. Counted as "dual"."""
+    ops = _tc_operands(cell, cuda, 4188, 24, b=b)
+    kw = dict(emb_size=TC_E, max_len=MAX_LEN, cell_type=cell)
+    counts = wd.whole_greedy_decode.variant_launches
+    n, n_cores = counts["dual"], counts["dual[cuda_cores]"]
+    got = wd.whole_greedy_decode(*ops, dual=True, **kw)
+    want = wd.whole_greedy_decode(*ops, **kw)
+    torch.cuda.synchronize()
+    assert (counts["dual"], counts["dual[cuda_cores]"]) == (n + 1, n_cores)
+    assert got.shape == (b, MAX_LEN + 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("part", ["emb", "attn", "score1", "fma", "proj",
+                                  "nativeargmax", "argmax"])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_k5_ablate_tensor_cores_matches_twin(cuda, part, cell):
+    """Each ablated part on the tensor-core body against its twin on
+    TC_SHARE of the tokens (bf16: 2 ulps of h flip near ties), counted as
+    "ablate=<part>"; ``nativeargmax`` equals the production step of the
+    body exactly (the two orders differ only on -0 against +0)."""
+    ops = _tc_operands(cell, cuda, 1001, 25)
+    kw = dict(emb_size=TC_E, max_len=MAX_LEN, cell_type=cell)
+    counts = wd.whole_greedy_decode.variant_launches
+    n = counts[f"ablate={part}"]
+    got = wd.whole_greedy_decode(*ops, ablate=part, **kw)
+    want = wd.whole_greedy_decode_reference(*ops, ablate=part, **kw)
+    torch.cuda.synchronize()
+    assert counts[f"ablate={part}"] == n + 1
+    assert (got == want).float().mean().item() >= TC_SHARE
+    if part == "nativeargmax":
+        assert torch.equal(got, wd.whole_greedy_decode(*ops, **kw))
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_tensor_core_layout_mirror_equals_the_kernel(cuda, cell):
+    """The wrapper's shared-memory mirror equals the kernel's layout for
+    the flagship production step and dual, and both fit a block."""
+    lib = wd._library()
+    n_gates = 3 if cell == "GRU" else 4
+    for dual in (False, True):
+        variant = wd.kernel_route(torch.bfloat16, 512, dual=dual).variant
+        shape = (28, 128, 468 + 1536, 512)
+        want = wd.tc_smem_bytes(n_gates, variant, *shape)
+        assert lib.recnet_whole_decode_tc_smem(n_gates, variant,
+                                               *shape) == want
+        assert want <= wd.SMEM_LIMIT
 
 
 def test_parameter_set_layouts_are_what_the_kernels_read(cuda):

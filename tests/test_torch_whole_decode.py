@@ -345,8 +345,8 @@ def test_k1_ablate_argmax_out_of_range_matches_pallas(lift):
 
 
 def test_cuda_cores_is_the_production_step_on_the_cpu():
-    """``cuda_cores`` picks the CUDA-core body on the card; on the CPU the
-    wrapper runs the production twin, and the option takes no variant."""
+    """``cuda_cores`` picks the CUDA-core body on the card for any variant;
+    on the CPU the wrapper runs the twin of the variant asked for."""
     _, params, enc = _setup("LSTM", seed=15)
     _, t_ops = _operands(params, enc)
     kw = dict(emb_size=E, max_len=MAX_LEN, cell_type="LSTM")
@@ -356,8 +356,98 @@ def test_cuda_cores_is_the_production_step_on_the_cpu():
     assert wd._variant_name(False, False, "", True) == "cuda_cores"
     for other in (dict(early_exit=True), dict(dual=True),
                   dict(ablate="emb")):
-        with pytest.raises(ValueError, match="production step only"):
-            wd.whole_greedy_decode(*t_ops, cuda_cores=True, **other, **kw)
+        np.testing.assert_array_equal(
+            wd.whole_greedy_decode(*t_ops, cuda_cores=True, **other,
+                                   **kw).numpy(),
+            wd.whole_greedy_decode_reference(*t_ops, **other, **kw).numpy())
+
+
+TC, CC = wd.TENSOR_CORES, wd.CUDA_CORES
+
+
+@pytest.mark.parametrize("dtype,H_,options,want", [
+    # bf16 in 16-unit tiles: every variant on the tensor-core body, the
+    # probes from their own library
+    (torch.bfloat16, 512, {}, (TC, 256, "whole_decode")),
+    (torch.bfloat16, 512, dict(early_exit=True), (TC, 257, "whole_decode")),
+    (torch.bfloat16, 512, dict(dual=True), (TC, 258, "whole_decode_probes")),
+    (torch.bfloat16, 512, dict(ablate="emb"),
+     (TC, 260, "whole_decode_probes")),
+    (torch.bfloat16, 16, dict(ablate="fma"),
+     (TC, 256 | 3 << 3, "whole_decode_probes")),
+    (torch.bfloat16, 512, dict(ablate="nativeargmax"),
+     (TC, 256 | 2 << 5, "whole_decode_probes")),
+    # cuda_cores: the CUDA-core body for any variant
+    (torch.bfloat16, 512, dict(cuda_cores=True), (CC, 0, "whole_decode")),
+    (torch.bfloat16, 512, dict(dual=True, cuda_cores=True),
+     (CC, 2, "whole_decode")),
+    (torch.bfloat16, 512, dict(ablate="proj", cuda_cores=True),
+     (CC, 1 << 5, "whole_decode")),
+    (torch.bfloat16, 512, dict(early_exit=True, cuda_cores=True),
+     (CC, 1, "whole_decode")),
+    # f32, and bf16 without 16-unit tiles: the CUDA-core body
+    (torch.float32, 512, {}, (CC, 0, "whole_decode")),
+    (torch.float32, 512, dict(dual=True), (CC, 2, "whole_decode")),
+    (torch.float32, 512, dict(ablate="argmax"), (CC, 3 << 5, "whole_decode")),
+    (torch.bfloat16, 24, dict(dual=True), (CC, 2, "whole_decode")),
+    (torch.bfloat16, 24, dict(ablate="score1"),
+     (CC, 2 << 3, "whole_decode")),
+])
+def test_kernel_route_picks_the_body_and_bits(dtype, H_, options, want):
+    assert tuple(wd.kernel_route(dtype, H_, **options)) == want
+
+
+@pytest.mark.parametrize("options,match", [
+    (dict(dual=True, early_exit=True), "dual=True does not support"),
+    (dict(dual=True, ablate="emb", cuda_cores=True),
+     "dual=True does not support"),
+    (dict(ablate="emb,proj"), "one ablated part"),
+])
+def test_kernel_route_refuses_what_is_not_built(options, match):
+    with pytest.raises(ValueError, match=match):
+        wd.kernel_route(torch.bfloat16, 512, **options)
+
+
+@pytest.mark.parametrize("early_exit,dual,ablate,body,want", [
+    (False, True, "", TC, "dual"),
+    (False, True, "", CC, "dual[cuda_cores]"),
+    (False, False, "attn", TC, "ablate=attn"),
+    (False, False, "attn", CC, "ablate=attn[cuda_cores]"),
+    (True, False, "", CC, "early_exit[cuda_cores]"),
+    (True, False, "", TC, "early_exit"),
+])
+def test_variant_launches_name_the_body(early_exit, dual, ablate, body, want):
+    assert wd._variant_name(early_exit, dual, ablate, body == CC,
+                            body) == want
+
+
+# the flagship decoder: L 28, attention 128, E + F = 468 + 1536, H 512
+FLAGSHIP_SMEM = dict(L=28, A=128, K=2004, H=512)
+
+
+@pytest.mark.parametrize("n_gates,dual,want", [
+    (3, False, 163_104),     # 8 rows, 4 ring slots
+    (4, False, 195_872),
+    (3, True, 226_880),      # 16 rows (128,576 B of row buffers), 4 slots
+    (4, True, 226_880),      # 16 rows, 3 slots: 4 would need 259,648 B
+])
+def test_tensor_core_layout_fits_a_hopper_block(n_gates, dual, want):
+    variant = wd.kernel_route(torch.bfloat16, 512, dual=dual).variant
+    got = wd.check_tc_fits(n_gates, variant, **FLAGSHIP_SMEM)
+    assert got == wd.tc_smem_bytes(n_gates, variant, **FLAGSHIP_SMEM) == want
+    assert got <= wd.SMEM_LIMIT == 232_448
+
+
+def test_tensor_core_layout_refuses_what_a_block_cannot_hold():
+    """An LSTM under dual at 4 ring slots would not fit (the 3 slots the
+    body takes do), and longer features (L = 200) do not fit either."""
+    rows16 = 226_880 - 16 * 3 * 4 * 512
+    assert rows16 + 16 * 4 * 4 * 512 == 259_648 > wd.SMEM_LIMIT
+    variant = wd.kernel_route(torch.bfloat16, 512, dual=True).variant
+    with pytest.raises(ValueError, match="232448"):
+        wd.check_tc_fits(3, variant, **dict(FLAGSHIP_SMEM, L=200))
+    production = wd.kernel_route(torch.bfloat16, 512).variant
+    assert wd.check_tc_fits(3, production, **dict(FLAGSHIP_SMEM, L=200))
 
 
 @pytest.mark.parametrize("H_,dtype,want", [
