@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port (recnet_tpu_torch) on one Hopper card.
 
     python3 chip_smoke.py                        # from the repository root
-    python3 chip_smoke.py --compare <other tree> # K1-K4 of two trees
+    python3 chip_smoke.py --compare <other tree> # K1-K4 and [train] (c)
+                                                 # of two trees
     python3 chip_smoke.py --read-rates           # the card's L2 and HBM
                                                  # read rates
 
@@ -58,7 +59,16 @@ Phases, one line or more each; any failure exits non-zero before a result:
    from 0 around the pass), its checkpoints, and a resume from the last;
    (c) ms a train step by CUDA events over k-step dispatches (median of
    3) in f32 and bf16, the card's busy time and idle share by the
-   profiler, the peak memory and the bound;
+   profiler, the peak memory and the bound, and the device activities of
+   the f32 step's two loops a step (the decoder's at most 8, the
+   reconstructor's at most 4); the rollouts' kernels counted from 0 over
+   (a)'s card steps; (d) the rollouts' four kernels (cell forward and
+   backward for the decoder's GRU and the reconstructor's LSTM, the
+   attention forward and backward) at the flagship's shapes, f32 and
+   bf16, each against its plain version, timed beside it, beside ATen's
+   fused cell where one call computes the same and beside the bound;
+   then the two rollouts' forward + backward, the Functions against the
+   plain autograd loops in turns, and their kernels' launches a step;
 8. data: the data and checkpoint side. (a) A flagship-width reference
    (hobincar PyTorch) ``*_checkpoint.tar`` written from seeded numpy in
    the reference's keys, layout and parameter order, imported by
@@ -92,9 +102,11 @@ Phases, one line or more each; any failure exits non-zero before a result:
    launches per shard.
 
 ``--compare`` times K1, K2 (seg_len 4), K3 and K4 with their library
-routes, and the K4 loop, for this tree and another (an unpacked parent, say) in turns: this,
-other, other, this, each in a process of its own. ``--read-rates`` times
-a small read kernel over an L2-resident buffer and over device memory.
+routes, the K4 loop, and [train] (c)'s f32 and bf16 k-step dispatches
+with the loops' split, for this tree and another (an unpacked parent,
+say) in turns: this, other, other, this, each in a process of its own.
+``--read-rates`` times a small read kernel over an L2-resident buffer and
+over device memory.
 
 The weights are random, drawn from a numpy seed. The last three lines are
 the card's name and power limit, one JSON line listing every kernel, and
@@ -155,6 +167,12 @@ EARLY_STOP_BLOCKS = 0.5        # share of blocks the early exit must stop
 # the device-memory rate, whichever is longer (H100 SXM data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+# the rollouts' kernels compute in f32 on the CUDA cores (their operations
+# at the f32 peak, H100 SXM data sheet); their f32 / bf16 check bounds (as
+# tests/test_torch_cuda.py): rtol and, over each output's largest |value|,
+# atol
+PEAK_F32_FLOPS = 67e12
+ROLL_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 L2_PROBE_BYTES = 12 * 2 ** 20  # --read-rates: about one block-step of K1's
                                # weights
 # [train]: the in-memory corpus (videos of the train, val and test splits,
@@ -173,6 +191,7 @@ NORM_RTOL = 1e-3
 REPEAT_STEPS = 30
 TRAIN_DISPATCHES = 4
 TIME_DISPATCHES = 3
+SPLIT_STEPS = 8        # (c)'s loop split: T against T - SPLIT_STEPS steps
 # [data]: the videos captioned from the imported reference checkpoint; the
 # scoring corpus at MSR-VTT test scale (videos, references a video, words
 # of its Zipf vocabulary)
@@ -223,7 +242,7 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
     from recnet_tpu_torch.ops.cuda import build
     sources = ("whole_decode", "whole_decode_probes", "topk_proj",
-               "fused_step")
+               "fused_step", "rollout")
     t0 = time.perf_counter()
 
     def timed_build(name):
@@ -644,6 +663,7 @@ def variants_against_k1(torch, tc, cfg_base):
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
     from recnet_tpu_torch.ops.cuda import fused_step as fs
+    from recnet_tpu_torch.ops.cuda import rollout
     from recnet_tpu_torch.ops.cuda import topk_proj as tp
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     for fn in (wd.whole_greedy_decode, wd.whole_greedy_decode_segment,
@@ -651,6 +671,7 @@ def reset_counts():
         fn.n_launches = 0
     wd.whole_greedy_decode.variant_launches.clear()
     fs.fused_gru_attn_step.body_launches.clear()
+    rollout.reset_counts()
 
 
 def flagship_checkpoint_dir(tmp: Path, n_vocab: int) -> Path:
@@ -1725,7 +1746,9 @@ def train_card_against_cpu(torch, tc, corpus):
     same state (dropout off, so both draw nothing): losses and per-leaf
     checksums (params and Adam moments) within TRAIN_RTOL; then
     REPEAT_STEPS more card steps on the one batch, whose loss must fall.
-    Returns the batch (videos, captions) as numpy arrays."""
+    The launch counts are set to 0 just before the card's steps and read
+    just after them: the rollouts' kernels of the train step. Returns
+    {rollout kernel name: launches}."""
     from recnet_tpu_torch.checkpoint import state_leaves
     from recnet_tpu_torch.training import step as S
     tc = tc.replace(embedding_dropout=0.0, decoder_dropout=0.0,
@@ -1742,8 +1765,13 @@ def train_card_against_cpu(torch, tc, corpus):
         step = S.build_train_step(tc, dcfg, rcfg)
         v = torch.from_numpy(videos).to(device)
         c = torch.from_numpy(captions).to(device)
+        reset_counts()
         t0 = time.perf_counter()
         ms = [step(state, v, c) for _ in range(CARD_CPU_STEPS)]
+        if device == DEVICE:
+            torch.cuda.synchronize()
+            launches = rollout_launches((tc.decoder_model,
+                                         tc.reconstructor_model))
         runs[device] = dict(
             losses=[(float(m["loss"]), float(m["grad_norm"])) for m in ms],
             sums=checksums(state_leaves(state)),
@@ -1772,7 +1800,11 @@ def train_card_against_cpu(torch, tc, corpus):
                  f"({', '.join(f'{x:.5f}' for x in losses[::5])}, ...)")
     check(np.isfinite(losses).all() and losses[-1] < losses[0],
           "the loss on a repeated batch did not fall")
-    return videos, captions
+    log("train", f"(a) the rollouts' kernels launched in the "
+                 f"{CARD_CPU_STEPS} card steps: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched in the card's train steps")
+    return launches
 
 
 def train_loop_path(torch, tc, corpus, tmp: Path):
@@ -1965,6 +1997,357 @@ def train_times(torch, tc, corpus):
     return out
 
 
+def device_activities(torch, fn) -> collections.Counter:
+    """The activities on the card (kernels, copies, fills) of one call of
+    ``fn`` by name, by torch.profiler, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return collections.Counter(ev.name for ev in prof.events()
+                               if ev.device_type == DeviceType.CUDA)
+
+
+def loop_activities(torch, tc, corpus):
+    """The f32 train step's two loops over T, split by the profiler: the
+    decoder rollout (``teacher_forced_rollout_fast``) and the global
+    reconstructor, each forward + backward on one [train] batch at T and
+    at T - SPLIT_STEPS steps. A loop step's activities are the difference
+    over SPLIT_STEPS (what does not repeat with T cancels). Returns
+    {loop: (activities a loop step, activities of the call at T, {name:
+    activities a loop step})}."""
+    from recnet_tpu_torch.models import decoder as dec_mod
+    from recnet_tpu_torch.models import reconstructors as rec_mod
+    from recnet_tpu_torch.training import step as S
+    tc = tc.replace(train_precision="float32")
+    state, dcfg, rcfg = S.init_train_state(SEED, tc, corpus.vocab.n_vocabs,
+                                           DEVICE)
+    _, videos, captions = next(iter(corpus.train_batcher))
+    videos = corpus.train_dataset.feature_cache()[videos] if \
+        corpus.train_batcher.index_mode else videos
+    enc = torch.from_numpy(videos).to(DEVICE)
+    caps = torch.from_numpy(captions).to(DEVICE)
+    T = caps.shape[0]
+    hid = torch.randn((T, 1, enc.shape[0], dcfg.hidden_size),
+                      device=DEVICE, requires_grad=True)
+
+    def decoder(n):
+        out = dec_mod.teacher_forced_rollout_fast(state.dec_params, dcfg,
+                                                  enc, caps[:n])
+        (out.logits.sum() + out.hiddens.sum()).backward()
+
+    def reconstructor(n):
+        ones = torch.ones((n,), device=DEVICE)
+        rec_mod.global_reconstruct(state.rec_params, rcfg, hid[:n], ones,
+                                   ones.sum()).sum().backward()
+
+    split = {}
+    for name, fn in (("decoder", decoder), ("reconstructor", reconstructor)):
+        full = device_activities(torch, lambda: fn(T))
+        cut = device_activities(torch, lambda: fn(T - SPLIT_STEPS))
+        split[name] = ((sum(full.values()) - sum(cut.values()))
+                       / SPLIT_STEPS, sum(full.values()),
+                       per_step(full, cut))
+    return split
+
+
+def per_step(full, cut):
+    """{short activity name: (count at T - count at T - SPLIT_STEPS) /
+    SPLIT_STEPS} over the names whose counts differ; a name is cut at its
+    argument list and at 48 characters, and the counts of names that meet
+    there are summed."""
+    short = collections.Counter()
+    for name in full | cut:
+        short[name.split("(")[0][:48]] += full[name] - cut[name]
+    return {k: v / SPLIT_STEPS for k, v in short.items() if v}
+
+
+def train_timing(torch):
+    """{"steps": (c)'s numbers by precision, "loops": the f32 split} of
+    the imported package."""
+    from recnet_tpu_torch.checkpoint import load_config_and_vocab
+    with tempfile.TemporaryDirectory() as tmp:
+        tc, vocab = load_config_and_vocab(
+            str(flagship_checkpoint_dir(Path(tmp), VOCAB)))
+    ttc = train_config(tc)
+    corpus = train_corpus(ttc, vocab)
+    return {"steps": train_times(torch, ttc, corpus),
+            "loops": loop_activities(torch, ttc, corpus)}
+
+
+def rollout_launches(cells):
+    """The rollouts' wrappers' counts, by kernel entry name (the cell
+    kernels by cell type, ``cells``)."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    out = {}
+    for name, fn in (("rollout_cell_forward", ro.cell_forward),
+                     ("rollout_cell_backward", ro.cell_backward)):
+        for cell in cells:
+            out[f"{name}[{cell}]"] = fn.cell_launches[cell]
+    out["rollout_attention_forward"] = ro.attention_forward.n_launches
+    out["rollout_attention_backward"] = ro.attention_backward.n_launches
+    return out
+
+
+def rollout_cases(torch, tc, dtype):
+    """The rollouts' kernels at the flagship's shapes (the batch; the
+    decoder's cell and attention over the encoder's frames, the
+    reconstructor's cell), on seeded inputs in ``dtype``: {entry name:
+    (kernel call, plain call, library call or None, (flops, bytes), one
+    step of the kernel's ``*_steps`` launcher)}. Each call but the last
+    returns its outputs; attention_backward's work on a copy of dh (its
+    in-place output)."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    B, F, E = tc.batch_size, tc.encoder_output_len, tc.encoder_output_size
+    Hd, A = tc.decoder_hidden_size, tc.decoder_attn_size
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 60)
+    size = torch.finfo(dtype).bits // 8
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=DEVICE)
+                * scale).to(dtype)
+
+    aten = torch.ops.aten
+    cases = {}
+
+    def cell_cases(cell, H):
+        lstm, G = cell == "LSTM", (4 if cell == "LSTM" else 3) * H
+        gx, gh, bias = rand(B, G, scale=1.5), rand(B, G, scale=1.5), rand(G)
+        h, c, dh, dh_out, dc = (rand(B, H) for _ in range(5))
+        fwd = (cell, gx, None if lstm else gh, bias, h, c if lstm else None)
+        _, c_t, acts = ro.cell_forward_reference(*fwd)
+        bwd = (cell, dh, dh_out, dc if lstm else None, acts, h,
+               c if lstm else None, c_t if lstm else None)
+        zb = torch.zeros_like(bias)
+        if lstm:        # ATen's fused cell: gates = gx + 0 + (0 + b_hh)
+            zero = torch.zeros_like(gx)
+            lib_f = lambda: aten._thnn_fused_lstm_cell(gx, zero, c, zb, bias)
+            ws = lib_f()[2]
+            lib_b = lambda: aten._thnn_fused_lstm_cell_backward_impl(
+                dh, dc, c, c_t, ws, False)
+        else:
+            lib_f = lambda: aten._thnn_fused_gru_cell(gx, gh, h, zb, bias)
+            ws = lib_f()[1]
+            lib_b = lambda: aten._thnn_fused_gru_cell_backward(dh, ws,
+                                                               False)
+        bh = B * H
+        # bytes: LSTM gx, b_hh, c_prev in, acts, h', c' out; GRU gx, gh,
+        # b_hh, h_prev in, acts, h' out
+        io_f = (bh * (1 + 4 + 2) + B * G + G if lstm
+                else bh * (1 + 4 + 1) + 2 * B * G + G)
+        io_b = (bh * (3 + 4 + 2 + 1) + B * G if lstm
+                else bh * (3 + 4 + 1) + 2 * B * G)
+        # one step of each launcher over (1, B, .) buffers
+        one = lambda x: None if x is None else x[None]
+        hs, acts1 = rand(1, B, H), rand(1, B, 4 * H)
+        cs = rand(1, B, H) if lstm else None
+        fwd_step = ro.cell_forward_steps(
+            cell, gx[None], None if lstm else gh, bias, h,
+            c if lstm else None, hs, cs, acts1)
+        dgi, dgh = rand(1, B, G), rand(1, B, G)
+        dh_s, dc_s = dh.clone(), dc.clone()
+        bwd_step = ro.cell_backward_steps(
+            cell, dh_s, dh_out[None], dc_s if lstm else None, acts[None],
+            h[None], one(c if lstm else None), one(c_t if lstm else None),
+            dgi, dgh)
+        cases[f"rollout_cell_forward[{cell}]"] = (
+            lambda: ro.cell_forward(*fwd),
+            lambda: ro.cell_forward_reference(*fwd), lib_f,
+            (10 * B * G, size * io_f), lambda: fwd_step(0))
+        cases[f"rollout_cell_backward[{cell}]"] = (
+            lambda: ro.cell_backward(*bwd),
+            lambda: ro.cell_backward_reference(*bwd), lib_b,
+            (12 * B * G, size * io_b), lambda: bwd_step(0))
+
+    for cell, H in ((tc.decoder_model, Hd),
+                    (tc.reconstructor_model, tc.reconstructor_hidden_size)):
+        cell_cases(cell, H)
+    h, W, uv, b, w, enc = (rand(B, Hd), rand(Hd, A), rand(B, F, A), rand(A),
+                           rand(A, 1), rand(B, F, E))
+    dctx, dh = rand(B, E), rand(B, Hd)
+    act = torch.tanh(rand(B, F, A, scale=1.0))
+    fwd_step = ro.attention_forward_steps(h, rand(1, B, Hd), W, uv, b, w,
+                                          enc, rand(1, B, F), rand(1, B, E))
+    bwd_step = ro.attention_backward_steps(dctx[None], enc, act[None], w, W,
+                                           dh.clone(), rand(1, B, F),
+                                           rand(1, B, A))
+    cases["rollout_attention_forward"] = (
+        lambda: ro.attention_forward(h, W, uv, b, w, enc),
+        lambda: ro.attention_forward_reference(h, W, uv, b, w, enc), None,
+        (2 * B * Hd * A + 6 * B * F * A + 2 * B * F * E,
+         size * (B * Hd + Hd * A + B * F * A + 2 * A + B * F * E + B * F
+                 + B * E)), lambda: fwd_step(0))
+    cases["rollout_attention_backward"] = (
+        lambda: ro.attention_backward(dctx, enc, act, w, W, dh.clone()),
+        lambda: ro.attention_backward_reference(dctx, enc, act, w, W,
+                                                dh.clone()), None,
+        (2 * B * F * E + 4 * B * F * A + 2 * B * Hd * A,
+         size * (B * E + B * F * E + B * F * A + A + Hd * A + 2 * B * Hd
+                 + B * F + B * A)), lambda: bwd_step(0))
+    return cases
+
+
+def rollout_kernels(torch, tc):
+    """(d) Each of the rollouts' kernels at the flagship's shapes, f32 and
+    bf16: against its plain version on the same inputs (ROLL_TOL), then a
+    step of its ``*_steps`` launcher (the rollouts' route) timed by CUDA
+    events, by the profiler's device time and by the host's time to launch
+    it, beside a wrapper call, the plain version, the one PyTorch call of
+    the same function where there is one (ATen's fused LSTM / GRU cell and
+    their backward) and the bound (bytes at the HBM rate or operations at
+    the f32 peak). Returns
+    {entry name: kernels-line fields}, the times in the preset's train
+    precision, bf16's beside them."""
+    card = card_line()
+    entries = {}
+    for prec in ("float32", "bfloat16"):
+        cases = rollout_cases(torch, tc, getattr(torch, prec))
+        for name, (kernel, plain, library, (flops, nbytes),
+                   step) in cases.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = 0.0
+            for x, y in zip(got, want):
+                if y is None:
+                    continue
+                x, y = x.float(), y.float()
+                d = (x - y).abs()
+                tol = ROLL_TOL[prec]
+                check(bool((d <= tol * y.abs() + tol * y.abs().max()).all()),
+                      f"{name} {prec}: kernel and plain version differ by "
+                      f"{float(d.max()):.3g}")
+                err = max(err, float(d.max()))
+            ms, wrapper_ms, plain_ms = (timed(torch, fn, 100)[0]
+                                        for fn in (step, kernel, plain))
+            lib_ms = timed(torch, library, 100)[0] if library else None
+            dev = device_ms(torch, step, reps=50)[""]
+            host = host_ms(torch, step, reps=100)
+            t_ops = flops / PEAK_F32_FLOPS * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            entry = entries.setdefault(name, {})
+            fields = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=max(t_ops, t_bytes),
+                          bound_by="operations" if t_ops >= t_bytes
+                          else "bytes", max_abs_err=err, device_ms=dev,
+                          host_ms=host, wrapper_ms=wrapper_ms)
+            if prec == tc.train_precision:
+                entry.update(fields)
+            else:
+                entry.update({f"{prec}_{k}": v for k, v in fields.items()})
+            lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f}"
+            log("train", f"(d) {name} {prec}: max |kernel - plain| "
+                         f"{err:.3g}; a step of its launcher "
+                         f"{ms * 1e3:.2f} us by events (device "
+                         f"{dev * 1e3:.2f} us, host {host * 1e3:.2f} us), "
+                         f"a wrapper call {wrapper_ms * 1e3:.2f}, plain "
+                         f"{plain_ms * 1e3:.2f}, library {lib}"
+                         f", bound {fields['bound_ms'] * 1e3:.2f} us "
+                         f"({fields['bound_by']}: {nbytes / 1e6:.2f} MB, "
+                         f"{flops / 1e6:.1f} MFLOP) on {card}")
+    return entries
+
+
+def rollout_times(torch, tc):
+    """(d) The two rollouts, forward + backward at the flagship's shapes
+    (T = caption_max_len + 1), the kernels' route (the Functions) beside
+    the plain autograd loops, in turns (kernels, plain, plain, kernels),
+    f32 and bf16 autocast; the wrappers' launches a step."""
+    import functools as ft
+    from recnet_tpu_torch.models import decoder as dec_mod
+    from recnet_tpu_torch.ops import rnn as rnn_ops
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    T, B = tc.caption_max_len + 1, tc.batch_size
+    F, E = tc.encoder_output_len, tc.encoder_output_size
+    Hd, A, Hr = (tc.decoder_hidden_size, tc.decoder_attn_size,
+                 tc.reconstructor_hidden_size)
+    dcell, rcell = tc.decoder_model, tc.reconstructor_model
+    Gd = (4 if dcell == "LSTM" else 3) * Hd
+    Gr = (4 if rcell == "LSTM" else 3) * Hr
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 70)
+
+    def leaf(*shape):
+        return (torch.randn(shape, generator=g, device=DEVICE) * 0.1
+                ).requires_grad_()
+
+    d = dict(W=leaf(Hd, A), U=leaf(E, A), b=leaf(A), w=leaf(A, 1),
+             w_enc=leaf(E, Gd), w_hh=leaf(Hd, Gd), b_hh=leaf(Gd),
+             enc=leaf(B, F, E), gi=leaf(T, B, Gd))
+    r = dict(w_hh=leaf(Hr, Gr), b_hh=leaf(Gr), gi=leaf(T, B, Gr))
+    zeros = torch.zeros((B, Hr), device=DEVICE)
+    dhs_d = torch.randn((T, B, Hd), generator=g, device=DEVICE)
+    dhs_r = torch.randn((T, B, Hr), generator=g, device=DEVICE)
+
+    def decoder(fn, dtype, n=T):
+        with torch.autocast("cuda", dtype=dtype, enabled=dtype is not None):
+            att = {k: d[k] for k in ("W", "U", "b", "w")}
+            hs = fn(dcell, att, d["w_enc"], d["w_hh"], d["b_hh"], d["enc"],
+                    d["enc"] @ d["U"], d["gi"][:n])
+        hs.backward(dhs_d[:n].to(hs.dtype))
+
+    def reconstructor(fn, dtype, n=T):
+        with torch.autocast("cuda", dtype=dtype, enabled=dtype is not None):
+            hs = fn(rcell, r, r["gi"][:n], zeros, zeros)
+        hs.backward(dhs_r[:n].to(hs.dtype))
+
+    card = card_line()
+    loops = (("decoder", decoder, dec_mod.tf_attn_rollout,
+              dec_mod.tf_attn_rollout_reference),
+             ("reconstructor", reconstructor, rnn_ops.rnn_rollout_pre,
+              rnn_ops.rnn_rollout_pre_reference))
+    for name, run, kernels, plain in loops:
+        for dtype in (None, torch.bfloat16):
+            routes = {"kernels": ft.partial(run, kernels, dtype),
+                      "plain": ft.partial(run, plain, dtype)}
+            ms = {"kernels": [], "plain": []}
+            for route in ("kernels", "plain", "plain", "kernels"):
+                ms[route].append(timed(torch, routes[route])[0])
+            log("train", f"(d) {name} rollout forward + backward, "
+                         f"{'bf16 autocast' if dtype else 'f32'}, B={B}, "
+                         f"T={T}: kernels {ms['kernels']} ms, plain autograd "
+                         f"loop {ms['plain']} ms (events, in turns) on "
+                         f"{card}")
+        # a loop step's launches: T against T - SPLIT_STEPS steps
+        full, cut = (loop_launches(torch, ft.partial(run, kernels, None, n))
+                     for n in (T, T - SPLIT_STEPS))
+        kern, prod = ((a - b) / SPLIT_STEPS for a, b in zip(full[:2], cut[:2]))
+        log("train", f"(d) {name} loop, f32: {kern:g} kernel launches a "
+                     f"step (the wrappers' counts) + {prod:g} products "
+                     f"(cuBLAS calls); device activities a step "
+                     f"{per_step(full[2], cut[2])}")
+        check(kern == (4 if name == "decoder" else 2)
+              and kern + prod <= (8 if name == "decoder" else 4),
+              f"the {name} loop launches {kern} kernels and {prod} products "
+              f"a step")
+
+
+ROLLOUT_PRODUCTS = ("aten::mm", "aten::addmm", "aten::addmm_", "aten::bmm")
+
+
+def loop_launches(torch, run):
+    """(the rollout wrappers' launches, product calls (ROLLOUT_PRODUCTS, by
+    the profiler's host events), device activities by name) of one call
+    of ``run``, after a warm-up."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    products = sum(ev.device_type == DeviceType.CPU
+                   and ev.name in ROLLOUT_PRODUCTS for ev in events)
+    device = collections.Counter(ev.name for ev in events
+                                 if ev.device_type == DeviceType.CUDA)
+    return sum(fn.n_launches for fn in ro.KERNELS), products, device
+
+
 def train_phase(torch, tc, vocab):
     """[train]: (a) card against CPU, (b) the loop with val, test, save
     and resume, (c) times."""
@@ -1977,11 +2360,21 @@ def train_phase(torch, tc, vocab):
                  f"{TRAIN_VIDEOS[2]} test videos; B={ttc.batch_size}, "
                  f"k={ttc.steps_per_dispatch}, cache "
                  f"{ttc.feature_cache_dtype}")
-    train_card_against_cpu(torch, ttc, corpus)
+    launches = train_card_against_cpu(torch, ttc, corpus)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = train_loop_path(torch, ttc, corpus, Path(tmp))
+        train_loop_path(torch, ttc, corpus, Path(tmp))
     train_times(torch, ttc, corpus)
-    return launches
+    split = loop_activities(torch, ttc, corpus)
+    log("train", f"(c) device activities of the f32 step's loops (T = "
+                 f"{ttc.caption_max_len + 1} against "
+                 f"{ttc.caption_max_len + 1 - SPLIT_STEPS} steps): "
+                 + "; ".join(f"{k} {v[0]:g} a step, {v[1]} a call ({v[2]})"
+                             for k, v in split.items()))
+    entries = rollout_kernels(torch, ttc)
+    rollout_times(torch, ttc)
+    for name, entry in entries.items():
+        entry["launches"] = launches[name]
+    return entries
 
 
 # --------------------------------------------------------------------------
@@ -2776,8 +3169,10 @@ def time_kernels(root: str) -> None:
     """Time K1, K2 (seg_len 4), K3 and K4 of the package under ``root``
     and their library routes, and the K4 loop, as ``times`` does
     (``core_kernels``, bf16, B = TIME_B, on inputs from this script's
-    seeds); print one JSON line. Runs in a process of its own, so that
-    ``root``'s package and its kernel builds are the ones imported."""
+    seeds); then [train] (c)'s k-step dispatches, f32 and bf16, and the
+    loops' split (``train_timing``); print one JSON line. Runs in a
+    process of its own, so that ``root``'s package and its kernel builds
+    are the ones imported."""
     import importlib.util
     import torch
     sys.path.insert(0, str(Path(root).resolve()))
@@ -2817,7 +3212,9 @@ def time_kernels(root: str) -> None:
         params, cfg, enc, tc.caption_max_len)
     ms["greedy_decode_pallas"] = timed(torch, loop)[0]
     ms["greedy_decode_pallas device"] = device_ms(torch, loop, reps=3)[""]
-    print(json.dumps({"root": root, "build_s": built, "ms": ms}), flush=True)
+    del params, enc, core
+    print(json.dumps({"root": root, "build_s": built, "ms": ms,
+                      "train": train_timing(torch)}), flush=True)
 
 
 def compare(other: str) -> None:
@@ -2881,7 +3278,7 @@ def main() -> int:
     variant_launches.update(sweep_launches)
     for name, err in sweep_errs.items():
         variant_errs[name] = max(variant_errs.get(name, 0.0), err)
-    train_phase(torch, tc, vocab)
+    rollout_entries = train_phase(torch, tc, vocab)
     data_phase(torch, tc, vocab)
     dist_phase(torch, tc, vocab, cfg, eos_np)
     T, L = tc.caption_max_len + 1, tc.encoder_output_len
@@ -2921,6 +3318,19 @@ def main() -> int:
                      "replaces": pallas + tpu, "launches": counts[name],
                      "max_abs_err": errors[name]}, **entries[name])
                for name, src, tpu in rows]
+    # the training rollouts' kernels: no Pallas kernel on their path (XLA
+    # fuses it in the JAX package); "replaces" names the JAX function each
+    # serves
+    serves = {"cell_forward": "recnet_tpu/ops/rnn.py:153",
+              "cell_backward": "recnet_tpu/ops/rnn.py:181",
+              "attention_forward": "recnet_tpu/models/decoder.py:261",
+              "attention_backward": "recnet_tpu/models/decoder.py:283"}
+    for name, entry in rollout_entries.items():
+        kind = name[len("rollout_"):].split("[")[0]
+        kernels.append(dict({"name": name, "route": "cuda",
+                             "source": csrc + "rollout.cu",
+                             "replaces": serves[kind], "pallas": False},
+                            **entry))
     for k in kernels:     # the body each whole-decode row ran on
         if k["name"].startswith("whole_greedy_decode"):
             k["body"] = ("cuda_cores" if "cuda_cores" in k["name"]

@@ -9,7 +9,9 @@ train path of ``decoder_step`` and the two teacher-forced rollouts
 and ``teacher_forced_rollout_fast`` for ratio 1.0, with the embedding
 gather, the embedding-side gate term (one layer) and the vocab projection
 hoisted out of the loop). Dropout masks come from a ``torch.Generator``;
-autograd gives the gradients.
+autograd gives the gradients, at one layer through ``tf_attn_rollout``,
+the JAX package's custom VJP as a ``torch.autograd.Function`` on the
+per-step kernels of ``ops/cuda/rollout.py``.
 
 On a mesh the training side takes the step's ``parallel.mesh.Shard``: the
 batch rows are this rank's, the embedding, ``out_w`` and ``out_b`` may be
@@ -33,6 +35,7 @@ from torch import nn
 
 from recnet_tpu_torch.ops import attention as attn_ops
 from recnet_tpu_torch.ops import rnn as rnn_ops
+from recnet_tpu_torch.ops.cuda import rollout
 from recnet_tpu_torch.parallel import vocab as vocab_par
 
 State = Tuple[torch.Tensor, torch.Tensor]
@@ -241,18 +244,9 @@ def teacher_forced_rollout_fast(params: Dict, cfg: DecoderConfig,
     if cfg.n_layers == 1:
         r0, E = params["rnn"][0], cfg.embedding_size
         gi_emb = emb_all @ r0["w_ih"][:E] + r0["b_ih"]          # (T, B, G)
-        w_enc = r0["w_ih"][E:]
-        F = encoder_outputs.shape[1]
-        h, c = rnn_ops.zero_state(B, cfg.hidden_size, encoder_outputs.dtype,
-                                  dev)
-        hs = []
-        for t in range(T):
-            scores = attn_ops.attention_scores(att, h, uv)
-            ctx = torch.einsum("bf,bfe->be", scores, encoder_outputs) / F
-            h, c = rnn_ops.rnn_step_pre(cfg.cell_type, r0,
-                                        gi_emb[t] + ctx @ w_enc, (h, c))
-            hs.append(h)
-        hiddens = torch.stack(hs)[:, None]                      # (T, 1, B, H)
+        hs = tf_attn_rollout(cfg.cell_type, att, r0["w_ih"][E:], r0["w_hh"],
+                             r0["b_hh"], encoder_outputs, uv, gi_emb)
+        hiddens = hs[:, None]                                   # (T, 1, B, H)
     else:
         state = zero_state(cfg, B, encoder_outputs.dtype, dev)
         hs = []
@@ -269,6 +263,155 @@ def teacher_forced_rollout_fast(params: Dict, cfg: DecoderConfig,
     logits = _dropout(logits, cfg.out_dropout, generator, train, shard,
                       batch_dim=1, vocab_dim=2)
     return DecoderRollout(logits, hiddens, vocab_par.argmax(logits, shard))
+
+
+def tf_attn_rollout_reference(cell_type: str, att: Dict,
+                              w_enc: torch.Tensor, w_hh: torch.Tensor,
+                              b_hh: torch.Tensor, enc: torch.Tensor,
+                              uv: torch.Tensor,
+                              gi_emb: torch.Tensor) -> torch.Tensor:
+    """``tf_attn_rollout`` as a plain loop over T (autograd records every
+    op of every step)."""
+    T, B, _ = gi_emb.shape
+    F = enc.shape[1]
+    r0 = {"w_hh": w_hh, "b_hh": b_hh}
+    h, c = rnn_ops.zero_state(B, w_hh.shape[0], enc.dtype, enc.device)
+    hs = []
+    for t in range(T):
+        scores = attn_ops.attention_scores(att, h, uv)
+        ctx = torch.einsum("bf,bfe->be", scores, enc) / F
+        h, c = rnn_ops.rnn_step_pre(cell_type, r0, gi_emb[t] + ctx @ w_enc,
+                                    (h, c))
+        hs.append(h)
+    return torch.stack(hs)
+
+
+class _TfAttnRollout(torch.autograd.Function):
+    """``tf_attn_rollout``: the teacher-forced one-layer recurrence,
+    attention + cell, forward and backward (``_tf_rollout_fwd`` /
+    ``_tf_rollout_bwd`` of ``recnet_tpu/models/decoder.py``).
+
+    Forward, a step: the attention kernel (scores and ctx into the
+    rollout's buffers), ``gi += ctx w_enc`` (and for LSTM ``+= h w_hh``)
+    in place on a copy of gi_emb, GRU's ``h w_hh``, the cell kernel. It
+    keeps hs, cs (LSTM), the activations, the scores and the contexts.
+    Backward: ``ACT = tanh(h_prev W + uv + b)`` once for all T (the loop's
+    attention kernel reads it, and so do the contractions for d_uv, db and
+    dw after the loop, as in the JAX backward's U2); a step is the cell's
+    backward kernel, ``dh_prev = dh_cell + dgh w_hh^T``, ``dctx = dgi
+    w_enc^T`` and the attention's backward kernel, which adds ``dwh W^T``
+    to dh_prev. The weight gradients, d_uv and ``d(enc) = sum_t scores
+    (x) dctx / F`` (the saved scores) are stacked contractions after the
+    loop. U's gradient is None: it reaches U through ``precompute_uv``'s
+    autograd from d_uv (the JAX backward returns zeros for it)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, cell_type, W, U, b, w, w_enc, w_hh, b_hh, enc, uv,
+                gi_emb):
+        ctx.cell_type = cell_type
+        ctx.dtypes = [x.dtype for x in (W, U, b, w, w_enc, w_hh, b_hh, enc,
+                                        uv, gi_emb)]
+        dt = rnn_ops.compute_dtype(gi_emb)
+        W, b, w, w_enc, w_hh, b_hh, enc, uv = rnn_ops.cast_operands(
+            dt, W, b, w, w_enc, w_hh, b_hh, enc, uv)
+        gi = gi_emb.to(dt, copy=True).contiguous()      # gains ctx w_enc
+        lstm = cell_type == "LSTM"
+        T, B, G = gi.shape
+        H, F, E = w_hh.shape[0], enc.shape[1], enc.shape[2]
+        hs = gi.new_empty((T, B, H))
+        cs = torch.empty_like(hs) if lstm else None
+        acts = gi.new_empty((T, B, 4 * H))
+        scores = gi.new_empty((T, B, F))
+        ctxs = gi.new_empty((T, B, E))
+        gh = None if lstm else gi.new_empty((B, G))     # GRU's h w_hh
+        h0 = gi.new_zeros((B, H))
+        attend = rollout.attention_forward_steps(h0, hs, W, uv, b, w, enc,
+                                                 scores, ctxs)
+        cell = rollout.cell_forward_steps(cell_type, gi, gh, b_hh, h0,
+                                          h0 if lstm else None, hs, cs, acts)
+        h_prev, ctx_t = (h0,) + hs.unbind(0)[:-1], ctxs.unbind(0)
+        for t, g in enumerate(gi.unbind(0)):
+            attend(t)
+            g.addmm_(ctx_t[t], w_enc)
+            if lstm:
+                g.addmm_(h_prev[t], w_hh)
+            else:
+                torch.mm(h_prev[t], w_hh, out=gh)
+            cell(t)
+        if not lstm:
+            cs = hs.new_empty((0,))
+        ctx.save_for_backward(W, b, w, w_enc, w_hh, enc, uv, hs, cs, acts,
+                              scores, ctxs)
+        return hs
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dhs):
+        (W, b, w, w_enc, w_hh, enc, uv, hs, cs, acts, scores,
+         ctxs) = ctx.saved_tensors
+        lstm = ctx.cell_type == "LSTM"
+        dhs = dhs.to(hs.dtype).contiguous()
+        T, B, H = hs.shape
+        F, E, A, G = enc.shape[1], enc.shape[2], W.shape[1], w_hh.shape[1]
+        z0 = hs.new_zeros((1, B, H))
+        h_prev = torch.cat([z0, hs[:-1]])
+        c_prev = torch.cat([z0, cs[:-1]]) if lstm else None
+        act = torch.matmul(h_prev, W)[:, :, None, :] + uv
+        act = act.add_(b).tanh_()                               # (T, B, F, A)
+        dgi = hs.new_empty((T, B, G))
+        dgh = dgi if lstm else torch.empty_like(dgi)
+        dctx = hs.new_empty((T, B, E))
+        dsc = hs.new_empty((T, B, F))
+        dwh = hs.new_empty((T, B, A))
+        dh = torch.zeros_like(hs[0])
+        dc = torch.zeros_like(hs[0]) if lstm else None
+        cell = rollout.cell_backward_steps(ctx.cell_type, dh, dhs, dc, acts,
+                                           h_prev, c_prev, cs if lstm else
+                                           None, dgi, None if lstm else dgh)
+        attend = rollout.attention_backward_steps(dctx, enc, act, w, W, dh,
+                                                  dsc, dwh)
+        w_hh_t, w_enc_t = w_hh.t(), w_enc.t()
+        dgi_t, dgh_t, dctx_t = dgi.unbind(0), dgh.unbind(0), dctx.unbind(0)
+        for t in reversed(range(T)):
+            cell(t)                             # GRU: dh = dh z
+            if lstm:
+                torch.mm(dgi_t[t], w_hh_t, out=dh)
+            else:
+                dh.addmm_(dgh_t[t], w_hh_t)
+            torch.mm(dgi_t[t], w_enc_t, out=dctx_t[t])
+            attend(t)                           # dh += dwh W^T
+        dpre = act.square().neg_().add_(1).mul_(dsc[..., None]).mul_(
+            w.reshape(-1))                                      # (T, B, F, A)
+        d_uv = dpre.sum(0)
+        rows = T * B
+        hp = h_prev.reshape(rows, H).t()
+        grads = (
+            hp @ dwh.reshape(rows, A),                                 # W
+            None,                                                      # U
+            d_uv.sum((0, 1)),                                          # b
+            torch.einsum("tbfa,tbf->a", act, dsc)[:, None],            # w
+            ctxs.reshape(rows, E).t() @ dgi.reshape(rows, G),          # w_enc
+            hp @ dgh.reshape(rows, G),                                 # w_hh
+            dgh.sum((0, 1)),                                           # b_hh
+            torch.einsum("tbf,tbe->bfe", scores, dctx) / F,            # enc
+            d_uv,                                                      # uv
+            dgi)                                                       # gi_emb
+        return (None,) + tuple(None if g is None else g.to(d)
+                               for g, d in zip(grads, ctx.dtypes))
+
+
+def tf_attn_rollout(cell_type: str, att: Dict, w_enc: torch.Tensor,
+                    w_hh: torch.Tensor, b_hh: torch.Tensor, enc: torch.Tensor,
+                    uv: torch.Tensor, gi_emb: torch.Tensor) -> torch.Tensor:
+    """The teacher-forced decoder recurrence at one layer (the JAX
+    package's ``_tf_attn_rollout``), from h = c = 0: per step the
+    attention over ``enc`` (B, F, E) with ``uv`` (B, F, A), ``gi =
+    gi_emb[t] + ctx @ w_enc`` and the cell. gi_emb (T, B, G) = emb @
+    w_ih[:E] + b_ih; w_enc = w_ih[E:]. Returns the hidden states (T, B,
+    H). Runs ``_TfAttnRollout``: its kernels on the card."""
+    return _TfAttnRollout.apply(cell_type, att["W"], att["U"], att["b"],
+                                att["w"], w_enc, w_hh, b_hh, enc, uv, gi_emb)
 
 
 def hoisted_decode_tables(params: Dict, cfg: DecoderConfig,

@@ -844,7 +844,7 @@ def test_k3_split_boundaries_inside_equal_logits(cuda, dtype, k):
 
 
 # --------------------------------------------------------------------------
-# training on the card (no kernel of its own: plain autograd and Adam)
+# training on the card (the rollouts' kernels below; autograd and Adam)
 # --------------------------------------------------------------------------
 
 def _train_config(recon, **kw):
@@ -1022,3 +1022,263 @@ def test_mesh_captioner_on_two_entries_of_the_card(cuda, dtype):
                     topk_proj.outproj_topk.n_launches - k3)
         assert launched[0 if beam is None else 1] > 0
         assert got == plain.caption(feats, beam_width=beam)
+
+
+# --------------------------------------------------------------------------
+# the training rollouts' kernels (csrc/rollout.cu) and Functions
+# --------------------------------------------------------------------------
+
+# the flagship's shapes: B = 100 rows; the decoder's GRU 512 with attention
+# 128 over 28 x 1536 features, the reconstructor's LSTM 1536
+FB, FF, FE, FA = 100, 28, 1536, 128
+# f32: the kernels and their plain versions compute the same f32 formulas,
+# the attention's sums (over H = 512, A = 128, E = 1536) in another order,
+# whose noise scales with the summed terms: rtol 1e-5 and an atol of 1e-5
+# of the output's largest value (measured on the H100: 1.2e-5 at most, on
+# scores of magnitude 1-5). bf16: both compute in f32 from the same bf16
+# operands and round once, so a value may land one bf16 ulp apart (rtol
+# 2^-7 = 2 ulps), and a sum over values stored and read again (ctx from
+# the scores, dh from dwh) by 2 ulps of the output's largest value
+def _roll_close(got, want, dtype):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * np.abs(want).max())
+
+
+def _roll_tensors(device, dtype, seed, *shapes, scale=0.5):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randn(s, generator=g) * scale).to(device, dtype)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell,h", [("GRU", 512), ("LSTM", 1536),
+                                    ("LSTM", 512), ("GRU", 1536)])
+def test_rollout_cell_kernels_match_their_plain_versions(cuda, dtype, cell,
+                                                         h):
+    from recnet_tpu_torch.ops.cuda import rollout
+    n = 4 if cell == "LSTM" else 3
+    lstm = cell == "LSTM"
+    gx, gh, bias, hp, cp, dh, dh_out, dc = _roll_tensors(
+        cuda, dtype, 1, (FB, n * h), (FB, n * h), (n * h,), (FB, h),
+        (FB, h), (FB, h), (FB, h), (FB, h), scale=1.5)
+    gh = None if lstm else gh
+    fwd = (cell, gx, gh, bias, hp, cp if lstm else None)
+    got = rollout.cell_forward(*fwd)
+    want = rollout.cell_forward_reference(*fwd)
+    for g, w in zip(got, want):
+        if w is not None:
+            _roll_close(g, w, dtype)
+    acts, c_t = want[2], want[1]
+    bwd = (cell, dh, dh_out, dc if lstm else None, acts, hp,
+           cp if lstm else None, c_t if lstm else None)
+    got = rollout.cell_backward(*bwd)
+    want = rollout.cell_backward_reference(*bwd)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if w is not None:
+            _roll_close(g, w, dtype)
+
+
+# the flagship's widths, then widths that do not divide by the attention
+# kernels' 8 blocks a row, below 8 (H = 5: some blocks hold no unit of h)
+# and above a block's 256 threads (A = 300)
+@pytest.mark.parametrize("dtype,b,h,a,f,e", [
+    (torch.float32, FB, 512, FA, FF, FE), (torch.bfloat16, FB, 512, FA, FF,
+                                           FE),
+    (torch.float32, 3, 5, 40, 5, 77), (torch.float32, 2, 100, 300, 9, 19)])
+def test_rollout_attention_kernels_match_their_plain_versions(cuda, dtype, b,
+                                                              h, a, f, e):
+    from recnet_tpu_torch.ops.cuda import rollout
+    hh, W, uv, bb, w, enc, dctx, act, dh = _roll_tensors(
+        cuda, dtype, 2, (b, h), (h, a), (b, f, a), (a,), (a, 1), (b, f, e),
+        (b, e), (b, f, a), (b, h))
+    act = torch.tanh(act * 2)
+    got = rollout.attention_forward(hh, W, uv, bb, w, enc)
+    want = rollout.attention_forward_reference(hh, W, uv, bb, w, enc)
+    for g, x in zip(got, want):
+        _roll_close(g, x, dtype)
+    dh_k, dh_p = dh.clone(), dh.clone()
+    got = rollout.attention_backward(dctx, enc, act, w, W, dh_k)
+    want = rollout.attention_backward_reference(dctx, enc, act, w, W, dh_p)
+    torch.cuda.synchronize()
+    for g, x in zip(got + (dh_k,), want + (dh_p,)):
+        _roll_close(g, x, dtype)
+
+
+def _rollout_leaves(cell, device, seed):
+    """The decoder rollout's and the reconstructor's inputs at the small
+    widths (H = 16, A = 8, F = 24 features of 7 frames, B = 13, T = 9),
+    float32 leaves on ``device``."""
+    n = 4 if cell == "LSTM" else 3
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"W": (H, A), "U": (F, A), "b": (A,), "w": (A, 1),
+              "w_enc": (F, n * H), "w_hh": (H, n * H), "b_hh": (n * H,),
+              "enc": (B, L, F), "gi": (9, B, n * H), "h0": (B, H),
+              "c0": (B, H), "dhs": (9, B, H)}
+    return {k: (torch.randn(s, generator=g) * 0.5).to(device)
+            .requires_grad_(k != "dhs") for k, s in shapes.items()}
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_rollout_functions_on_the_card_match_the_cpu(cuda, cell):
+    """Forward and backward of the decoder's and the reconstructor's
+    Functions on the card (their kernels) against their CPU runs (the
+    plain versions), f32: rtol 1e-4 / atol 1e-5 over 9 steps of sums in
+    another order. Each wrapper launched once a step."""
+    from recnet_tpu_torch.models.decoder import tf_attn_rollout
+    from recnet_tpu_torch.ops import rnn
+    from recnet_tpu_torch.ops.cuda import rollout
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        x = _rollout_leaves(cell, dev, 7)
+        rollout.reset_counts()
+        att = {k: x[k] for k in ("W", "U", "b", "w")}
+        hs = tf_attn_rollout(cell, att, x["w_enc"], x["w_hh"], x["b_hh"],
+                             x["enc"], x["enc"] @ x["U"], x["gi"])
+        hs.backward(x["dhs"])
+        rec = (rnn.lstm_rollout_pre(x["w_hh"], x["b_hh"], x["gi"], x["h0"],
+                                    x["c0"]) if cell == "LSTM" else
+               rnn.gru_rollout_pre(x["w_hh"], x["b_hh"], x["gi"], x["h0"]))
+        rec.backward(x["dhs"])
+        runs[dev] = [hs, rec] + [x[k].grad for k in x
+                                 if k != "dhs" and x[k].grad is not None]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert [fn.n_launches for fn in rollout.KERNELS] == [18, 18, 9,
+                                                                 9]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                   want.detach().numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_rollout_bf16_autocast_on_the_card(cuda):
+    """Under bf16 autocast the Functions run their kernels in bf16 and
+    return gradients in the leaves' f32; within 5% of the f32 run's (the
+    bf16 train step's own bound against f32)."""
+    from recnet_tpu_torch.models.decoder import tf_attn_rollout
+    from recnet_tpu_torch.ops.cuda import rollout
+    runs = []
+    for autocast in (False, True):
+        x = _rollout_leaves("GRU", "cuda", 8)
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            att = {k: x[k] for k in ("W", "U", "b", "w")}
+            hs = tf_attn_rollout("GRU", att, x["w_enc"], x["w_hh"],
+                                 x["b_hh"], x["enc"], x["enc"] @ x["U"],
+                                 x["gi"])
+            assert hs.dtype == (torch.bfloat16 if autocast
+                                else torch.float32)
+            (hs.float() * x["dhs"]).sum().backward()
+        assert all(x[k].grad.dtype == torch.float32 for k in att)
+        runs.append([hs.float()] + [x[k].grad for k in ("W", "w_hh", "enc")])
+    for got, want in zip(runs[1], runs[0]):
+        np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                   want.detach().cpu().numpy(), rtol=0.05,
+                                   atol=0.05 * float(want.abs().max()))
+    assert rollout.attention_backward.n_launches > 0
+
+
+def test_rollout_wrappers_reject_and_count(cuda):
+    from recnet_tpu_torch.ops.cuda import rollout
+    gx, bias, hp, cp = _roll_tensors(cuda, torch.float32, 3, (B, 4 * H),
+                                     (4 * H,), (B, H), (B, H))
+    with pytest.raises(ValueError, match="operands on"):
+        rollout.cell_forward("LSTM", gx, None, bias.cpu(), hp, cp)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rollout.cell_forward("LSTM", gx, None, bias.double(), hp, cp)
+    with pytest.raises(ValueError, match="one dtype"):
+        rollout.cell_forward("LSTM", gx.bfloat16(), None, bias, hp, cp)
+    with pytest.raises(ValueError, match="contiguous"):
+        rollout.cell_forward("LSTM", gx.t().contiguous().t(), None, bias,
+                             hp, cp)
+    with pytest.raises(ValueError, match="gx"):
+        rollout.cell_forward("LSTM", gx[:, :-1], None, bias, hp, cp)
+    h, W, uv, b, w, enc = _roll_tensors(cuda, torch.float32, 4, (B, H),
+                                        (H, A), (B, L, A), (A,), (A, 1),
+                                        (B, L, F))
+    with pytest.raises(ValueError, match="uv"):
+        rollout.attention_forward(h, W, uv[:, :-1], b, w, enc)
+    with pytest.raises(ValueError, match="contiguous"):
+        rollout.attention_backward(enc[:, 0].contiguous(), enc,
+                                   uv.transpose(0, 1)
+                                   .contiguous().transpose(0, 1), w, W, h)
+    rollout.reset_counts()
+    rollout.cell_forward("LSTM", gx, None, bias, hp, cp)
+    rollout.cell_forward_reference("LSTM", gx, None, bias, hp, cp)
+    rollout.attention_forward(h, W, uv, b, w, enc)
+    assert rollout.cell_forward.n_launches == 1
+    assert rollout.cell_forward.cell_launches == {"LSTM": 1}
+    assert rollout.attention_forward.n_launches == 1
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_rollout_step_launchers_on_the_card_equal_the_wrappers(cuda, cell):
+    """``*_steps`` (operands checked once, arguments made once) launch the
+    same kernels as the wrappers: bit-equal outputs, one count a step."""
+    from recnet_tpu_torch.ops.cuda import rollout
+    n, lstm, T = (4 if cell == "LSTM" else 3), cell == "LSTM", 5
+    gx, gh, bias, h0, c0, dhs = _roll_tensors(
+        cuda, torch.float32, 6, (T, B, n * H), (B, n * H), (n * H,), (B, H),
+        (B, H), (T, B, H))
+    hs, cs = torch.empty_like(dhs), torch.empty_like(dhs)
+    acts = dhs.new_empty((T, B, 4 * H))
+    rollout.reset_counts()
+    launch = rollout.cell_forward_steps(
+        cell, gx, None if lstm else gh, bias, h0, c0 if lstm else None, hs,
+        cs if lstm else None, acts)
+    for t in range(T):
+        launch(t)
+    assert rollout.cell_forward.cell_launches == {cell: T}
+    h, c = h0, c0
+    for t in range(T):
+        h, c, a = rollout.cell_forward(cell, gx[t], None if lstm else gh,
+                                       bias, h, c if lstm else None)
+        assert torch.equal(hs[t], h) and torch.equal(acts[t], a)
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    dgi, dgh = gx.new_empty(gx.shape), gx.new_empty(gx.shape)
+    dh, dc = torch.zeros_like(h0), torch.zeros_like(c0)
+    launch = rollout.cell_backward_steps(cell, dh, dhs, dc, acts, h_prev,
+                                         c_prev, cs, dgi, dgh)
+    want_dh, want_dc = torch.zeros_like(h0), torch.zeros_like(c0)
+    for t in reversed(range(T)):
+        launch(t)
+        wgi, _, wdh, wdc = rollout.cell_backward(
+            cell, want_dh, dhs[t], want_dc if lstm else None, acts[t],
+            h_prev[t], c_prev[t] if lstm else None, cs[t] if lstm else None)
+        assert torch.equal(dgi[t], wgi)
+        assert torch.equal(dc, wdc) if lstm else torch.equal(dh, wdh)
+        want_dc = wdc
+        dh.copy_(dgi[t][:, :H]) if lstm else dh.add_(dgi[t][:, :H])
+        want_dh = dh.clone()
+    assert rollout.cell_backward.cell_launches == {cell: 2 * T}
+    W, uv, b, w, enc, dctx, act = _roll_tensors(
+        cuda, torch.float32, 7, (H, A), (B, L, A), (A,), (A, 1), (B, L, F),
+        (T, B, F), (T, B, L, A))
+    scores, ctxs = dhs.new_empty((T, B, L)), dhs.new_empty((T, B, F))
+    launch = rollout.attention_forward_steps(h0, hs, W, uv, b, w, enc,
+                                             scores, ctxs)
+    for t in range(T):
+        launch(t)
+        s, x = rollout.attention_forward(h0 if t == 0 else hs[t - 1], W, uv,
+                                         b, w, enc)
+        assert torch.equal(scores[t], s) and torch.equal(ctxs[t], x)
+    dh, want_dh = torch.zeros_like(h0), torch.zeros_like(h0)
+    dsc, dwh = dhs.new_empty((T, B, L)), dhs.new_empty((T, B, A))
+    launch = rollout.attention_backward_steps(dctx, enc, act, w, W, dh, dsc,
+                                              dwh)
+    for t in reversed(range(T)):
+        launch(t)
+        s, x = rollout.attention_backward(dctx[t], enc, act[t], w, W,
+                                          want_dh)
+        assert torch.equal(dsc[t], s) and torch.equal(dwh[t], x)
+        assert torch.equal(dh, want_dh)
+    torch.cuda.synchronize()
+    assert [fn.n_launches for fn in rollout.KERNELS] == [2 * T, 2 * T, 2 * T,
+                                                         2 * T]
+    with pytest.raises(ValueError, match="contiguous"):
+        rollout.attention_backward_steps(dctx.transpose(1, 2).contiguous()
+                                         .transpose(1, 2), enc, act, w, W,
+                                         dh, dsc, dwh)

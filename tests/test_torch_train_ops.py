@@ -27,7 +27,9 @@ from torch_train_fixtures import (NO_DROPOUT, VOCAB, batch, both_states,
 torch.backends.cuda.matmul.allow_tf32 = False
 # the largest |port - jax| / max|jax| over every gradient leaf of the 12
 # cases below (GRU/LSTM, generic and fast rollouts, no recon / global /
-# local) measured 6.2e-7 on a CPU; the bound leaves 8x room for other
+# local) measured 6.2e-7 on a CPU through autograd over plain loops, and
+# 5.3e-7 with the fast rollout and the one-layer global reconstructor on
+# their custom-backward Functions; the bound leaves 8x room for other
 # summation orders
 GRAD_REL_BOUND = 5e-6
 
@@ -153,8 +155,10 @@ def _grad_case(cell, recon, fast):
 @pytest.mark.parametrize("recon", [None, "global", "local"])
 @pytest.mark.parametrize("fast", [False, True], ids=["generic", "fast"])
 def test_forward_gradients_match_jax_grad(cell, recon, fast):
-    """Autograd over the port's plain loops against jax.grad of the JAX
-    ``_forward`` (its fast rollout's custom VJP when ``fast``)."""
+    """The port's gradients against jax.grad of the JAX ``_forward``: its
+    custom-backward Functions where the JAX package takes its custom VJPs
+    (the fast rollout; the one-layer global reconstructor), autograd over
+    plain loops elsewhere."""
     got, want, pairs = _grad_case(cell, recon, fast)
     np.testing.assert_allclose(got, want, rtol=1e-6)
     assert len(pairs) == (21 if recon == "local" else 17 if recon else 11)
