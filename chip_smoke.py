@@ -65,8 +65,10 @@ Phases, one line or more each; any failure exits non-zero before a result:
    (a)'s card steps; (d) the rollouts' four kernels (cell forward and
    backward for the decoder's GRU and the reconstructor's LSTM, the
    attention forward and backward) at the flagship's shapes, f32 and
-   bf16, each against its plain version, timed beside it, beside ATen's
-   fused cell where one call computes the same and beside the bound;
+   bf16, each against its plain version at ROLL_SEEDS seeds, timed beside
+   it, beside ATen's fused cell where one call computes the same and
+   beside the bound; the attention kernels' split (each split probe
+   against its plain part, and its device time beside the kernel's);
    then the two rollouts' forward + backward, the Functions against the
    plain autograd loops in turns, and their kernels' launches a step;
 8. data: the data and checkpoint side. (a) A flagship-width reference
@@ -173,6 +175,7 @@ HBM_BYTES_PER_S = 3.35e12
 # atol
 PEAK_F32_FLOPS = 67e12
 ROLL_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+ROLL_SEEDS = 5         # (d) holds each rollout kernel at this many seeds
 L2_PROBE_BYTES = 12 * 2 ** 20  # --read-rates: about one block-step of K1's
                                # weights
 # [train]: the in-memory corpus (videos of the train, val and test splits,
@@ -2092,18 +2095,17 @@ def rollout_launches(cells):
     return out
 
 
-def rollout_cases(torch, tc, dtype):
+def rollout_cases(torch, tc, dtype, seed=0):
     """The rollouts' kernels at the flagship's shapes (the batch; the
     decoder's cell and attention over the encoder's frames, the
-    reconstructor's cell), on seeded inputs in ``dtype``: {entry name:
+    reconstructor's cell), on inputs in ``dtype`` from ``seed``: {entry name:
     (kernel call, plain call, library call or None, (flops, bytes), one
     step of the kernel's ``*_steps`` launcher)}. Each call but the last
-    returns its outputs; attention_backward's work on a copy of dh (its
-    in-place output)."""
+    returns its outputs."""
     from recnet_tpu_torch.ops.cuda import rollout as ro
     B, F, E = tc.batch_size, tc.encoder_output_len, tc.encoder_output_size
     Hd, A = tc.decoder_hidden_size, tc.decoder_attn_size
-    g = torch.Generator(device=DEVICE).manual_seed(SEED + 60)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 60 + 100 * seed)
     size = torch.finfo(dtype).bits // 8
 
     def rand(*shape, scale=0.5):
@@ -2145,7 +2147,7 @@ def rollout_cases(torch, tc, dtype):
         hs, acts1 = rand(1, B, H), rand(1, B, 4 * H)
         cs = rand(1, B, H) if lstm else None
         fwd_step = ro.cell_forward_steps(
-            cell, gx[None], None if lstm else gh, bias, h,
+            cell, gx[None], one(None if lstm else gh), bias, h,
             c if lstm else None, hs, cs, acts1)
         dgi, dgh = rand(1, B, G), rand(1, B, G)
         dh_s, dc_s = dh.clone(), dc.clone()
@@ -2165,61 +2167,134 @@ def rollout_cases(torch, tc, dtype):
     for cell, H in ((tc.decoder_model, Hd),
                     (tc.reconstructor_model, tc.reconstructor_hidden_size)):
         cell_cases(cell, H)
-    h, W, uv, b, w, enc = (rand(B, Hd), rand(Hd, A), rand(B, F, A), rand(A),
-                           rand(A, 1), rand(B, F, E))
-    dctx, dh = rand(B, E), rand(B, Hd)
+    # the attention's operands as the decoder rollout lays them out: wh
+    # and dwh beside the gate products' G columns (the GRU's h [w_hh | W])
+    Gd = (4 if tc.decoder_model == "LSTM" else 3) * Hd
+    gw, uv, b, w, enc = (rand(B, Gd + A), rand(B, F, A), rand(A),
+                         rand(A, 1), rand(B, F, E))
+    wh, dctx, dgw = gw[:, Gd:], rand(B, E), rand(B, Gd + A)
     act = torch.tanh(rand(B, F, A, scale=1.0))
-    fwd_step = ro.attention_forward_steps(h, rand(1, B, Hd), W, uv, b, w,
-                                          enc, rand(1, B, F), rand(1, B, E))
-    bwd_step = ro.attention_backward_steps(dctx[None], enc, act[None], w, W,
-                                           dh.clone(), rand(1, B, F),
-                                           rand(1, B, A))
+    fwd_step = ro.attention_forward_steps(wh[None], uv, b, w, enc,
+                                          rand(1, B, F), rand(1, B, E))
+    bwd_step = ro.attention_backward_steps(dctx[None], enc, act[None], w,
+                                           rand(1, B, F), dgw[None, :, Gd:])
+    # bytes: what each kernel reads and writes (W's reads now in the
+    # products that carry wh and dwh W^T)
     cases["rollout_attention_forward"] = (
-        lambda: ro.attention_forward(h, W, uv, b, w, enc),
-        lambda: ro.attention_forward_reference(h, W, uv, b, w, enc), None,
-        (2 * B * Hd * A + 6 * B * F * A + 2 * B * F * E,
-         size * (B * Hd + Hd * A + B * F * A + 2 * A + B * F * E + B * F
-                 + B * E)), lambda: fwd_step(0))
+        lambda: ro.attention_forward(wh, uv, b, w, enc),
+        lambda: ro.attention_forward_reference(wh, uv, b, w, enc), None,
+        (6 * B * F * A + 2 * B * F * E,
+         size * (B * A + B * F * A + 2 * A + B * F * E + B * F + B * E)),
+        lambda: fwd_step(0))
     cases["rollout_attention_backward"] = (
-        lambda: ro.attention_backward(dctx, enc, act, w, W, dh.clone()),
-        lambda: ro.attention_backward_reference(dctx, enc, act, w, W,
-                                                dh.clone()), None,
-        (2 * B * F * E + 4 * B * F * A + 2 * B * Hd * A,
-         size * (B * E + B * F * E + B * F * A + A + Hd * A + 2 * B * Hd
-                 + B * F + B * A)), lambda: bwd_step(0))
+        lambda: ro.attention_backward(dctx, enc, act, w,
+                                      out=(None, dgw[:, Gd:])),
+        lambda: ro.attention_backward_reference(dctx, enc, act, w), None,
+        (2 * B * F * E + 4 * B * F * A,
+         size * (B * E + B * F * E + B * F * A + A + B * F + B * A)),
+        lambda: bwd_step(0))
     return cases
+
+
+def rollout_split(torch, tc):
+    """(d) The attention kernels' split at the flagship's shapes, f32 and
+    bf16: the device time (torch.profiler) of the kernel and of each of
+    its split probes (``rollout.attention_probe``, each without one part
+    of the kernel's work) on the same seeded inputs, each probe held
+    against its plain part (ROLL_TOL); a part's cost is the kernel's time
+    less its probe's. Returns {kernel: {prec: {"full" or probe: device
+    ms}}}."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    B, F, E = tc.batch_size, tc.encoder_output_len, tc.encoder_output_size
+    A = tc.decoder_attn_size
+    card = card_line()
+    out = {"forward": {}, "backward": {}}
+    for prec in ("float32", "bfloat16"):
+        dtype = getattr(torch, prec)
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 61)
+        rand = lambda *shape: (torch.randn(shape, generator=g, device=DEVICE)
+                               * 0.5).to(dtype)
+        wh, uv, b, w, enc, dctx = (rand(B, A), rand(B, F, A), rand(A),
+                                   rand(A, 1), rand(B, F, E), rand(B, E))
+        act = torch.tanh(rand(B, F, A) * 2)
+        runs = {"forward": (ro.attention_forward, (wh, uv, b, w, enc),
+                            ro.FORWARD_PROBES),
+                "backward": (ro.attention_backward, (dctx, enc, act, w),
+                             ro.BACKWARD_PROBES)}
+        for kind, (kernel, operands, probes) in runs.items():
+            ms = {"full": device_ms(torch, lambda: kernel(*operands),
+                                    reps=50)[""]}
+            for probe in probes:
+                got = ro.attention_probe(kind, probe, *operands)
+                want = ro.attention_probe_reference(kind, probe, *operands)
+                torch.cuda.synchronize()
+                tol = ROLL_TOL[prec]
+                for x, y in zip(got, want):
+                    x, y = x.float(), y.float()
+                    check(bool(((x - y).abs() <= tol * y.abs()
+                                + tol * y.abs().max()).all()),
+                          f"probe {kind} {probe} {prec}: against its plain "
+                          f"part {float((x - y).abs().max()):.3g}")
+                ms[probe] = device_ms(torch, lambda: ro.attention_probe(
+                    kind, probe, *operands), reps=50)[""]
+            out[kind][prec] = ms
+            log("train", f"(d) attention {kind} split, {prec}: the kernel "
+                         f"{ms['full'] * 1e3:.2f} us of device time; "
+                         + ", ".join(f"without {p} {ms[p] * 1e3:.2f} us "
+                                     f"(the part "
+                                     f"{(ms['full'] - ms[p]) * 1e3:.2f})"
+                                     for p in probes) + f" on {card}")
+    return out
+
+
+def rollout_error(torch, name, prec, kernel, plain):
+    """The largest |kernel - plain| over a rollout case's outputs; fails
+    above ROLL_TOL (rtol, and atol of each output's largest |value|)."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for x, y in zip(got, want):
+        if y is None:
+            continue
+        x, y = x.float(), y.float()
+        d = (x - y).abs()
+        tol = ROLL_TOL[prec]
+        check(bool((d <= tol * y.abs() + tol * y.abs().max()).all()),
+              f"{name} {prec}: kernel and plain version differ by "
+              f"{float(d.max()):.3g}")
+        err = max(err, float(d.max()))
+    return err
 
 
 def rollout_kernels(torch, tc):
     """(d) Each of the rollouts' kernels at the flagship's shapes, f32 and
-    bf16: against its plain version on the same inputs (ROLL_TOL), then a
-    step of its ``*_steps`` launcher (the rollouts' route) timed by CUDA
-    events, by the profiler's device time and by the host's time to launch
-    it, beside a wrapper call, the plain version, the one PyTorch call of
-    the same function where there is one (ATen's fused LSTM / GRU cell and
-    their backward) and the bound (bytes at the HBM rate or operations at
-    the f32 peak). Returns
-    {entry name: kernels-line fields}, the times in the preset's train
-    precision, bf16's beside them."""
+    bf16: against its plain version on the same inputs (ROLL_TOL) from
+    ROLL_SEEDS seeds, then a step of its ``*_steps`` launcher (the
+    rollouts' route) timed by CUDA events, by the profiler's device time
+    and by the host's time to launch it, beside a wrapper call, the plain
+    version, the one PyTorch call of the same function where there is one
+    (ATen's fused LSTM / GRU cell and their backward) and the bound (bytes
+    at the HBM rate or operations at the f32 peak). Returns {entry name:
+    kernels-line fields} (``max_abs_err`` over the seeds), the times in
+    the preset's train precision, bf16's beside them."""
     card = card_line()
     entries = {}
     for prec in ("float32", "bfloat16"):
+        margins = collections.defaultdict(list)
+        for seed in range(1, ROLL_SEEDS):
+            for name, case in rollout_cases(torch, tc, getattr(torch, prec),
+                                            seed).items():
+                margins[name].append(rollout_error(torch, name, prec,
+                                                   *case[:2]))
         cases = rollout_cases(torch, tc, getattr(torch, prec))
         for name, (kernel, plain, library, (flops, nbytes),
                    step) in cases.items():
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            err = 0.0
-            for x, y in zip(got, want):
-                if y is None:
-                    continue
-                x, y = x.float(), y.float()
-                d = (x - y).abs()
-                tol = ROLL_TOL[prec]
-                check(bool((d <= tol * y.abs() + tol * y.abs().max()).all()),
-                      f"{name} {prec}: kernel and plain version differ by "
-                      f"{float(d.max()):.3g}")
-                err = max(err, float(d.max()))
+            err = rollout_error(torch, name, prec, kernel, plain)
+            log("train", f"(d) {name} {prec}: max |kernel - plain| at "
+                         f"seeds 0-{ROLL_SEEDS - 1}: "
+                         + ", ".join(f"{e:.3g}" for e in
+                                     [err] + margins[name]))
+            err = max([err] + margins[name])
             ms, wrapper_ms, plain_ms = (timed(torch, fn, 100)[0]
                                         for fn in (step, kernel, plain))
             lib_ms = timed(torch, library, 100)[0] if library else None
@@ -2371,6 +2446,7 @@ def train_phase(torch, tc, vocab):
                  + "; ".join(f"{k} {v[0]:g} a step, {v[1]} a call ({v[2]})"
                              for k, v in split.items()))
     entries = rollout_kernels(torch, ttc)
+    rollout_split(torch, ttc)
     rollout_times(torch, ttc)
     for name, entry in entries.items():
         entry["launches"] = launches[name]

@@ -12,3 +12,5 @@ the same arrays.
 """
 
 __version__ = "0.1.0"
+
+from recnet_tpu_torch.config import EvalConfig, SplitConfig, TrainConfig

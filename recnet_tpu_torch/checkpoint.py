@@ -59,6 +59,10 @@ _ATTENTION_KEYS = ("U", "W", "b", "w")          # sorted
 _LAYER_KEYS = ("b_hh", "b_ih", "w_hh", "w_ih")  # sorted
 
 
+# why an orbax checkpoint, or the orbax backend, is refused
+NPZ_ONLY = "the port reads npz checkpoints only (save with backend='npz')"
+
+
 def load_config_and_vocab(step_dir: str):
     """(TrainConfig, Vocab) from the step directory's JSON sidecars."""
     with open(os.path.join(step_dir, "config.json")) as f:
@@ -207,8 +211,7 @@ def load_checkpoint(step_dir: str, tc, vocab_size: int, device="cuda",
     with open(os.path.join(step_dir, "meta.json")) as f:
         meta = json.load(f)
     if os.path.isdir(os.path.join(step_dir, "state_orbax")):
-        raise ValueError(f"{step_dir} is an orbax checkpoint; the port reads "
-                         "npz checkpoints only (save with backend='npz')")
+        raise ValueError(f"{step_dir} is an orbax checkpoint; {NPZ_ONLY}")
     if meta["structure"] != fingerprint(tc, vocab_size):
         raise ValueError(
             "Checkpoint tree structure does not match the model; was it "
@@ -268,8 +271,7 @@ def load_decoder_params(step_dir: str, tc, vocab_size: int) -> Dict:
     layout. Raises on an orbax checkpoint and on any shape that disagrees
     with the config."""
     if os.path.isdir(os.path.join(step_dir, "state_orbax")):
-        raise ValueError(f"{step_dir} is an orbax checkpoint; the port reads "
-                         "npz checkpoints only (save with backend='npz')")
+        raise ValueError(f"{step_dir} is an orbax checkpoint; {NPZ_ONLY}")
     shapes = expected_shapes(config_from_train(tc, vocab_size))
     with np.load(os.path.join(step_dir, "state.npz")) as data:
         leaves = iter(data[f"leaf_{i}"]

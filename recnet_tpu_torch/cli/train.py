@@ -3,8 +3,11 @@
 
 The flags of ``recnet_tpu.cli.train`` (reference train.py:200-204, plus
 config files, resume, the mesh and multi-process flags and the dispatch
-and cache knobs) less the orbax ones, and ``--device``: the card by
-default, the CPU only when asked; without a card ``--device cuda`` raises.
+and cache knobs), and ``--device``: the card by default, the CPU only
+when asked; without a card ``--device cuda`` raises. Checkpoints are npz:
+``--ckpt_backend npz`` is taken, ``orbax`` is refused with the checkpoint
+reader's reason, and ``--async_ckpt`` as the JAX CLI refuses it without
+orbax.
 
 Several processes, one a card, train one model over a mesh:
 
@@ -67,9 +70,21 @@ def main(argv=None):
                    choices=["gloo"],
                    help="collectives through gloo on the card too (NCCL by "
                         "default there; gloo always on the CPU)")
+    a.add_argument("--ckpt_backend", choices=["npz", "orbax"], default="npz",
+                   help="checkpoint format: npz (orbax is the JAX "
+                        "package's; refused here)")
+    a.add_argument("--async_ckpt", action="store_true",
+                   help="non-blocking checkpoint saves (orbax backend; "
+                        "refused here)")
     a.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default) or cpu")
     args = a.parse_args(argv)
+    if args.ckpt_backend == "orbax":
+        from recnet_tpu_torch.checkpoint import NPZ_ONLY
+        a.error(f"--ckpt_backend orbax: {NPZ_ONLY}")
+    if args.async_ckpt:
+        a.error("--async_ckpt requires --ckpt_backend orbax "
+                "(npz saves are synchronous)")
 
     # before anything touches a device; a no-op unless the flags or
     # torchrun's environment ask for a process group

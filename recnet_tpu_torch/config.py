@@ -1,12 +1,14 @@
 """The run configuration: copies of ``recnet_tpu/config.py``'s
-``SplitConfig`` and ``TrainConfig``, so that the port reads a checkpoint's
-``config.json`` and splits a corpus without importing the JAX package.
+``SplitConfig``, ``TrainConfig`` and ``EvalConfig``, so that the port
+reads a checkpoint's ``config.json`` and splits a corpus without importing
+the JAX package.
 
 ``TrainConfig`` is copied whole, every field, default, derived id and the
 ``validate`` checks, so ``from_json`` takes every key a JAX checkpoint
 holds and ``replace`` works as there. ``SplitConfig`` holds the paths and
-sizes of ``cli/split.py``. The eval pointer (``EvalConfig``) is not
-copied: the port's eval CLI takes its flags directly.
+sizes of ``cli/split.py``; ``EvalConfig`` the pointer to a checkpoint to
+evaluate, with its test split's paths (the port's eval CLI takes its
+flags directly).
 """
 
 from __future__ import annotations
@@ -399,3 +401,31 @@ class TrainConfig:
                 "effect because device_feature_cache is off; enable the "
                 "cache or drop the knob", stacklevel=2)
         return self
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Checkpoint-to-evaluate pointer (reference: config.py:160-173)."""
+
+    corpus: str = "MSVD"
+    encoder_model: str = "InceptionV4"
+    data_root: str = "data"
+    ckpt_dpath: str = ""              # a checkpoint step directory
+    beam_width: int = 5
+
+    @property
+    def test_video_fpath(self) -> str:
+        return (f"{self.data_root}/{self.corpus}/features/"
+                f"{self.encoder_model}_test.hdf5")
+
+    @property
+    def test_caption_fpath(self) -> str:
+        return f"{self.data_root}/{self.corpus}/metadata/test.csv"
+
+    def to_json(self) -> str:
+        return json.dumps(_asdict(self), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EvalConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})

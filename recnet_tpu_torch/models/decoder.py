@@ -291,19 +291,26 @@ class _TfAttnRollout(torch.autograd.Function):
     attention + cell, forward and backward (``_tf_rollout_fwd`` /
     ``_tf_rollout_bwd`` of ``recnet_tpu/models/decoder.py``).
 
-    Forward, a step: the attention kernel (scores and ctx into the
-    rollout's buffers), ``gi += ctx w_enc`` (and for LSTM ``+= h w_hh``)
-    in place on a copy of gi_emb, GRU's ``h w_hh``, the cell kernel. It
-    keeps hs, cs (LSTM), the activations, the scores and the contexts.
-    Backward: ``ACT = tanh(h_prev W + uv + b)`` once for all T (the loop's
-    attention kernel reads it, and so do the contractions for d_uv, db and
-    dw after the loop, as in the JAX backward's U2); a step is the cell's
-    backward kernel, ``dh_prev = dh_cell + dgh w_hh^T``, ``dctx = dgi
-    w_enc^T`` and the attention's backward kernel, which adds ``dwh W^T``
-    to dh_prev. The weight gradients, d_uv and ``d(enc) = sum_t scores
-    (x) dctx / F`` (the saved scores) are stacked contractions after the
-    loop. U's gradient is None: it reaches U through ``precompute_uv``'s
-    autograd from d_uv (the JAX backward returns zeros for it)."""
+    The attention's W shares its products with w_hh: one (H, G + A)
+    weight ``[w_hh | W]``, so that ``h [w_hh | W]`` gives a step's gh and
+    wh = h W in one product, and ``[dgh | dwh] [w_hh | W]^T`` gives
+    dh_prev's two terms in one. Forward, a step: that product (GRU into
+    the step's (B, G + A) row of a buffer; LSTM added in place to a copy
+    of gi_emb laid out with A zero columns, which take wh), the attention
+    kernel from wh (scores and ctx into the rollout's buffers), ``gi +=
+    ctx w_enc`` in place, the cell kernel. It keeps hs, cs (LSTM), the
+    activations, every step's wh, the scores and the contexts. Backward:
+    ``ACT = tanh(wh + uv + b)`` once for all T (the loop's attention kernel
+    reads it, and so do the contractions for d_uv, db and dw after the
+    loop, as in the JAX backward's U2); a step is the cell's backward
+    kernel (dgh into a (T, B, G + A) buffer beside dwh), ``dctx = dgi
+    w_enc^T``, the attention's backward kernel (dwh beside dgh), and
+    ``dh_prev = dh_cell + [dgh | dwh] [w_hh | W]^T``. The weight gradients,
+    d_uv and ``d(enc) = sum_t scores (x) dctx / F`` (the saved scores) are
+    stacked contractions after the loop (d(enc) only when enc needs a
+    gradient: the train step's videos do not). U's gradient is None: it
+    reaches U through ``precompute_uv``'s autograd from d_uv (the JAX
+    backward returns zeros for it)."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
@@ -313,74 +320,81 @@ class _TfAttnRollout(torch.autograd.Function):
         ctx.dtypes = [x.dtype for x in (W, U, b, w, w_enc, w_hh, b_hh, enc,
                                         uv, gi_emb)]
         dt = rnn_ops.compute_dtype(gi_emb)
-        W, b, w, w_enc, w_hh, b_hh, enc, uv = rnn_ops.cast_operands(
-            dt, W, b, w, w_enc, w_hh, b_hh, enc, uv)
-        gi = gi_emb.to(dt, copy=True).contiguous()      # gains ctx w_enc
+        b, w, w_enc, b_hh, enc, uv = rnn_ops.cast_operands(
+            dt, b, w, w_enc, b_hh, enc, uv)
+        w_cat = torch.cat([w_hh, W], 1).to(dt)          # (H, G + A)
         lstm = cell_type == "LSTM"
-        T, B, G = gi.shape
-        H, F, E = w_hh.shape[0], enc.shape[1], enc.shape[2]
+        T, B, G = gi_emb.shape
+        H, F, E, A = w_hh.shape[0], enc.shape[1], enc.shape[2], W.shape[1]
+        if lstm:       # gains h [w_hh | W], then ctx w_enc
+            gw = torch.cat([gi_emb.to(dt),
+                            gi_emb.new_zeros((T, B, A), dtype=dt)], -1)
+            gi = gw[..., :G]
+        else:          # gi gains ctx w_enc; gw's rows are h [w_hh | W]
+            gi = gi_emb.to(dt, copy=True).contiguous()
+            gw = gi.new_empty((T, B, G + A))
         hs = gi.new_empty((T, B, H))
         cs = torch.empty_like(hs) if lstm else None
         acts = gi.new_empty((T, B, 4 * H))
         scores = gi.new_empty((T, B, F))
         ctxs = gi.new_empty((T, B, E))
-        gh = None if lstm else gi.new_empty((B, G))     # GRU's h w_hh
         h0 = gi.new_zeros((B, H))
-        attend = rollout.attention_forward_steps(h0, hs, W, uv, b, w, enc,
+        attend = rollout.attention_forward_steps(gw[..., G:], uv, b, w, enc,
                                                  scores, ctxs)
-        cell = rollout.cell_forward_steps(cell_type, gi, gh, b_hh, h0,
+        cell = rollout.cell_forward_steps(cell_type, gi, None if lstm else
+                                          gw[..., :G], b_hh, h0,
                                           h0 if lstm else None, hs, cs, acts)
         h_prev, ctx_t = (h0,) + hs.unbind(0)[:-1], ctxs.unbind(0)
-        for t, g in enumerate(gi.unbind(0)):
-            attend(t)
-            g.addmm_(ctx_t[t], w_enc)
+        for t in range(T):
             if lstm:
-                g.addmm_(h_prev[t], w_hh)
+                gw[t].addmm_(h_prev[t], w_cat)
             else:
-                torch.mm(h_prev[t], w_hh, out=gh)
+                torch.mm(h_prev[t], w_cat, out=gw[t])
+            attend(t)
+            gi[t].addmm_(ctx_t[t], w_enc)
             cell(t)
         if not lstm:
             cs = hs.new_empty((0,))
-        ctx.save_for_backward(W, b, w, w_enc, w_hh, enc, uv, hs, cs, acts,
-                              scores, ctxs)
+        ctx.save_for_backward(w_cat, b, w, w_enc, enc, uv, hs, cs, acts,
+                              gw, scores, ctxs)
         return hs
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, dhs):
-        (W, b, w, w_enc, w_hh, enc, uv, hs, cs, acts, scores,
+        (w_cat, b, w, w_enc, enc, uv, hs, cs, acts, gw, scores,
          ctxs) = ctx.saved_tensors
         lstm = ctx.cell_type == "LSTM"
         dhs = dhs.to(hs.dtype).contiguous()
         T, B, H = hs.shape
-        F, E, A, G = enc.shape[1], enc.shape[2], W.shape[1], w_hh.shape[1]
+        F, E, A = enc.shape[1], enc.shape[2], uv.shape[2]
+        G = w_cat.shape[1] - A
         z0 = hs.new_zeros((1, B, H))
         h_prev = torch.cat([z0, hs[:-1]])
         c_prev = torch.cat([z0, cs[:-1]]) if lstm else None
-        act = torch.matmul(h_prev, W)[:, :, None, :] + uv
-        act = act.add_(b).tanh_()                               # (T, B, F, A)
-        dgi = hs.new_empty((T, B, G))
-        dgh = dgi if lstm else torch.empty_like(dgi)
+        act = (gw[..., G:][:, :, None, :] + uv).add_(b).tanh_()  # (T,B,F,A)
+        dgw = hs.new_empty((T, B, G + A))       # [dgh | dwh] a step
+        dgh, dwh = dgw[..., :G], dgw[..., G:]
+        dgi = dgh if lstm else hs.new_empty((T, B, G))
         dctx = hs.new_empty((T, B, E))
         dsc = hs.new_empty((T, B, F))
-        dwh = hs.new_empty((T, B, A))
         dh = torch.zeros_like(hs[0])
         dc = torch.zeros_like(hs[0]) if lstm else None
         cell = rollout.cell_backward_steps(ctx.cell_type, dh, dhs, dc, acts,
                                            h_prev, c_prev, cs if lstm else
                                            None, dgi, None if lstm else dgh)
-        attend = rollout.attention_backward_steps(dctx, enc, act, w, W, dh,
-                                                  dsc, dwh)
-        w_hh_t, w_enc_t = w_hh.t(), w_enc.t()
-        dgi_t, dgh_t, dctx_t = dgi.unbind(0), dgh.unbind(0), dctx.unbind(0)
+        attend = rollout.attention_backward_steps(dctx, enc, act, w, dsc,
+                                                  dwh)
+        w_cat_t, w_enc_t = w_cat.t(), w_enc.t()
+        dgi_t, dgw_t, dctx_t = dgi.unbind(0), dgw.unbind(0), dctx.unbind(0)
         for t in reversed(range(T)):
             cell(t)                             # GRU: dh = dh z
-            if lstm:
-                torch.mm(dgi_t[t], w_hh_t, out=dh)
-            else:
-                dh.addmm_(dgh_t[t], w_hh_t)
             torch.mm(dgi_t[t], w_enc_t, out=dctx_t[t])
-            attend(t)                           # dh += dwh W^T
+            attend(t)
+            if lstm:
+                torch.mm(dgw_t[t], w_cat_t, out=dh)
+            else:
+                dh.addmm_(dgw_t[t], w_cat_t)
         dpre = act.square().neg_().add_(1).mul_(dsc[..., None]).mul_(
             w.reshape(-1))                                      # (T, B, F, A)
         d_uv = dpre.sum(0)
@@ -394,7 +408,8 @@ class _TfAttnRollout(torch.autograd.Function):
             ctxs.reshape(rows, E).t() @ dgi.reshape(rows, G),          # w_enc
             hp @ dgh.reshape(rows, G),                                 # w_hh
             dgh.sum((0, 1)),                                           # b_hh
-            torch.einsum("tbf,tbe->bfe", scores, dctx) / F,            # enc
+            (torch.einsum("tbf,tbe->bfe", scores, dctx) / F            # enc
+             if ctx.needs_input_grad[8] else None),
             d_uv,                                                      # uv
             dgi)                                                       # gi_emb
         return (None,) + tuple(None if g is None else g.to(d)

@@ -16,7 +16,8 @@ hidden states, RecNet's reconstruction loss. The quirks kept:
 
 T_eff, the reference's number of executed decoder steps, is a tensor
 computed from the caption mask, so shapes stay fixed. Losses reduce in
-float32.
+the dtype of the encoder outputs they are given, the outputs cast to it,
+as the JAX package's (bfloat16 in a bf16 train step).
 
 On a mesh (the step's ``parallel.mesh.Shard``) the hiddens are this rank's
 rows; the caller's step mask and T_eff are the whole batch's, each loss is
@@ -133,9 +134,10 @@ def global_recon_loss(params: Dict, cfg: ReconstructorConfig,
                       train: bool = False, shard=None) -> torch.Tensor:
     """MSE(mean_t outputs, mean_f enc) / T_eff (train.py:92-102)."""
     outputs = global_reconstruct(params, cfg, decoder_hiddens, step_mask,
-                                 t_eff, generator, train, shard).float()
+                                 t_eff, generator, train, shard
+                                 ).to(encoder_outputs.dtype)
     out_mean = (outputs * step_mask[:, None, None]).sum(0) / t_eff
-    enc_mean = encoder_outputs.float().mean(dim=1)
+    enc_mean = encoder_outputs.mean(dim=1)
     return _batch_mean((out_mean - enc_mean).square(), shard) / t_eff
 
 
@@ -175,9 +177,10 @@ def local_recon_loss(params: Dict, cfg: ReconstructorConfig,
                      train: bool = False, shard=None) -> torch.Tensor:
     """MSE(outputs^T, enc), not divided by the steps (train.py:127-130)."""
     outputs = local_reconstruct(params, cfg, decoder_hiddens, step_mask,
-                                t_eff, generator, train, shard).float()
+                                t_eff, generator, train, shard
+                                ).to(encoder_outputs.dtype)
     return _batch_mean(
-        (outputs.transpose(0, 1) - encoder_outputs.float()).square(), shard)
+        (outputs.transpose(0, 1) - encoder_outputs).square(), shard)
 
 
 def recon_loss(params: Dict, cfg: ReconstructorConfig,

@@ -19,31 +19,39 @@ products stay with the callers (``torch.mm`` / ``addmm_``).
   Returns (dgi, dgh, dh_cell, dc_prev): LSTM dgi is dgh, dh_cell is None
   (its dh_prev is dgh w_hh^T alone) and dc_prev = dc f; GRU dh_cell =
   dh z and dc_prev echoes dc.
-* ``attention_forward``: the decoder step's attention, ``wh = h W``,
-  ``scores = w . tanh(wh + uv + b)`` (B, F), ``ctx = sum_f scores_f enc_f
-  / F`` (B, E) over the scores as stored.
-* ``attention_backward``: ``dscores = dctx . enc / F``, ``dwh = w * sum_f
-  dscores_f (1 - act_f^2)`` from ``act = tanh(h_prev W + uv + b)``, and
-  ``dh += dwh W^T`` in place. Returns (dscores, dwh).
+* ``attention_forward``: the decoder step's attention from ``wh = h W``
+  (the caller's product): ``scores = w . tanh(wh + uv + b)`` (B, F),
+  ``ctx = sum_f scores_f enc_f / F`` (B, E) over the scores as stored.
+* ``attention_backward``: ``dscores = dctx . enc / F`` and ``dwh = w *
+  sum_f dscores_f (1 - act_f^2)`` from ``act = tanh(wh + uv + b)``.
+  Returns (dscores, dwh); ``dh += dwh W^T`` is the caller's product.
 
 Each computes in float32 (float64 for float64 operands, on the CPU) and
 stores in the operands' dtype. A value stored and read again within a call
-(scores, dscores, dwh, GRU's h_n) is read as stored. ``out`` takes the
-output tensors to write (views of a rollout's (T, B, .) buffers; None
-entries are made); without it every output is new.
+(scores, dscores, GRU's h_n) is read as stored. ``out`` takes the output
+tensors to write (views of a rollout's (T, B, .) buffers; None entries are
+made); without it every output is new.
 
 The wrappers launch the kernels for CUDA tensors (float32 or bfloat16, one
-dtype, contiguous, on one device) and raise on anything else; for CPU
-tensors they run the plain versions (``*_reference``), which count
-nothing. Each wrapper counts its launches in ``n_launches``; the cell
-wrappers also by cell type in ``cell_launches``.
+dtype, on one device, contiguous; the gate products gx and gh, their
+cotangents dgi and dgh, wh and dwh need only contiguous rows, so that a
+caller can lay them beside another product's columns) and raise on
+anything else; for CPU tensors they run the plain versions
+(``*_reference``), which count nothing. Each wrapper counts its launches
+in ``n_launches``; the cell wrappers also by cell type in
+``cell_launches``.
 
 The rollouts' loops call the kernels through ``*_steps`` instead: made
 once a rollout from its (T, B, .) buffers, each checks every operand as
 the wrapper would and makes each step's ctypes arguments then, and
 returns ``launch(t)``, which only launches step t and counts it as the
 wrapper does (a wrapper call's checks cost more host time than its
-kernel takes on the card).
+kernel takes on the card). ``launch`` holds the tensors whose pointers it
+passes.
+
+``attention_probe`` launches the attention kernels' split probes, each
+without one part of its kernel's work; ``attention_probe_reference`` is
+their plain version. No rollout calls them.
 """
 
 from __future__ import annotations
@@ -70,15 +78,18 @@ def _library() -> ctypes.CDLL:
     lib = build.load("rollout")
     if getattr(lib, "_recnet_bound", False):
         return lib
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.recnet_cell_fwd.argtypes = [i, i, i, i] + [p] * 9
-    lib.recnet_cell_bwd.argtypes = [i, i, i, i] + [p] * 12
-    lib.recnet_attn_fwd.argtypes = [i] * 6 + [p] * 9
-    lib.recnet_attn_bwd.argtypes = [i] * 6 + [p] * 9
+    p, i, ld = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.recnet_cell_fwd.argtypes = [i, i, i, i, ld, ld] + [p] * 9
+    lib.recnet_cell_bwd.argtypes = [i, i, i, i, ld, ld] + [p] * 12
+    lib.recnet_attn_fwd.argtypes = [i] * 5 + [ld] + [p] * 8
+    lib.recnet_attn_bwd.argtypes = [i] * 5 + [ld] + [p] * 7
+    lib.recnet_attn_fwd_probe.argtypes = [i] * 6 + [ld] + [p] * 8
+    lib.recnet_attn_bwd_probe.argtypes = [i] * 6 + [ld] + [p] * 7
     lib.recnet_attn_fwd_smem.argtypes = [i, i, i]
-    lib.recnet_attn_bwd_smem.argtypes = [i, i, i]
+    lib.recnet_attn_bwd_smem.argtypes = [i, i, i, i]
     for fn in (lib.recnet_cell_fwd, lib.recnet_cell_bwd, lib.recnet_attn_fwd,
-               lib.recnet_attn_bwd, lib.recnet_attn_fwd_smem,
+               lib.recnet_attn_bwd, lib.recnet_attn_fwd_probe,
+               lib.recnet_attn_bwd_probe, lib.recnet_attn_fwd_smem,
                lib.recnet_attn_bwd_smem):
         fn.restype = i
     lib.recnet_rollout_error_string.argtypes = [i]
@@ -100,9 +111,22 @@ def _check_shapes(what: str, operands) -> None:
                              f"expected {tuple(shape)}")
 
 
-def _on_cpu(what: str, operands) -> bool:
+def _ld(t: OptT) -> int:
+    """The row stride (elements) of a tensor whose rows, its last axis,
+    are contiguous and may lie wider apart than they are long; 0 for
+    None."""
+    return 0 if t is None else t.stride(-2)
+
+
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    return t.stride(-1) == 1 and (t.shape[-2] <= 1
+                                  or t.stride(-2) >= t.shape[-1])
+
+
+def _on_cpu(what: str, operands, row_strided: Sequence[str] = ()) -> bool:
     """True when every operand lies on the CPU (the plain version); for
-    CUDA operands, checks what the kernel needs and raises otherwise."""
+    CUDA operands, checks what the kernel needs and raises otherwise. The
+    operands named in ``row_strided`` need only contiguous rows."""
     present = [(name, t) for name, t, _ in operands if t is not None]
     devices = {t.device for _, t in present}
     if len(devices) > 1:
@@ -118,7 +142,10 @@ def _on_cpu(what: str, operands) -> bool:
             raise ValueError(f"{what}: {name} is {t.dtype}; the kernel takes "
                              f"float32 or bfloat16 operands of one dtype "
                              f"({present[0][0]} is {dtype})")
-        if not t.is_contiguous():
+        if name in row_strided:
+            if not _rows_contiguous(t):
+                raise ValueError(f"{what}: {name} must have contiguous rows")
+        elif not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     check_sm90(device, what)
     return False
@@ -227,7 +254,7 @@ def cell_forward(cell_type: str, gx: torch.Tensor, gh: OptT,
                 ("c_out", outs[1] if lstm else None, (B, H)),
                 ("acts_out", outs[2], (B, 4 * H))]
     _check_shapes("cell_forward", operands)
-    if _on_cpu("cell_forward", operands):
+    if _on_cpu("cell_forward", operands, ("gx", "gh")):
         made = cell_forward_reference(cell_type, gx, gh, bias, h, c)
         return _outputs((outs[0], outs[1] if lstm else None, outs[2]), made)
     h_new = _empty(out, 0, (B, H), h)
@@ -235,9 +262,10 @@ def cell_forward(cell_type: str, gx: torch.Tensor, gh: OptT,
     acts = _empty(out, 2, (B, 4 * H), h)
     lib = _library()
     err = lib.recnet_cell_fwd(
-        _DTYPE_CODES[gx.dtype], int(lstm), B, H, _ptr(gx), _ptr(gh),
-        _ptr(bias), _ptr(h), _ptr(c if lstm else None), _ptr(h_new),
-        _ptr(c_new if lstm else None), _ptr(acts), _stream(gx.device))
+        _DTYPE_CODES[gx.dtype], int(lstm), B, H, _ld(gx), _ld(gh), _ptr(gx),
+        _ptr(gh), _ptr(bias), _ptr(h), _ptr(c if lstm else None),
+        _ptr(h_new), _ptr(c_new if lstm else None), _ptr(acts),
+        _stream(gx.device))
     _raise_on(lib, err, "cell_forward")
     _count(cell_forward, cell_type)
     return h_new, c_new, acts
@@ -299,7 +327,7 @@ def cell_backward(cell_type: str, dh: torch.Tensor, dh_out: OptT, dc: OptT,
                 ("dh_cell_out", None if lstm else outs[2], (B, H)),
                 ("dc_out", outs[3] if lstm else None, (B, H))]
     _check_shapes("cell_backward", operands)
-    if _on_cpu("cell_backward", operands):
+    if _on_cpu("cell_backward", operands, ("dgi_out", "dgh_out")):
         made = cell_backward_reference(cell_type, dh, dh_out, dc, acts,
                                        h_prev, c_prev, c_t)
         if lstm:
@@ -312,7 +340,8 @@ def cell_backward(cell_type: str, dh: torch.Tensor, dh_out: OptT, dc: OptT,
     dc_prev = _empty(out, 3, (B, H), dh) if lstm else dc
     lib = _library()
     err = lib.recnet_cell_bwd(
-        _DTYPE_CODES[dh.dtype], int(lstm), B, H, _ptr(dh), _ptr(dh_out),
+        _DTYPE_CODES[dh.dtype], int(lstm), B, H, _ld(dgi),
+        _ld(None if lstm else dgh), _ptr(dh), _ptr(dh_out),
         _ptr(dc if lstm else None), _ptr(acts),
         _ptr(None if lstm else h_prev), _ptr(c_prev if lstm else None),
         _ptr(c_t if lstm else None), _ptr(dgi),
@@ -331,57 +360,54 @@ cell_backward.cell_launches = collections.Counter()
 # the decoder's attention
 # --------------------------------------------------------------------------
 
-def _attention_dims(h_or_dh, W, w, enc):
-    """(B, H, A, F, E); w (A, 1) or (A,)."""
-    if h_or_dh.dim() != 2 or W.dim() != 2 or enc.dim() != 3:
-        raise ValueError(f"h/dh (B, H), W (H, A), enc (B, F, E) expected; "
-                         f"got {tuple(h_or_dh.shape)}, {tuple(W.shape)}, "
-                         f"{tuple(enc.shape)}")
-    (B, H), A, (_, F, E) = h_or_dh.shape, W.shape[1], enc.shape
-    if min(B, H, A, F, E) < 1:
-        raise ValueError(f"empty attention: B={B} H={H} A={A} F={F} E={E}")
+def _attention_dims(wh_or_dwh, w, enc):
+    """(B, A, F, E) from wh or dwh (B, A) and enc (B, F, E); w (A, 1) or
+    (A,)."""
+    if wh_or_dwh.dim() != 2 or enc.dim() != 3:
+        raise ValueError(f"wh/dwh (B, A), enc (B, F, E) expected; got "
+                         f"{tuple(wh_or_dwh.shape)}, {tuple(enc.shape)}")
+    (B, A), (_, F, E) = wh_or_dwh.shape, enc.shape
+    if min(B, A, F, E) < 1:
+        raise ValueError(f"empty attention: B={B} A={A} F={F} E={E}")
     if tuple(w.shape) not in ((A, 1), (A,)):
         raise ValueError(f"w is {tuple(w.shape)}, expected ({A}, 1) or "
                          f"({A},)")
-    return B, H, A, F, E
+    return B, A, F, E
 
 
-def attention_forward_reference(h, W, uv, b, w, enc):
+def attention_forward_reference(wh, uv, b, w, enc):
     """Plain version of ``attention_forward``."""
-    dt = h.dtype
+    dt = wh.dtype
     f = _compute(dt)
-    wh = h.to(f) @ W.to(f)
-    act = torch.tanh(wh[:, None, :] + uv.to(f) + b.to(f))
+    act = torch.tanh(wh.to(f)[:, None, :] + uv.to(f) + b.to(f))
     scores = (act @ w.to(f).reshape(-1, 1))[..., 0].to(dt)
     ctx = torch.einsum("bf,bfe->be", scores.to(f), enc.to(f)) / enc.shape[1]
     return scores, ctx.to(dt)
 
 
-def attention_forward(h: torch.Tensor, W: torch.Tensor, uv: torch.Tensor,
-                      b: torch.Tensor, w: torch.Tensor, enc: torch.Tensor,
+def attention_forward(wh: torch.Tensor, uv: torch.Tensor, b: torch.Tensor,
+                      w: torch.Tensor, enc: torch.Tensor,
                       out: Optional[Sequence[OptT]] = None):
-    """h (B, H), W (H, A), uv (B, F, A), b (A,), w (A, 1) or (A,), enc
-    (B, F, E); ``out`` = (scores, ctx). Returns (scores (B, F), ctx
-    (B, E))."""
-    B, H, A, F, E = _attention_dims(h, W, w, enc)
+    """wh = h W (B, A; contiguous rows), uv (B, F, A), b (A,), w (A, 1) or
+    (A,), enc (B, F, E); ``out`` = (scores, ctx). Returns (scores (B, F),
+    ctx (B, E))."""
+    B, A, F, E = _attention_dims(wh, w, enc)
     outs = out or (None, None)
-    operands = [("h", h, (B, H)), ("W", W, (H, A)), ("uv", uv, (B, F, A)),
-                ("b", b, (A,)), ("w", w, tuple(w.shape)),
-                ("enc", enc, (B, F, E)), ("scores_out", outs[0], (B, F)),
-                ("ctx_out", outs[1], (B, E))]
+    operands = [("wh", wh, (B, A)), ("uv", uv, (B, F, A)), ("b", b, (A,)),
+                ("w", w, tuple(w.shape)), ("enc", enc, (B, F, E)),
+                ("scores_out", outs[0], (B, F)), ("ctx_out", outs[1], (B, E))]
     _check_shapes("attention_forward", operands)
-    if _on_cpu("attention_forward", operands):
-        return _outputs(outs, attention_forward_reference(h, W, uv, b, w,
-                                                          enc))
+    if _on_cpu("attention_forward", operands, ("wh",)):
+        return _outputs(outs, attention_forward_reference(wh, uv, b, w, enc))
     lib = _library()
-    _check_smem("attention_forward", lib.recnet_attn_fwd_smem(F, A, H),
-                f"H={H}, A={A}, F={F}")
-    scores = _empty(out, 0, (B, F), h)
-    ctx = _empty(out, 1, (B, E), h)
+    code = _DTYPE_CODES[wh.dtype]
+    _check_smem("attention_forward", lib.recnet_attn_fwd_smem(code, F, E),
+                f"F={F}, E={E}")
+    scores = _empty(out, 0, (B, F), wh)
+    ctx = _empty(out, 1, (B, E), wh)
     err = lib.recnet_attn_fwd(
-        _DTYPE_CODES[h.dtype], B, F, A, H, E, _ptr(h), _ptr(W), _ptr(uv),
-        _ptr(b), _ptr(w), _ptr(enc), _ptr(scores), _ptr(ctx),
-        _stream(h.device))
+        code, B, F, A, E, _ld(wh), _ptr(wh), _ptr(uv), _ptr(b), _ptr(w),
+        _ptr(enc), _ptr(scores), _ptr(ctx), _stream(wh.device))
     _raise_on(lib, err, "attention_forward")
     _count(attention_forward)
     return scores, ctx
@@ -390,8 +416,8 @@ def attention_forward(h: torch.Tensor, W: torch.Tensor, uv: torch.Tensor,
 attention_forward.n_launches = 0
 
 
-def attention_backward_reference(dctx, enc, act, w, W, dh):
-    """Plain version of ``attention_backward`` (``dh`` updated in place)."""
+def attention_backward_reference(dctx, enc, act, w):
+    """Plain version of ``attention_backward``."""
     dt = dctx.dtype
     f = _compute(dt)
     F = enc.shape[1]
@@ -399,36 +425,36 @@ def attention_backward_reference(dctx, enc, act, w, W, dh):
     a = act.to(f)
     dwh = (torch.einsum("bf,bfa->ba", dscores.to(f), 1.0 - a * a)
            * w.to(f).reshape(-1)).to(dt)
-    dh.copy_(dh.to(f) + dwh.to(f) @ W.to(f).t())
     return dscores, dwh
 
 
 def attention_backward(dctx: torch.Tensor, enc: torch.Tensor,
-                       act: torch.Tensor, w: torch.Tensor, W: torch.Tensor,
-                       dh: torch.Tensor,
+                       act: torch.Tensor, w: torch.Tensor,
                        out: Optional[Sequence[OptT]] = None):
-    """dctx (B, E), enc (B, F, E), act (B, F, A), w (A, 1) or (A,), W
-    (H, A); ``dh`` (B, H) gains dwh W^T in place; ``out`` = (dscores,
-    dwh). Returns (dscores (B, F), dwh (B, A))."""
-    B, H, A, F, E = _attention_dims(dh, W, w, enc)
+    """dctx (B, E), enc (B, F, E), act (B, F, A), w (A, 1) or (A,);
+    ``out`` = (dscores, dwh), dwh's rows contiguous. Returns (dscores
+    (B, F), dwh (B, A))."""
+    if act.dim() != 3:
+        raise ValueError(f"act (B, F, A) expected; got {tuple(act.shape)}")
+    B, A, F, E = _attention_dims(act[:, 0], w, enc)
     outs = out or (None, None)
     operands = [("dctx", dctx, (B, E)), ("enc", enc, (B, F, E)),
                 ("act", act, (B, F, A)), ("w", w, tuple(w.shape)),
-                ("W", W, (H, A)), ("dh", dh, (B, H)),
                 ("dscores_out", outs[0], (B, F)), ("dwh_out", outs[1], (B, A))]
     _check_shapes("attention_backward", operands)
-    if _on_cpu("attention_backward", operands):
-        return _outputs(outs, attention_backward_reference(dctx, enc, act, w,
-                                                           W, dh))
+    if _on_cpu("attention_backward", operands, ("dwh_out",)):
+        return _outputs(outs, attention_backward_reference(dctx, enc, act,
+                                                           w))
     lib = _library()
-    _check_smem("attention_backward", lib.recnet_attn_bwd_smem(F, A, E),
-                f"E={E}, A={A}, F={F}")
-    dscores = _empty(out, 0, (B, F), dh)
-    dwh = _empty(out, 1, (B, A), dh)
+    code = _DTYPE_CODES[dctx.dtype]
+    _check_smem("attention_backward",
+                lib.recnet_attn_bwd_smem(code, F, A, E),
+                f"F={F}, A={A}, E={E}")
+    dscores = _empty(out, 0, (B, F), dctx)
+    dwh = _empty(out, 1, (B, A), dctx)
     err = lib.recnet_attn_bwd(
-        _DTYPE_CODES[dh.dtype], B, F, A, H, E, _ptr(dctx), _ptr(enc),
-        _ptr(act), _ptr(w), _ptr(W), _ptr(dh), _ptr(dscores), _ptr(dwh),
-        _stream(dh.device))
+        code, B, F, A, E, _ld(dwh), _ptr(dctx), _ptr(enc), _ptr(act),
+        _ptr(w), _ptr(dscores), _ptr(dwh), _stream(dctx.device))
     _raise_on(lib, err, "attention_backward")
     _count(attention_backward)
     return dscores, dwh
@@ -438,6 +464,60 @@ attention_backward.n_launches = 0
 
 KERNELS = (cell_forward, cell_backward, attention_forward, attention_backward)
 
+# the attention kernels' split probes, each without one part of its
+# kernel's work: the forward without its scores (scores, and so ctx,
+# zeros) or without ctx (zeros); the backward without dscores (dscores,
+# and so dwh, zeros) or without dwh (zeros)
+FORWARD_PROBES = {"scores": 1, "ctx": 2}
+BACKWARD_PROBES = {"dscores": 1, "dwh": 2}
+
+
+def attention_probe_reference(kind: str, probe: str, *operands):
+    """Plain version of ``attention_probe``."""
+    forward = kind == "forward"
+    if probe not in (FORWARD_PROBES if forward else BACKWARD_PROBES):
+        raise ValueError(f"no {kind} probe {probe!r}")
+    first, second = (attention_forward_reference(*operands) if forward else
+                     attention_backward_reference(*operands))
+    if probe in ("scores", "dscores"):
+        first = torch.zeros_like(first)
+    return first, torch.zeros_like(second)
+
+
+def attention_probe(kind: str, probe: str, *operands):
+    """A split probe of the attention kernels: ``kind`` "forward" with
+    the operands of ``attention_forward``, or "backward" with those of
+    ``attention_backward``; ``probe`` one of FORWARD_PROBES or
+    BACKWARD_PROBES. Returns what that wrapper returns, with the dropped
+    part's values zero. Not counted as a launch of the kernel."""
+    forward = kind == "forward"
+    codes = FORWARD_PROBES if forward else BACKWARD_PROBES
+    if probe not in codes:
+        raise ValueError(f"no {kind} probe {probe!r}")
+    if forward:
+        names = ("wh", "uv", "b", "w", "enc")
+        wh, _, _, w, enc = operands
+        B, A, F, E = _attention_dims(wh, w, enc)
+    else:
+        names = ("dctx", "enc", "act", "w")
+        _, enc, act, w = operands
+        B, A, F, E = _attention_dims(act[:, 0], w, enc)
+    what = f"attention_probe {kind}"
+    if _on_cpu(what, [(n, x, None) for n, x in zip(names, operands)],
+               ("wh",)):
+        return attention_probe_reference(kind, probe, *operands)
+    lib = _library()
+    first = operands[0]
+    code = _DTYPE_CODES[first.dtype]
+    outs = (first.new_empty((B, F)),
+            first.new_empty((B, E) if forward else (B, A)))
+    entry = lib.recnet_attn_fwd_probe if forward else lib.recnet_attn_bwd_probe
+    err = entry(codes[probe], code, B, F, A, E,
+                _ld(first) if forward else A, *map(_ptr, operands),
+                *map(_ptr, outs), _stream(first.device))
+    _raise_on(lib, err, f"{what} {probe}")
+    return outs
+
 
 # --------------------------------------------------------------------------
 # a rollout's steps: the operands checked once, each step's arguments made
@@ -445,8 +525,8 @@ KERNELS = (cell_forward, cell_backward, attention_forward, attention_backward)
 # --------------------------------------------------------------------------
 
 def _rows(x: OptT, T: int):
-    """Pointers to x[0], ..., x[T - 1] (x contiguous, (T, ...)); T nulls
-    for None."""
+    """Pointers to x[0], ..., x[T - 1] ((T, ...); every x[t] one buffer
+    when x's first stride is 0); T nulls for None."""
     if x is None:
         return [ctypes.c_void_p(None)] * T
     step = x.stride(0) * x.element_size()
@@ -463,18 +543,23 @@ def _after(x0: OptT, xs: OptT, T: int):
 
 
 def _steps(fn, what: str, entry, head, columns, device, T: int,
-           cell_type: Optional[str] = None):
+           operands, cell_type: Optional[str] = None):
     """``launch(t)``: ``entry(*head, column[t] for each column, stream)``
-    on the stream current now, counted as ``fn``."""
+    on the stream current now, counted as ``fn``. ``launch`` holds
+    ``operands``, the tensors whose pointers the columns carry, so that
+    the allocator lends none of their memory to other tensors while the
+    launch can still be called."""
     lib = _library()
     stream = _stream(device)
     args = [tuple(head) + tuple(col[t] for col in columns) + (stream,)
             for t in range(T)]
+    held = tuple(t for _, t, _ in operands if t is not None)
 
     def launch(t: int) -> None:
         _raise_on(lib, entry(*args[t]), what)
         _count(fn, cell_type)
 
+    launch.operands = held
     return launch
 
 
@@ -482,36 +567,38 @@ def cell_forward_steps(cell_type: str, gx: torch.Tensor, gh: OptT,
                        bias: torch.Tensor, h0: torch.Tensor, c0: OptT,
                        hs: torch.Tensor, cs: OptT, acts: torch.Tensor):
     """``cell_forward`` over a rollout's T steps; returns ``launch(t)``.
-    Step t reads gx[t] (T, B, G), GRU's gh (B, G) (one buffer the caller
-    fills before each step), bias and the state after step t - 1 (h0, c0
-    at t = 0, else hs[t - 1], cs[t - 1]) and writes hs[t], cs[t] (LSTM)
-    and acts[t]. Every operand is checked here, once; on CPU tensors
-    ``launch`` runs ``cell_forward`` on the step's views."""
+    Step t reads gx[t] (T, B, G), GRU's gh[t] (T, B, G), bias and the
+    state after step t - 1 (h0, c0 at t = 0, else hs[t - 1], cs[t - 1])
+    and writes hs[t], cs[t] (LSTM) and acts[t]. gx and gh need only
+    contiguous rows; the caller fills gx[t] and gh[t] before step t.
+    Every operand is checked here, once; on CPU tensors ``launch`` runs
+    ``cell_forward`` on the step's views."""
     T, B = gx.shape[:2]
     _, H, G = _cell_dims(cell_type, h0)
     lstm = cell_type == "LSTM"
     if lstm != (gh is None) or lstm != (c0 is not None) \
             or lstm != (cs is not None):
         raise ValueError("cell_forward_steps: LSTM takes c0 and cs, GRU gh")
-    operands = [("gx", gx, (T, B, G)), ("gh", gh, (B, G)),
+    operands = [("gx", gx, (T, B, G)), ("gh", gh, (T, B, G)),
                 ("bias", bias, (G,)), ("h0", h0, (B, H)), ("c0", c0, (B, H)),
                 ("hs", hs, (T, B, H)), ("cs", cs, (T, B, H)),
                 ("acts", acts, (T, B, 4 * H))]
     _check_shapes("cell_forward_steps", operands)
-    if _on_cpu("cell_forward_steps", operands):
+    if _on_cpu("cell_forward_steps", operands, ("gx", "gh")):
         def launch(t: int) -> None:
             h, c = (h0, c0) if t == 0 else (hs[t - 1],
                                             cs[t - 1] if lstm else None)
-            cell_forward(cell_type, gx[t], gh, bias, h, c,
-                         out=(hs[t], cs[t] if lstm else None, acts[t]))
+            cell_forward(cell_type, gx[t], None if lstm else gh[t], bias, h,
+                         c, out=(hs[t], cs[t] if lstm else None, acts[t]))
         return launch
     lib = _library()
     return _steps(cell_forward, "cell_forward", lib.recnet_cell_fwd,
-                  (_DTYPE_CODES[gx.dtype], int(lstm), B, H),
-                  (_rows(gx, T), _same(gh, T), _same(bias, T),
+                  (_DTYPE_CODES[gx.dtype], int(lstm), B, H, _ld(gx),
+                   _ld(gh)),
+                  (_rows(gx, T), _rows(gh, T), _same(bias, T),
                    _after(None if lstm else h0, None if lstm else hs, T),
                    _after(c0, cs, T), _rows(hs, T), _rows(cs, T),
-                   _rows(acts, T)), gx.device, T, cell_type)
+                   _rows(acts, T)), gx.device, T, operands, cell_type)
 
 
 def cell_backward_steps(cell_type: str, dh: torch.Tensor,
@@ -523,7 +610,8 @@ def cell_backward_steps(cell_type: str, dh: torch.Tensor,
     acts[t] and GRU's h_prev[t] or LSTM's c_prev[t] and cs[t]; it writes
     dgi[t], GRU's dgh[t] and its dh z into ``dh``, LSTM's dc f into ``dc``
     (both in place; the LSTM's dh is the caller's to set, dgi[t] w_hh^T).
-    Checked once; on CPU tensors ``launch`` runs ``cell_backward``."""
+    dgi and dgh need only contiguous rows. Checked once; on CPU tensors
+    ``launch`` runs ``cell_backward``."""
     T, B = dhs.shape[:2]
     _, H, G = _cell_dims(cell_type, dh)
     lstm = cell_type == "LSTM"
@@ -541,7 +629,7 @@ def cell_backward_steps(cell_type: str, dh: torch.Tensor,
                 ("dgi", dgi, (T, B, G)),
                 ("dgh", None if lstm else dgh, (T, B, G))]
     _check_shapes("cell_backward_steps", operands)
-    if _on_cpu("cell_backward_steps", operands):
+    if _on_cpu("cell_backward_steps", operands, ("dgi", "dgh")):
         def launch(t: int) -> None:
             cell_backward(cell_type, dh, dhs[t], dc if lstm else None,
                           acts[t], None if lstm else h_prev[t],
@@ -552,7 +640,8 @@ def cell_backward_steps(cell_type: str, dh: torch.Tensor,
         return launch
     lib = _library()
     return _steps(cell_backward, "cell_backward", lib.recnet_cell_bwd,
-                  (_DTYPE_CODES[dh.dtype], int(lstm), B, H),
+                  (_DTYPE_CODES[dh.dtype], int(lstm), B, H, _ld(dgi),
+                   _ld(None if lstm else dgh)),
                   (_same(dh, T), _rows(dhs, T), _same(dc if lstm else None,
                                                       T),
                    _rows(acts, T), _rows(None if lstm else h_prev, T),
@@ -560,70 +649,75 @@ def cell_backward_steps(cell_type: str, dh: torch.Tensor,
                    _rows(cs if lstm else None, T), _rows(dgi, T),
                    _rows(None if lstm else dgh, T),
                    _same(None if lstm else dh, T),
-                   _same(dc if lstm else None, T)), dh.device, T, cell_type)
+                   _same(dc if lstm else None, T)), dh.device, T, operands,
+                  cell_type)
 
 
-def attention_forward_steps(h0: torch.Tensor, hs: torch.Tensor,
-                            W: torch.Tensor, uv: torch.Tensor,
+def attention_forward_steps(whs: torch.Tensor, uv: torch.Tensor,
                             b: torch.Tensor, w: torch.Tensor,
                             enc: torch.Tensor, scores: torch.Tensor,
                             ctxs: torch.Tensor):
     """``attention_forward`` over a rollout's T steps; returns
-    ``launch(t)``: step t reads h0 (t = 0) or hs[t - 1] and writes
-    scores[t] (T, B, F) and ctxs[t] (T, B, E). Checked once; on CPU
-    tensors ``launch`` runs ``attention_forward``."""
-    T = hs.shape[0]
-    B, H, A, F, E = _attention_dims(h0, W, w, enc)
-    operands = [("h0", h0, (B, H)), ("hs", hs, (T, B, H)), ("W", W, (H, A)),
-                ("uv", uv, (B, F, A)), ("b", b, (A,)),
-                ("w", w, tuple(w.shape)), ("enc", enc, (B, F, E)),
-                ("scores", scores, (T, B, F)), ("ctxs", ctxs, (T, B, E))]
+    ``launch(t)``: step t reads whs[t] (T, B, A; contiguous rows, filled
+    by the caller before the step) and writes scores[t] (T, B, F) and
+    ctxs[t] (T, B, E). Checked once; on CPU tensors ``launch`` runs
+    ``attention_forward``."""
+    if whs.dim() != 3:
+        raise ValueError(f"whs (T, B, A) expected; got {tuple(whs.shape)}")
+    T = whs.shape[0]
+    B, A, F, E = _attention_dims(whs[0], w, enc)
+    operands = [("whs", whs, (T, B, A)), ("uv", uv, (B, F, A)),
+                ("b", b, (A,)), ("w", w, tuple(w.shape)),
+                ("enc", enc, (B, F, E)), ("scores", scores, (T, B, F)),
+                ("ctxs", ctxs, (T, B, E))]
     _check_shapes("attention_forward_steps", operands)
-    if _on_cpu("attention_forward_steps", operands):
+    if _on_cpu("attention_forward_steps", operands, ("whs",)):
         def launch(t: int) -> None:
-            attention_forward(h0 if t == 0 else hs[t - 1], W, uv, b, w, enc,
+            attention_forward(whs[t], uv, b, w, enc,
                               out=(scores[t], ctxs[t]))
         return launch
     lib = _library()
-    _check_smem("attention_forward", lib.recnet_attn_fwd_smem(F, A, H),
-                f"H={H}, A={A}, F={F}")
+    code = _DTYPE_CODES[whs.dtype]
+    _check_smem("attention_forward", lib.recnet_attn_fwd_smem(code, F, E),
+                f"F={F}, E={E}")
     return _steps(attention_forward, "attention_forward", lib.recnet_attn_fwd,
-                  (_DTYPE_CODES[h0.dtype], B, F, A, H, E),
-                  (_after(h0, hs, T), _same(W, T), _same(uv, T), _same(b, T),
-                   _same(w, T), _same(enc, T), _rows(scores, T),
-                   _rows(ctxs, T)), h0.device, T)
+                  (code, B, F, A, E, _ld(whs)),
+                  (_rows(whs, T), _same(uv, T), _same(b, T), _same(w, T),
+                   _same(enc, T), _rows(scores, T), _rows(ctxs, T)),
+                  whs.device, T, operands)
 
 
 def attention_backward_steps(dctx: torch.Tensor, enc: torch.Tensor,
                              act: torch.Tensor, w: torch.Tensor,
-                             W: torch.Tensor, dh: torch.Tensor,
-                             dscores: torch.Tensor, dwh: torch.Tensor):
+                             dscores: torch.Tensor, dwhs: torch.Tensor):
     """``attention_backward`` over a rollout's T steps; returns
-    ``launch(t)``: step t reads dctx[t] (T, B, E) and act[t] (T, B, F, A),
-    adds dwh W^T to the carry ``dh`` (B, H) in place and writes
-    dscores[t] and dwh[t]. Checked once; on CPU tensors ``launch`` runs
-    ``attention_backward``."""
+    ``launch(t)``: step t reads dctx[t] (T, B, E) and act[t] (T, B, F, A)
+    and writes dscores[t] and dwhs[t] (T, B, A; contiguous rows). Checked
+    once; on CPU tensors ``launch`` runs ``attention_backward``."""
+    if act.dim() != 4:
+        raise ValueError(f"act (T, B, F, A) expected; got "
+                         f"{tuple(act.shape)}")
     T = dctx.shape[0]
-    B, H, A, F, E = _attention_dims(dh, W, w, enc)
+    B, A, F, E = _attention_dims(act[0, :, 0], w, enc)
     operands = [("dctx", dctx, (T, B, E)), ("enc", enc, (B, F, E)),
                 ("act", act, (T, B, F, A)), ("w", w, tuple(w.shape)),
-                ("W", W, (H, A)), ("dh", dh, (B, H)),
-                ("dscores", dscores, (T, B, F)), ("dwh", dwh, (T, B, A))]
+                ("dscores", dscores, (T, B, F)), ("dwhs", dwhs, (T, B, A))]
     _check_shapes("attention_backward_steps", operands)
-    if _on_cpu("attention_backward_steps", operands):
+    if _on_cpu("attention_backward_steps", operands, ("dwhs",)):
         def launch(t: int) -> None:
-            attention_backward(dctx[t], enc, act[t], w, W, dh,
-                               out=(dscores[t], dwh[t]))
+            attention_backward(dctx[t], enc, act[t], w,
+                               out=(dscores[t], dwhs[t]))
         return launch
     lib = _library()
-    _check_smem("attention_backward", lib.recnet_attn_bwd_smem(F, A, E),
-                f"E={E}, A={A}, F={F}")
+    code = _DTYPE_CODES[dctx.dtype]
+    _check_smem("attention_backward",
+                lib.recnet_attn_bwd_smem(code, F, A, E),
+                f"F={F}, A={A}, E={E}")
     return _steps(attention_backward, "attention_backward",
-                  lib.recnet_attn_bwd,
-                  (_DTYPE_CODES[dh.dtype], B, F, A, H, E),
+                  lib.recnet_attn_bwd, (code, B, F, A, E, _ld(dwhs)),
                   (_rows(dctx, T), _same(enc, T), _rows(act, T), _same(w, T),
-                   _same(W, T), _same(dh, T), _rows(dscores, T),
-                   _rows(dwh, T)), dh.device, T)
+                   _rows(dscores, T), _rows(dwhs, T)), dctx.device, T,
+                  operands)
 
 
 def reset_counts() -> None:

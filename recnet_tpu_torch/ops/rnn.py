@@ -219,8 +219,8 @@ class _GruRolloutPre(torch.autograd.Function):
         hs = gi_all.new_empty((T, B, G // 3))
         acts = gi_all.new_empty((T, B, 4 * (G // 3)))
         gh = gi_all.new_empty((B, G))                   # h w_hh, a step
-        cell = rollout.cell_forward_steps("GRU", gi_all, gh, b_hh, h0, None,
-                                          hs, None, acts)
+        cell = rollout.cell_forward_steps("GRU", gi_all, gh.expand(T, B, G),
+                                          b_hh, h0, None, hs, None, acts)
         h_prev = (h0,) + hs.unbind(0)[:-1]
         for t in range(T):
             torch.mm(h_prev[t], w_hh, out=gh)

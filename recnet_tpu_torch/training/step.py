@@ -130,10 +130,13 @@ def _forward(dec_params, rec_params, dcfg, rcfg, tc_pad, lambda_recon,
 
     ``always_tf`` takes the rollout with the vocab projection hoisted out
     of the loop (teacher forcing always on). ``compute_dtype`` (bf16) runs
-    the rollouts under autocast; the regularisers read the float32 masters
-    and the losses reduce in float32. ``shard`` (``parallel.mesh.Shard``)
-    is this rank's place on a mesh; ``dec_specs`` the decoder leaves'
-    specs there."""
+    the rollouts under autocast on the videos cast to it, as the JAX
+    package casts them (``recnet_tpu/training/step.py:92-98``; it casts
+    the parameters too); the regularisers read the float32 masters and the
+    cross entropy reduces in float32, the reconstruction loss in
+    ``compute_dtype`` with the step mask and T_eff in it, as JAX's.
+    ``shard`` (``parallel.mesh.Shard``) is this rank's place on a mesh;
+    ``dec_specs`` the decoder leaves' specs there."""
     if shard is None or shard.owns_replicated:
         dec_reg = dec_lambda_reg * l2_norm_sum(dec_params, shard, dec_specs)
         rec_reg = (rec_lambda_reg * l2_norm_sum(rec_params)
@@ -141,6 +144,8 @@ def _forward(dec_params, rec_params, dcfg, rcfg, tc_pad, lambda_recon,
     else:
         dec_reg = rec_reg = torch.zeros((), device=videos.device)
     mask = captions > tc_pad                                      # (T, B)
+    if compute_dtype is not None:           # cast once, as the JAX step
+        videos = videos.to(compute_dtype)
     with torch.autocast(videos.device.type, dtype=compute_dtype,
                         enabled=compute_dtype is not None):
         if always_tf:
@@ -157,8 +162,10 @@ def _forward(dec_params, rec_params, dcfg, rcfg, tc_pad, lambda_recon,
         if rec_params is None:
             aux["rec_loss"] = torch.zeros((), device=videos.device)
             return dec_loss, aux
+        # the reconstruction loss in the compute dtype, as JAX's: on the
+        # videos as cast, the step mask and T_eff in that dtype
         step_mask = (mesh_lib.data_sum(mask.float().sum(dim=1), shard)
-                     > 0).float()                                   # (T,)
+                     > 0).to(videos.dtype)                          # (T,)
         t_eff = step_mask.sum().clamp(min=1.0)
         rec = rec_mod.recon_loss(rec_params, rcfg, rollout.hiddens, videos,
                                  step_mask, t_eff, generator, train, shard)

@@ -63,6 +63,30 @@ def test_train_config_reads_a_checkpoints_config_json(fixture_root):
         got.batch_size = 3
 
 
+def test_eval_config_is_the_jax_packages():
+    """EvalConfig: the same fields and defaults, derived paths and JSON as
+    the JAX package's (and both exported from their packages); from_dict
+    reads either's JSON and drops keys it does not know."""
+    import recnet_tpu
+    import recnet_tpu_torch
+    from recnet_tpu.config import EvalConfig as JaxEvalConfig
+    from recnet_tpu_torch.config import EvalConfig
+    assert recnet_tpu_torch.EvalConfig is EvalConfig
+    assert recnet_tpu.EvalConfig is JaxEvalConfig
+    fields = lambda c: [(f.name, f.type, f.default)
+                        for f in dataclasses.fields(c)]
+    assert fields(EvalConfig) == fields(JaxEvalConfig)
+    for kw in ({}, dict(corpus="MSR-VTT", data_root="/d",
+                        ckpt_dpath="checkpoints/run/100", beam_width=3)):
+        ec, jec = EvalConfig(**kw), JaxEvalConfig(**kw)
+        assert ec.to_json() == jec.to_json()
+        assert ec.test_video_fpath == jec.test_video_fpath
+        assert ec.test_caption_fpath == jec.test_caption_fpath
+        d = dict(json.loads(jec.to_json()), unknown=1)
+        assert EvalConfig.from_dict(d) == ec
+        assert JaxEvalConfig.from_dict(json.loads(ec.to_json())) == jec
+
+
 def test_vocab_round_trips_to_the_same_ids(fixture_root):
     tc = tiny_train_config(fixture_root)
     captions = JaxCorpus(tc.replace(

@@ -297,12 +297,11 @@ def test_wrappers_reject_bad_shapes_and_cells():
                               None, None)
     enc = torch.zeros(B, F, E)
     with pytest.raises(ValueError, match="uv"):
-        rollout.attention_forward(h, torch.zeros(4, A), torch.zeros(B, F, 3),
+        rollout.attention_forward(torch.zeros(B, A), torch.zeros(B, F, 3),
                                   torch.zeros(A), torch.zeros(A, 1), enc)
     with pytest.raises(ValueError, match="w is"):
         rollout.attention_backward(torch.zeros(B, E), enc,
-                                   torch.zeros(B, F, A), torch.zeros(A, 2),
-                                   torch.zeros(4, A), h)
+                                   torch.zeros(B, F, A), torch.zeros(A, 2))
 
 
 def _step_buffers(cell, H, seed):
@@ -318,14 +317,16 @@ def _step_buffers(cell, H, seed):
 @pytest.mark.parametrize("cell", ["LSTM", "GRU"])
 def test_step_launchers_equal_the_wrappers_step_by_step(cell):
     """Each ``*_steps`` launcher on CPU tensors writes what a loop of its
-    wrapper's calls gives, step by step, in place where it says so."""
+    wrapper's calls gives, step by step, in place where it says so; GRU's
+    gh is one buffer for every step, its dgh rows lie beside other
+    columns."""
     H, lstm = 6, cell == "LSTM"
     gx, gh, bias, h0, c0, dhs, _ = _step_buffers(cell, H, 10)
     hs, cs = torch.empty(T, B, H), torch.empty(T, B, H) if lstm else None
     acts = torch.empty(T, B, 4 * H)
-    launch = rollout.cell_forward_steps(cell, gx, None if lstm else gh, bias,
-                                        h0, c0 if lstm else None, hs, cs,
-                                        acts)
+    launch = rollout.cell_forward_steps(cell, gx, None if lstm else
+                                        gh.expand(T, B, -1), bias, h0,
+                                        c0 if lstm else None, hs, cs, acts)
     h, c = h0, c0
     for t in range(T):
         launch(t)
@@ -337,7 +338,7 @@ def test_step_launchers_equal_the_wrappers_step_by_step(cell):
     h_prev = torch.cat([h0[None], hs[:-1]])
     c_prev = torch.cat([c0[None], cs[:-1]]) if lstm else None
     G = gx.shape[-1]
-    dgi, dgh = torch.empty(T, B, G), torch.empty(T, B, G)
+    dgi, dgh = torch.empty(T, B, G), torch.empty(T, B, G + 3)[..., :G]
     dh, dc = torch.zeros(B, H), torch.zeros(B, H) if lstm else None
     launch = rollout.cell_backward_steps(cell, dh, dhs, dc, acts, h_prev,
                                          c_prev, cs, dgi, dgh)
@@ -361,31 +362,31 @@ def test_step_launchers_equal_the_wrappers_step_by_step(cell):
 
 
 def test_attention_step_launchers_equal_the_wrappers_step_by_step():
-    H = 6
+    """wh and dwh rows laid beside a product's G other columns, as the
+    rollout lays them."""
+    G = 6
     rng = np.random.default_rng(11)
-    h0, W, uv, b, w, enc, dctx, act = map(torch.from_numpy, _arrays(
-        rng, [(B, H), (H, A), (B, F, A), (A,), (A, 1), (B, F, E),
-              (T, B, E), (T, B, F, A)]))
-    hs = torch.from_numpy(_arrays(rng, [(T, B, H)])[0])
+    gw, uv, b, w, enc, dctx, act = map(torch.from_numpy, _arrays(
+        rng, [(T, B, G + A), (B, F, A), (A,), (A, 1), (B, F, E), (T, B, E),
+              (T, B, F, A)]))
+    whs = gw[..., G:]
     scores, ctxs = torch.empty(T, B, F), torch.empty(T, B, E)
-    launch = rollout.attention_forward_steps(h0, hs, W, uv, b, w, enc,
-                                             scores, ctxs)
+    launch = rollout.attention_forward_steps(whs, uv, b, w, enc, scores,
+                                             ctxs)
     for t in range(T):
         launch(t)
-        want = rollout.attention_forward(h0 if t == 0 else hs[t - 1], W, uv,
-                                         b, w, enc)
+        want = rollout.attention_forward(whs[t], uv, b, w, enc)
         assert torch.equal(scores[t], want[0])
         assert torch.equal(ctxs[t], want[1])
-    dh, want_dh = torch.zeros(B, H), torch.zeros(B, H)
-    dsc, dwh = torch.empty(T, B, F), torch.empty(T, B, A)
-    launch = rollout.attention_backward_steps(dctx, enc, act, w, W, dh, dsc,
-                                              dwh)
+    dsc, dgw = torch.empty(T, B, F), torch.zeros(T, B, G + A)
+    launch = rollout.attention_backward_steps(dctx, enc, act, w, dsc,
+                                              dgw[..., G:])
     for t in reversed(range(T)):
         launch(t)
-        want = rollout.attention_backward(dctx[t], enc, act[t], w, W,
-                                          want_dh)
-        assert torch.equal(dsc[t], want[0]) and torch.equal(dwh[t], want[1])
-        assert torch.equal(dh, want_dh)
+        want = rollout.attention_backward(dctx[t], enc, act[t], w)
+        assert torch.equal(dsc[t], want[0])
+        assert torch.equal(dgw[t][:, G:], want[1])
+    assert not dgw[..., :G].any()
 
 
 def test_step_launchers_reject_bad_buffers():
@@ -405,5 +406,30 @@ def test_step_launchers_reject_bad_buffers():
     with pytest.raises(ValueError, match="dscores"):
         rollout.attention_backward_steps(
             torch.zeros(T, B, E), torch.zeros(B, F, E),
-            torch.zeros(T, B, F, A), torch.zeros(A, 1), torch.zeros(H, A),
-            torch.zeros(B, H), torch.zeros(T, B, F + 1), torch.zeros(T, B, A))
+            torch.zeros(T, B, F, A), torch.zeros(A, 1),
+            torch.zeros(T, B, F + 1), torch.zeros(T, B, A))
+
+
+@pytest.mark.parametrize("kind,probe", [("forward", "scores"),
+                                        ("forward", "ctx"),
+                                        ("backward", "dscores"),
+                                        ("backward", "dwh")])
+def test_attention_probes_on_the_cpu_are_their_plain_parts(kind, probe):
+    """A split probe drops one part of its kernel's work: its outputs are
+    the kernel's with that part's values (and what is made from them)
+    zero."""
+    rng = np.random.default_rng(13)
+    wh, uv, b, w, enc, dctx, act = map(torch.from_numpy, _arrays(
+        rng, [(B, A), (B, F, A), (A,), (A, 1), (B, F, E), (B, E),
+              (B, F, A)]))
+    operands = ((wh, uv, b, w, enc) if kind == "forward" else
+                (dctx, enc, act, w))
+    full = (rollout.attention_forward(*operands) if kind == "forward" else
+            rollout.attention_backward(*operands))
+    got = rollout.attention_probe(kind, probe, *operands)
+    dropped_first = probe in ("scores", "dscores")
+    assert torch.equal(got[0], torch.zeros_like(full[0]) if dropped_first
+                       else full[0])
+    assert torch.equal(got[1], torch.zeros_like(full[1]))
+    with pytest.raises(ValueError, match="no forward probe"):
+        rollout.attention_probe("forward", "dwh", wh, uv, b, w, enc)

@@ -133,6 +133,35 @@ def test_cli_defaults_to_the_card(fixture_root, tmp_path):
                     "--mesh_shape", "data=2"])
 
 
+@pytest.mark.parametrize("flags,error", [
+    (["--ckpt_backend", "npz"], None),
+    (["--ckpt_backend", "orbax"], "the port reads npz checkpoints only"),
+    (["--async_ckpt"], "--async_ckpt requires --ckpt_backend orbax"),
+    (["--ckpt_backend", "orbax", "--async_ckpt"],
+     "the port reads npz checkpoints only")],
+    ids=["npz", "orbax", "async", "orbax-async"])
+def test_cli_checkpoint_backend_flags(fixture_root, tmp_path, monkeypatch,
+                                      capsys, flags, error):
+    """The JAX CLI's checkpoint flags: npz trains, orbax is refused with
+    the checkpoint reader's reason, and --async_ckpt as the JAX CLI
+    refuses it without orbax, before anything is trained."""
+    from recnet_tpu_torch.checkpoint import NPZ_ONLY
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(tiny_train_config(fixture_root).to_json())
+    calls = []
+    monkeypatch.setattr(t_cli, "train", lambda tc, **kw: calls.append(kw))
+    argv = ["--config", str(cfg), "--device", "cpu"] + flags
+    if error is None:
+        t_cli.main(argv)
+        assert len(calls) == 1 and calls[0]["device"] == "cpu"
+        return
+    with pytest.raises(SystemExit) as exc:
+        t_cli.main(argv)
+    assert exc.value.code == 2 and not calls
+    assert error in capsys.readouterr().err
+    assert "npz checkpoints only" in NPZ_ONLY
+
+
 def test_non_finite_loss_saves_an_emergency_checkpoint(fixture_root,
                                                        tmp_path):
     jtc = tiny_train_config(fixture_root, n_iterations=4, log_every=2,

@@ -197,6 +197,87 @@ def test_bf16_step_stays_close_to_f32():
     assert losses["float32"][-1] < losses["float32"][0]
 
 
+# The bf16 step against JAX's bf16 step from the same weights. JAX casts
+# the masters and the videos to bfloat16; the port runs the rollouts under
+# autocast over the float32 masters, and both take the reconstruction loss
+# in bfloat16 on the bf16-cast videos. Each rounds its sums in its own
+# order, and a rounding that differs anywhere moves the later steps of a
+# recurrence. The bounds stand on the spread measured over seeds 0-4 (one
+# step; none, global, local): the losses differ by at most 5.8e-5 relative
+# (JAX against itself on videos scaled by 1 + 2^-12, far below bf16's
+# step: up to 1.0e-4); each gradient, read as the first Adam moment, by at
+# most 1.8e-2 of its leaf's largest value (JAX against itself: up to
+# 1.5e-2); at most 0.2% of the parameters' elements move in opposite
+# directions (a gradient within the noise of 0, which Adam's first step
+# turns into +-lr). Before the port took the reconstruction loss as JAX
+# does (it took it in float32 on the float32 videos, the step mask and
+# T_eff in float32) the losses differed by up to 3.3e-3 (local) and 2.2e-4
+# (global).
+BF16_LOSS_RTOL = 2e-4
+BF16_MOMENT_REL = 3.5e-2
+BF16_FLIP_SHARE = 0.01
+
+
+def bf16_step_against_jax(recon, seed):
+    """One bf16 step of both packages from the same state: (the largest
+    relative difference of the three losses, the largest difference of a
+    first-moment leaf over that leaf's largest |value|, the share of the
+    parameters' elements updated in opposite directions, the largest
+    parameter difference over the learning rate)."""
+    jtc, ttc = configs(recon, train_precision="bfloat16", **NO_DROPOUT)
+    jstate, dcfg, rcfg, tstate = both_states(jtc, ttc, seed=seed)
+    before = [np.array(x) for x in state_leaves(tstate)]
+    videos, captions = batch(np.random.default_rng(20 + seed), jtc)
+    jstate, jm = j_step.build_train_step(jtc, dcfg, rcfg)(
+        jstate, jnp.asarray(videos), jnp.asarray(captions),
+        jax.random.PRNGKey(3))
+    tm = t_step.build_train_step(ttc, *_port_cfgs(ttc))(tstate, t(videos),
+                                                         t(captions))
+    loss = max(abs(float(tm[k]) - float(jm[k])) / abs(float(jm[k]))
+               for k in ("loss", "dec_loss", "rec_loss") if float(jm[k]))
+    got = [np.asarray(x, np.float64) for x in state_leaves(tstate)]
+    want = [np.asarray(x, np.float64)
+            for x in jax.tree_util.tree_leaves(jstate)]
+    assert len(got) == len(want)
+    moment = step = 0.0
+    flips = elements = 0
+    i = 1                                  # leaf 0 is the step count
+    models = [(tstate.dec_params, tstate.dec_opt, jtc.decoder_learning_rate)]
+    if recon:
+        models.append((tstate.rec_params, tstate.rec_opt,
+                       jtc.reconstructor_learning_rate))
+    for params, opt, lr in models:
+        n = len(tree_leaves(params))
+        for k in range(i, i + n):          # the parameters, then the moments
+            d_got, d_want = got[k] - before[k], want[k] - before[k]
+            flips += int(np.sum(d_got * d_want < 0))
+            elements += d_got.size
+            step = max(step, float(np.abs(got[k] - want[k]).max()) / lr)
+        for k in range(i + n + 1, i + 2 * n + 1):              # mu
+            scale = max(np.abs(want[k]).max(), 1e-30)
+            moment = max(moment, float(np.abs(got[k] - want[k]).max())
+                         / scale)
+        # params, count, mu, nu and AMSGrad's nu_max
+        i += (3 if t_optim.adam_state(opt)[3] is None else 4) * n + 1
+    assert i == len(got)
+    return loss, moment, flips / elements, step
+
+
+@pytest.mark.parametrize("recon", [None, "global", "local"],
+                         ids=["none", "global", "local"])
+def test_bf16_step_matches_jax_bf16_step(recon):
+    """train_precision='bfloat16' against JAX's build_train_step with
+    train_precision='bfloat16', one step from the same weights: the
+    losses, the first moments (the gradients) and the updated parameters,
+    whose elements move by the learning rate in the same direction but for
+    a few at the noise floor, and never by more than twice it."""
+    loss, moment, flip, step = bf16_step_against_jax(recon, 0)
+    assert loss <= BF16_LOSS_RTOL, loss
+    assert moment <= BF16_MOMENT_REL, moment
+    assert flip <= BF16_FLIP_SHARE, flip
+    assert step <= 2.0 + 1e-3, step
+
+
 def test_teacher_forcing_draws_follow_the_ratio_and_the_step():
     draws = [t_step._step_draws(1, s, 0.3, "cpu")[0] for s in range(3000)]
     assert abs(np.mean(draws) - 0.3) < 0.03
