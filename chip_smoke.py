@@ -70,7 +70,15 @@ Phases, one line or more each; any failure exits non-zero before a result:
    beside the bound; the attention kernels' split (each split probe
    against its plain part, and its device time beside the kernel's);
    then the two rollouts' forward + backward, the Functions against the
-   plain autograd loops in turns, and their kernels' launches a step;
+   plain autograd loops in turns, and their kernels' launches a step; the
+   reconstructor's whole-rollout kernels (``csrc/cell_rollout.cu``, one
+   launch a direction; bf16 and f32) each step against the plain loop's
+   from the kernel's own state at ROLL_SEEDS seeds (f32 also chained),
+   timed beside cuDNN's LSTM / GRU and the bound, the whole-rollout route
+   against the per-step route in turns, their split probes (without the
+   product, its MMAs, the exchange), and the bf16 reconstructor loop's
+   launches (none a step, one a direction); (a) counts over its f32 steps
+   and CARD_BF16_STEPS bf16 steps;
 8. data: the data and checkpoint side. (a) A flagship-width reference
    (hobincar PyTorch) ``*_checkpoint.tar`` written from seeded numpy in
    the reference's keys, layout and parameter order, imported by
@@ -104,9 +112,11 @@ Phases, one line or more each; any failure exits non-zero before a result:
    launches per shard.
 
 ``--compare`` times K1, K2 (seg_len 4), K3 and K4 with their library
-routes, the K4 loop, and [train] (c)'s f32 and bf16 k-step dispatches
-with the loops' split, for this tree and another (an unpacked parent,
-say) in turns: this, other, other, this, each in a process of its own.
+routes, the K4 loop, [train] (c)'s f32 and bf16 k-step dispatches with
+the loops' split, and the reconstructor's rollout forward + backward
+(the package's route and the plain loop, f32 and bf16), for this tree and
+another (an unpacked parent, say) in turns: this, other, other, this,
+each in a process of its own.
 ``--read-rates`` times a small read kernel over an L2-resident buffer and
 over device memory.
 
@@ -176,6 +186,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 ROLL_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 ROLL_SEEDS = 5         # (d) holds each rollout kernel at this many seeds
+CARD_BF16_STEPS = 2    # (a): bf16 card steps beside the f32 ones (the route
+                       # of the whole-rollout kernels) in the counted window
 L2_PROBE_BYTES = 12 * 2 ** 20  # --read-rates: about one block-step of K1's
                                # weights
 # [train]: the in-memory corpus (videos of the train, val and test splits,
@@ -245,7 +257,7 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
     from recnet_tpu_torch.ops.cuda import build
     sources = ("whole_decode", "whole_decode_probes", "topk_proj",
-               "fused_step", "rollout")
+               "fused_step", "rollout", "cell_rollout")
     t0 = time.perf_counter()
 
     def timed_build(name):
@@ -1750,8 +1762,10 @@ def train_card_against_cpu(torch, tc, corpus):
     checksums (params and Adam moments) within TRAIN_RTOL; then
     REPEAT_STEPS more card steps on the one batch, whose loss must fall.
     The launch counts are set to 0 just before the card's steps and read
-    just after them: the rollouts' kernels of the train step. Returns
-    {rollout kernel name: launches}."""
+    just after them, with CARD_BF16_STEPS bf16 card steps (finite losses)
+    after the f32 ones: the rollouts' kernels of the train step in both
+    precisions (the reconstructor's whole-rollout kernels take bf16, f32
+    its per-step route). Returns {rollout kernel name: launches}."""
     from recnet_tpu_torch.checkpoint import state_leaves
     from recnet_tpu_torch.training import step as S
     tc = tc.replace(embedding_dropout=0.0, decoder_dropout=0.0,
@@ -1771,14 +1785,24 @@ def train_card_against_cpu(torch, tc, corpus):
         reset_counts()
         t0 = time.perf_counter()
         ms = [step(state, v, c) for _ in range(CARD_CPU_STEPS)]
+        seconds = time.perf_counter() - t0
         if device == DEVICE:
+            btc = tc.replace(train_precision="bfloat16")
+            bstate, bdcfg, brcfg = S.init_train_state(
+                SEED, btc, corpus.vocab.n_vocabs, device)
+            bstep = S.build_train_step(btc, bdcfg, brcfg)
+            bf16 = [float(bstep(bstate, v, c)["loss"])
+                    for _ in range(CARD_BF16_STEPS)]
             torch.cuda.synchronize()
             launches = rollout_launches((tc.decoder_model,
-                                         tc.reconstructor_model))
+                                         tc.reconstructor_model),
+                                        tc.reconstructor_model)
+            del bstate, bstep
+            check(np.isfinite(bf16).all(), f"bf16 card steps: loss {bf16}")
         runs[device] = dict(
             losses=[(float(m["loss"]), float(m["grad_norm"])) for m in ms],
             sums=checksums(state_leaves(state)),
-            seconds=time.perf_counter() - t0)
+            seconds=seconds)
     cpu, card = runs["cpu"], runs[DEVICE]
     rel = lambda i: max(abs(x[i] - y[i]) / abs(y[i])
                         for x, y in zip(card["losses"], cpu["losses"]))
@@ -1803,8 +1827,11 @@ def train_card_against_cpu(torch, tc, corpus):
                  f"({', '.join(f'{x:.5f}' for x in losses[::5])}, ...)")
     check(np.isfinite(losses).all() and losses[-1] < losses[0],
           "the loss on a repeated batch did not fall")
+    log("train", f"(a) bf16 card steps from the same init: loss "
+                 f"{', '.join(f'{x:.5f}' for x in bf16)}")
     log("train", f"(a) the rollouts' kernels launched in the "
-                 f"{CARD_CPU_STEPS} card steps: {launches}")
+                 f"{CARD_CPU_STEPS} f32 and {CARD_BF16_STEPS} bf16 card "
+                 f"steps: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} never launched in the card's train steps")
     return launches
@@ -2078,12 +2105,54 @@ def train_timing(torch):
     ttc = train_config(tc)
     corpus = train_corpus(ttc, vocab)
     return {"steps": train_times(torch, ttc, corpus),
-            "loops": loop_activities(torch, ttc, corpus)}
+            "loops": loop_activities(torch, ttc, corpus),
+            "reconstructor_rollout": reconstructor_rollout_ms(torch, ttc)}
 
 
-def rollout_launches(cells):
-    """The rollouts' wrappers' counts, by kernel entry name (the cell
-    kernels by cell type, ``cells``)."""
+def reconstructor_rollout_ms(torch, tc):
+    """The reconstructor's rollout, forward + backward at the flagship's
+    shapes, through ``ops.rnn.rnn_rollout_pre`` (the route the package
+    takes) and through the plain autograd loop, f32 and bf16 autocast:
+    {prec: {"kernels": [ms], "plain": [ms], "kernels_device": ms}} (CUDA
+    events in turns kernels, plain, plain, kernels; device time by the
+    profiler). Uses only what every tree of the port has."""
+    import functools as ft
+    from recnet_tpu_torch.ops import rnn as rnn_ops
+    T, B = tc.caption_max_len + 1, tc.batch_size
+    H, cell = tc.reconstructor_hidden_size, tc.reconstructor_model
+    G = (4 if cell == "LSTM" else 3) * H
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 70)
+
+    def leaf(*shape):
+        return (torch.randn(shape, generator=g, device=DEVICE) * 0.1
+                ).requires_grad_()
+
+    r = dict(w_hh=leaf(H, G), b_hh=leaf(G), gi=leaf(T, B, G))
+    zeros = torch.zeros((B, H), device=DEVICE)
+    dhs = torch.randn((T, B, H), generator=g, device=DEVICE)
+
+    def run(fn, dtype):
+        with torch.autocast("cuda", dtype=dtype, enabled=dtype is not None):
+            hs = fn(cell, r, r["gi"], zeros, zeros)
+        hs.backward(dhs.to(hs.dtype))
+
+    out = {}
+    for prec, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        routes = {"kernels": ft.partial(run, rnn_ops.rnn_rollout_pre, dtype),
+                  "plain": ft.partial(run, rnn_ops.rnn_rollout_pre_reference,
+                                      dtype)}
+        ms = {"kernels": [], "plain": []}
+        for route in ("kernels", "plain", "plain", "kernels"):
+            ms[route].append(timed(torch, routes[route])[0])
+        ms["kernels_device"] = device_ms(torch, routes["kernels"], reps=3)[""]
+        out[prec] = ms
+    return out
+
+
+def rollout_launches(cells, whole):
+    """The rollouts' wrappers' counts, by kernel entry name: the per-step
+    cell kernels by cell type (``cells``), the whole-rollout ones by the
+    reconstructor's (``whole``)."""
     from recnet_tpu_torch.ops.cuda import rollout as ro
     out = {}
     for name, fn in (("rollout_cell_forward", ro.cell_forward),
@@ -2092,6 +2161,9 @@ def rollout_launches(cells):
             out[f"{name}[{cell}]"] = fn.cell_launches[cell]
     out["rollout_attention_forward"] = ro.attention_forward.n_launches
     out["rollout_attention_backward"] = ro.attention_backward.n_launches
+    for name, fn in (("cell_rollout_forward", ro.cell_rollout_forward),
+                     ("cell_rollout_backward", ro.cell_rollout_backward)):
+        out[f"{name}[{whole}]"] = fn.cell_launches[whole]
     return out
 
 
@@ -2384,18 +2456,303 @@ def rollout_times(torch, tc):
                          f"T={T}: kernels {ms['kernels']} ms, plain autograd "
                          f"loop {ms['plain']} ms (events, in turns) on "
                          f"{card}")
-        # a loop step's launches: T against T - SPLIT_STEPS steps
-        full, cut = (loop_launches(torch, ft.partial(run, kernels, None, n))
-                     for n in (T, T - SPLIT_STEPS))
-        kern, prod = ((a - b) / SPLIT_STEPS for a, b in zip(full[:2], cut[:2]))
-        log("train", f"(d) {name} loop, f32: {kern:g} kernel launches a "
-                     f"step (the wrappers' counts) + {prod:g} products "
-                     f"(cuBLAS calls); device activities a step "
-                     f"{per_step(full[2], cut[2])}")
-        check(kern == (4 if name == "decoder" else 2)
-              and kern + prod <= (8 if name == "decoder" else 4),
-              f"the {name} loop launches {kern} kernels and {prod} products "
-              f"a step")
+        # a loop step's launches: T against T - SPLIT_STEPS steps; f32 (the
+        # per-step route of both loops), and bf16 for the reconstructor
+        # (its whole-rollout kernels: none a step, one a direction)
+        for dtype in (None,) + ((torch.bfloat16,) if name == "reconstructor"
+                                else ()):
+            full, cut = (loop_launches(torch, ft.partial(run, kernels, dtype,
+                                                         n))
+                         for n in (T, T - SPLIT_STEPS))
+            kern, prod = ((a - b) / SPLIT_STEPS
+                          for a, b in zip(full[:2], cut[:2]))
+            whole = {k: v for k, v in full[3].items()
+                     if k.startswith("cell_rollout")}
+            log("train", f"(d) {name} loop, "
+                         f"{'bf16 autocast' if dtype else 'f32'}: {kern:g} "
+                         f"kernel launches a step (the wrappers' counts) + "
+                         f"{prod:g} products (cuBLAS calls); at T = {T}: "
+                         f"whole-rollout launches {whole}; device "
+                         f"activities a step {per_step(full[2], cut[2])}")
+            if dtype is None:
+                check(kern == (4 if name == "decoder" else 2)
+                      and kern + prod <= (8 if name == "decoder" else 4),
+                      f"the {name} loop launches {kern} kernels and {prod} "
+                      f"products a step")
+            else:
+                check(kern == 0 and prod == 0 and whole == {
+                    "cell_rollout_forward": 1, "cell_rollout_backward": 1},
+                      f"the bf16 {name} loop launches {kern} kernels and "
+                      f"{prod} products a step, {whole} a rollout")
+
+
+def whole_rollout_operands(torch, tc, dtype, seed=0):
+    """The reconstructor's cell rollout at the flagship's shapes (T =
+    caption_max_len + 1, B, its hidden width), in ``dtype`` from ``seed``:
+    (cell, forward operands (gi_all, w_hh, b_hh, h0, c0 or None), dhs);
+    w_hh at the init's scale, 1 / sqrt(H)."""
+    cell, H = tc.reconstructor_model, tc.reconstructor_hidden_size
+    T, B, n = tc.caption_max_len + 1, tc.batch_size, 4 if \
+        tc.reconstructor_model == "LSTM" else 3
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 80 + 100 * seed)
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=DEVICE)
+                * scale).to(dtype)
+
+    fwd = (rand(T, B, n * H, scale=1.5), rand(H, n * H, scale=H ** -0.5),
+           rand(n * H), rand(B, H), rand(B, H) if cell == "LSTM" else None)
+    return cell, fwd, rand(T, B, H)
+
+
+def held(torch, what, prec, pairs):
+    """The largest |got - want| over ``pairs``; fails above ROLL_TOL (rtol,
+    and atol of each output's largest |value|)."""
+    err, tol = 0.0, ROLL_TOL[prec]
+    for got, want in pairs:
+        if want is None:
+            continue
+        x, y = got.float(), want.float()
+        d = (x - y).abs()
+        check(bool((d <= tol * y.abs() + tol * y.abs().max()).all()),
+              f"{what} {prec}: kernel and plain version differ by "
+              f"{float(d.max()):.3g}")
+        err = max(err, float(d.max()))
+    return err
+
+
+def drift(torch, pairs, prec):
+    """(largest |got - want|, its largest share of ROLL_TOL's bound) over
+    ``pairs``: a chained bf16 run's drift from the plain loop."""
+    err, share, tol = 0.0, 0.0, ROLL_TOL[prec]
+    for got, want in pairs:
+        if want is None:
+            continue
+        x, y = got.float(), want.float()
+        d = (x - y).abs()
+        err = max(err, float(d.max()))
+        share = max(share, float((d / (tol * y.abs() + tol * y.abs().max())
+                                  ).max()))
+    return err, share
+
+
+def whole_rollout_check(torch, tc, prec, seed):
+    """One seed: the whole-rollout kernels against their plain versions
+    (tests/test_torch_cuda.py's rule): each step from the kernel's own
+    state (forward) and carries (backward) within ROLL_TOL; f32 also over
+    the chained steps, bf16's chained drift returned. Returns (forward
+    error, backward error, chained bf16 drift or None)."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    cell, fwd, dhs = whole_rollout_operands(torch, tc, getattr(torch, prec),
+                                            seed)
+    lstm = cell == "LSTM"
+    got = ro.cell_rollout_forward(cell, *fwd)
+    each = ro.cell_rollout_forward_reference(cell, *fwd, states=got[:2])
+    chained = ro.cell_rollout_forward_reference(cell, *fwd)
+    torch.cuda.synchronize()
+    err_f = held(torch, f"cell_rollout_forward[{cell}] seed {seed}", prec,
+                 zip(got, each))
+    hs, cs, acts = chained
+    _, _, _, h0, c0 = fwd
+    steps = (torch.empty_like(hs), torch.empty_like(hs) if lstm else None)
+    got_b = ro.cell_rollout_backward(cell, dhs, acts, fwd[1], h0, hs, c0, cs,
+                                     steps_out=steps)
+    want_steps = (torch.empty_like(hs), torch.empty_like(hs) if lstm
+                  else None)
+    each_b = ro.cell_rollout_backward_reference(
+        cell, dhs, acts, fwd[1], h0, hs, c0, cs, steps_out=want_steps,
+        carries=steps)
+    chained_b = ro.cell_rollout_backward_reference(cell, dhs, acts, fwd[1],
+                                                   h0, hs, c0, cs)
+    torch.cuda.synchronize()
+    err_b = held(torch, f"cell_rollout_backward[{cell}] seed {seed}", prec,
+                 zip(tuple(got_b) + steps, tuple(each_b) + want_steps))
+    pairs = list(zip(got, chained)) + list(zip(got_b, chained_b))
+    if prec == "float32":
+        held(torch, f"cell_rollout[{cell}] seed {seed}, chained", prec, pairs)
+        return err_f, err_b, None
+    return err_f, err_b, drift(torch, pairs, prec)
+
+
+def cudnn_rollout(torch, cell, T, B, H, dtype):
+    """The library yardstick of the whole-rollout kernels (timed here, never
+    called by the port): cuDNN's torch.nn.LSTM / GRU at hidden H over T
+    steps from an input of width 1 (the same recurrence and an input product
+    of width 1). Returns (forward call, backward call: the gradients of the
+    input and the initial state only, as the kernel's)."""
+    mod = (torch.nn.LSTM if cell == "LSTM" else torch.nn.GRU)(1, H).to(
+        DEVICE, dtype)
+    for p in mod.parameters():
+        p.requires_grad_(False)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 90)
+    x = torch.randn((T, B, 1), generator=g, device=DEVICE).to(dtype)
+    h0 = torch.zeros((1, B, H), device=DEVICE, dtype=dtype)
+    state = (h0, h0.clone()) if cell == "LSTM" else h0
+    leaves = [t.requires_grad_() for t in
+              [x] + (list(state) if cell == "LSTM" else [state])]
+    out, _ = mod(leaves[0], tuple(leaves[1:]) if cell == "LSTM"
+                 else leaves[1])
+    dy = torch.randn_like(out)
+
+    def forward():
+        with torch.no_grad():
+            return mod(x, state)
+
+    return forward, lambda: torch.autograd.grad(out, leaves, dy,
+                                                retain_graph=True)
+
+
+def whole_rollout_kernels(torch, tc):
+    """(d) The reconstructor's whole-rollout kernels at the flagship's
+    shapes, bf16 (the route the Functions take) and f32: held against their
+    plain versions at ROLL_SEEDS seeds (``whole_rollout_check``); a wrapper
+    call timed by CUDA events and by the profiler's device time beside the
+    plain version, cuDNN's (``cudnn_rollout``) and the bound (operations at
+    the bf16 or f32 peak, or bytes at the HBM rate); then forward +
+    backward of the whole-rollout route against the per-step route
+    (``ops.rnn.steps_forward`` / ``steps_backward``) in turns, in both
+    precisions: the measurement behind ``ops.rnn.STEP_ROUTE_DTYPES``.
+    Returns {entry name: kernels-line fields} in bf16, f32's beside them."""
+    from recnet_tpu_torch.ops import rnn as rnn_ops
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    card = card_line()
+    T, B = tc.caption_max_len + 1, tc.batch_size
+    H, cell = tc.reconstructor_hidden_size, tc.reconstructor_model
+    G = (4 if cell == "LSTM" else 3) * H
+    entries = {}
+    for prec in ("bfloat16", "float32"):
+        dtype = getattr(torch, prec)
+        size = torch.finfo(dtype).bits // 8
+        checks = [whole_rollout_check(torch, tc, prec, seed)
+                  for seed in range(ROLL_SEEDS)]
+        drifts = [c[2] for c in checks if c[2] is not None]
+        log("train", f"(d) cell_rollout[{cell}] {prec}: max |kernel - plain|"
+                     f" each step from the kernel's own state, forward "
+                     + ", ".join(f"{c[0]:.3g}" for c in checks)
+                     + "; backward " + ", ".join(f"{c[1]:.3g}" for c in checks)
+                     + f" (seeds 0-{ROLL_SEEDS - 1})"
+                     + ("; chained over T, f32 within ROLL_TOL" if not drifts
+                        else "; the chained bf16 steps' drift from the plain "
+                        "loop: " + ", ".join(f"{d:.3g} ({r:.3f} of the bound)"
+                                             for d, r in drifts)))
+        _, fwd, dhs = whole_rollout_operands(torch, tc, dtype)
+        hs, cs, acts = ro.cell_rollout_forward_reference(cell, *fwd)
+        w, h0, c0 = fwd[1], fwd[3], fwd[4]
+        bwd = (cell, dhs, acts, w, h0, hs, c0, cs)
+        lib_f, lib_b = cudnn_rollout(torch, cell, T, B, H, dtype)
+        flops = 2 * B * H * G * T
+        peak = PEAK_BF16_FLOPS if prec == "bfloat16" else PEAK_F32_FLOPS
+        # bytes: each input read once, each output written once
+        bh, tbh = B * H, T * B * H
+        io = {"forward": size * (T * B * G + H * G + G + 2 * bh
+                                 + 2 * tbh + 4 * tbh),
+              "backward": size * (tbh + 4 * tbh + H * G + 2 * tbh + 2 * bh
+                                  + T * B * G + 2 * bh)}
+        runs = {"forward": (lambda: ro.cell_rollout_forward(cell, *fwd),
+                            lambda: ro.cell_rollout_forward_reference(cell,
+                                                                      *fwd),
+                            lib_f),
+                "backward": (lambda: ro.cell_rollout_backward(*bwd),
+                             lambda: ro.cell_rollout_backward_reference(*bwd),
+                             lib_b)}
+        for kind, (kernel, plain, library) in runs.items():
+            ms, plain_ms, lib_ms = (timed(torch, fn, reps)[0] for fn, reps in
+                                    ((kernel, 20), (plain, 3), (library, 20)))
+            dev = device_ms(torch, kernel, reps=10)[""]
+            lib_dev = device_ms(torch, library, reps=10)[""]
+            t_ops = flops / peak * 1e3
+            t_bytes = io[kind] / HBM_BYTES_PER_S * 1e3
+            i = 0 if kind == "forward" else 1
+            fields = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=max(t_ops, t_bytes),
+                          bound_by="operations" if t_ops >= t_bytes
+                          else "bytes", max_abs_err=max(c[i] for c in checks),
+                          device_ms=dev, library_device_ms=lib_dev,
+                          precision="bfloat16")
+            entry = entries.setdefault(f"cell_rollout_{kind}[{cell}]", {})
+            if prec == "bfloat16":
+                entry.update(fields)
+            else:
+                del fields["precision"]
+                entry.update({f"{prec}_{k}": v for k, v in fields.items()})
+            log("train", f"(d) cell_rollout_{kind}[{cell}] {prec}, B={B}, "
+                         f"H={H}, T={T}: one launch {ms:.4f} ms by events "
+                         f"(device {dev:.4f}), plain loop {plain_ms:.4f}, "
+                         f"cuDNN {lib_ms:.4f} (device {lib_dev:.4f}), bound "
+                         f"{fields['bound_ms']:.4f} ms ({fields['bound_by']}:"
+                         f" {flops / 1e9:.1f} GFLOP, {io[kind] / 1e6:.1f} MB)"
+                         f" on {card}")
+        # the route rule's measurement: whole rollout against per-step, in
+        # turns (whole, steps, steps, whole), forward + backward
+        routes = {
+            "whole": (ro.cell_rollout_forward, ro.cell_rollout_backward),
+            "steps": (rnn_ops.steps_forward, rnn_ops.steps_backward)}
+        ms = {"whole": [], "steps": []}
+        for route in ("whole", "steps", "steps", "whole"):
+            f, b = routes[route]
+            ms[route].append(timed(torch, lambda: (f(cell, *fwd),
+                                                   b(*bwd)))[0])
+        log("train", f"(d) the reconstructor's cell rollout {prec}, forward "
+                     f"+ backward, by events in turns: one launch a "
+                     f"direction {ms['whole']} ms, per step {ms['steps']} ms"
+                     f" (ops.rnn.STEP_ROUTE_DTYPES: "
+                     f"{[str(d) for d in rnn_ops.STEP_ROUTE_DTYPES]}) on "
+                     f"{card}")
+    return entries
+
+
+def whole_rollout_split(torch, tc):
+    """(d) The whole-rollout kernels' split at the flagship's shapes, bf16
+    and f32: the device time (torch.profiler) of each kernel and of its
+    split probes (``rollout.cell_rollout_probe``: without the product,
+    without its MMAs, without the exchange) on the same inputs; the product
+    probe held against the plain version with w_hh = 0 (ROLL_TOL, each step
+    from the probe's own state), the others finite. A part's cost is the
+    kernel's time less its probe's. Returns {kind: {prec: {"full" or probe:
+    device ms}}}."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    card = card_line()
+    out = {"forward": {}, "backward": {}}
+    for prec in ("bfloat16", "float32"):
+        cell, fwd, dhs = whole_rollout_operands(torch, tc,
+                                                getattr(torch, prec), 1)
+        hs, cs, acts = ro.cell_rollout_forward_reference(cell, *fwd)
+        w, h0, c0 = fwd[1], fwd[3], fwd[4]
+        zero = torch.zeros_like(w)
+        zfwd = (fwd[0], zero) + fwd[2:]
+        operands = {"forward": (cell,) + tuple(fwd),
+                    "backward": (cell, dhs, acts, w, h0, hs, c0, cs)}
+        kernels = {"forward": ro.cell_rollout_forward,
+                   "backward": ro.cell_rollout_backward}
+        for kind in ("forward", "backward"):
+            ops = operands[kind]
+            ms = {"full": device_ms(torch, lambda: kernels[kind](*ops),
+                                    reps=10)[""]}
+            for probe in ro.ROLLOUT_PROBES:
+                got = ro.cell_rollout_probe(kind, probe, *ops)
+                torch.cuda.synchronize()
+                if probe == "exchange":
+                    check(all(bool(torch.isfinite(x.float()).all())
+                              for x in got if x is not None),
+                          f"{kind} {probe} probe {prec}: not finite")
+                elif kind == "forward":
+                    held(torch, f"{kind} {probe} probe", prec, zip(
+                        got, ro.cell_rollout_forward_reference(
+                            cell, *zfwd, states=got[:2])))
+                else:
+                    held(torch, f"{kind} {probe} probe", prec, zip(
+                        got, ro.cell_rollout_backward_reference(
+                            cell, dhs, acts, zero, h0, hs, c0, cs)))
+                ms[probe] = device_ms(torch, lambda: ro.cell_rollout_probe(
+                    kind, probe, *ops), reps=10)[""]
+            out[kind][prec] = ms
+            log("train", f"(d) cell_rollout_{kind}[{cell}] split, {prec}: "
+                         f"the kernel {ms['full']:.4f} ms of device time; "
+                         + ", ".join(f"without {p} {ms[p]:.4f} ms (the part"
+                                     f" {ms['full'] - ms[p]:.4f})"
+                                     for p in ro.ROLLOUT_PROBES)
+                         + f" on {card}")
+    return out
 
 
 ROLLOUT_PRODUCTS = ("aten::mm", "aten::addmm", "aten::addmm_", "aten::bmm")
@@ -2403,8 +2760,8 @@ ROLLOUT_PRODUCTS = ("aten::mm", "aten::addmm", "aten::addmm_", "aten::bmm")
 
 def loop_launches(torch, run):
     """(the rollout wrappers' launches, product calls (ROLLOUT_PRODUCTS, by
-    the profiler's host events), device activities by name) of one call
-    of ``run``, after a warm-up."""
+    the profiler's host events), device activities by name, {wrapper name:
+    launches}) of one call of ``run``, after a warm-up."""
     from recnet_tpu_torch.ops.cuda import rollout as ro
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2420,7 +2777,8 @@ def loop_launches(torch, run):
                    and ev.name in ROLLOUT_PRODUCTS for ev in events)
     device = collections.Counter(ev.name for ev in events
                                  if ev.device_type == DeviceType.CUDA)
-    return sum(fn.n_launches for fn in ro.KERNELS), products, device
+    return (sum(fn.n_launches for fn in ro.KERNELS), products, device,
+            {fn.__name__: fn.n_launches for fn in ro.KERNELS})
 
 
 def train_phase(torch, tc, vocab):
@@ -2446,7 +2804,9 @@ def train_phase(torch, tc, vocab):
                  + "; ".join(f"{k} {v[0]:g} a step, {v[1]} a call ({v[2]})"
                              for k, v in split.items()))
     entries = rollout_kernels(torch, ttc)
+    entries.update(whole_rollout_kernels(torch, ttc))
     rollout_split(torch, ttc)
+    whole_rollout_split(torch, ttc)
     rollout_times(torch, ttc)
     for name, entry in entries.items():
         entry["launches"] = launches[name]
@@ -3400,11 +3760,18 @@ def main() -> int:
     serves = {"cell_forward": "recnet_tpu/ops/rnn.py:153",
               "cell_backward": "recnet_tpu/ops/rnn.py:181",
               "attention_forward": "recnet_tpu/models/decoder.py:261",
-              "attention_backward": "recnet_tpu/models/decoder.py:283"}
+              "attention_backward": "recnet_tpu/models/decoder.py:283",
+              # the custom VJP's forward and backward, by cell type
+              "cell_rollout_forward[LSTM]": "recnet_tpu/ops/rnn.py:215",
+              "cell_rollout_backward[LSTM]": "recnet_tpu/ops/rnn.py:225",
+              "cell_rollout_forward[GRU]": "recnet_tpu/ops/rnn.py:256",
+              "cell_rollout_backward[GRU]": "recnet_tpu/ops/rnn.py:265"}
     for name, entry in rollout_entries.items():
-        kind = name[len("rollout_"):].split("[")[0]
+        whole = name.startswith("cell_rollout")
+        kind = name if whole else name[len("rollout_"):].split("[")[0]
         kernels.append(dict({"name": name, "route": "cuda",
-                             "source": csrc + "rollout.cu",
+                             "source": csrc + ("cell_rollout.cu" if whole
+                                               else "rollout.cu"),
                              "replaces": serves[kind], "pallas": False},
                             **entry))
     for k in kernels:     # the body each whole-decode row ran on

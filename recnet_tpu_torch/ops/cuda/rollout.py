@@ -52,6 +52,16 @@ passes.
 ``attention_probe`` launches the attention kernels' split probes, each
 without one part of its kernel's work; ``attention_probe_reference`` is
 their plain version. No rollout calls them.
+
+The reconstructor's cell rollout (``ops.rnn.lstm_rollout_pre`` /
+``gru_rollout_pre``) runs whole: ``cell_rollout_forward`` and
+``cell_rollout_backward`` launch ``csrc/cell_rollout.cu``'s persistent
+kernels, one launch for all T steps of a direction (the recurrent product
+inside, W_hh held in shared memory in bf16), with today's step loop as
+their plain versions (``cell_rollout_*_reference``). ``rollout_plan``
+gives a launch's shape on the card and raises on one the card cannot hold
+at once; ``cell_rollout_probe`` launches their split probes. The per-step
+cell kernels above stay for the decoder's attention rollout.
 """
 
 from __future__ import annotations
@@ -173,9 +183,10 @@ def _check_smem(what: str, nbytes: int, widths: str) -> None:
 
 def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.recnet_rollout_error_string(err).decode()}"
-                           f" ({err})")
+        text = (lib.recnet_rollout_error_string
+                if hasattr(lib, "recnet_rollout_error_string")
+                else lib.recnet_cell_rollout_error_string)(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {text} ({err})")
 
 
 def _ptr(t: OptT):
@@ -462,7 +473,6 @@ def attention_backward(dctx: torch.Tensor, enc: torch.Tensor,
 
 attention_backward.n_launches = 0
 
-KERNELS = (cell_forward, cell_backward, attention_forward, attention_backward)
 
 # the attention kernels' split probes, each without one part of its
 # kernel's work: the forward without its scores (scores, and so ctx,
@@ -720,9 +730,388 @@ def attention_backward_steps(dctx: torch.Tensor, enc: torch.Tensor,
                   operands)
 
 
+# --------------------------------------------------------------------------
+# the cell's whole rollout: one launch a direction
+# --------------------------------------------------------------------------
+
+_PLAN_FIELDS = ("cluster", "clusters", "units", "rows", "k_slice",
+                "pass_rows", "smem", "capacity", "smem_limit")
+ROLLOUT_MAX_ROWS = 128        # padded product rows a block (the kernel's)
+# which product sources may be copied in 16-byte pieces (cell_rollout.cu)
+_VEC_H0, _VEC_HS, _VEC_DG, _VEC_ACTS, _VEC_W = 1, 2, 4, 8, 16
+ROLLOUT_MAX_PAIRS = 8 * 256   # (unit, row) pairs a block in a pass
+# the split probes: without the staging and the product (P = 0), without
+# the grid barrier and the cluster's sum, or without the products' MMAs
+# (the staging kept; P = 0)
+ROLLOUT_PROBES = {"product": 1, "exchange": 2, "mma": 4}
+_plans: dict = {}
+_barriers: dict = {}
+
+
+def _cell_rollout_library() -> ctypes.CDLL:
+    lib = build.load("cell_rollout")
+    if getattr(lib, "_recnet_bound", False):
+        return lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.recnet_cell_rollout_plan.argtypes = [i] * 6 + [p]
+    lib.recnet_cell_rollout_fwd.argtypes = [i, i, p] + [i] * 5 + [p] * 10
+    lib.recnet_cell_rollout_bwd.argtypes = [i, i, p] + [i] * 5 + [p] * 15
+    for fn in (lib.recnet_cell_rollout_plan, lib.recnet_cell_rollout_fwd,
+               lib.recnet_cell_rollout_bwd):
+        fn.restype = i
+    lib.recnet_cell_rollout_error_string.argtypes = [i]
+    lib.recnet_cell_rollout_error_string.restype = ctypes.c_char_p
+    lib._recnet_bound = True
+    return lib
+
+
+def _rollout_dims(what: str, cell_type: str, x: torch.Tensor, h0):
+    """(T, B, H, G) from x (T, B, .) and h0 (B, H)."""
+    if cell_type not in _CELLS:
+        raise ValueError(f"Unknown cell type: {cell_type}")
+    if x.dim() != 3 or h0.dim() != 2:
+        raise ValueError(f"{what}: (T, B, .) and h0 (B, H) expected; got "
+                         f"{tuple(x.shape)} and {tuple(h0.shape)}")
+    (T, B), H = x.shape[:2], h0.shape[1]
+    if min(T, B, H) < 1:
+        raise ValueError(f"{what}: empty rollout T={T}, B={B}, H={H}")
+    return T, B, H, (4 if cell_type == "LSTM" else 3) * H
+
+
+def rollout_plan(cell_type: str, forward: bool, dtype: torch.dtype, B: int,
+                 H: int, device, clusters: int = 0):
+    """The shape of a whole-rollout launch on ``device``: {"cluster": blocks
+    a cluster (the direction's), "clusters", "units": units a block,
+    "rows": padded product rows a block, "k_slice", "pass_rows", "smem":
+    bytes a block, "capacity": clusters the card holds at once,
+    "smem_limit"}, and the ctypes array the launch takes. ``clusters`` (0:
+    as many as H needs, spread over the card) is for tests. Raises
+    ValueError on widths a block cannot hold and RuntimeError on a grid
+    the card cannot hold at once: a persistent launch that is not
+    co-resident would never finish."""
+    device = torch.device(device)
+    what = f"cell_rollout_{'forward' if forward else 'backward'}"
+    key = (cell_type, forward, dtype, B, H, device, clusters)
+    if key not in _plans:
+        lib = _cell_rollout_library()
+        raw = (ctypes.c_int * len(_PLAN_FIELDS))()
+        with torch.cuda.device(device):
+            err = lib.recnet_cell_rollout_plan(
+                _DTYPE_CODES[dtype], int(cell_type == "LSTM"), int(forward),
+                B, H, clusters, raw)
+        _raise_on(lib, err, what)
+        _plans[key] = (dict(zip(_PLAN_FIELDS, raw)), raw)
+    plan, raw = _plans[key]
+    widths = f"{cell_type} H={H}, B={B}, {dtype}"
+    if plan["rows"] > ROLLOUT_MAX_ROWS:
+        raise ValueError(f"{what}: {widths} give a block {plan['rows']} "
+                         f"product rows, more than {ROLLOUT_MAX_ROWS}")
+    if plan["units"] * plan["pass_rows"] > ROLLOUT_MAX_PAIRS:
+        raise ValueError(f"{what}: {widths} give a block {plan['units']} "
+                         f"units x {plan['pass_rows']} rows, more than "
+                         f"{ROLLOUT_MAX_PAIRS} pairs")
+    if plan["smem"] > plan["smem_limit"]:
+        raise ValueError(f"{what}: {widths} need {plan['smem']} bytes of "
+                         f"shared memory a block, more than the card's "
+                         f"{plan['smem_limit']}")
+    if plan["clusters"] > plan["capacity"]:
+        raise RuntimeError(f"{what}: {plan['clusters']} clusters of "
+                           f"{plan['cluster']} blocks cannot be co-resident "
+                           f"on {device} (it holds {plan['capacity']} at "
+                           f"once); a persistent rollout needs every block "
+                           f"resident")
+    return plan, raw
+
+
+def _barrier(device: torch.device) -> torch.Tensor:
+    """Two zeroed ints a launch's grid barrier counts on, one pair for each
+    stream (launches on one stream run in turn and leave them zeroed)."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _barriers:
+        _barriers[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _barriers[key]
+
+
+def _vec(t: OptT, bit: int, width: Optional[int] = None) -> int:
+    """``bit`` where t's rows (of ``width`` items, its last axis by default)
+    may be copied in 16-byte pieces."""
+    if t is None:
+        return 0
+    width = t.shape[-1] if width is None else width
+    return bit if (t.data_ptr() % 16 == 0
+                   and width * t.element_size() % 16 == 0) else 0
+
+
+def cell_rollout_forward_reference(cell_type: str, gi_all: torch.Tensor,
+                                   w_hh: torch.Tensor, b_hh: torch.Tensor,
+                                   h0: torch.Tensor, c0: OptT,
+                                   states: Optional[Sequence[OptT]] = None):
+    """Plain version of ``cell_rollout_forward``: the step loop, each
+    product ``h w_hh`` in float32 (float64) over stored values, LSTM's
+    gates rounded to the operands' dtype after ``gi +``, GRU's gh after the
+    product, as the per-step route's cuBLAS products store them. With
+    ``states`` = (hs, cs) given, step t starts from hs[t - 1], cs[t - 1]
+    (h0, c0 at t = 0) in place of its own: each step from another run's
+    state."""
+    dt = gi_all.dtype
+    w = w_hh.to(_compute(dt))
+    lstm = cell_type == "LSTM"
+    h, c, hs, cs, acts = h0, c0, [], [], []
+    for t, gi in enumerate(gi_all):
+        if states is not None and t > 0:
+            h, c = states[0][t - 1], states[1][t - 1] if lstm else None
+        p = h.to(w.dtype) @ w
+        if lstm:
+            h, c, a = cell_forward_reference(
+                cell_type, (gi.to(w.dtype) + p).to(dt), None, b_hh, h, c)
+            cs.append(c)
+        else:
+            h, _, a = cell_forward_reference(cell_type, gi, p.to(dt), b_hh,
+                                             h, None)
+        hs.append(h)
+        acts.append(a)
+    return (torch.stack(hs), torch.stack(cs) if lstm else None,
+            torch.stack(acts))
+
+
+def cell_rollout_backward_reference(cell_type: str, dhs: torch.Tensor,
+                                    acts: torch.Tensor, w_hh: torch.Tensor,
+                                    h0: torch.Tensor, hs: OptT, c0: OptT,
+                                    cs: OptT,
+                                    steps_out: Optional[Sequence[OptT]] = None,
+                                    carries: Optional[Sequence[OptT]] = None):
+    """Plain version of ``cell_rollout_backward``: the reversed step loop,
+    each product ``dgates w_hh^T`` in float32 (float64), dh rounded to the
+    operands' dtype after it (GRU: after adding the cell's dh z).
+    ``steps_out`` = (dh_steps, dc_steps) as for the wrapper; with
+    ``carries`` = (dh_steps, dc_steps) given, step t takes its carries from
+    them in place of its own (each step from another run's carries)."""
+    dt = dhs.dtype
+    w_t = w_hh.to(_compute(dt)).t()
+    lstm = cell_type == "LSTM"
+    T = dhs.shape[0]
+    dh = torch.zeros_like(h0)
+    dc = torch.zeros_like(h0) if lstm else None
+    dgi, dgh = [None] * T, [None] * T
+    for t in reversed(range(T)):
+        if steps_out is not None:
+            steps_out[0][t].copy_(dh)
+            if lstm:
+                steps_out[1][t].copy_(dc)
+        if carries is not None:
+            dh, dc = carries[0][t], carries[1][t] if lstm else None
+        gi_t, gh_t, dh_cell, dc = cell_backward_reference(
+            cell_type, dh, dhs[t], dc, acts[t],
+            None if lstm else (h0 if t == 0 else hs[t - 1]),
+            (c0 if t == 0 else cs[t - 1]) if lstm else None,
+            cs[t] if lstm else None)
+        p = gh_t.to(w_t.dtype) @ w_t
+        dh = p.to(dt) if lstm else (dh_cell.to(w_t.dtype) + p).to(dt)
+        dgi[t], dgh[t] = gi_t, gh_t
+    dgi = torch.stack(dgi)
+    return dgi, dgi if lstm else torch.stack(dgh), dh, dc
+
+
+def _forward_operands(cell_type, gi_all, w_hh, b_hh, h0, c0, outs):
+    T, B, H, G = _rollout_dims("cell_rollout_forward", cell_type, gi_all, h0)
+    lstm = cell_type == "LSTM"
+    if lstm != (c0 is not None):
+        raise ValueError("cell_rollout_forward: LSTM takes c0, GRU none")
+    return (T, B, H, G), [
+        ("gi_all", gi_all, (T, B, G)), ("w_hh", w_hh, (H, G)),
+        ("b_hh", b_hh, (G,)), ("h0", h0, (B, H)), ("c0", c0, (B, H)),
+        ("hs_out", outs[0], (T, B, H)),
+        ("cs_out", outs[1] if lstm else None, (T, B, H)),
+        ("acts_out", outs[2], (T, B, 4 * H))]
+
+
+def _launch_forward(cell_type, gi_all, w_hh, b_hh, h0, c0, hs, cs, acts,
+                    clusters, probe):
+    T, B, H = gi_all.shape[0], gi_all.shape[1], h0.shape[1]
+    lstm = cell_type == "LSTM"
+    _, raw = rollout_plan(cell_type, True, gi_all.dtype, B, H, gi_all.device,
+                          clusters)
+    lib = _cell_rollout_library()
+    bar = _barrier(gi_all.device)
+    err = lib.recnet_cell_rollout_fwd(
+        _DTYPE_CODES[gi_all.dtype], int(lstm), raw, T, B, H, probe,
+        _vec(h0, _VEC_H0) | _vec(hs, _VEC_HS) | _vec(w_hh, _VEC_W, H),
+        _ptr(gi_all), _ptr(w_hh),
+        _ptr(b_hh), _ptr(h0), _ptr(c0), _ptr(hs), _ptr(cs), _ptr(acts),
+        _ptr(bar), _stream(gi_all.device))
+    _raise_on(lib, err, "cell_rollout_forward")
+
+
+def cell_rollout_forward(cell_type: str, gi_all: torch.Tensor,
+                         w_hh: torch.Tensor, b_hh: torch.Tensor,
+                         h0: torch.Tensor, c0: OptT,
+                         out: Optional[Sequence[OptT]] = None,
+                         clusters: int = 0):
+    """The forward of a whole rollout in one launch: gi_all (T, B, G) (the
+    input gates, G = 4H LSTM / 3H GRU), w_hh (H, G), b_hh (G,), h0 (B, H),
+    c0 (B, H) for LSTM, None for GRU; ``out`` = (hs, cs, acts). Returns
+    (hs (T, B, H), cs (T, B, H) or None, acts (T, B, 4H): [i, f, g, o] /
+    [r, z, n, h_n]). ``clusters`` as for ``rollout_plan``, for tests."""
+    outs = out or (None, None, None)
+    (T, B, H, _), operands = _forward_operands(cell_type, gi_all, w_hh, b_hh,
+                                               h0, c0, outs)
+    lstm = cell_type == "LSTM"
+    _check_shapes("cell_rollout_forward", operands)
+    if _on_cpu("cell_rollout_forward", operands):
+        made = cell_rollout_forward_reference(cell_type, gi_all, w_hh, b_hh,
+                                              h0, c0)
+        return _outputs((outs[0], outs[1] if lstm else None, outs[2]), made)
+    hs = _empty(out, 0, (T, B, H), h0)
+    cs = _empty(out, 1, (T, B, H), h0) if lstm else None
+    acts = _empty(out, 2, (T, B, 4 * H), h0)
+    _launch_forward(cell_type, gi_all, w_hh, b_hh, h0, c0, hs, cs, acts,
+                    clusters, 0)
+    _count(cell_rollout_forward, cell_type)
+    return hs, cs, acts
+
+
+cell_rollout_forward.n_launches = 0
+cell_rollout_forward.cell_launches = collections.Counter()
+
+
+def _backward_operands(cell_type, dhs, acts, w_hh, h0, hs, c0, cs, outs,
+                       steps_out=None):
+    T, B, H, G = _rollout_dims("cell_rollout_backward", cell_type, dhs, h0)
+    lstm = cell_type == "LSTM"
+    if lstm and (c0 is None or cs is None):
+        raise ValueError("cell_rollout_backward LSTM: c0 and cs needed")
+    if not lstm and hs is None:
+        raise ValueError("cell_rollout_backward GRU: hs needed")
+    if steps_out is not None and (steps_out[0] is None
+                                  or lstm != (steps_out[1] is not None)):
+        raise ValueError("cell_rollout_backward: steps_out is (dh_steps, "
+                         "dc_steps) for LSTM, (dh_steps, None) for GRU")
+    steps = steps_out or (None, None)
+    return (T, B, H, G), [
+        ("dh_steps", steps[0], (T, B, H)), ("dc_steps", steps[1], (T, B, H)),
+        ("dhs", dhs, (T, B, H)), ("acts", acts, (T, B, 4 * H)),
+        ("w_hh", w_hh, (H, G)), ("h0", h0, (B, H)),
+        ("hs", None if lstm else hs, (T, B, H)),
+        ("c0", c0 if lstm else None, (B, H)),
+        ("cs", cs if lstm else None, (T, B, H)),
+        ("dgi_out", outs[0], (T, B, G)),
+        ("dgh_out", None if lstm else outs[1], (T, B, G)),
+        ("dh0_out", outs[2], (B, H)),
+        ("dc0_out", outs[3] if lstm else None, (B, H))]
+
+
+def _launch_backward(cell_type, dhs, acts, w_hh, h0, hs, c0, cs, dgi, dgh,
+                     dh0, dc0, clusters, probe, steps_out=None):
+    T, B, H = dhs.shape[0], dhs.shape[1], h0.shape[1]
+    lstm = cell_type == "LSTM"
+    _, raw = rollout_plan(cell_type, False, dhs.dtype, B, H, dhs.device,
+                          clusters)
+    lib = _cell_rollout_library()
+    bar = _barrier(dhs.device)
+    err = lib.recnet_cell_rollout_bwd(
+        _DTYPE_CODES[dhs.dtype], int(lstm), raw, T, B, H, probe,
+        _vec(dgi if lstm else dgh, _VEC_DG) | _vec(acts, _VEC_ACTS)
+        | _vec(w_hh, _VEC_W, H),
+        _ptr(dhs), _ptr(acts), _ptr(w_hh), _ptr(h0),
+        _ptr(None if lstm else hs), _ptr(c0 if lstm else None),
+        _ptr(cs if lstm else None), _ptr(dgi), _ptr(None if lstm else dgh),
+        _ptr(dh0), _ptr(dc0), *map(_ptr, steps_out or (None, None)),
+        _ptr(bar), _stream(dhs.device))
+    _raise_on(lib, err, "cell_rollout_backward")
+
+
+def cell_rollout_backward(cell_type: str, dhs: torch.Tensor,
+                          acts: torch.Tensor, w_hh: torch.Tensor,
+                          h0: torch.Tensor, hs: OptT, c0: OptT, cs: OptT,
+                          out: Optional[Sequence[OptT]] = None,
+                          clusters: int = 0,
+                          steps_out: Optional[Sequence[OptT]] = None):
+    """The backward of a whole rollout in one launch, from the output
+    cotangents dhs (T, B, H) and the forward's acts (T, B, 4H); LSTM reads
+    c0 and cs (its c_prev and c_t), GRU h0 and hs (its h_prev). ``out`` =
+    (dgi, dgh, dh0, dc0). Returns (dgi (T, B, G), dgh, dh0 (B, H), dc0):
+    LSTM's dgh is dgi (the gates' cotangents) and dc0 (B, H); GRU's dc0
+    None. ``steps_out`` = (dh_steps, dc_steps) (T, B, H) (dc_steps None for
+    GRU), where given, receives the carried dh and dc into each step (zero
+    at T - 1), so that a test can check each step from the kernel's own
+    carries. ``clusters`` as for ``rollout_plan``, for tests."""
+    outs = out or (None, None, None, None)
+    (T, B, H, G), operands = _backward_operands(
+        cell_type, dhs, acts, w_hh, h0, hs, c0, cs, outs, steps_out)
+    lstm = cell_type == "LSTM"
+    _check_shapes("cell_rollout_backward", operands)
+    if _on_cpu("cell_rollout_backward", operands):
+        made = cell_rollout_backward_reference(cell_type, dhs, acts, w_hh,
+                                               h0, hs, c0, cs, steps_out)
+        if lstm:
+            dgi, _, dh0, dc0 = _outputs((outs[0], None, outs[2], outs[3]),
+                                        made)
+            return dgi, dgi, dh0, dc0
+        return _outputs((outs[0], outs[1], outs[2], None), made)
+    dgi = _empty(out, 0, (T, B, G), dhs)
+    dgh = dgi if lstm else _empty(out, 1, (T, B, G), dhs)
+    dh0 = _empty(out, 2, (B, H), dhs)
+    dc0 = _empty(out, 3, (B, H), dhs) if lstm else None
+    _launch_backward(cell_type, dhs, acts, w_hh, h0, hs, c0, cs, dgi, dgh,
+                     dh0, dc0, clusters, 0, steps_out)
+    _count(cell_rollout_backward, cell_type)
+    return dgi, dgh, dh0, dc0
+
+
+cell_rollout_backward.n_launches = 0
+cell_rollout_backward.cell_launches = collections.Counter()
+
+
+def cell_rollout_probe(kind: str, probe: str, *operands):
+    """A split probe of the whole-rollout kernels on the card: ``kind``
+    "forward" with the operands of ``cell_rollout_forward`` or "backward"
+    with those of ``cell_rollout_backward``; ``probe`` "product" (no
+    staging and no product: the cell runs on P = 0, so its outputs are the
+    plain version's with w_hh = 0), "mma" (the staging kept, the MMAs
+    dropped: P = 0 as well) or "exchange" (no grid barrier and no cluster
+    sum: each block's own partial product over a fixed input, h0 forward
+    and acts[t] backward). Returns what the wrapper returns. Counts no
+    launch; CUDA tensors only."""
+    if kind not in ("forward", "backward") or probe not in ROLLOUT_PROBES:
+        raise ValueError(f"no {kind} probe {probe!r}")
+    forward = kind == "forward"
+    cell_type = operands[0]
+    lstm = cell_type == "LSTM"
+    if forward:
+        (T, B, H, _), checked = _forward_operands(*operands,
+                                                  (None, None, None))
+    else:
+        (T, B, H, G), checked = _backward_operands(*operands,
+                                                   (None,) * 4)
+    what = f"cell_rollout_probe {kind}"
+    _check_shapes(what, checked)
+    if _on_cpu(what, checked):
+        raise ValueError(f"{what}: the split probes run on the card only")
+    if forward:
+        _, gi_all, w_hh, b_hh, h0, c0 = operands
+        hs, acts = h0.new_empty((T, B, H)), h0.new_empty((T, B, 4 * H))
+        cs = h0.new_empty((T, B, H)) if lstm else None
+        _launch_forward(cell_type, gi_all, w_hh, b_hh, h0, c0, hs, cs, acts,
+                        0, ROLLOUT_PROBES[probe])
+        return hs, cs, acts
+    _, dhs, acts, w_hh, h0, hs, c0, cs = operands
+    dgi = h0.new_empty((T, B, G))
+    dgh = dgi if lstm else h0.new_empty((T, B, G))
+    dh0 = h0.new_empty((B, H))
+    dc0 = h0.new_empty((B, H)) if lstm else None
+    _launch_backward(cell_type, dhs, acts, w_hh, h0, hs, c0, cs, dgi, dgh,
+                     dh0, dc0, 0, ROLLOUT_PROBES[probe])
+    return dgi, dgh, dh0, dc0
+
+
+KERNELS = (cell_forward, cell_backward, attention_forward, attention_backward,
+           cell_rollout_forward, cell_rollout_backward)
+
+
 def reset_counts() -> None:
     """Every wrapper's launch counts to 0."""
     for fn in KERNELS:
         fn.n_launches = 0
-    cell_forward.cell_launches.clear()
-    cell_backward.cell_launches.clear()
+    for fn in (cell_forward, cell_backward, cell_rollout_forward,
+               cell_rollout_backward):
+        fn.cell_launches.clear()

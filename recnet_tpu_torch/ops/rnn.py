@@ -15,10 +15,13 @@ Weights are input-major, as in the JAX package: ``w_ih (input, nG*H)``,
 with the JAX package's custom-VJP construction (``recnet_tpu/ops/rnn.py``
 :207-293): the forward keeps each step's gate activations, the backward
 loop carries only (dh, dc), and ``dw_hh`` and ``db_hh`` are one product and
-one sum over all T B rows after it. Each step's elementwise work is one
-kernel of ``ops/cuda/rollout.py`` on the card (its plain version on the
-CPU), launched through its ``*_steps`` launcher (checked once a rollout),
-each product one cuBLAS call. ``rollout_cell_fwd`` /
+one sum over all T B rows after it. On the card each direction is one
+launch of ``ops/cuda/rollout.py``'s ``cell_rollout_forward`` /
+``cell_rollout_backward`` (the recurrent products inside; their plain
+versions, the step loops, on the CPU); the dtypes of ``STEP_ROUTE_DTYPES``
+take the per-step route instead (``steps_forward`` / ``steps_backward``: a
+cell kernel launched through its ``*_steps`` launcher and a cuBLAS product
+a step). ``rollout_cell_fwd`` /
 ``rollout_cell_bwd`` are one such step and its cotangents, with the JAX
 functions' signatures and returns. ``rnn_rollout_pre_reference`` is the
 plain loop over T whose gradient autograd gives.
@@ -162,6 +165,79 @@ def cast_operands(dtype: torch.dtype, *xs: torch.Tensor):
     return [x.to(dtype).contiguous() for x in xs]
 
 
+# The dtypes whose rollouts stay on the per-step route (a cell kernel and a
+# cuBLAS product a step); every other dtype runs each direction as one
+# launch of ``rollout.cell_rollout_forward`` / ``cell_rollout_backward``. A
+# fixed rule on the dtype, not a fallback: both routes compute the same
+# values in the same rounding. float32 stays per step: its whole-rollout
+# kernels multiply on the CUDA cores and took about twice the per-step
+# route's time on the H100 (chip_smoke.py [train] (d)), where cuBLAS runs
+# the f32 products.
+STEP_ROUTE_DTYPES: Tuple[torch.dtype, ...] = (torch.float32,)
+
+
+def steps_forward(cell_type: str, gi_all, w_hh, b_hh, h0, c0):
+    """``rollout.cell_rollout_forward`` on the per-step route: a cuBLAS
+    product and a cell kernel (``cell_forward_steps``) a step."""
+    T, B, G = gi_all.shape
+    lstm = cell_type == "LSTM"
+    hs = gi_all.new_empty((T, B, h0.shape[1]))
+    cs = torch.empty_like(hs) if lstm else None
+    acts = gi_all.new_empty((T, B, 4 * h0.shape[1]))
+    h_prev = (h0,) + hs.unbind(0)[:-1]
+    if lstm:
+        gates = gi_all.clone()                  # gains h w_hh
+        cell = rollout.cell_forward_steps("LSTM", gates, None, b_hh, h0, c0,
+                                          hs, cs, acts)
+        for t, g in enumerate(gates.unbind(0)):
+            g.addmm_(h_prev[t], w_hh)
+            cell(t)
+        return hs, cs, acts
+    gh = gi_all.new_empty((B, G))               # h w_hh, a step
+    cell = rollout.cell_forward_steps("GRU", gi_all, gh.expand(T, B, G),
+                                      b_hh, h0, None, hs, None, acts)
+    for t in range(T):
+        torch.mm(h_prev[t], w_hh, out=gh)
+        cell(t)
+    return hs, None, acts
+
+
+def steps_backward(cell_type: str, dhs, acts, w_hh, h0, hs, c0, cs):
+    """``rollout.cell_rollout_backward`` on the per-step route."""
+    T, B, H = dhs.shape
+    lstm = cell_type == "LSTM"
+    w_t = w_hh.t()
+    dh = torch.zeros_like(h0)
+    if lstm:
+        c_prev = torch.cat([c0[None], cs[:-1]])
+        dgates = dhs.new_empty((T, B, 4 * H))
+        dc = torch.zeros_like(c0)
+        cell = rollout.cell_backward_steps("LSTM", dh, dhs, dc, acts, None,
+                                           c_prev, cs, dgates, None)
+        dg = dgates.unbind(0)
+        for t in reversed(range(T)):
+            cell(t)
+            torch.mm(dg[t], w_t, out=dh)
+        return dgates, dgates, dh, dc
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    dgi = dhs.new_empty((T, B, 3 * H))
+    dgh = torch.empty_like(dgi)
+    cell = rollout.cell_backward_steps("GRU", dh, dhs, None, acts, h_prev,
+                                       None, None, dgi, dgh)
+    dg = dgh.unbind(0)
+    for t in reversed(range(T)):
+        cell(t)                                 # dh = dh z
+        dh.addmm_(dg[t], w_t)
+    return dgi, dgh, dh, None
+
+
+def _route(dtype: torch.dtype):
+    """(forward, backward) of the rollout route ``dtype`` takes."""
+    if dtype in STEP_ROUTE_DTYPES:
+        return steps_forward, steps_backward
+    return rollout.cell_rollout_forward, rollout.cell_rollout_backward
+
+
 class _LstmRolloutPre(torch.autograd.Function):
     """``lstm_rollout_pre``: forward and backward of the LSTM rollout."""
 
@@ -170,18 +246,9 @@ class _LstmRolloutPre(torch.autograd.Function):
     def forward(ctx, w_hh, b_hh, gi_all, h0, c0):
         ctx.dtypes = [x.dtype for x in (w_hh, b_hh, gi_all, h0, c0)]
         dt = compute_dtype(gi_all)
-        w_hh, b_hh, h0, c0 = cast_operands(dt, w_hh, b_hh, h0, c0)
-        gates = gi_all.to(dt, copy=True).contiguous()   # gains h w_hh
-        T, B, G = gates.shape
-        hs = gates.new_empty((T, B, G // 4))
-        cs = torch.empty_like(hs)
-        acts = torch.empty_like(gates)
-        cell = rollout.cell_forward_steps("LSTM", gates, None, b_hh, h0, c0,
-                                          hs, cs, acts)
-        h_prev = (h0,) + hs.unbind(0)[:-1]
-        for t, g in enumerate(gates.unbind(0)):
-            g.addmm_(h_prev[t], w_hh)
-            cell(t)
+        w_hh, b_hh, gi_all, h0, c0 = cast_operands(dt, w_hh, b_hh, gi_all,
+                                                   h0, c0)
+        hs, cs, acts = _route(dt)[0]("LSTM", gi_all, w_hh, b_hh, h0, c0)
         ctx.save_for_backward(w_hh, hs, cs, acts, h0, c0)
         return hs
 
@@ -191,16 +258,9 @@ class _LstmRolloutPre(torch.autograd.Function):
         w_hh, hs, cs, acts, h0, c0 = ctx.saved_tensors
         dhs = dhs.to(hs.dtype).contiguous()
         T, B, H = hs.shape
+        dgates, _, dh, dc = _route(hs.dtype)[1]("LSTM", dhs, acts, w_hh, h0,
+                                                hs, c0, cs)
         h_prev = torch.cat([h0[None], hs[:-1]])
-        c_prev = torch.cat([c0[None], cs[:-1]])
-        dgates = torch.empty_like(acts)
-        dh, dc = torch.zeros_like(h0), torch.zeros_like(c0)
-        cell = rollout.cell_backward_steps("LSTM", dh, dhs, dc, acts, None,
-                                           c_prev, cs, dgates, None)
-        w_t, dg = w_hh.t(), dgates.unbind(0)
-        for t in reversed(range(T)):
-            cell(t)
-            torch.mm(dg[t], w_t, out=dh)
         d_w_hh = h_prev.reshape(T * B, H).t() @ dgates.reshape(T * B, 4 * H)
         grads = (d_w_hh, dgates.sum((0, 1)), dgates, dh, dc)
         return tuple(g.to(d) for g, d in zip(grads, ctx.dtypes))
@@ -215,16 +275,7 @@ class _GruRolloutPre(torch.autograd.Function):
         ctx.dtypes = [x.dtype for x in (w_hh, b_hh, gi_all, h0)]
         dt = compute_dtype(gi_all)
         w_hh, b_hh, gi_all, h0 = cast_operands(dt, w_hh, b_hh, gi_all, h0)
-        T, B, G = gi_all.shape
-        hs = gi_all.new_empty((T, B, G // 3))
-        acts = gi_all.new_empty((T, B, 4 * (G // 3)))
-        gh = gi_all.new_empty((B, G))                   # h w_hh, a step
-        cell = rollout.cell_forward_steps("GRU", gi_all, gh.expand(T, B, G),
-                                          b_hh, h0, None, hs, None, acts)
-        h_prev = (h0,) + hs.unbind(0)[:-1]
-        for t in range(T):
-            torch.mm(h_prev[t], w_hh, out=gh)
-            cell(t)
+        hs, _, acts = _route(dt)[0]("GRU", gi_all, w_hh, b_hh, h0, None)
         ctx.save_for_backward(w_hh, hs, acts, h0)
         return hs
 
@@ -234,16 +285,9 @@ class _GruRolloutPre(torch.autograd.Function):
         w_hh, hs, acts, h0 = ctx.saved_tensors
         dhs = dhs.to(hs.dtype).contiguous()
         T, B, H = hs.shape
+        dgi, dgh, dh, _ = _route(hs.dtype)[1]("GRU", dhs, acts, w_hh, h0, hs,
+                                              None, None)
         h_prev = torch.cat([h0[None], hs[:-1]])
-        dgi = hs.new_empty((T, B, 3 * H))
-        dgh = torch.empty_like(dgi)
-        dh = torch.zeros_like(h0)
-        cell = rollout.cell_backward_steps("GRU", dh, dhs, None, acts,
-                                           h_prev, None, None, dgi, dgh)
-        w_t, dg = w_hh.t(), dgh.unbind(0)
-        for t in reversed(range(T)):
-            cell(t)                             # dh = dh z
-            dh.addmm_(dg[t], w_t)
         d_w_hh = h_prev.reshape(T * B, H).t() @ dgh.reshape(T * B, 3 * H)
         grads = (d_w_hh, dgh.sum((0, 1)), dgi, dh)
         return tuple(g.to(d) for g, d in zip(grads, ctx.dtypes))

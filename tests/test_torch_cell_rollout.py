@@ -1,0 +1,275 @@
+"""The whole-rollout cell wrappers (``ops/cuda/rollout.py``
+``cell_rollout_forward`` / ``cell_rollout_backward``) on the CPU, where
+they run their plain versions: the plain versions against the JAX
+package's custom-VJP rollouts (``_lstm_rollout_fwd`` / ``_gru_rollout_fwd``
+residuals, and ``jax.vjp`` of ``lstm_rollout_pre`` / ``gru_rollout_pre``),
+against the per-step route (``ops.rnn.steps_forward`` /
+``steps_backward``), the wrappers' counts, ``out`` buffers and refusals,
+and the route rule of ``ops.rnn``.
+
+Inputs from numpy seeds at B = 3 and 7, T = 5, H = 5 and 16 (odd widths,
+as the card tests take). f32 tolerance rtol 1e-5 / atol 1e-6, the JAX
+package's own rollout bound (tests/test_ops_rnn.py): the same arithmetic
+in another summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from recnet_tpu.ops import rnn as j_rnn
+from recnet_tpu_torch.ops import rnn as t_rnn
+from recnet_tpu_torch.ops.cuda import rollout
+
+T = 5
+RTOL, ATOL = 1e-5, 1e-6
+WIDTHS = [(3, 16), (7, 5)]
+
+
+def _close(got, want, what=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=RTOL, atol=ATOL, err_msg=what)
+
+
+def _inputs(cell, B, H, seed):
+    """w_hh, b_hh, gi_all, h0, c0 (None for GRU) and the output cotangents
+    dhs, float32 numpy."""
+    n = 4 if cell == "LSTM" else 3
+    rng = np.random.default_rng(seed)
+    arr = lambda *s: (rng.standard_normal(s) * 0.5).astype(np.float32)
+    c0 = arr(B, H)
+    return (arr(H, n * H), arr(n * H), arr(T, B, n * H), arr(B, H),
+            c0 if cell == "LSTM" else None, arr(T, B, H))
+
+
+def _torch(*xs):
+    return [None if x is None else torch.from_numpy(np.array(x))
+            for x in xs]
+
+
+@pytest.mark.parametrize("B,H", WIDTHS)
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_forward_reference_matches_jax_residuals(cell, B, H):
+    """hs, cs and acts ([i, f, g, o] / [r, z, n, h_n]) against the JAX
+    forward's residuals."""
+    w, b, gi, h0, c0, _ = _inputs(cell, B, H, 0)
+    if cell == "LSTM":
+        _, (_, hs, cs, acts, _, _) = j_rnn._lstm_rollout_fwd(
+            *map(jnp.asarray, (w, b, gi, h0, c0)))
+    else:
+        _, (_, hs, acts, _) = j_rnn._gru_rollout_fwd(
+            *map(jnp.asarray, (w, b, gi, h0)))
+        cs = None
+    got = rollout.cell_rollout_forward_reference(cell, *_torch(gi, w, b, h0,
+                                                               c0))
+    for name, g, x in zip(("hs", "cs", "acts"), got, (hs, cs, acts)):
+        if x is None:
+            assert g is None
+        else:
+            _close(g, x, name)
+
+
+@pytest.mark.parametrize("B,H", WIDTHS)
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_backward_reference_matches_jax_vjp(cell, B, H):
+    """The plain backward's d gi_all (dgates / dgi), dh0 and dc0 against
+    ``jax.vjp`` of the JAX custom VJP; d w_hh and d b_hh made from its
+    dgates (dgh) as the Function makes them."""
+    w, b, gi, h0, c0, dhs = _inputs(cell, B, H, 1)
+    lstm = cell == "LSTM"
+    args = (w, b, gi, h0, c0) if lstm else (w, b, gi, h0)
+    jfn = j_rnn.lstm_rollout_pre if lstm else j_rnn.gru_rollout_pre
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(dhs))
+    tw, tb, tgi, th0, tc0, tdhs = _torch(w, b, gi, h0, c0, dhs)
+    hs, cs, acts = rollout.cell_rollout_forward_reference(cell, tgi, tw, tb,
+                                                          th0, tc0)
+    dgi, dgh, dh0, dc0 = rollout.cell_rollout_backward_reference(
+        cell, tdhs, acts, tw, th0, hs, tc0, cs)
+    h_prev = torch.cat([th0[None], hs[:-1]]).reshape(T * B, H)
+    d_w = h_prev.t() @ dgh.reshape(T * B, -1)
+    _close(d_w, want[0], "w_hh")
+    _close(dgh.sum((0, 1)), want[1], "b_hh")
+    _close(dgi, want[2], "gi_all")
+    _close(dh0, want[3], "h0")
+    if lstm:
+        assert dgi is dgh
+        _close(dc0, want[4], "c0")
+    else:
+        assert dc0 is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", WIDTHS)
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_plain_versions_equal_the_per_step_route(cell, B, H, dtype):
+    """The per-step route (a cell step and a product a step) gives the
+    plain versions' values: the same rounding, the products' sums in
+    another order (f32: RTOL/ATOL; bf16: one bf16 ulp of the largest
+    value)."""
+    w, b, gi, h0, c0, dhs = (None if x is None else x.to(dtype)
+                             for x in _torch(*_inputs(cell, B, H, 2)))
+    want = rollout.cell_rollout_forward_reference(cell, gi, w, b, h0, c0)
+    got = t_rnn.steps_forward(cell, gi, w, b, h0, c0)
+    hs, cs, acts = want
+    want_b = rollout.cell_rollout_backward_reference(cell, dhs, acts, w, h0,
+                                                     hs, c0, cs)
+    got_b = t_rnn.steps_backward(cell, dhs, acts, w, h0, hs, c0, cs)
+    for g, x in zip(got + got_b, want + want_b):
+        if x is None:
+            assert g is None
+            continue
+        g, x = g.float().numpy(), x.float().numpy()
+        if dtype == torch.float32:
+            _close(g, x)
+        else:
+            np.testing.assert_allclose(g, x, rtol=2.0 ** -7,
+                                       atol=2.0 ** -7 * np.abs(x).max())
+
+
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_wrappers_on_the_cpu_run_the_plain_versions_and_count_nothing(cell):
+    """On CPU tensors the wrappers return the plain versions' outputs, fill
+    ``out`` buffers where given, and count no launch."""
+    w, b, gi, h0, c0, dhs = _torch(*_inputs(cell, 3, 16, 3))
+    lstm = cell == "LSTM"
+    rollout.reset_counts()
+    want = rollout.cell_rollout_forward_reference(cell, gi, w, b, h0, c0)
+    hs_buf = torch.empty(T, 3, 16)
+    got = rollout.cell_rollout_forward(cell, gi, w, b, h0, c0,
+                                       out=(hs_buf, None, None))
+    assert got[0] is hs_buf
+    for g, x in zip(got, want):
+        assert (g is None and x is None) or torch.equal(g, x)
+    hs, cs, acts = want
+    want_b = rollout.cell_rollout_backward_reference(cell, dhs, acts, w, h0,
+                                                     hs, c0, cs)
+    got_b = rollout.cell_rollout_backward(cell, dhs, acts, w, h0, hs, c0, cs)
+    for g, x in zip(got_b, want_b):
+        assert (g is None and x is None) or torch.equal(g, x)
+    if lstm:
+        assert got_b[0] is got_b[1]
+    assert [fn.n_launches for fn in rollout.KERNELS] == [0] * 6
+    assert not rollout.cell_rollout_forward.cell_launches
+    assert not rollout.cell_rollout_backward.cell_launches
+
+
+def test_wrappers_refuse_bad_shapes_and_cells():
+    w, b, gi, h0, c0, dhs = _torch(*_inputs("LSTM", 3, 4, 4))
+    with pytest.raises(ValueError, match="Unknown cell"):
+        rollout.cell_rollout_forward("RNN", gi, w, b, h0, c0)
+    with pytest.raises(ValueError, match="gi_all"):
+        rollout.cell_rollout_forward("LSTM", gi[..., :-1], w, b, h0, c0)
+    with pytest.raises(ValueError, match="w_hh"):
+        rollout.cell_rollout_forward("LSTM", gi, w[:-1], b, h0, c0)
+    with pytest.raises(ValueError, match="LSTM takes c0"):
+        rollout.cell_rollout_forward("LSTM", gi, w, b, h0, None)
+    with pytest.raises(ValueError, match="LSTM takes c0"):
+        rollout.cell_rollout_forward("GRU", gi[..., :12], w[:, :12], b[:12],
+                                     h0, c0)
+    with pytest.raises(ValueError, match="empty rollout"):
+        rollout.cell_rollout_forward("LSTM", gi[:0], w, b, h0, c0)
+    hs, cs, acts = rollout.cell_rollout_forward("LSTM", gi, w, b, h0, c0)
+    with pytest.raises(ValueError, match="c0 and cs needed"):
+        rollout.cell_rollout_backward("LSTM", dhs, acts, w, h0, hs, None,
+                                      None)
+    with pytest.raises(ValueError, match="hs needed"):
+        rollout.cell_rollout_backward("GRU", dhs, acts, w[:, :12], h0, None,
+                                      None, None)
+    with pytest.raises(ValueError, match="acts"):
+        rollout.cell_rollout_backward("LSTM", dhs, acts[..., :-1], w, h0, hs,
+                                      c0, cs)
+    with pytest.raises(ValueError, match="dh0_out"):
+        rollout.cell_rollout_backward("LSTM", dhs, acts, w, h0, hs, c0, cs,
+                                      out=(None, None, torch.empty(3, 5),
+                                           None))
+    with pytest.raises(ValueError, match="operands on"):
+        rollout.cell_rollout_forward("LSTM", gi, w, b, h0,
+                                     c0.to("meta"))
+
+
+@pytest.mark.parametrize("kind,probe", [("forward", "product"),
+                                        ("forward", "exchange"),
+                                        ("backward", "product"),
+                                        ("backward", "exchange")])
+def test_probes_run_on_the_card_only(kind, probe):
+    w, b, gi, h0, c0, dhs = _torch(*_inputs("LSTM", 3, 4, 5))
+    if kind == "forward":
+        operands = ("LSTM", gi, w, b, h0, c0)
+    else:
+        hs, cs, acts = rollout.cell_rollout_forward("LSTM", gi, w, b, h0, c0)
+        operands = ("LSTM", dhs, acts, w, h0, hs, c0, cs)
+    with pytest.raises(ValueError, match="on the card only"):
+        rollout.cell_rollout_probe(kind, probe, *operands)
+    with pytest.raises(ValueError, match="no forward probe"):
+        rollout.cell_rollout_probe("forward", "ctx", *operands)
+
+
+def test_route_rule_is_by_dtype(monkeypatch):
+    """float32 (in STEP_ROUTE_DTYPES) takes the per-step route and bfloat16
+    the whole-rollout wrappers, on the CPU as on the card; with the rule
+    emptied float32 takes the wrappers too, to the same gradients."""
+    assert t_rnn.STEP_ROUTE_DTYPES == (torch.float32,)
+    calls = []
+    for module, name in ((rollout, "cell_rollout_forward"),
+                         (rollout, "cell_rollout_backward"),
+                         (t_rnn, "steps_forward"), (t_rnn, "steps_backward")):
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _f=fn, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+
+    def run(dtype):
+        w, b, gi, h0, c0, dhs = (x.to(dtype) for x in
+                                 _torch(*_inputs("LSTM", 3, 16, 6)))
+        for x in (w, b, gi, h0, c0):
+            x.requires_grad_()
+        t_rnn.lstm_rollout_pre(w, b, gi, h0, c0).backward(dhs)
+        return [x.grad for x in (w, b, gi, h0, c0)]
+
+    want = run(torch.float32)
+    assert calls == ["steps_forward", "steps_backward"]
+    run(torch.bfloat16)
+    assert calls[2:] == ["cell_rollout_forward", "cell_rollout_backward"]
+    monkeypatch.setattr(t_rnn, "STEP_ROUTE_DTYPES", ())
+    for g, x in zip(run(torch.float32), want):
+        _close(g, x)
+    assert calls[4:] == ["cell_rollout_forward", "cell_rollout_backward"]
+
+
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_stepwise_references_from_their_own_run_repeat_it(cell):
+    """The plain versions run from another run's states (forward) or
+    carries (backward) give that run back when it is their own; the
+    carries into each step (``steps_out``) start at zero at T - 1, and the
+    wrapper on CPU tensors fills them as the plain version does."""
+    w, b, gi, h0, c0, dhs = _torch(*_inputs(cell, 7, 5, 7))
+    lstm = cell == "LSTM"
+    hs, cs, acts = rollout.cell_rollout_forward_reference(cell, gi, w, b,
+                                                          h0, c0)
+    again = rollout.cell_rollout_forward_reference(cell, gi, w, b, h0, c0,
+                                                   states=(hs, cs))
+    for g, x in zip(again, (hs, cs, acts)):
+        assert (g is None and x is None) or torch.equal(g, x)
+    steps = (torch.empty(T, 7, 5), torch.empty(T, 7, 5) if lstm else None)
+    want = rollout.cell_rollout_backward_reference(
+        cell, dhs, acts, w, h0, hs, c0, cs, steps_out=steps)
+    assert not steps[0][-1].any() and steps[0][0].any()
+    again_steps = (torch.empty(T, 7, 5),
+                   torch.empty(T, 7, 5) if lstm else None)
+    again = rollout.cell_rollout_backward_reference(
+        cell, dhs, acts, w, h0, hs, c0, cs, steps_out=again_steps,
+        carries=steps)
+    for g, x in zip(tuple(again) + again_steps, tuple(want) + steps):
+        assert (g is None and x is None) or torch.equal(g, x)
+    wrapped = (torch.empty(T, 7, 5), torch.empty(T, 7, 5) if lstm else None)
+    rollout.cell_rollout_backward(cell, dhs, acts, w, h0, hs, c0, cs,
+                                  steps_out=wrapped)
+    for g, x in zip(wrapped, steps):
+        assert (g is None and x is None) or torch.equal(g, x)
+    with pytest.raises(ValueError, match="steps_out"):
+        rollout.cell_rollout_backward(cell, dhs, acts, w, h0, hs, c0, cs,
+                                      steps_out=(steps[0], None if lstm
+                                                 else steps[0]))

@@ -1,9 +1,10 @@
 """The CUDA kernels on the card, against their plain twins: the whole
 decode (K1/K2) with its K5 variants (early exit, dual, ablate) on both
 bodies (tensor cores, and CUDA cores under ``cuda_cores``), the fused
-projection + top-k (K3) and the fused attention + GRU step (K4: its
+projection + top-k (K3), the fused attention + GRU step (K4: its
 tensor-core route, each of the route's two kernels against its plain
-stage, and its CUDA-core body).
+stage, and its CUDA-core body), and the training rollouts' kernels (the
+per-step cell and attention kernels, the whole-rollout cell kernels).
 
 Needs a CUDA card with sm_90a and nvcc; every test skips without a card.
 This file imports neither JAX nor the test conftest, so on the card run:
@@ -1150,7 +1151,7 @@ def test_rollout_attention_probes_match_their_plain_parts(cuda, dtype, kind,
     torch.cuda.synchronize()
     for g, x in zip(got, want):
         _roll_close(g, x, dtype, f"probe {kind} {probe}")
-    assert [fn.n_launches for fn in rollout.KERNELS] == [0, 0, 0, 0]
+    assert [fn.n_launches for fn in rollout.KERNELS] == [0] * 6
 
 
 def _rollout_leaves(cell, device, seed):
@@ -1192,8 +1193,10 @@ def test_rollout_functions_on_the_card_match_the_cpu(cuda, cell):
                                  if k != "dhs" and x[k].grad is not None]
         if dev == "cuda":
             torch.cuda.synchronize()
+            # f32: both rollouts on the per-step kernels (the whole-rollout
+            # kernels take bf16)
             assert [fn.n_launches for fn in rollout.KERNELS] == [18, 18, 9,
-                                                                 9]
+                                                                 9, 0, 0]
     for got, want in zip(runs["cuda"], runs["cpu"]):
         np.testing.assert_allclose(got.detach().cpu().numpy(),
                                    want.detach().numpy(), rtol=1e-4,
@@ -1224,6 +1227,38 @@ def test_rollout_bf16_autocast_on_the_card(cuda):
                                    want.detach().cpu().numpy(), rtol=0.05,
                                    atol=0.05 * float(want.abs().max()))
     assert rollout.attention_backward.n_launches > 0
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_reconstructor_rollout_bf16_takes_the_whole_rollout_kernels(cuda,
+                                                                    cell):
+    """Under bf16 autocast the reconstructor's Function runs one launch of
+    each whole-rollout kernel and no per-step kernel, and returns
+    gradients in the leaves' f32 within 5% of the f32 run's (the bf16
+    train step's own bound against f32)."""
+    from recnet_tpu_torch.ops import rnn
+    from recnet_tpu_torch.ops.cuda import rollout
+    runs = []
+    for autocast in (False, True):
+        x = _rollout_leaves(cell, "cuda", 10)
+        rollout.reset_counts()
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            hs = (rnn.lstm_rollout_pre(x["w_hh"], x["b_hh"], x["gi"],
+                                       x["h0"], x["c0"]) if cell == "LSTM"
+                  else rnn.gru_rollout_pre(x["w_hh"], x["b_hh"], x["gi"],
+                                           x["h0"]))
+            (hs.float() * x["dhs"]).sum().backward()
+        torch.cuda.synchronize()
+        whole = [0, 0, 0, 0, 1, 1] if autocast else [9, 9, 0, 0, 0, 0]
+        assert [fn.n_launches for fn in rollout.KERNELS] == whole
+        leaves = ["w_hh", "b_hh", "gi", "h0"] + (["c0"] if cell == "LSTM"
+                                                 else [])
+        assert all(x[k].grad.dtype == torch.float32 for k in leaves)
+        runs.append([hs.float()] + [x[k].grad for k in leaves])
+    for got, want in zip(runs[1], runs[0]):
+        np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                   want.detach().cpu().numpy(), rtol=0.05,
+                                   atol=0.05 * float(want.abs().max()))
 
 
 def test_rollout_wrappers_reject_and_count(cuda):
@@ -1325,8 +1360,7 @@ def test_rollout_step_launchers_on_the_card_equal_the_wrappers(cuda, cell):
         assert torch.equal(dsc[t], s) and torch.equal(dgw[t][:, n * H:], x)
     assert not dgw[..., :n * H].any()
     torch.cuda.synchronize()
-    assert [fn.n_launches for fn in rollout.KERNELS] == [2 * T, 2 * T, 2 * T,
-                                                         2 * T]
+    assert [fn.n_launches for fn in rollout.KERNELS] == [2 * T] * 4 + [0, 0]
     with pytest.raises(ValueError, match="contiguous"):
         rollout.attention_backward_steps(dctx.transpose(1, 2).contiguous()
                                          .transpose(1, 2), enc, act, w, dsc,
@@ -1351,3 +1385,219 @@ def test_rollout_step_launchers_hold_their_operands(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(hs).all() and not bool((hs == 7.0).any())
     assert all(bool((o == 7.0).all()) for o in others)
+
+
+# the whole-rollout cell kernels (csrc/cell_rollout.cu): the flagship's
+# reconstructor (B = 100, H = 1536, T = 31) and odd widths: H not a
+# multiple of 16 (37, and 200 = 12.5 x 16), B = 7, and B = 130 (two
+# passes of the batch: 112 rows and 18)
+CELL_ROLL_WIDTHS = [(FB, 1536, 31), (FB, 37, 9), (7, 37, 9), (7, 200, 9),
+                    (130, 64, 9)]
+
+
+def _cell_roll_operands(cell, b, h, t, dtype, seed):
+    n = 4 if cell == "LSTM" else 3
+    w, bias, gi, h0, c0, dhs = _roll_tensors(
+        "cuda", dtype, 20 + seed, (h, n * h), (n * h,), (t, b, n * h),
+        (b, h), (b, h), (t, b, h))
+    w = w * (2.0 / h ** 0.5)               # U(-1/sqrt(H), ..)'s scale
+    return w.to(dtype), bias, gi * 3, h0, c0 if cell == "LSTM" else None, dhs
+
+
+def _drift(got, want, dtype, what):
+    """Print the largest |got - want| and its share of _roll_close's bound
+    (a bf16 run's drift from the plain loop over chained steps)."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    diff = np.abs(got - want)
+    bound = tol * np.abs(want) + tol * np.abs(want).max()
+    print(f"{what}: chained, max |kernel - plain| {diff.max():.3g}, "
+          f"{(diff / np.maximum(bound, 1e-30)).max():.3f} of the bound")
+
+
+@pytest.mark.parametrize("seed", ROLL_SEEDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t", CELL_ROLL_WIDTHS)
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_cell_rollout_kernels_match_their_plain_versions(cuda, cell, b, h, t,
+                                                         dtype, seed):
+    """Every output of the forward (hs, cs, acts) and of the backward
+    (dgates / dgi and dgh, dh0, dc0, and the carries into each step)
+    against the plain versions on the same inputs, within _roll_close; one
+    launch a direction. Each step is held against the plain step from the
+    kernel's own previous state (forward) or carries (backward); f32 also
+    over the whole chain. In bf16 a value one ulp apart at step t feeds
+    every later step, so two runs that each round right drift apart over
+    31 steps: that drift is printed, not bounded."""
+    from recnet_tpu_torch.ops.cuda import rollout
+    lstm = cell == "LSTM"
+    w, bias, gi, h0, c0, dhs = _cell_roll_operands(cell, b, h, t, dtype,
+                                                   seed)
+    rollout.reset_counts()
+    got = rollout.cell_rollout_forward(cell, gi, w, bias, h0, c0)
+    stepwise = rollout.cell_rollout_forward_reference(
+        cell, gi, w, bias, h0, c0, states=got[:2])
+    chained = rollout.cell_rollout_forward_reference(cell, gi, w, bias, h0,
+                                                     c0)
+    torch.cuda.synchronize()
+    for name, g, x, y in zip(("hs", "cs", "acts"), got, stepwise, chained):
+        if x is None:
+            assert g is None and y is None
+            continue
+        _roll_close(g, x, dtype, f"seed {seed} forward {name}, each step")
+        if dtype == torch.float32:
+            _roll_close(g, y, dtype, f"seed {seed} forward {name}, chained")
+        else:
+            _drift(g, y, dtype, f"seed {seed} forward {name}")
+    hs, cs, acts = chained
+    steps = (h0.new_empty((t, b, h)),
+             h0.new_empty((t, b, h)) if lstm else None)
+    got = rollout.cell_rollout_backward(cell, dhs, acts, w, h0, hs, c0, cs,
+                                        steps_out=steps)
+    want_steps = (torch.empty_like(steps[0]),
+                  torch.empty_like(steps[0]) if lstm else None)
+    stepwise = rollout.cell_rollout_backward_reference(
+        cell, dhs, acts, w, h0, hs, c0, cs, steps_out=want_steps,
+        carries=steps)
+    chained = rollout.cell_rollout_backward_reference(cell, dhs, acts, w, h0,
+                                                      hs, c0, cs)
+    torch.cuda.synchronize()
+    names = ("dgi", "dgh", "dh0", "dc0", "dh_steps", "dc_steps")
+    for name, g, x, y in zip(names, tuple(got) + steps,
+                             tuple(stepwise) + want_steps,
+                             tuple(chained) + (None, None)):
+        if x is None:
+            assert g is None
+            continue
+        _roll_close(g, x, dtype, f"seed {seed} backward {name}, each step")
+        if y is None:
+            continue
+        if dtype == torch.float32:
+            _roll_close(g, y, dtype, f"seed {seed} backward {name}, chained")
+        else:
+            _drift(g, y, dtype, f"seed {seed} backward {name}")
+    assert not steps[0][-1].any()
+    if lstm:
+        assert got[0] is got[1]
+    assert rollout.cell_rollout_forward.cell_launches == {cell: 1}
+    assert rollout.cell_rollout_backward.cell_launches == {cell: 1}
+
+
+def test_cell_rollout_grid_that_cannot_be_co_resident_raises(cuda):
+    """A grid of more clusters than the card holds at once is refused
+    before any launch; the wrappers' own plans fit."""
+    from recnet_tpu_torch.ops.cuda import rollout
+    w, bias, gi, h0, c0, dhs = _cell_roll_operands("LSTM", FB, 1536, 3,
+                                                   torch.bfloat16, 0)
+    for forward in (True, False):
+        plan, _ = rollout.rollout_plan("LSTM", forward, torch.bfloat16, FB,
+                                       1536, cuda)
+        assert 0 < plan["clusters"] <= plan["capacity"]
+        assert plan["rows"] <= rollout.ROLLOUT_MAX_ROWS
+        assert plan["smem"] <= plan["smem_limit"]
+        print(f"forward={forward}: {plan}")
+    rollout.reset_counts()
+    with pytest.raises(RuntimeError, match="co-resident"):
+        rollout.cell_rollout_forward("LSTM", gi, w, bias, h0, c0,
+                                     clusters=100_000)
+    hs, cs, acts = rollout.cell_rollout_forward_reference(
+        "LSTM", gi, w, bias, h0, c0)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        rollout.cell_rollout_backward("LSTM", dhs, acts, w, h0, hs, c0, cs,
+                                      clusters=100_000)
+    assert rollout.cell_rollout_forward.n_launches == 0
+    assert rollout.cell_rollout_backward.n_launches == 0
+
+
+def test_cell_rollout_wrappers_hold_their_operands(cuda):
+    """Wrapper calls on tensors that nothing else holds write what the
+    plain versions give, after the allocator has handed out memory again,
+    and write nothing else."""
+    from recnet_tpu_torch.ops.cuda import rollout
+
+    def operands():
+        return _cell_roll_operands("GRU", 13, 48, 5, torch.float32, 1)
+
+    def gi():
+        return operands()[2]
+
+    def w():
+        return operands()[0]
+
+    def bias():
+        return operands()[1]
+
+    def h0():
+        return operands()[3]
+
+    def dhs():
+        return operands()[5]
+
+    hs, _, acts = rollout.cell_rollout_forward("GRU", gi(), w(), bias(),
+                                               h0(), None)
+    others = [torch.full((5, 13, n), 7.0, device=cuda)
+              for n in (48, 144, 192) for _ in range(4)]
+    dgi, dgh, dh0, _ = rollout.cell_rollout_backward(
+        "GRU", dhs(), acts, w(), h0(), hs, None, None)
+    fillers = [torch.full((5, 13, n), 7.0, device=cuda)
+               for n in (48, 144, 192) for _ in range(4)]
+    torch.cuda.synchronize()
+    want = rollout.cell_rollout_forward_reference("GRU", gi(), w(), bias(),
+                                                  h0(), None)
+    _roll_close(hs, want[0], torch.float32, "hs")
+    want_b = rollout.cell_rollout_backward_reference(
+        "GRU", dhs(), want[2], w(), h0(), want[0], None, None)
+    for g, x in zip((dgi, dgh, dh0), want_b):
+        _roll_close(g, x, torch.float32, "backward")
+    assert all(bool((o == 7.0).all()) for o in others + fillers)
+
+
+def test_cell_rollout_wrappers_reject_and_count(cuda):
+    from recnet_tpu_torch.ops.cuda import rollout
+    w, bias, gi, h0, c0, dhs = _cell_roll_operands("LSTM", 13, 16, 4,
+                                                   torch.float32, 2)
+    with pytest.raises(ValueError, match="operands on"):
+        rollout.cell_rollout_forward("LSTM", gi, w, bias.cpu(), h0, c0)
+    with pytest.raises(ValueError, match="one dtype"):
+        rollout.cell_rollout_forward("LSTM", gi, w.bfloat16(), bias, h0, c0)
+    with pytest.raises(ValueError, match="contiguous"):
+        rollout.cell_rollout_forward("LSTM", gi, w.t().contiguous().t(),
+                                     bias, h0, c0)
+    rollout.reset_counts()
+    hs, cs, acts = rollout.cell_rollout_forward("LSTM", gi, w, bias, h0, c0)
+    rollout.cell_rollout_backward("LSTM", dhs, acts, w, h0, hs, c0, cs)
+    rollout.cell_rollout_probe("forward", "product", "LSTM", gi, w, bias, h0,
+                               c0)
+    assert [fn.n_launches for fn in rollout.KERNELS] == [0] * 4 + [1, 1]
+    assert rollout.cell_rollout_forward.cell_launches == {"LSTM": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_cell_rollout_probes(cuda, cell, dtype):
+    """The product probe (P = 0) equals the plain versions with w_hh = 0,
+    within _roll_close; the exchange probe's outputs are finite."""
+    from recnet_tpu_torch.ops.cuda import rollout
+    w, bias, gi, h0, c0, dhs = _cell_roll_operands(cell, FB, 1536, 4, dtype,
+                                                   3)
+    zero = torch.zeros_like(w)
+    got = rollout.cell_rollout_probe("forward", "product", cell, gi, w, bias,
+                                     h0, c0)
+    want = rollout.cell_rollout_forward_reference(cell, gi, zero, bias, h0,
+                                                  c0)
+    for g, x in zip(got, want):
+        if x is not None:
+            _roll_close(g, x, dtype, "forward product probe")
+    hs, cs, acts = want
+    got = rollout.cell_rollout_probe("backward", "product", cell, dhs, acts,
+                                     w, h0, hs, c0, cs)
+    want = rollout.cell_rollout_backward_reference(cell, dhs, acts, zero, h0,
+                                                   hs, c0, cs)
+    for g, x in zip(got, want):
+        if x is not None:
+            _roll_close(g, x, dtype, "backward product probe")
+    for kind, operands in (("forward", (cell, gi, w, bias, h0, c0)),
+                           ("backward", (cell, dhs, acts, w, h0, hs, c0,
+                                         cs))):
+        for x in rollout.cell_rollout_probe(kind, "exchange", *operands):
+            assert x is None or bool(torch.isfinite(x.float()).all())

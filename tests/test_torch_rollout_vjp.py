@@ -277,8 +277,9 @@ def test_wrappers_on_the_cpu_run_the_plain_versions_and_count_nothing():
     att, rest, dhs = _dec_inputs("GRU", 9)
     hs, _ = _port_dec(t_dec.tf_attn_rollout, "GRU", att, rest)
     hs.backward(torch.from_numpy(dhs))
-    assert [fn.n_launches for fn in rollout.KERNELS] == [0, 0, 0, 0]
+    assert [fn.n_launches for fn in rollout.KERNELS] == [0] * 6
     assert not rollout.cell_forward.cell_launches
+    assert not rollout.cell_rollout_forward.cell_launches
 
 
 def test_wrappers_reject_bad_shapes_and_cells():
