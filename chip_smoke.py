@@ -2486,14 +2486,16 @@ def rollout_times(torch, tc):
                       f"{prod} products a step, {whole} a rollout")
 
 
-def whole_rollout_operands(torch, tc, dtype, seed=0):
+def whole_rollout_operands(torch, tc, dtype, seed=0, cell=None):
     """The reconstructor's cell rollout at the flagship's shapes (T =
     caption_max_len + 1, B, its hidden width), in ``dtype`` from ``seed``:
     (cell, forward operands (gi_all, w_hh, b_hh, h0, c0 or None), dhs);
-    w_hh at the init's scale, 1 / sqrt(H)."""
-    cell, H = tc.reconstructor_model, tc.reconstructor_hidden_size
+    w_hh at the init's scale, 1 / sqrt(H). ``cell``: the reconstructor's
+    cell type unless given (GRU at the same width is timed beside it)."""
+    cell = cell or tc.reconstructor_model
+    H = tc.reconstructor_hidden_size
     T, B, n = tc.caption_max_len + 1, tc.batch_size, 4 if \
-        tc.reconstructor_model == "LSTM" else 3
+        cell == "LSTM" else 3
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 80 + 100 * seed)
 
     def rand(*shape, scale=0.5):
@@ -2536,7 +2538,7 @@ def drift(torch, pairs, prec):
     return err, share
 
 
-def whole_rollout_check(torch, tc, prec, seed):
+def whole_rollout_check(torch, tc, prec, seed, cell=None):
     """One seed: the whole-rollout kernels against their plain versions
     (tests/test_torch_cuda.py's rule): each step from the kernel's own
     state (forward) and carries (backward) within ROLL_TOL; f32 also over
@@ -2544,7 +2546,7 @@ def whole_rollout_check(torch, tc, prec, seed):
     error, backward error, chained bf16 drift or None)."""
     from recnet_tpu_torch.ops.cuda import rollout as ro
     cell, fwd, dhs = whole_rollout_operands(torch, tc, getattr(torch, prec),
-                                            seed)
+                                            seed, cell)
     lstm = cell == "LSTM"
     got = ro.cell_rollout_forward(cell, *fwd)
     each = ro.cell_rollout_forward_reference(cell, *fwd, states=got[:2])
@@ -2602,28 +2604,54 @@ def cudnn_rollout(torch, cell, T, B, H, dtype):
                                                 retain_graph=True)
 
 
+# the whole-rollout kernels timed in (d): (cell, precision); the
+# reconstructor's cell first, then GRU at the same width (bf16: the body
+# the Functions take)
+WHOLE_ROLLOUT_RUNS = (("LSTM", "bfloat16"), ("LSTM", "float32"),
+                      ("GRU", "bfloat16"))
+
+
+def whole_rollout_plans(torch, tc, cell, dtype):
+    """Log the whole-rollout kernels' launch shapes at the flagship's
+    widths (rollout.rollout_plan: the bf16 body's shared-memory budget)."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    B, H = tc.batch_size, tc.reconstructor_hidden_size
+    for forward in (True, False):
+        plan, _ = ro.rollout_plan(cell, forward, dtype, B, H, DEVICE)
+        log("train", f"(d) cell_rollout_{'forward' if forward else 'backward'}"
+                     f"[{cell}] {dtype}: {plan['clusters']} clusters of "
+                     f"{plan['cluster']} (the card holds "
+                     f"{plan['capacity']}), {plan['units']} units a block, "
+                     f"{plan['rows']} product rows x k slice "
+                     f"{plan['k_slice']}, {plan['pass_rows']} batch rows a "
+                     f"pass, {plan['stages']} stages; shared memory "
+                     f"{plan['smem']} of {plan['smem_limit']} bytes a block")
+
+
 def whole_rollout_kernels(torch, tc):
-    """(d) The reconstructor's whole-rollout kernels at the flagship's
-    shapes, bf16 (the route the Functions take) and f32: held against their
-    plain versions at ROLL_SEEDS seeds (``whole_rollout_check``); a wrapper
-    call timed by CUDA events and by the profiler's device time beside the
-    plain version, cuDNN's (``cudnn_rollout``) and the bound (operations at
-    the bf16 or f32 peak, or bytes at the HBM rate); then forward +
-    backward of the whole-rollout route against the per-step route
+    """(d) The whole-rollout kernels at the flagship's shapes, each run of
+    WHOLE_ROLLOUT_RUNS: held against their plain versions at ROLL_SEEDS
+    seeds (``whole_rollout_check``); a wrapper call timed by CUDA events
+    and by the profiler's device time beside the plain version, cuDNN's
+    (``cudnn_rollout``) and the bound (operations at the bf16 or f32 peak,
+    or bytes at the HBM rate); then, for the reconstructor's cell, forward
+    + backward of the whole-rollout route against the per-step route
     (``ops.rnn.steps_forward`` / ``steps_backward``) in turns, in both
     precisions: the measurement behind ``ops.rnn.STEP_ROUTE_DTYPES``.
-    Returns {entry name: kernels-line fields} in bf16, f32's beside them."""
+    Returns {entry name: kernels-line fields} of the reconstructor's cell
+    in bf16, with f32's and GRU's (bf16) beside them, prefixed."""
     from recnet_tpu_torch.ops import rnn as rnn_ops
     from recnet_tpu_torch.ops.cuda import rollout as ro
     card = card_line()
     T, B = tc.caption_max_len + 1, tc.batch_size
-    H, cell = tc.reconstructor_hidden_size, tc.reconstructor_model
-    G = (4 if cell == "LSTM" else 3) * H
+    H, main_cell = tc.reconstructor_hidden_size, tc.reconstructor_model
     entries = {}
-    for prec in ("bfloat16", "float32"):
+    for cell, prec in WHOLE_ROLLOUT_RUNS:
         dtype = getattr(torch, prec)
+        G = (4 if cell == "LSTM" else 3) * H
         size = torch.finfo(dtype).bits // 8
-        checks = [whole_rollout_check(torch, tc, prec, seed)
+        whole_rollout_plans(torch, tc, cell, dtype)
+        checks = [whole_rollout_check(torch, tc, prec, seed, cell)
                   for seed in range(ROLL_SEEDS)]
         drifts = [c[2] for c in checks if c[2] is not None]
         log("train", f"(d) cell_rollout[{cell}] {prec}: max |kernel - plain|"
@@ -2635,7 +2663,7 @@ def whole_rollout_kernels(torch, tc):
                         else "; the chained bf16 steps' drift from the plain "
                         "loop: " + ", ".join(f"{d:.3g} ({r:.3f} of the bound)"
                                              for d, r in drifts)))
-        _, fwd, dhs = whole_rollout_operands(torch, tc, dtype)
+        _, fwd, dhs = whole_rollout_operands(torch, tc, dtype, cell=cell)
         hs, cs, acts = ro.cell_rollout_forward_reference(cell, *fwd)
         w, h0, c0 = fwd[1], fwd[3], fwd[4]
         bwd = (cell, dhs, acts, w, h0, hs, c0, cs)
@@ -2644,10 +2672,13 @@ def whole_rollout_kernels(torch, tc):
         peak = PEAK_BF16_FLOPS if prec == "bfloat16" else PEAK_F32_FLOPS
         # bytes: each input read once, each output written once
         bh, tbh = B * H, T * B * H
-        io = {"forward": size * (T * B * G + H * G + G + 2 * bh
-                                 + 2 * tbh + 4 * tbh),
-              "backward": size * (tbh + 4 * tbh + H * G + 2 * tbh + 2 * bh
-                                  + T * B * G + 2 * bh)}
+        carried = 2 if cell == "LSTM" else 1       # h (and c) states
+        io = {"forward": size * (T * B * G + H * G + G + carried * bh
+                                 + carried * tbh + 4 * tbh),
+              "backward": size * (tbh + 4 * tbh + H * G + carried * tbh
+                                  + carried * bh + T * B * G
+                                  * (1 if cell == "LSTM" else 2)
+                                  + carried * bh)}
         runs = {"forward": (lambda: ro.cell_rollout_forward(cell, *fwd),
                             lambda: ro.cell_rollout_forward_reference(cell,
                                                                       *fwd),
@@ -2669,19 +2700,25 @@ def whole_rollout_kernels(torch, tc):
                           else "bytes", max_abs_err=max(c[i] for c in checks),
                           device_ms=dev, library_device_ms=lib_dev,
                           precision="bfloat16")
-            entry = entries.setdefault(f"cell_rollout_{kind}[{cell}]", {})
-            if prec == "bfloat16":
+            entry = entries.setdefault(f"cell_rollout_{kind}[{main_cell}]",
+                                       {})
+            if cell == main_cell and prec == "bfloat16":
                 entry.update(fields)
             else:
                 del fields["precision"]
-                entry.update({f"{prec}_{k}": v for k, v in fields.items()})
+                prefix = prec if cell == main_cell else cell.lower()
+                entry.update({f"{prefix}_{k}": v for k, v in fields.items()})
             log("train", f"(d) cell_rollout_{kind}[{cell}] {prec}, B={B}, "
                          f"H={H}, T={T}: one launch {ms:.4f} ms by events "
                          f"(device {dev:.4f}), plain loop {plain_ms:.4f}, "
                          f"cuDNN {lib_ms:.4f} (device {lib_dev:.4f}), bound "
                          f"{fields['bound_ms']:.4f} ms ({fields['bound_by']}:"
                          f" {flops / 1e9:.1f} GFLOP, {io[kind] / 1e6:.1f} MB)"
-                         f" on {card}")
+                         f"; device {dev / lib_dev:.2f}x cuDNN's, "
+                         f"{dev / fields['bound_ms']:.1f}x the bound on "
+                         f"{card}")
+        if cell != main_cell:
+            continue
         # the route rule's measurement: whole rollout against per-step, in
         # turns (whole, steps, steps, whole), forward + backward
         routes = {
@@ -2704,14 +2741,17 @@ def whole_rollout_kernels(torch, tc):
 def whole_rollout_split(torch, tc):
     """(d) The whole-rollout kernels' split at the flagship's shapes, bf16
     and f32: the device time (torch.profiler) of each kernel and of its
-    split probes (``rollout.cell_rollout_probe``: without the product,
-    without its MMAs, without the exchange) on the same inputs; the product
-    probe held against the plain version with w_hh = 0 (ROLL_TOL, each step
-    from the probe's own state), the others finite. A part's cost is the
-    kernel's time less its probe's. Returns {kind: {prec: {"full" or probe:
-    device ms}}}."""
+    split probes (``rollout.cell_rollout_probe``: without the product (the
+    staging, its waits for readiness and the MMAs), without the MMAs,
+    without the exchange (the waits for other blocks and the cluster's
+    sum)) on the same inputs; the product probe held against the plain
+    version with w_hh = 0 (ROLL_TOL, each step from the probe's own
+    state), the others finite. A part's cost is the kernel's time less its
+    probe's, printed a launch and a step. Returns {kind: {prec: {"full" or
+    probe: device ms}}}."""
     from recnet_tpu_torch.ops.cuda import rollout as ro
     card = card_line()
+    T = tc.caption_max_len + 1
     out = {"forward": {}, "backward": {}}
     for prec in ("bfloat16", "float32"):
         cell, fwd, dhs = whole_rollout_operands(torch, tc,
@@ -2747,9 +2787,12 @@ def whole_rollout_split(torch, tc):
                     kind, probe, *ops), reps=10)[""]
             out[kind][prec] = ms
             log("train", f"(d) cell_rollout_{kind}[{cell}] split, {prec}: "
-                         f"the kernel {ms['full']:.4f} ms of device time; "
+                         f"the kernel {ms['full']:.4f} ms of device time "
+                         f"({ms['full'] / T * 1e3:.2f} us a step); "
                          + ", ".join(f"without {p} {ms[p]:.4f} ms (the part"
-                                     f" {ms['full'] - ms[p]:.4f})"
+                                     f" {ms['full'] - ms[p]:.4f}, "
+                                     f"{(ms['full'] - ms[p]) / T * 1e3:.2f} "
+                                     f"us a step)"
                                      for p in ro.ROLLOUT_PROBES)
                          + f" on {card}")
     return out
@@ -3605,8 +3648,9 @@ def time_kernels(root: str) -> None:
     """Time K1, K2 (seg_len 4), K3 and K4 of the package under ``root``
     and their library routes, and the K4 loop, as ``times`` does
     (``core_kernels``, bf16, B = TIME_B, on inputs from this script's
-    seeds); then [train] (c)'s k-step dispatches, f32 and bf16, and the
-    loops' split (``train_timing``); print one JSON line. Runs in a
+    seeds); the whole-rollout kernels (``whole_rollout_times``); then
+    [train] (c)'s k-step dispatches, f32 and bf16, and the loops' split
+    (``train_timing``); print one JSON line. Runs in a
     process of its own, so that ``root``'s package and its kernel builds
     are the ones imported."""
     import importlib.util
@@ -3649,8 +3693,30 @@ def time_kernels(root: str) -> None:
     ms["greedy_decode_pallas"] = timed(torch, loop)[0]
     ms["greedy_decode_pallas device"] = device_ms(torch, loop, reps=3)[""]
     del params, enc, core
+    ms.update(whole_rollout_times(torch, tc))
     print(json.dumps({"root": root, "build_s": built, "ms": ms,
                       "train": train_timing(torch)}), flush=True)
+
+
+def whole_rollout_times(torch, tc):
+    """{"cell_rollout_<kind>[<cell>] bf16": ms by events, and with
+    " device": device ms} of the imported package's whole-rollout wrappers
+    at the flagship's shapes, LSTM and GRU, on this script's inputs (the
+    wrappers' signatures are the same in every tree that has them)."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    out = {}
+    for cell in ("LSTM", "GRU"):
+        _, fwd, dhs = whole_rollout_operands(torch, tc, torch.bfloat16,
+                                             cell=cell)
+        hs, cs, acts = ro.cell_rollout_forward_reference(cell, *fwd)
+        bwd = (cell, dhs, acts, fwd[1], fwd[3], hs, fwd[4], cs)
+        for kind, fn in (
+                ("forward", lambda: ro.cell_rollout_forward(cell, *fwd)),
+                ("backward", lambda: ro.cell_rollout_backward(*bwd))):
+            name = f"cell_rollout_{kind}[{cell}] bf16"
+            out[name] = timed(torch, fn, 20)[0]
+            out[f"{name} device"] = device_ms(torch, fn, reps=10)[""]
+    return out
 
 
 def compare(other: str) -> None:

@@ -24,6 +24,8 @@
 //     and one sum over all T B rows, as the JAX package leaves them to
 //     XLA).
 // Operands float32 or bfloat16, sums in f32, stores in the operand type.
+// Sums keep a fixed order and no value is added atomically, so a rerun
+// repeats its numbers bit for bit.
 //
 // What bounds them on the H100 (flagship reconstructor: LSTM, B = 100,
 // H = 1536, G = 6144, T = 31): bf16, the operations, 2 B H G T = 58.5
@@ -32,64 +34,88 @@
 // needs of other blocks is what paces it: every block needs every other
 // block's h_t (forward) or dgates_t (backward) before the next product.
 //
-// The design:
-// * Persistent and co-resident: one block an SM (about 128), launched
-//   cooperatively (the runtime refuses a grid the card cannot hold at
-//   once), one grid barrier a step: a sense-reversing barrier on a
-//   counter and a generation word in global memory (release on arrival,
-//   acquire on the wait, as cooperative groups' grid sync does).
-// * The recurrent weight held on chip (bf16): each block copies its slice
-//   of W_hh (H G / blocks: 147 KB at the flagship) into shared memory at
-//   entry, laid out [row][k] with k contiguous, and reads it from there
-//   for all T steps. In f32 (295 KB a block) the slice does not fit: it
-//   streams from L2 a chunk at a time beside the activations.
-// * The product on the tensor cores (bf16): mma.sync m16n8k16 with f32
-//   accumulators, the weight as the A operand (16 of the block's rows),
-//   the batch as N (8 rows a tile; B = 100 takes 13 tiles, 104 rows), so
-//   that the activations' natural row-major layout is the B operand. The
-//   activations are staged into shared memory in chunks of 64 k by 16-byte
-//   cp.async (cg: L2 only, since other SMs wrote them), three chunks in
-//   flight. Sixteen warps: 2 (weight rows) x 4 (batch) x 2 (k halves of a
-//   chunk); the k halves are summed through shared memory. f32: the same
-//   pipeline with the weight chunk staged too, and 8 x 4 register tiles of
-//   FMAs.
-// * Split K inside a cluster: a cluster of C blocks shares a group of
-//   units. In the forward (C = 2) block r takes the k slice r of h
-//   (H / C) against all of the cluster's gate columns; in the backward
-//   (C = 8) the slice r of dgates (G / C) against the cluster's units'
-//   rows of W_hh. Each block writes its partial sums to shared memory;
-//   after a cluster barrier each block sums the C partials of its own
-//   units through distributed shared memory, rank by rank. So a block
-//   reads 1/C of the exchanged activations a step: 154 KB of h (forward),
-//   154 KB of dgates (backward) at the flagship, in place of 307 KB and
-//   1.2 MB.
-// * The cell where its gates are: the block that sums a unit's gates runs
-//   that unit's cell and writes its outputs; the carries (the LSTM's c,
-//   the backward's dc and GRU's dh z) are the block's own rows of
-//   global buffers (cs, dc0, dh0), read and written by no other block.
-//   Only h_t (forward) or dgates_t (backward) crosses blocks.
-// * Sums in a fixed order, no atomics on values: a rerun repeats its
-//   numbers. dh_steps / dc_steps, where given, receive the backward's
-//   carries into each step, so that a test can hold each step against the
-//   plain step from the kernel's own carries.
+// Both bodies: persistent and co-resident, one block an SM, launched
+// cooperatively (the runtime refuses a grid the card cannot hold at once)
+// in clusters of C blocks that split k: a cluster owns U = C ub units,
+// block rank r takes the k slice r of the product's activations (h: C =
+// 2 forward; dgates: C = 8 backward) against all of the cluster's product
+// rows (forward: the U units' gate columns of W_hh, 4U or 3U; backward:
+// the U units' rows), and runs the cells of its own ub units. The C
+// partial sums of a unit cross the cluster through distributed shared
+// memory and are added rank by rank. Only h_t (forward) or dgates_t
+// (backward) crosses clusters, through global memory (L2).
 //
+// The bf16 body (cell_rollout_wgmma_kernel; two warpgroups, 256 threads):
+// * The recurrent weight held on chip: the block's slice (NW product rows
+//   x the k slice; NW = 32, 64, 96 or 104, the wgmma widths built: 96 x
+//   768 forward, 104 x 768 backward at the flagship, 147 and 160 KB) is
+//   laid out once at entry as K-major tiles of 64 k in the 128-byte swizzle
+//   that wgmma's matrix descriptors name (wgmma.cuh).
+// * The product on wgmma: P (batch rows x NW) = X W_blk^T, the batch as M
+//   (warpgroup w takes rows 64 w .. 64 w + 63 of a pass), the block's
+//   product rows as N, m64nNWk16 with both operands read from shared
+//   memory by descriptor and f32 accumulators in registers; one warpgroup
+//   walks the whole k slice, so no k halves are summed.
+// * The activations staged by 16-byte cp.async (cg: L2 only) into a ring
+//   of S swizzled 64-k tiles (104 rows a pass; S = 6 forward, 5 backward
+//   at the flagship), S - 2 chunks ahead: a chunk's copies land while the
+//   last chunk's MMAs run (one wgmma group kept in flight), and each tile
+//   is fenced to the async proxy before the wgmma that reads it.
+// * Readiness flags in place of a grid barrier: after a block has written
+//   its units' h_t (dgates_t) it publishes its step count (st.release.gpu)
+//   in its own word of the launch's scratch. At the start of a pass the
+//   block looks once at the word of every block that writes a column of
+//   its k slice (ld.acquire.gpu, one lane a writer: one L2 round trip) and
+//   stages at once every chunk whose writers have all published; a chunk
+//   found short is staged after further looks at all of them (trapping
+//   after about 10 s). Each step writes fresh rows (hs[t], dgates[t]), so
+//   no write-after-read crosses steps. The words hold counts from `base`,
+//   which the wrapper advances a launch: they are never reset within a
+//   launch, nor zeroed between launches.
+// * The exchange: each block's partials (its rows < B of the pass x NW,
+//   f32, its k slice's sum) go over the ring, whose stages are free after
+//   the product; a cluster barrier (arrive.release, wait.acquire) makes
+//   them visible; each block sums its own units' partials from the C ranks
+//   in order. The barrier's next phase is arrived at once a block has read
+//   its peers' partials and waited for only before the next pass stages
+//   into the ring.
+// * The cells off the dependent chain: each thread's (unit, row) pairs
+//   are fixed for the whole launch; their inputs (gi_t, the backward's
+//   dhs, acts, cs / hs) and their carries (c: cs[t - 1]; dc: dc0; GRU's h:
+//   hs[t - 1]; its dh z: dh0; each written by the same thread a step
+//   before) are loaded as stored bf16 at the start of the pass and
+//   converted where the cells use them, so that they land while the
+//   product runs; b_hh of the block's units is held in shared memory (every
+//   acquire of a step invalidates L1, so a read of it through L1 would go to
+//   L2 in each cell).
 // What the split showed (chip_smoke.py [train] (d), the flagship's
-// reconstructor in bf16 on an H100, device time): forward 0.79 ms, of
-// which the product 0.44 (its MMAs 0.29, the staging the rest) and the
-// exchange 0.17; backward 0.95 ms, product 0.46 (MMAs 0.34), exchange
-// 0.29. About 6 us a step is neither: the cells' dependent loads and the
-// block's barriers. Each part is latency at a block an SM, so the kernels
-// sit at 13-16x their bound; cuDNN's LSTM takes 0.39 and 0.45 ms of device
-// time at these shapes. f32 took 3.4 and 3.3 ms, above the per-step
-// route's cuBLAS products, so ops/rnn.py keeps f32 on that route.
+// reconstructor in bf16 on an H100 80GB HBM3 at 700 W, device time a step
+// of 31): forward 21.4 us, of which the product 13.0 (staging, waits and
+// MMAs; the MMAs 3.4) and the exchange 4.0; without the product 8.5 (the
+// cells, the pulls of the partials and the hand-offs); backward 20.3 us,
+// product 11.2 (MMAs 3.6), exchange 5.3. cuDNN's LSTM takes 12.7 and 14.5
+// us a step at these shapes: the kernels lose to it by the per-step costs
+// a persistent grid pays on this card (the stagings' L2 reads and the
+// hand-offs), no longer by their MMAs.
+//
+// The f32 body (cell_rollout_f32_kernel; 512 threads): the f32 slice of
+// W_hh does not fit on chip (295 KB a block), so each 64-k chunk of it
+// streams from L2 beside the activations' chunk, three in flight, into
+// 8 x 4 register tiles of FMAs; the k slice's partials go over the stages
+// and are summed as above; one sense-reversing grid barrier a step on a
+// counter and a generation word (release on arrival, acquire on the
+// wait). ops/rnn.py keeps f32 on the per-step route (its cuBLAS products
+// are faster); this body serves the tests and the measurement of that
+// rule.
 //
 // Split probes (probe bits; 0 is the kernel the rollouts launch):
-// kNoProduct drops the staging and the products (P = 0); kNoMma keeps the
-// staging and drops the MMAs (P = 0); kNoExchange drops the grid barrier
-// and the cluster's sum (each block adds only its own partial) and reads
-// the product's activations from an input of the same width (h0 forward,
-// acts[t] backward), so that its outputs are defined. The probes are timed
-// by chip_smoke.py and count no launch.
+// kNoProduct drops the staging (with its waits for readiness) and the
+// products (P = 0); kNoMma keeps the staging and drops the MMAs (P = 0);
+// kNoExchange drops the waits for other blocks (bf16: the readiness
+// flags; f32: the grid barrier) and the cluster's sum (each block adds
+// only its own partial) and reads the product's activations from an input
+// of the same width (h0 forward, acts[t] backward), so that its outputs
+// are defined. The probes are timed by chip_smoke.py and count no launch.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -100,41 +126,51 @@
 
 #include "decode_common.cuh"
 #include "hopper_mma.cuh"
+#include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 using recnet::cp_async16;
 using recnet::cp_async_commit;
 using recnet::cp_async_wait;
 using recnet::from_f;
-using recnet::ldmatrix_x2;
-using recnet::ldmatrix_x4;
-using recnet::mma_bf16;
 using recnet::round_to;
 using recnet::sigmoid;
 using recnet::to_f;
 
-constexpr int kThreads = 512;
 constexpr int kKC = 64;          // k of a staged chunk
-constexpr int kStages = 3;       // chunks in flight
-constexpr int kMaxRows = 128;    // padded product rows a block (8 m-tiles)
-constexpr int kPassRows = 112;   // batch rows a pass (14 n-tiles of 8)
-constexpr int kMW = 4, kNW = 4;  // m- and n-tiles a warp, at most (bf16)
-constexpr int kFT = 1;           // 8 x 4 register tiles a thread (f32)
 constexpr int kNoProduct = 1, kNoExchange = 2, kNoMma = 4;
-constexpr int kMaxPairs = 4;     // (unit, row) pairs a thread in a pass
-constexpr int kFwdCluster = 2, kBwdCluster = 8;
+constexpr int kMaxBlocks = 1024; // readiness words in the scratch
 // which product sources may be copied in 16-byte pieces
 constexpr int kVecH0 = 1, kVecHs = 2, kVecDg = 4, kVecActs = 8, kVecW = 16;
+
+// the f32 body
+constexpr int kThreads = 512;
+constexpr int kStages = 3;       // chunks in flight
+constexpr int kMaxRows = 128;    // padded product rows a block
+constexpr int kPassRows = 112;   // batch rows a pass
+constexpr int kFT = 1;           // 8 x 4 register tiles a thread
+constexpr int kMaxPairs = 4;     // (unit, row) pairs a thread in a pass
+
+// the bf16 body
+constexpr int kWThreads = 256;   // two warpgroups
+constexpr int kWPassRows = 104;  // batch rows a pass: a stage's rows
+constexpr int kWMaxPairs = 6;    // (unit, row) pairs a thread in a pass
+constexpr int kWMinStages = 3, kWMaxStages = 8;
+constexpr int kWAlign = 1024;    // the swizzled tiles' alignment
+constexpr int kWReady = 128;     // the readiness scan's bytes
 
 template <typename T>
 struct RollArgs {
   int steps, B, H, G;          // T, batch, hidden, gate width (nG H)
-  int C, ub, Mpad, kc, Bp;     // cluster size, units a block, padded rows,
-                               // k slice width, batch rows a pass
+  int C, ub, Mpad, kc, Bp;     // cluster size, units a block, padded rows
+                               // (bf16: NW), k slice, batch rows a pass
+  int stages;                  // bf16: the ring's stages
   int probe, vec;
+  unsigned base;               // bf16: the readiness count before launch
   const T* gi;                 // forward: (T, B, G)
   const T* w;                  // (H, G)
   const T* bias;               // (G)
@@ -150,7 +186,8 @@ struct RollArgs {
   T* dc0;                      // backward out; LSTM's dc carry
   T* dh_steps;                 // backward out, or null: the carried dh
   T* dc_steps;                 // and dc (LSTM) into each step (T, B, H)
-  unsigned* bar;               // grid barrier: count, generation
+  unsigned* bar;               // f32: grid barrier (count, generation)
+  unsigned* flags;             // bf16: a readiness word a block
 };
 
 __host__ __device__ constexpr int ceil_div(int a, int b) {
@@ -161,14 +198,7 @@ __host__ __device__ constexpr int round_up(int a, int b) {
   return ceil_div(a, b) * b;
 }
 
-__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
-
 __device__ __forceinline__ float ldcg_f(const float* p) { return __ldcg(p); }
-
-__device__ __forceinline__ float ldcg_f(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
 
 // 4 bytes global -> shared (L1 allowed: only read-only operands), or 4 zero
 // bytes when !ok
@@ -204,11 +234,11 @@ __device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p,
   return old;
 }
 
-// cycles a block waits at the grid barrier before it gives up (about 10 s:
-// a launch whose blocks are not all resident faults instead of hanging)
+// cycles a block waits for other blocks before it gives up (about 10 s: a
+// launch whose blocks are not all resident faults instead of hanging)
 constexpr long long kBarrierTimeout = 20000000000LL;
 
-// Every block of the grid waits here until all have arrived. bar[0]
+// f32: every block of the grid waits here until all have arrived. bar[0]
 // counts arrivals and is back at 0 when the barrier opens; bar[1] is the
 // generation, advanced by the last block to arrive. Needs every block
 // resident at once (the cooperative launch).
@@ -361,99 +391,63 @@ __device__ __forceinline__ void bwd_cell_store(const RollArgs<T>& a, int t,
   }
 }
 
-// Block-wide (bf16): the block's slice of W_hh into Ws [Mpad][WP], zero
-// outside it. Backward rows lie along k in W_hh: 16-byte cp.async pieces
-// (committed as one group, waited on with the first chunk). Forward rows
-// are W_hh's columns: 16-byte loads of 8 units of a gate, four a thread in
-// flight, each scattered down a column of Ws. Pieces that `vec` or the
-// edges rule out go element by element.
-template <bool FWD>
-__device__ __forceinline__ void load_w(__nv_bfloat16* Ws, int WP,
-                                       const __nv_bfloat16* w, bool vec,
-                                       int Mpad, int kc, int M, int cu0,
-                                       int Cub, int kbeg, int kend, int H,
-                                       int G, int nG) {
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  if (FWD) {
-    const int per_gate = vec && Cub % 8 == 0 ? Cub / 8 : 0;
-    const int nvec = kc * nG * per_gate;
-    for (int i0 = threadIdx.x; i0 < nvec; i0 += 4 * kThreads) {
-      uint4 v[4];
-      int mk[4][2];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int i = i0 + s * kThreads;
-        mk[s][0] = -1;
-        if (i < nvec) {
-          const int p = i % per_gate, g = (i / per_gate) % nG;
-          const int k = i / (per_gate * nG), unit = cu0 + 8 * p;
-          mk[s][0] = g * Cub + 8 * p;
-          mk[s][1] = k;
-          if (kbeg + k < kend && unit + 8 <= H)
-            v[s] = __ldg(reinterpret_cast<const uint4*>(
-                w + (long)(kbeg + k) * G + (long)g * H + unit));
-          else
-            mk[s][0] = -2 - mk[s][0];   // by elements
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        if (mk[s][0] == -1) continue;
-        const int k = mk[s][1];
-        if (mk[s][0] >= 0) {
-          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[s]);
-#pragma unroll
-          for (int q = 0; q < 8; ++q) Ws[(mk[s][0] + q) * WP + k] = e[q];
-        } else {
-          const int m0 = -2 - mk[s][0];
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const long idx = w_index<true>(m0 + q, k, M, cu0, Cub, kbeg, kend,
-                                           H, G);
-            Ws[(m0 + q) * WP + k] = idx >= 0 ? w[idx] : zero;
-          }
-        }
-      }
-    }
-    if (per_gate == 0) {
-      for (int i = threadIdx.x; i < Mpad * kc; i += kThreads) {
-        const int m = i % Mpad, k = i / Mpad;
-        const long idx = w_index<true>(m, k, M, cu0, Cub, kbeg, kend, H, G);
-        Ws[m * WP + k] = idx >= 0 ? w[idx] : zero;
-      }
-    } else {          // the padded rows
-      for (int i = threadIdx.x; i < (Mpad - nG * Cub) * kc; i += kThreads)
-        Ws[(nG * Cub + i / kc) * WP + i % kc] = zero;
-    }
-  } else {
-    const int per_row = kc / 8;
-    for (int i = threadIdx.x; i < Mpad * per_row; i += kThreads) {
-      const int m = i / per_row, k = (i - m * per_row) * 8;
-      __nv_bfloat16* d = Ws + m * WP + k;
-      const int unit = cu0 + m;
-      if (vec && m < M && unit < H && kbeg + k + 8 <= kend) {
-        cp_async16(d, w + (long)unit * G + kbeg + k);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const long idx = w_index<false>(m, k + q, M, cu0, Cub, kbeg, kend,
-                                          H, G);
-          d[q] = idx >= 0 ? w[idx] : zero;
-        }
-      }
-    }
-    cp_async_commit();
-  }
+// The forward LSTM cell of unit j at (T B) row `row` from its gates before
+// the bias (round(gi + P)), b_hh's four values and c_{t-1}: writes cs, hs
+// and acts [i, f, g, o].
+template <typename T>
+__device__ __forceinline__ void fwd_lstm_store(const RollArgs<T>& a, long row,
+                                               int j, const float pre[4],
+                                               const float bias[4],
+                                               float cp) {
+  const int H = a.H;
+  const float ig = sigmoid(pre[0] + bias[0]);
+  const float f = sigmoid(pre[1] + bias[1]);
+  const float gg = tanhf(pre[2] + bias[2]);
+  const float o = sigmoid(pre[3] + bias[3]);
+  const float c = f * cp + ig * gg;
+  a.cs[row * H + j] = from_f<T>(c);
+  a.hs[row * H + j] = from_f<T>(o * tanhf(c));
+  T* act = a.acts + row * 4 * H + j;
+  act[0] = from_f<T>(ig);
+  act[H] = from_f<T>(f);
+  act[2 * H] = from_f<T>(gg);
+  act[3 * H] = from_f<T>(o);
 }
 
-template <typename T, bool LSTM, bool FWD>
+// The forward GRU cell of unit j at row `row` from P (f32 sums), gi_t,
+// b_hh and h_{t-1}: writes hs and acts [r, z, n, h_n].
+template <typename T>
+__device__ __forceinline__ void fwd_gru_store(const RollArgs<T>& a, long row,
+                                              int j, const float P[3],
+                                              const float gi[3],
+                                              const float bias[3],
+                                              float hp) {
+  const int H = a.H;
+  const float gh0 = round_to<T>(P[0]), gh1 = round_to<T>(P[1]);
+  const float hn = round_to<T>(round_to<T>(P[2]) + bias[2]);
+  const float r = sigmoid(gi[0] + gh0 + bias[0]);
+  const float z = sigmoid(gi[1] + gh1 + bias[1]);
+  const float nn = tanhf(gi[2] + r * hn);
+  a.hs[row * H + j] = from_f<T>((1.0f - z) * nn + z * hp);
+  T* act = a.acts + row * 4 * H + j;
+  act[0] = from_f<T>(r);
+  act[H] = from_f<T>(z);
+  act[2 * H] = from_f<T>(nn);
+  act[3 * H] = from_f<T>(hn);
+}
+
+// ---------------------------------------------------------------------------
+// the f32 body
+// ---------------------------------------------------------------------------
+
+template <bool LSTM, bool FWD>
 __global__ void __launch_bounds__(kThreads, 1)
-cell_rollout_kernel(const RollArgs<T> a) {
+cell_rollout_f32_kernel(const RollArgs<float> a) {
+  using T = float;
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int nG = LSTM ? 4 : 3;
-  constexpr int E = 16 / (int)sizeof(T), XP = kKC + E;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int XP = kKC + 4;
+  const int tid = threadIdx.x;
   const int H = a.H, G = a.G, B = a.B, C = a.C, ub = a.ub, Mpad = a.Mpad;
   const int rank = (int)(blockIdx.x % C), q = (int)(blockIdx.x / C);
   const int Cub = C * ub, cu0 = q * Cub;        // the cluster's units
@@ -466,18 +460,10 @@ cell_rollout_kernel(const RollArgs<T> a) {
   const bool cluster_sum = exchange && C > 1;
   const bool product = !(a.probe & kNoProduct);
   const bool mma = !(a.probe & kNoMma);
-  const int WP = a.kc + 8;                      // the held slice's pitch
   const int PP = a.Bp + 4;                      // partial sums' pitch
-  T* Ws = reinterpret_cast<T*>(smem);
-  unsigned char* region =
-      smem + (kBf16 ? round_up(Mpad * WP * (int)sizeof(T), 16) : 0);
-  T* Xs = reinterpret_cast<T*>(region);         // [kStages][Bp][XP]
-  float* Wst = reinterpret_cast<float*>(Xs + kStages * a.Bp * XP);
-  float* Ps = reinterpret_cast<float*>(region); // [Mpad][PP], over the stages
-
-  if constexpr (kBf16)        // the block's slice of W_hh, held for all T
-    load_w<FWD>(Ws, WP, a.w, a.vec & kVecW, Mpad, a.kc, M, cu0, Cub, kbeg,
-                kend, H, G, nG);
+  T* Xs = reinterpret_cast<T*>(smem);           // [kStages][Bp][XP]
+  float* Wst = Xs + kStages * a.Bp * XP;        // [kStages][Mpad][XP]
+  float* Ps = reinterpret_cast<float*>(smem);   // [Mpad][PP], over the stages
 
   // One pass of step t over batch rows b_lo .. b_lo + bp: P = W_blk X^T
   // over the block's k slice into Ps[m][b - b_lo] (all Mpad rows, bp
@@ -490,180 +476,89 @@ cell_rollout_kernel(const RollArgs<T> a) {
   auto pass = [&](const T* X, int ldx, bool xvec, int b_lo, int bp, int t,
                   bool barrier_next) {
     const int bp8 = round_up(bp, 8);
-    if constexpr (kBf16) {
-      const int wk = warp & 1, wn = (warp >> 1) & 3, wm = warp >> 3;
-      const int mtiles = Mpad / 16, ntiles = bp8 / 8;
-      float acc[kMW][kNW][4];
+    // 8 x 4 tiles a thread, rows m = tm + i tmn, batch rows b = tb + j
+    // tbn, from the staged weight and activation chunks
+    const int tmn = Mpad / 8, tbn = bp8 / 4, tiles = tmn * tbn;
+    float acc[kFT][8][4];
 #pragma unroll
-      for (int i = 0; i < kMW; ++i)
+    for (int s = 0; s < kFT; ++s)
 #pragma unroll
-        for (int j = 0; j < kNW; ++j)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-      if (product) {
+        for (int j = 0; j < 4; ++j) acc[s][i][j] = 0.0f;
+    if (product) {
 #pragma unroll 1
-        for (int s = 0; s < kStages - 1; ++s) {
-          if (s < nchunks)
-            stage_x(Xs + s * a.Bp * XP, X, ldx, xvec, B, b_lo, bp8,
-                    kbeg + s * kKC, kend);
-          cp_async_commit();
+      for (int s = 0; s < kStages - 1; ++s) {
+        if (s < nchunks) {
+          stage_x(Xs + s * a.Bp * XP, X, ldx, xvec, B, b_lo, bp8,
+                  kbeg + s * kKC, kend);
+          stage_w<FWD>(Wst + s * Mpad * XP, a.w, Mpad, s * kKC, M, cu0, Cub,
+                       kbeg, kend, H, G);
         }
+        cp_async_commit();
+      }
 #pragma unroll 1
-        for (int c = 0; c < nchunks; ++c) {
-          cp_async_wait<kStages - 2>();
-          __syncthreads();
-          const int nx = c + kStages - 1;
-          if (nx < nchunks)
-            stage_x(Xs + (nx % kStages) * a.Bp * XP, X, ldx, xvec, B, b_lo,
-                    bp8, kbeg + nx * kKC, kend);
-          cp_async_commit();
-          const T* xs = Xs + (c % kStages) * a.Bp * XP;
-          if (!mma) continue;
+      for (int c = 0; c < nchunks; ++c) {
+        cp_async_wait<kStages - 2>();
+        __syncthreads();
+        const int nx = c + kStages - 1;
+        if (nx < nchunks) {
+          stage_x(Xs + (nx % kStages) * a.Bp * XP, X, ldx, xvec, B, b_lo,
+                  bp8, kbeg + nx * kKC, kend);
+          stage_w<FWD>(Wst + (nx % kStages) * Mpad * XP, a.w, Mpad,
+                       nx * kKC, M, cu0, Cub, kbeg, kend, H, G);
+        }
+        cp_async_commit();
+        if (!mma) continue;
+        const float* xs = Xs + (c % kStages) * a.Bp * XP;
+        const float* ws = Wst + (c % kStages) * Mpad * XP;
 #pragma unroll
-          for (int kk = 0; kk < kKC / 16; kk += 2) {
-            const int ks = kk + wk;
-            unsigned af[kMW][4], bf[kNW][2];
+        for (int s = 0; s < kFT; ++s) {
+          const int tau = tid + s * kThreads;
+          if (tau < tiles) {
+            const int tm = tau % tmn, tb = tau / tmn;
+#pragma unroll 2
+            for (int k = 0; k < kKC; k += 4) {
+              float4 wv[8], xv[4];
 #pragma unroll
-            for (int i = 0; i < kMW; ++i) {
-              const int mt = wm + 2 * i;
-              if (mt < mtiles)
-                ldmatrix_x4<false>(af[i],
-                                   Ws + (mt * 16 + (lane & 15)) * WP +
-                                       c * kKC + ks * 16 + ((lane >> 4) << 3));
+              for (int i = 0; i < 8; ++i)
+                wv[i] = *reinterpret_cast<const float4*>(
+                    ws + (tm + i * tmn) * XP + k);
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                xv[j] = *reinterpret_cast<const float4*>(
+                    xs + (tb + j * tbn) * XP + k);
+#pragma unroll
+              for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  float v = acc[s][i][j];
+                  v = fmaf(wv[i].x, xv[j].x, v);
+                  v = fmaf(wv[i].y, xv[j].y, v);
+                  v = fmaf(wv[i].z, xv[j].z, v);
+                  v = fmaf(wv[i].w, xv[j].w, v);
+                  acc[s][i][j] = v;
+                }
             }
-#pragma unroll
-            for (int j = 0; j < kNW; ++j) {
-              const int nt = wn + 4 * j;
-              if (nt < ntiles)
-                ldmatrix_x2(bf[j], xs + (nt * 8 + (lane & 7)) * XP +
-                                       ks * 16 + ((lane >> 3) & 1) * 8);
-            }
-#pragma unroll
-            for (int i = 0; i < kMW; ++i)
-#pragma unroll
-              for (int j = 0; j < kNW; ++j)
-                if (wm + 2 * i < mtiles && wn + 4 * j < ntiles)
-                  mma_bf16(acc[i][j], af[i], bf[j]);
           }
         }
       }
-      cp_async_wait<0>();     // (the held slice's copies, without a product)
-      __syncthreads();        // the stages are free: Ps lies over them
-      const int g = lane >> 2, t4 = lane & 3;
-      // the k halves: the second warp of each pair stores, the first adds
+    }
+    cp_async_wait<0>();
+    __syncthreads();        // the stages are free: Ps lies over them
 #pragma unroll
-      for (int half = 1; half >= 0; --half) {
-        if (wk == half) {
-#pragma unroll
-          for (int i = 0; i < kMW; ++i)
-#pragma unroll
-            for (int j = 0; j < kNW; ++j) {
-              const int mt = wm + 2 * i, nt = wn + 4 * j;
-              if (mt < mtiles && nt < ntiles) {
-                float* p0 = Ps + (mt * 16 + g) * PP + nt * 8 + 2 * t4;
-                float* p1 = p0 + 8 * PP;
-                float2 v0 = make_float2(acc[i][j][0], acc[i][j][1]);
-                float2 v1 = make_float2(acc[i][j][2], acc[i][j][3]);
-                if (half == 0) {
-                  const float2 o0 = *reinterpret_cast<float2*>(p0);
-                  const float2 o1 = *reinterpret_cast<float2*>(p1);
-                  v0.x += o0.x; v0.y += o0.y;
-                  v1.x += o1.x; v1.y += o1.y;
-                }
-                *reinterpret_cast<float2*>(p0) = v0;
-                *reinterpret_cast<float2*>(p1) = v1;
-              }
-            }
-        }
-        __syncthreads();
-      }
-    } else {
-      // f32: 8 x 4 tiles a thread, rows m = tm + i tmn, batch rows b = tb +
-      // j tbn, from the staged weight and activation chunks
-      const int tmn = Mpad / 8, tbn = bp8 / 4, tiles = tmn * tbn;
-      float acc[kFT][8][4];
-#pragma unroll
-      for (int s = 0; s < kFT; ++s)
+    for (int s = 0; s < kFT; ++s) {
+      const int tau = tid + s * kThreads;
+      if (tau < tiles) {
+        const int tm = tau % tmn, tb = tau / tmn;
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[s][i][j] = 0.0f;
-      if (product) {
-        const float* wf = reinterpret_cast<const float*>(a.w);
-#pragma unroll 1
-        for (int s = 0; s < kStages - 1; ++s) {
-          if (s < nchunks) {
-            stage_x(Xs + s * a.Bp * XP, X, ldx, xvec, B, b_lo, bp8,
-                    kbeg + s * kKC, kend);
-            stage_w<FWD>(Wst + s * Mpad * XP, wf, Mpad, s * kKC, M, cu0, Cub,
-                         kbeg, kend, H, G);
-          }
-          cp_async_commit();
-        }
-#pragma unroll 1
-        for (int c = 0; c < nchunks; ++c) {
-          cp_async_wait<kStages - 2>();
-          __syncthreads();
-          const int nx = c + kStages - 1;
-          if (nx < nchunks) {
-            stage_x(Xs + (nx % kStages) * a.Bp * XP, X, ldx, xvec, B, b_lo,
-                    bp8, kbeg + nx * kKC, kend);
-            stage_w<FWD>(Wst + (nx % kStages) * Mpad * XP, wf, Mpad,
-                         nx * kKC, M, cu0, Cub, kbeg, kend, H, G);
-          }
-          cp_async_commit();
-          if (!mma) continue;
-          const float* xs =
-              reinterpret_cast<const float*>(Xs + (c % kStages) * a.Bp * XP);
-          const float* ws = Wst + (c % kStages) * Mpad * XP;
-#pragma unroll
-          for (int s = 0; s < kFT; ++s) {
-            const int tau = tid + s * kThreads;
-            if (tau < tiles) {
-              const int tm = tau % tmn, tb = tau / tmn;
-#pragma unroll 2
-              for (int k = 0; k < kKC; k += 4) {
-                float4 wv[8], xv[4];
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-                  wv[i] = *reinterpret_cast<const float4*>(
-                      ws + (tm + i * tmn) * XP + k);
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                  xv[j] = *reinterpret_cast<const float4*>(
-                      xs + (tb + j * tbn) * XP + k);
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                  for (int j = 0; j < 4; ++j) {
-                    float v = acc[s][i][j];
-                    v = fmaf(wv[i].x, xv[j].x, v);
-                    v = fmaf(wv[i].y, xv[j].y, v);
-                    v = fmaf(wv[i].z, xv[j].z, v);
-                    v = fmaf(wv[i].w, xv[j].w, v);
-                    acc[s][i][j] = v;
-                  }
-              }
-            }
-          }
-        }
+          for (int j = 0; j < 4; ++j)
+            Ps[(tm + i * tmn) * PP + tb + j * tbn] = acc[s][i][j];
       }
-      cp_async_wait<0>();
-      __syncthreads();        // the stages are free: Ps lies over them
-#pragma unroll
-      for (int s = 0; s < kFT; ++s) {
-        const int tau = tid + s * kThreads;
-        if (tau < tiles) {
-          const int tm = tau % tmn, tb = tau / tmn;
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              Ps[(tm + i * tmn) * PP + tb + j * tbn] = acc[s][i][j];
-        }
-      }
-      __syncthreads();
     }
+    __syncthreads();
     if (cluster_sum) cg::this_cluster().sync();   // the partials are out
     const int npairs = ub * bp;
     constexpr int kIn = FWD ? 3 * nG + 1 : 9;
@@ -720,33 +615,13 @@ cell_rollout_kernel(const RollArgs<T> a) {
       const float* v = in[s];
       const long row = (long)t * B + b, bj = (long)b * H + j;
       if constexpr (FWD) {
-        T* act = a.acts + row * 4 * H + j;
         if constexpr (LSTM) {
           float pre[4];
 #pragma unroll
           for (int g = 0; g < 4; ++g) pre[g] = round_to<T>(v[4 + g] + v[g]);
-          const float ig = sigmoid(pre[0] + v[9]);
-          const float f = sigmoid(pre[1] + v[10]);
-          const float gg = tanhf(pre[2] + v[11]);
-          const float o = sigmoid(pre[3] + v[12]);
-          const float c = f * v[8] + ig * gg;
-          a.cs[row * H + j] = from_f<T>(c);
-          a.hs[row * H + j] = from_f<T>(o * tanhf(c));
-          act[0] = from_f<T>(ig);
-          act[H] = from_f<T>(f);
-          act[2 * H] = from_f<T>(gg);
-          act[3 * H] = from_f<T>(o);
+          fwd_lstm_store<T>(a, row, j, pre, v + 9, v[8]);
         } else {
-          const float gh0 = round_to<T>(v[0]), gh1 = round_to<T>(v[1]);
-          const float hn = round_to<T>(round_to<T>(v[2]) + v[9]);
-          const float r = sigmoid(v[3] + gh0 + v[7]);
-          const float z = sigmoid(v[4] + gh1 + v[8]);
-          const float nn = tanhf(v[5] + r * hn);
-          a.hs[row * H + j] = from_f<T>((1.0f - z) * nn + z * v[6]);
-          act[0] = from_f<T>(r);
-          act[H] = from_f<T>(z);
-          act[2 * H] = from_f<T>(nn);
-          act[3 * H] = from_f<T>(hn);
+          fwd_gru_store<T>(a, row, j, v, v + 3, v + 7, v[6]);
         }
       } else {
         const float dh = LSTM ? round_to<T>(v[7]) : round_to<T>(v[8] + v[7]);
@@ -802,22 +677,477 @@ cell_rollout_kernel(const RollArgs<T> a) {
 }
 
 // ---------------------------------------------------------------------------
+// the bf16 body
+// ---------------------------------------------------------------------------
+
+// the block that runs unit j's cell and writes its h_t or dgates_t
+__device__ __forceinline__ int owner(int j, int U, int ub, int C) {
+  return (j / U) * C + (j % U) / ub;
+}
+
+// a bf16's bits: read-only operands (through L1), and values this launch
+// wrote (from L2)
+__device__ __forceinline__ unsigned short ld_bits(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+
+__device__ __forceinline__ unsigned short ldcg_bits(const bf16* p) {
+  return __ldcg(reinterpret_cast<const unsigned short*>(p));
+}
+
+__device__ __forceinline__ float bits_f(unsigned short x) {
+  return __bfloat162float(__ushort_as_bfloat16(x));
+}
+
+// Block-wide: one look at the readiness word of every block that writes a
+// column of the k slice [kbeg, kbeg + kc) below kend (unit k forward, k
+// mod H backward): ready[c / 32] = whether every writer of the columns c
+// .. c + 31 of the slice has published `need`. In each warp only the lane
+// whose column starts a new writer reads that writer's word (acquire), so
+// a look costs one round trip to L2; the caller's __syncthreads orders
+// the block's reads of the ready columns after it.
+__device__ __forceinline__ void scan_ready(unsigned char* ready,
+                                           const unsigned* flags,
+                                           unsigned need, int kbeg, int kc,
+                                           int kend, int H, int U, int ub,
+                                           int C) {
+  const int lane = threadIdx.x & 31;
+  for (int c0 = 0; c0 < kc; c0 += kWThreads) {
+    const int c = c0 + threadIdx.x, k = kbeg + c;
+    const int p = c < kc && k < kend ? owner(k % H, U, ub, C) : -1;
+    const int before = __shfl_up_sync(0xffffffffu, p, 1);
+    const bool polled = p >= 0 && !(lane > 0 && p == before);
+    const bool ok = !polled || ld_acquire(flags + p) >= need;
+    const bool all = __all_sync(0xffffffffu, ok);
+    if (lane == 0 && c < kc) ready[c >> 5] = all;
+  }
+}
+
+// Block-wide: rows b_lo .. b_lo + bp of X's columns [k0, k0 + 64) into the
+// swizzled tile `dst` (zero past kend): whole 16-byte pieces by cp.async
+// (cg: L2 only, since other SMs wrote them) where vec allows, the rest by
+// L2 loads and a 16-byte shared store.
+__device__ __forceinline__ void stage_tile(unsigned char* dst, const bf16* X,
+                                           int ldx, bool vec, int b_lo,
+                                           int bp, int k0, int kend) {
+  for (int i = threadIdx.x; i < bp * 8; i += kWThreads) {
+    const int r = i >> 3, j = i & 7, k = k0 + 8 * j;
+    unsigned char* d = dst + recnet::sw128(r, j);
+    const bf16* s = X + (long)(b_lo + r) * ldx + k;
+    if (vec && k + 8 <= kend) {
+      cp_async16(d, s);
+    } else {
+      unsigned w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const unsigned lo =
+            k + 2 * e < kend ? __ldcg(reinterpret_cast<const unsigned short*>(
+                                   s + 2 * e))
+                             : 0u;
+        const unsigned hi =
+            k + 2 * e + 1 < kend
+                ? __ldcg(reinterpret_cast<const unsigned short*>(s + 2 * e +
+                                                                 1))
+                : 0u;
+        w[e] = lo | (hi << 16);
+      }
+      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// byte offset of element (n, k) of the held slice: kc / 64 tiles of NW
+// swizzled rows, one after another
+__device__ __forceinline__ int w_offset(int n, int k, int NW) {
+  return (k >> 6) * NW * 128 + recnet::sw128(n, (k & 63) >> 3) +
+         (k & 7) * 2;
+}
+
+// Block-wide: the block's slice of W_hh into Ws (product rows n < NW, the
+// k slice kbeg .. kbeg + kc), zero outside it. Forward rows are W_hh's
+// columns (gate g of the cluster's unit cu at n = g U + cu): 16-byte
+// loads of 8 units of a gate, 8 a thread in flight, each scattered down 8
+// rows. Backward rows are W_hh's rows (the cluster's unit n), contiguous
+// along k: 16-byte cp.async pieces, committed as one group (waited on with
+// the first chunk). Pieces that `vec` or the edges rule out go element by
+// element.
+template <bool FWD>
+__device__ void load_w_tiles(unsigned char* Ws, int NW, const bf16* w,
+                             bool vec, int kc, int nG, int cu0, int U,
+                             int kbeg, int kend, int H, int G) {
+  const int rows = FWD ? nG * U : U;
+  // element (n, k) of the slice, zero outside it
+  auto elem = [&](int n, int k) -> unsigned short {
+    const int kk = kbeg + k;
+    if (n >= rows || kk >= kend) return 0;
+    const int unit = cu0 + (FWD ? n % U : n);
+    if (unit >= H) return 0;
+    const long idx = FWD ? (long)kk * G + (long)(n / U) * H + unit
+                         : (long)unit * G + kk;
+    return __ldg(reinterpret_cast<const unsigned short*>(w) + idx);
+  };
+  if (FWD) {
+    const int per_gate = vec && U % 8 == 0 ? U / 8 : 0;
+    const int nvec = kc * nG * per_gate;
+    for (int i0 = threadIdx.x; i0 < nvec; i0 += 8 * kWThreads) {
+      uint4 v[8];
+      bool whole[8];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int i = i0 + s * kWThreads;
+        const int p = i % per_gate, g = (i / per_gate) % nG;
+        const int k = i / (per_gate * nG), unit = cu0 + 8 * p;
+        whole[s] = i < nvec && kbeg + k < kend && unit + 8 <= H;
+        if (whole[s])
+          v[s] = __ldg(reinterpret_cast<const uint4*>(
+              w + (long)(kbeg + k) * G + (long)g * H + unit));
+      }
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int i = i0 + s * kWThreads;
+        if (i >= nvec) continue;
+        const int p = i % per_gate, g = (i / per_gate) % nG;
+        const int k = i / (per_gate * nG), n0 = g * U + 8 * p;
+        const unsigned short* e =
+            reinterpret_cast<const unsigned short*>(&v[s]);
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          *reinterpret_cast<unsigned short*>(Ws + w_offset(n0 + q, k, NW)) =
+              whole[s] ? e[q] : elem(n0 + q, k);
+      }
+    }
+    // the rest: every element where no vector went, the padded rows
+    const int n_lo = per_gate ? rows : 0;
+    for (int i = threadIdx.x; i < (NW - n_lo) * kc; i += kWThreads) {
+      const int n = n_lo + i % (NW - n_lo), k = i / (NW - n_lo);
+      *reinterpret_cast<unsigned short*>(Ws + w_offset(n, k, NW)) =
+          elem(n, k);
+    }
+  } else {
+    for (int i = threadIdx.x; i < NW * (kc / 8); i += kWThreads) {
+      const int n = i / (kc / 8), k = (i % (kc / 8)) * 8;
+      unsigned char* d = Ws + w_offset(n, k, NW);
+      const int unit = cu0 + n;
+      if (vec && n < U && unit < H && kbeg + k + 8 <= kend) {
+        cp_async16(d, w + (long)unit * G + kbeg + k);
+      } else {
+        unsigned v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = elem(n, k + 2 * e) | ((unsigned)elem(n, k + 2 * e + 1) << 16);
+        *reinterpret_cast<uint4*>(d) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// wait until at most n (0 .. kWMaxStages - 2) of this thread's committed
+// cp.async groups are in flight
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+// float2 a row of the partials' area: NW / 2 rounded up to 16
+__host__ __device__ constexpr int ps_pitch(int NW) {
+  return round_up(NW / 2, 16);
+}
+
+// float offset of the partial sum (row b, product row n) in the partials'
+// area: rows of ps_pitch float2, the float2 index XORed with 2 (b % 8), so
+// that the warpgroups' stores of their accumulators fill every bank
+__device__ __forceinline__ int ps_offset(int b, int n, int NW) {
+  return 2 * (b * ps_pitch(NW) + ((n >> 1) ^ ((b & 7) << 1))) + (n & 1);
+}
+
+template <bool LSTM, bool FWD, int NW>
+__global__ void __launch_bounds__(kWThreads, 1)
+cell_rollout_wgmma_kernel(const RollArgs<bf16> a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((kWAlign - (recnet::smem_addr(smem_raw) & (kWAlign - 1))) &
+                  (kWAlign - 1));
+  constexpr int nG = LSTM ? 4 : 3;
+  constexpr int R = NW / 2;                     // accumulators a thread
+  constexpr int RP = ps_pitch(NW);
+  constexpr int kIn = FWD ? nG + 1 : 8;         // a pair's prefetched inputs
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2;                     // batch rows 64 wg ..
+  const int H = a.H, G = a.G, B = a.B, C = a.C, ub = a.ub, U = C * ub;
+  const int rank = (int)(blockIdx.x % C), q = (int)(blockIdx.x / C);
+  const int cu0 = q * U;                        // the cluster's units
+  const int K = FWD ? H : G;
+  const int kbeg = rank * a.kc, kend = min(K, kbeg + a.kc);
+  const int nchunks = a.kc / kKC, S = a.stages;
+  const int u_lo = cu0 + rank * ub;             // the block's own units
+  const bool exchange = !(a.probe & kNoExchange);
+  const bool cluster_sum = exchange && C > 1;
+  const bool product = !(a.probe & kNoProduct);
+  const bool mma = !(a.probe & kNoMma);
+  const int stage_bytes = a.Bp * 128;
+  // the ring, then the rows that a warpgroup's 64-row tile reads past the
+  // last stage (garbage rows, whose products nothing reads), then the held
+  // slice; the partials lie over the ring after the product
+  unsigned char* ring = smem;
+  unsigned char* Ws =
+      ring + S * stage_bytes + ((a.Bp > 64 ? 128 : 64) - a.Bp) * 128;
+  float* Ps = reinterpret_cast<float*>(ring);
+  // a byte a half chunk: whether its writers had all published (the scan)
+  unsigned char* ready = Ws + a.kc / kKC * NW * 128;
+  // forward: b_hh of the block's units, [gate][unit], read once a launch
+  // (L1 is invalidated by every acquire of a step)
+  float* bias_s = reinterpret_cast<float*>(ready + kWReady);
+
+  load_w_tiles<FWD>(Ws, NW, a.w, a.vec & kVecW, a.kc, nG, cu0, U, kbeg, kend,
+                    H, G);
+  if (FWD)
+    for (int i = tid; i < nG * ub; i += kWThreads) {
+      const int j = u_lo + i % ub;
+      bias_s[i] = j < H ? to_f(a.bias[(i / ub) * H + j]) : 0.0f;
+    }
+
+  int round = 0;   // passes so far: each is one phase pair of the cluster
+  // One pass of step t over batch rows b_lo .. b_lo + bp: the cells'
+  // inputs loaded; P = X W_blk^T over the block's k slice (X's rows from
+  // b_lo, the chunks staged once `need` is published by their writers; no
+  // wait where need = 0); the partials out; the cluster's sum; the cells.
+  auto pass = [&](const bf16* X, int ldx, bool xvec, unsigned need, int b_lo,
+                  int bp, int t) {
+    // the peers have read the last pass's partials, which lie over the ring
+    if (round > 0) {
+      if (cluster_sum)
+        recnet::cluster_wait();
+      else
+        __syncthreads();
+    }
+    ++round;
+    const int npairs = ub * bp;
+    // the cells' inputs as stored (bf16 bits), converted only where the
+    // cells use them, so that the loads land while the product runs
+    unsigned short in[kWMaxPairs][kIn];
+#pragma unroll
+    for (int s = 0; s < kWMaxPairs; ++s) {
+      // a thread past its pairs or a unit past H reads a valid pair's
+      const int i = min(tid + s * kWThreads, npairs - 1);
+      const int j = min(u_lo + i % ub, H - 1), b = b_lo + i / ub;
+      const long bj = (long)b * H + j, row = (long)t * B + b;
+      unsigned short* v = in[s];
+      if constexpr (FWD) {
+#pragma unroll
+        for (int g = 0; g < nG; ++g) v[g] = ld_bits(a.gi + row * G + g * H + j);
+        // the carry, c or h: the thread's own store of the last step
+        v[nG] = t == 0 ? ld_bits((LSTM ? a.c0 : a.h0) + bj)
+                       : ldcg_bits((LSTM ? a.cs : a.hs) + (row - B) * H + j);
+      } else {
+        v[7] = ldcg_bits((LSTM ? a.dc0 : a.dh0) + bj);   // dc, or GRU's dh z
+        if (t > 0) {                                // step t - 1's inputs
+          const long rw = row - B;
+          v[0] = ld_bits(a.dhs + rw * H + j);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) v[1 + g] = ld_bits(a.acts + rw * 4 * H + g * H + j);
+          if constexpr (LSTM) {
+            v[5] = ld_bits(a.cs + rw * H + j);
+            v[6] = ld_bits(t == 1 ? a.c0 + bj : a.cs + (rw - B) * H + j);
+          } else {
+            v[5] = ld_bits(t == 1 ? a.h0 + bj : a.hs + (rw - B) * H + j);
+          }
+        }
+      }
+    }
+    float acc[R];
+#pragma unroll
+    for (int e = 0; e < R; ++e) acc[e] = 0.0f;
+    const bool rows_on = 64 * wg < bp;          // warpgroup-uniform
+    // the chunks whose writers have all published, from one look at every
+    // writer of the slice; a chunk found short is staged after looks at all
+    // of them again (one L2 round trip each), until it is ready
+    if (product && need) {
+      scan_ready(ready, a.flags, need, kbeg, a.kc, kend, H, U, ub, C);
+      __syncthreads();
+    }
+    auto stage = [&](int c) {
+      if (need) {
+        const long long start = clock64();
+        while (!(ready[2 * c] && ready[2 * c + 1])) {   // block-uniform
+          __syncthreads();
+          __nanosleep(64);
+          scan_ready(ready, a.flags, need, kbeg, a.kc, kend, H, U, ub, C);
+          __syncthreads();
+          if (clock64() - start > kBarrierTimeout) __trap();
+        }
+      }
+      stage_tile(ring + (c % S) * stage_bytes, X, ldx, xvec, b_lo, bp,
+                 kbeg + c * kKC, kend);
+    };
+    // S stages, S - 2 chunks staged ahead: chunk c's copies land while
+    // chunk c - 1's MMAs run, and the stage they fill held chunk c - 2,
+    // whose MMAs are done
+    if (product) {
+#pragma unroll 1
+      for (int c = 0; c < S - 2; ++c) {
+        if (c < nchunks) stage(c);
+        cp_async_commit();
+      }
+#pragma unroll 1
+      for (int c = 0; c < nchunks; ++c) {
+        cp_async_wait_n(S - 3);                 // chunk c is in
+        recnet::fence_proxy_async();
+        recnet::wgmma_wait<1>();                // chunk c - 2's stage is read
+        recnet::fence_operands(acc);
+        __syncthreads();
+        if (mma && rows_on) {
+          const unsigned xa =
+              recnet::smem_addr(ring + (c % S) * stage_bytes) + wg * 8192;
+          const unsigned wa = recnet::smem_addr(Ws) + c * NW * 128;
+          recnet::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kKC / 16; ++kk)
+            recnet::wgmma_bf16<NW>(acc, recnet::sw128_desc(xa + 32 * kk),
+                                   recnet::sw128_desc(wa + 32 * kk), 1);
+          recnet::wgmma_commit();
+          recnet::fence_operands(acc);
+        }
+        if (c + S - 2 < nchunks) stage(c + S - 2);
+        cp_async_commit();
+      }
+      recnet::wgmma_wait<0>();
+      recnet::fence_operands(acc);
+    }
+    cp_async_wait<0>();     // (the held slice's copies, without a product)
+    __syncthreads();        // the ring is read: the partials go over it
+    if (rows_on) {
+      const int r0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+      float2* P2 = reinterpret_cast<float2*>(Ps);
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int p = (4 * j + (lane & 3)) ^ ((r0 & 7) << 1);
+        if (r0 < bp) P2[r0 * RP + p] = make_float2(acc[4 * j], acc[4 * j + 1]);
+        if (r0 + 8 < bp)
+          P2[(r0 + 8) * RP + p] = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+    recnet::fence_proxy_async();   // before the ring is staged into again
+    if (cluster_sum) {
+      recnet::cluster_arrive();    // the partials are out
+      recnet::cluster_wait();
+    } else {
+      __syncthreads();
+    }
+    // each pair's P summed over the cluster's ranks in order: every load
+    // first, then the cells
+    float P[kWMaxPairs][FWD ? nG : 1];
+#pragma unroll
+    for (int s = 0; s < kWMaxPairs; ++s) {
+      const int i = min(tid + s * kWThreads, npairs - 1);
+      const int u = i % ub, bl = i / ub;
+#pragma unroll
+      for (int g = 0; g < (FWD ? nG : 1); ++g) P[s][g] = 0.0f;
+      for (int r = 0; r < (cluster_sum ? C : 1); ++r) {
+        const float* src =
+            cluster_sum ? cg::this_cluster().map_shared_rank(Ps, r) : Ps;
+#pragma unroll
+        for (int g = 0; g < (FWD ? nG : 1); ++g)
+          P[s][g] += src[ps_offset(bl, g * U + rank * ub + u, NW)];
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kWMaxPairs; ++s) {
+      const int i = tid + s * kWThreads;
+      const int j = u_lo + i % ub, b = b_lo + i / ub;
+      if (i >= npairs || j >= H) continue;
+      float v[kIn];
+#pragma unroll
+      for (int e = 0; e < kIn; ++e) v[e] = bits_f(in[s][e]);
+      const long row = (long)t * B + b;
+      if constexpr (FWD) {
+        float bias[nG];
+#pragma unroll
+        for (int g = 0; g < nG; ++g) bias[g] = bias_s[g * ub + i % ub];
+        if constexpr (LSTM) {
+          float pre[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) pre[g] = round_to<bf16>(v[g] + P[s][g]);
+          fwd_lstm_store<bf16>(a, row, j, pre, bias, v[nG]);
+        } else {
+          fwd_gru_store<bf16>(a, row, j, P[s], v, bias, v[nG]);
+        }
+      } else {
+        const float dh = LSTM ? round_to<bf16>(P[s][0])
+                              : round_to<bf16>(v[7] + P[s][0]);
+        if (t > 0)
+          bwd_cell_store<bf16, LSTM>(a, t - 1, j, b, v, dh,
+                                     LSTM ? v[7] : 0.0f);
+        else
+          a.dh0[(long)b * H + j] = from_f<bf16>(dh);
+      }
+    }
+    if (cluster_sum) recnet::cluster_arrive();   // the peers' partials read
+  };
+  // this block's units are written up to `count`
+  auto publish = [&](unsigned count) {
+    __syncthreads();
+    if (tid == 0) st_release(a.flags + blockIdx.x, a.base + count);
+  };
+
+  const bool vec_h0 = a.vec & kVecH0, vec_hs = a.vec & kVecHs;
+  const bool vec_dg = a.vec & kVecDg, vec_acts = a.vec & kVecActs;
+  if constexpr (FWD) {
+#pragma unroll 1
+    for (int t = 0; t < a.steps; ++t) {
+      const bool first = t == 0 || !exchange;
+      const bf16* X = first ? a.h0 : a.hs + (long)(t - 1) * B * H;
+#pragma unroll 1
+      for (int b_lo = 0; b_lo < B; b_lo += a.Bp)
+        pass(X, H, first ? vec_h0 : vec_hs, first ? 0u : a.base + t, b_lo,
+             min(a.Bp, B - b_lo), t);
+      publish(t + 1);                           // h_t
+    }
+  } else {
+    // step T - 1's cell from zero carries, on the passes' pairs
+#pragma unroll 1
+    for (int b_lo = 0; b_lo < B; b_lo += a.Bp) {
+      const int npairs = ub * min(a.Bp, B - b_lo);
+      for (int i = tid; i < npairs; i += kWThreads) {
+        const int j = u_lo + i % ub, b = b_lo + i / ub;
+        if (j < H) {
+          float v[7];
+          bwd_cell_load<bf16, LSTM>(a, a.steps - 1, j, b, v);
+          bwd_cell_store<bf16, LSTM>(a, a.steps - 1, j, b, v, 0.0f, 0.0f);
+        }
+      }
+    }
+    publish(1);                                 // dgates[T - 1]
+#pragma unroll 1
+    for (int t = a.steps - 1; t >= 0; --t) {
+      const bf16* X = exchange ? (LSTM ? a.dgi : a.dgh) + (long)t * B * G
+                               : a.acts + (long)t * B * 4 * H;
+#pragma unroll 1
+      for (int b_lo = 0; b_lo < B; b_lo += a.Bp)
+        pass(X, exchange ? G : 4 * H, exchange ? vec_dg : vec_acts,
+             exchange ? a.base + (a.steps - t) : 0u, b_lo,
+             min(a.Bp, B - b_lo), t);
+      if (t > 0) publish(a.steps - t + 1);      // dgates[t - 1]
+    }
+  }
+  // no block leaves while a peer may still read its partials
+  if (cluster_sum) recnet::cluster_wait();
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-// plan fields (recnet_cell_rollout_plan's out)
-enum { kPlanC, kPlanNB, kPlanUb, kPlanMpad, kPlanKc, kPlanBp, kPlanSmem,
-       kPlanCap, kPlanLimit, kPlanFields };
-
-template <typename T>
-int smem_bytes(int Mpad, int kc, int Bp) {
-  constexpr bool bf = sizeof(T) == 2;
-  constexpr int XP = kKC + 16 / (int)sizeof(T);
-  const int w = bf ? round_up(Mpad * (kc + 8) * 2, 16) : 0;
-  const int stages = kStages * (Bp + (bf ? 0 : Mpad)) * XP * (int)sizeof(T);
-  const int ps = Mpad * (Bp + 4) * (int)sizeof(float);
-  return w + (stages > ps ? stages : ps);
-}
+// plan fields (ops/cuda/rollout.py's rollout_plan makes them)
+enum { kPlanC, kPlanNB, kPlanUb, kPlanRows, kPlanKc, kPlanBp, kPlanStages,
+       kPlanSmem, kPlanFields };
 
 #define RECNET_TRY(x)                              \
   do {                                             \
@@ -825,21 +1155,19 @@ int smem_bytes(int Mpad, int kc, int Bp) {
     if (e_ != cudaSuccess) return (int)e_;         \
   } while (0)
 
-// clusters of C blocks (blocks, for C = 1) that the card holds at once
-// with `smem` bytes a block
-template <typename T, bool LSTM, bool FWD>
-int capacity(int C, int smem, int sms, int* cap) {
-  auto kern = cell_rollout_kernel<T, LSTM, FWD>;
-  if (C == 1) {
-    int per = 0;
-    RECNET_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per, kern, kThreads, smem));
-    *cap = per * sms;
-    return 0;
-  }
+// clusters of C blocks of `threads` that the card holds at once with
+// `smem` bytes a block (raising the kernel's shared-memory limit to the
+// card's first)
+int capacity(const void* kern, int threads, int C, int smem, int* cap) {
+  int dev = 0, limit = 0;
+  RECNET_TRY(cudaGetDevice(&dev));
+  RECNET_TRY(cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  RECNET_TRY(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, limit));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -852,72 +1180,59 @@ int capacity(int C, int smem, int sms, int* cap) {
   return 0;
 }
 
-// The launch's shape for B rows of H units: the direction's cluster size
-// C, the units a block (spread over the clusters the card holds at once),
-// the clusters (NB_req, or as many as the units need), padded product
-// rows, k slice, batch rows a pass, shared memory, the card's capacity in
-// clusters at that shared memory and its limit.
+// The kernel of a plan: f32's body, or bf16's for NW product rows
+// (nullptr for an NW the build has no kernel for).
 template <typename T, bool LSTM, bool FWD>
-int plan(int B, int H, int NB_req, int* out) {
-  const int nG = LSTM ? 4 : 3, K = FWD ? H : nG * H;
-  const int C = FWD ? kFwdCluster : kBwdCluster;
-  int dev = 0, sms = 0, limit = 0;
-  RECNET_TRY(cudaGetDevice(&dev));
-  RECNET_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev));
-  RECNET_TRY(cudaDeviceGetAttribute(
-      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  RECNET_TRY(cudaFuncSetAttribute(cell_rollout_kernel<T, LSTM, FWD>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  limit));
-  const int kc = round_up(ceil_div(K, C), kKC);
-  const int Bp = imin(round_up(B, 8), kPassRows);
-  int ub = 0, NB = 0, Mpad = 0, smem = 0, cap = 0;
-  auto fill = [&](int nb) {
-    ub = ceil_div(H, C * nb);
-    NB = NB_req > 0 ? NB_req : ceil_div(H, C * ub);
-    Mpad = round_up(FWD ? nG * C * ub : C * ub, 16);
-    smem = smem_bytes<T>(Mpad, kc, Bp);
-  };
-  auto held = [&]() {          // the clusters the card holds at once
-    cap = 0;
-    return smem <= limit ? capacity<T, LSTM, FWD>(C, smem, sms, &cap) : 0;
-  };
-  fill(NB_req > 0 ? NB_req : (sms / C > 0 ? sms / C : 1));
-  int err = held();
-  if (err == 0 && NB_req <= 0 && cap > 0 && NB > cap) {
-    fill(cap);                  // fewer clusters, more units a block
-    err = held();
+void* kernel_of(int NW) {
+  if constexpr (std::is_same<T, float>::value) {
+    return (void*)cell_rollout_f32_kernel<LSTM, FWD>;
+  } else {
+    switch (NW) {
+      case 32: return (void*)cell_rollout_wgmma_kernel<LSTM, FWD, 32>;
+      case 64: return (void*)cell_rollout_wgmma_kernel<LSTM, FWD, 64>;
+      case 96: return (void*)cell_rollout_wgmma_kernel<LSTM, FWD, 96>;
+      case 104: return (void*)cell_rollout_wgmma_kernel<LSTM, FWD, 104>;
+    }
+    return nullptr;
   }
-  if (err != 0) return err;
-  out[kPlanC] = C;
-  out[kPlanNB] = NB;
-  out[kPlanUb] = ub;
-  out[kPlanMpad] = Mpad;
-  out[kPlanKc] = kc;
-  out[kPlanBp] = Bp;
-  out[kPlanSmem] = smem;
-  out[kPlanCap] = cap;
-  out[kPlanLimit] = limit;
-  return 0;
+}
+
+template <typename T>
+constexpr int threads_of() {
+  return std::is_same<T, float>::value ? kThreads : kWThreads;
+}
+
+// the plan's fields against what the body takes
+template <typename T>
+bool plan_ok(const int* p, int B, int H) {
+  const int C = p[kPlanC], NB = p[kPlanNB], ub = p[kPlanUb];
+  const int rows = p[kPlanRows], kc = p[kPlanKc], Bp = p[kPlanBp];
+  if (B < 1 || H < 1 || C < 1 || NB < 1 || ub < 1 || kc < kKC ||
+      kc % kKC || Bp < 8 || Bp % 8 || (long)C * NB > kMaxBlocks ||
+      (long)C * NB * ub < H)
+    return false;
+  if (std::is_same<T, float>::value)
+    return rows % 16 == 0 && rows <= kMaxRows && Bp <= kPassRows &&
+           ub * Bp <= kMaxPairs * kThreads;
+  return (rows == 32 || rows == 64 || rows == 96 || rows == 104) &&
+         Bp <= kWPassRows && kc <= 32 * kWReady &&
+         ub * Bp <= kWMaxPairs * kWThreads &&
+         p[kPlanStages] >= kWMinStages && p[kPlanStages] <= kWMaxStages;
 }
 
 template <typename T, bool LSTM, bool FWD>
 int launch(const int* p, RollArgs<T> a, cudaStream_t s) {
+  if (a.steps < 1 || !plan_ok<T>(p, a.B, a.H))
+    return (int)cudaErrorInvalidValue;
   a.C = p[kPlanC];
   a.ub = p[kPlanUb];
-  a.Mpad = p[kPlanMpad];
+  a.Mpad = p[kPlanRows];
   a.kc = p[kPlanKc];
   a.Bp = p[kPlanBp];
-  if (a.steps < 1 || a.B < 1 || a.H < 1 || a.Mpad > kMaxRows ||
-      a.Bp > kPassRows || a.Bp % 8 || a.kc % kKC || a.Mpad % 16 ||
-      a.C < 1 ||
-      a.ub * a.Bp > kMaxPairs * kThreads)
-    return (int)cudaErrorInvalidValue;
-  if (p[kPlanNB] > p[kPlanCap]) return (int)cudaErrorCooperativeLaunchTooLarge;
+  a.stages = p[kPlanStages];
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.C * p[kPlanNB], 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.blockDim = dim3(threads_of<T>(), 1, 1);
   cfg.dynamicSmemBytes = p[kPlanSmem];
   cfg.stream = s;
   cudaLaunchAttribute attrs[2];
@@ -934,15 +1249,36 @@ int launch(const int* p, RollArgs<T> a, cudaStream_t s) {
   }
   cfg.attrs = attrs;
   cfg.numAttrs = n;
-  RECNET_TRY(cudaLaunchKernelEx(&cfg, cell_rollout_kernel<T, LSTM, FWD>, a));
+  if constexpr (std::is_same<T, float>::value) {
+    RECNET_TRY(cudaLaunchKernelEx(&cfg, cell_rollout_f32_kernel<LSTM, FWD>,
+                                  a));
+  } else {
+    switch (a.Mpad) {
+      case 32:
+        RECNET_TRY(cudaLaunchKernelEx(
+            &cfg, cell_rollout_wgmma_kernel<LSTM, FWD, 32>, a));
+        break;
+      case 64:
+        RECNET_TRY(cudaLaunchKernelEx(
+            &cfg, cell_rollout_wgmma_kernel<LSTM, FWD, 64>, a));
+        break;
+      case 96:
+        RECNET_TRY(cudaLaunchKernelEx(
+            &cfg, cell_rollout_wgmma_kernel<LSTM, FWD, 96>, a));
+        break;
+      default:
+        RECNET_TRY(cudaLaunchKernelEx(
+            &cfg, cell_rollout_wgmma_kernel<LSTM, FWD, 104>, a));
+    }
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool LSTM>
 int forward(const int* p, int steps, int B, int H, int probe, int vec,
-            const void* gi, const void* w, const void* bias, const void* h0,
-            const void* c0, void* hs, void* cs, void* acts, void* bar,
-            cudaStream_t s) {
+            unsigned base, const void* gi, const void* w, const void* bias,
+            const void* h0, const void* c0, void* hs, void* cs, void* acts,
+            void* scratch, cudaStream_t s) {
   RollArgs<T> a = {};
   a.steps = steps;
   a.B = B;
@@ -950,6 +1286,7 @@ int forward(const int* p, int steps, int B, int H, int probe, int vec,
   a.G = (LSTM ? 4 : 3) * H;
   a.probe = probe;
   a.vec = vec;
+  a.base = base;
   a.gi = (const T*)gi;
   a.w = (const T*)w;
   a.bias = (const T*)bias;
@@ -958,16 +1295,17 @@ int forward(const int* p, int steps, int B, int H, int probe, int vec,
   a.hs = (T*)hs;
   a.cs = (T*)cs;
   a.acts = (T*)acts;
-  a.bar = (unsigned*)bar;
+  a.bar = (unsigned*)scratch;
+  a.flags = (unsigned*)scratch + 2;
   return launch<T, LSTM, true>(p, a, s);
 }
 
 template <typename T, bool LSTM>
 int backward(const int* p, int steps, int B, int H, int probe, int vec,
-             const void* dhs, const void* acts, const void* w,
+             unsigned base, const void* dhs, const void* acts, const void* w,
              const void* h0, const void* hs, const void* c0, const void* cs,
              void* dgi, void* dgh, void* dh0, void* dc0, void* dh_steps,
-             void* dc_steps, void* bar, cudaStream_t s) {
+             void* dc_steps, void* scratch, cudaStream_t s) {
   RollArgs<T> a = {};
   a.steps = steps;
   a.B = B;
@@ -975,6 +1313,7 @@ int backward(const int* p, int steps, int B, int H, int probe, int vec,
   a.G = (LSTM ? 4 : 3) * H;
   a.probe = probe;
   a.vec = vec;
+  a.base = base;
   a.w = (const T*)w;
   a.h0 = (const T*)h0;
   a.c0 = (const T*)c0;
@@ -988,7 +1327,8 @@ int backward(const int* p, int steps, int B, int H, int probe, int vec,
   a.dc0 = (T*)dc0;
   a.dh_steps = (T*)dh_steps;
   a.dc_steps = (T*)dc_steps;
-  a.bar = (unsigned*)bar;
+  a.bar = (unsigned*)scratch;
+  a.flags = (unsigned*)scratch + 2;
   return launch<T, LSTM, false>(p, a, s);
 }
 
@@ -1000,55 +1340,69 @@ const char* recnet_cell_rollout_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; lstm: 1 = LSTM, 0 = GRU; fwd: 1 =
-// the forward kernel, 0 = the backward. NB: the clusters to launch, 0 for
-// as many as H needs. out: kPlanFields ints (C, NB,
-// units a block, padded rows, k slice, batch rows a pass, shared memory
-// bytes, the clusters the card holds at once with them, the card's
-// shared-memory limit a block). Returns a CUDA error code.
-int recnet_cell_rollout_plan(int dtype, int lstm, int fwd, int B, int H,
-                             int NB, int* out) {
-  if (B < 1 || H < 1 || NB < 0) return (int)cudaErrorInvalidValue;
-#define RECNET_PLAN(T_, L_, F_)                                      \
-  if (dtype == (std::is_same<T_, float>::value ? 0 : 1) &&          \
-      lstm == (L_ ? 1 : 0) && fwd == (F_ ? 1 : 0))                  \
-    return plan<T_, L_, F_>(B, H, NB, out);
-  RECNET_PLAN(float, true, true)
-  RECNET_PLAN(float, true, false)
-  RECNET_PLAN(float, false, true)
-  RECNET_PLAN(float, false, false)
-  RECNET_PLAN(__nv_bfloat16, true, true)
-  RECNET_PLAN(__nv_bfloat16, true, false)
-  RECNET_PLAN(__nv_bfloat16, false, true)
-  RECNET_PLAN(__nv_bfloat16, false, false)
-#undef RECNET_PLAN
-  return (int)cudaErrorInvalidValue;
+// The current device's SM count, its shared-memory limit a block (with
+// the opt-in) and the readiness words a launch's scratch holds.
+int recnet_cell_rollout_device(int* out) {
+  int dev = 0;
+  RECNET_TRY(cudaGetDevice(&dev));
+  RECNET_TRY(cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount,
+                                    dev));
+  RECNET_TRY(cudaDeviceGetAttribute(
+      &out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  out[2] = kMaxBlocks;
+  return 0;
 }
 
-// The forward of a T-step rollout on `plan` (recnet_cell_rollout_plan's
-// out): gi (T, B, G), w (H, G), bias (G), h0, c0 (LSTM) (B, H) -> hs, cs
-// (LSTM) (T, B, H), acts (T, B, 4H). vec: kVecH0 | kVecHs where h0 / hs
-// rows may be copied in 16-byte pieces. bar: two zeroed unsigned ints,
-// left zeroed on return, not shared with a launch that may run at the
-// same time. probe: 0, or the split probes' bits. Launches on `stream`.
+// dtype: 0 = float32, 1 = bfloat16; lstm: 1 = LSTM, 0 = GRU; fwd: 1 =
+// the forward kernel, 0 = the backward; rows: the bf16 body's NW (32, 64,
+// 96 or 104; unread for f32). cap: the clusters of C blocks the current device
+// holds at once with `smem` bytes a block. Returns a CUDA error code.
+int recnet_cell_rollout_capacity(int dtype, int lstm, int fwd, int rows,
+                                 int C, int smem, int* cap) {
+  void* kern = nullptr;
+  int threads = 0;
+#define RECNET_KERNEL(T_, L_, F_)                                   \
+  if (dtype == (std::is_same<T_, float>::value ? 0 : 1) &&         \
+      lstm == (L_ ? 1 : 0) && fwd == (F_ ? 1 : 0)) {                \
+    kern = kernel_of<T_, L_, F_>(rows);                             \
+    threads = threads_of<T_>();                                     \
+  }
+  RECNET_KERNEL(float, true, true)
+  RECNET_KERNEL(float, true, false)
+  RECNET_KERNEL(float, false, true)
+  RECNET_KERNEL(float, false, false)
+  RECNET_KERNEL(bf16, true, true)
+  RECNET_KERNEL(bf16, true, false)
+  RECNET_KERNEL(bf16, false, true)
+  RECNET_KERNEL(bf16, false, false)
+#undef RECNET_KERNEL
+  if (kern == nullptr || C < 1 || smem < 0) return (int)cudaErrorInvalidValue;
+  return capacity(kern, threads, C, smem, cap);
+}
+
+// The forward of a T-step rollout on `plan` (kPlanFields ints, made by
+// rollout_plan): gi (T, B, G), w (H, G), bias (G), h0, c0 (LSTM) (B, H) ->
+// hs, cs (LSTM) (T, B, H), acts (T, B, 4H). vec: kVecH0 | kVecHs | kVecW
+// where h0 / hs / w rows may be copied in 16-byte pieces. scratch: the
+// f32 grid barrier's two words (zeroed, left zeroed), then kMaxBlocks
+// readiness words (bf16), each at most `base` before the launch and left
+// at most base + T + 1; not shared with a launch that may run at the same
+// time. probe: 0, or the split probes' bits. Launches on `stream`.
 int recnet_cell_rollout_fwd(int dtype, int lstm, const int* plan, int T,
-                            int B, int H, int probe, int vec, const void* gi,
-                            const void* w, const void* bias, const void* h0,
-                            const void* c0, void* hs, void* cs, void* acts,
-                            void* bar, void* stream) {
+                            int B, int H, int probe, int vec, unsigned base,
+                            const void* gi, const void* w, const void* bias,
+                            const void* h0, const void* c0, void* hs,
+                            void* cs, void* acts, void* scratch,
+                            void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return lstm ? forward<float, true>(plan, T, B, H, probe, vec, gi, w,
-                                       bias, h0, c0, hs, cs, acts, bar, s)
-                : forward<float, false>(plan, T, B, H, probe, vec, gi, w,
-                                        bias, h0, c0, hs, cs, acts, bar, s);
-  if (dtype == 1)
-    return lstm ? forward<__nv_bfloat16, true>(plan, T, B, H, probe, vec, gi,
-                                               w, bias, h0, c0, hs, cs, acts,
-                                               bar, s)
-                : forward<__nv_bfloat16, false>(plan, T, B, H, probe, vec, gi,
-                                                w, bias, h0, c0, hs, cs, acts,
-                                                bar, s);
+#define RECNET_FWD(T_, L_)                                                  \
+  return forward<T_, L_>(plan, T, B, H, probe, vec, base, gi, w, bias, h0, \
+                         c0, hs, cs, acts, scratch, s)
+  if (dtype == 0 && lstm) RECNET_FWD(float, true);
+  if (dtype == 0) RECNET_FWD(float, false);
+  if (dtype == 1 && lstm) RECNET_FWD(bf16, true);
+  if (dtype == 1) RECNET_FWD(bf16, false);
+#undef RECNET_FWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1056,23 +1410,24 @@ int recnet_cell_rollout_fwd(int dtype, int lstm, const int* plan, int T,
 // (GRU), c0 and cs (LSTM) -> dgi (T, B, G; LSTM's dgates), dgh (GRU),
 // dh0, dc0 (LSTM) (B, H); dh_steps and dc_steps (LSTM) (T, B, H), or null:
 // the carries into each step. vec: kVecDg where dgi's (LSTM) or dgh's
-// (GRU) rows may be copied in 16-byte pieces, kVecActs for acts.
+// (GRU) rows may be copied in 16-byte pieces, kVecActs for acts, kVecW for
+// w. base and scratch as for the forward.
 int recnet_cell_rollout_bwd(int dtype, int lstm, const int* plan, int T,
-                            int B, int H, int probe, int vec, const void* dhs,
-                            const void* acts, const void* w, const void* h0,
-                            const void* hs, const void* c0, const void* cs,
-                            void* dgi, void* dgh, void* dh0, void* dc0,
-                            void* dh_steps, void* dc_steps, void* bar,
-                            void* stream) {
+                            int B, int H, int probe, int vec, unsigned base,
+                            const void* dhs, const void* acts, const void* w,
+                            const void* h0, const void* hs, const void* c0,
+                            const void* cs, void* dgi, void* dgh, void* dh0,
+                            void* dc0, void* dh_steps, void* dc_steps,
+                            void* scratch, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-#define RECNET_BWD(T_, L_)                                                 \
-  return backward<T_, L_>(plan, T, B, H, probe, vec, dhs, acts, w, h0, hs, \
-                          c0, cs, dgi, dgh, dh0, dc0, dh_steps, dc_steps,  \
-                          bar, s)
+#define RECNET_BWD(T_, L_)                                                   \
+  return backward<T_, L_>(plan, T, B, H, probe, vec, base, dhs, acts, w, h0, \
+                          hs, c0, cs, dgi, dgh, dh0, dc0, dh_steps,          \
+                          dc_steps, scratch, s)
   if (dtype == 0 && lstm) RECNET_BWD(float, true);
   if (dtype == 0) RECNET_BWD(float, false);
-  if (dtype == 1 && lstm) RECNET_BWD(__nv_bfloat16, true);
-  if (dtype == 1) RECNET_BWD(__nv_bfloat16, false);
+  if (dtype == 1 && lstm) RECNET_BWD(bf16, true);
+  if (dtype == 1) RECNET_BWD(bf16, false);
 #undef RECNET_BWD
   return (int)cudaErrorInvalidValue;
 }

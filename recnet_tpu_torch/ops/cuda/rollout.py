@@ -56,12 +56,18 @@ their plain version. No rollout calls them.
 The reconstructor's cell rollout (``ops.rnn.lstm_rollout_pre`` /
 ``gru_rollout_pre``) runs whole: ``cell_rollout_forward`` and
 ``cell_rollout_backward`` launch ``csrc/cell_rollout.cu``'s persistent
-kernels, one launch for all T steps of a direction (the recurrent product
-inside, W_hh held in shared memory in bf16), with today's step loop as
-their plain versions (``cell_rollout_*_reference``). ``rollout_plan``
-gives a launch's shape on the card and raises on one the card cannot hold
-at once; ``cell_rollout_probe`` launches their split probes. The per-step
-cell kernels above stay for the decoder's attention rollout.
+kernels, one launch for all T steps of a direction, with the step loop as
+their plain versions (``cell_rollout_*_reference``). In bf16 the
+recurrent product runs on ``wgmma`` with the block's slice of W_hh held
+in shared memory, and a block waits only for the blocks that write the
+columns it stages, through a readiness word a block in the launch's
+scratch (``_scratch``); f32 keeps a body of CUDA-core FMAs and a grid
+barrier a step. ``rollout_shape`` computes a launch's shape and shared
+memory from the card's SM count and limit (pure Python, tested on the
+CPU); ``rollout_plan`` asks the card for both and for the clusters it
+holds at once, and raises on a shape the card cannot hold;
+``cell_rollout_probe`` launches the split probes. The per-step cell
+kernels above stay for the decoder's attention rollout and f32.
 """
 
 from __future__ import annotations
@@ -734,29 +740,48 @@ def attention_backward_steps(dctx: torch.Tensor, enc: torch.Tensor,
 # the cell's whole rollout: one launch a direction
 # --------------------------------------------------------------------------
 
+# a launch's shape (rollout_plan); the first eight go to the kernel
 _PLAN_FIELDS = ("cluster", "clusters", "units", "rows", "k_slice",
-                "pass_rows", "smem", "capacity", "smem_limit")
-ROLLOUT_MAX_ROWS = 128        # padded product rows a block (the kernel's)
+                "pass_rows", "stages", "smem", "capacity", "smem_limit")
+_KERNEL_FIELDS = 8
+ROLLOUT_CLUSTER = {True: 2, False: 8}   # blocks a cluster: forward, backward
+_KC = 64                      # k of a staged chunk (cell_rollout.cu)
+# the bf16 body (cell_rollout_wgmma_kernel): its wgmma widths NW (product
+# rows a block), batch rows a pass (a stage's rows), (unit, row) pairs a
+# block in a pass, the ring's stages and the tiles' alignment
+ROLLOUT_WIDTHS = (32, 64, 96, 104)
+ROLLOUT_PASS_ROWS = 104
+ROLLOUT_MAX_PAIRS = 6 * 256
+ROLLOUT_STAGES = (3, 8)
+_ALIGN = 1024
+_READY = 128                  # the readiness scan's bytes (k slice <= 4096)
+# the f32 body (cell_rollout_f32_kernel)
+ROLLOUT_MAX_ROWS = 128        # padded product rows a block
+_F32_PASS_ROWS = 112
+_F32_MAX_PAIRS = 4 * 512
+_F32_STAGES = 3
 # which product sources may be copied in 16-byte pieces (cell_rollout.cu)
 _VEC_H0, _VEC_HS, _VEC_DG, _VEC_ACTS, _VEC_W = 1, 2, 4, 8, 16
-ROLLOUT_MAX_PAIRS = 8 * 256   # (unit, row) pairs a block in a pass
 # the split probes: without the staging and the product (P = 0), without
-# the grid barrier and the cluster's sum, or without the products' MMAs
-# (the staging kept; P = 0)
+# the waits for other blocks and the cluster's sum, or without the
+# products' MMAs (the staging kept; P = 0)
 ROLLOUT_PROBES = {"product": 1, "exchange": 2, "mma": 4}
 _plans: dict = {}
-_barriers: dict = {}
+_devices: dict = {}
+_scratches: dict = {}
 
 
 def _cell_rollout_library() -> ctypes.CDLL:
     lib = build.load("cell_rollout")
     if getattr(lib, "_recnet_bound", False):
         return lib
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.recnet_cell_rollout_plan.argtypes = [i] * 6 + [p]
-    lib.recnet_cell_rollout_fwd.argtypes = [i, i, p] + [i] * 5 + [p] * 10
-    lib.recnet_cell_rollout_bwd.argtypes = [i, i, p] + [i] * 5 + [p] * 15
-    for fn in (lib.recnet_cell_rollout_plan, lib.recnet_cell_rollout_fwd,
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.recnet_cell_rollout_device.argtypes = [p]
+    lib.recnet_cell_rollout_capacity.argtypes = [i] * 6 + [p]
+    lib.recnet_cell_rollout_fwd.argtypes = [i, i, p] + [i] * 5 + [u] + [p] * 10
+    lib.recnet_cell_rollout_bwd.argtypes = [i, i, p] + [i] * 5 + [u] + [p] * 15
+    for fn in (lib.recnet_cell_rollout_device,
+               lib.recnet_cell_rollout_capacity, lib.recnet_cell_rollout_fwd,
                lib.recnet_cell_rollout_bwd):
         fn.restype = i
     lib.recnet_cell_rollout_error_string.argtypes = [i]
@@ -778,38 +803,126 @@ def _rollout_dims(what: str, cell_type: str, x: torch.Tensor, h0):
     return T, B, H, (4 if cell_type == "LSTM" else 3) * H
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, b: int) -> int:
+    return _ceil(a, b) * b
+
+
+def rollout_shape(cell_type: str, forward: bool, dtype: torch.dtype, B: int,
+                  H: int, sms: int, smem_limit: int, clusters: int = 0,
+                  cap: int = 0) -> dict:
+    """The shape of a whole-rollout launch on a card of ``sms`` SMs and
+    ``smem_limit`` bytes of shared memory a block, before the card's
+    capacity is asked: the direction's cluster size, the clusters (as many
+    as H needs over ``cap`` clusters, or sms / cluster; ``clusters`` where
+    given), units a block, product rows a block (bf16: the wgmma width NW;
+    f32: padded to 16), the k slice, batch rows a pass, the bf16 ring's
+    stages (as many as fit, up to 8; at least the partials' bytes) and the
+    shared memory a block (bf16: 1024 bytes of alignment, the ring, the
+    rows a warpgroup's tile reads past its last stage, the held slice of
+    W_hh, the readiness scan's bytes and the block's b_hh)."""
+    n_g = 4 if cell_type == "LSTM" else 3
+    C = ROLLOUT_CLUSTER[forward]
+    kc = _round_up(_ceil(H if forward else n_g * H, C), _KC)
+    ub = _ceil(H, C * (clusters or cap or max(sms // C, 1)))
+    NB = clusters or _ceil(H, C * ub)
+    rows = (n_g if forward else 1) * C * ub
+    if dtype == torch.bfloat16:
+        NW = min((w for w in ROLLOUT_WIDTHS if w >= rows),
+                 default=_round_up(rows, 8))
+        Bp = min(_round_up(B, 8), ROLLOUT_PASS_ROWS,
+                 ROLLOUT_MAX_PAIRS // ub // 8 * 8)
+        stage, w = max(Bp, 8) * 128, NW * kc * 2
+        tail = ((128 if Bp > 64 else 64) - Bp) * 128
+        lo, hi = ROLLOUT_STAGES
+        free = smem_limit - _ALIGN - _READY - ub * 16 - tail - w
+        stages = max(min(free // stage, hi), lo,
+                     _ceil(min(B, Bp) * _round_up(NW, 32) * 4, stage))
+        smem = _ALIGN + stages * stage + tail + w + _READY + ub * 16
+    else:
+        NW = _round_up(rows, 16)
+        Bp = min(_round_up(B, 8), _F32_PASS_ROWS)
+        xp = _KC + 4
+        stages = _F32_STAGES
+        smem = max(stages * (Bp + NW) * xp * 4, NW * (Bp + 4) * 4)
+    return {"cluster": C, "clusters": NB, "units": ub, "rows": NW,
+            "k_slice": kc, "pass_rows": Bp, "stages": stages, "smem": smem}
+
+
+def _device_info(device: torch.device):
+    """(SMs, shared-memory limit a block, readiness words a scratch)."""
+    if device not in _devices:
+        lib = _cell_rollout_library()
+        raw = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            _raise_on(lib, lib.recnet_cell_rollout_device(raw),
+                      "cell_rollout device query")
+        _devices[device] = tuple(raw)
+    return _devices[device]
+
+
+def _capacity(plan: dict, cell_type, forward, dtype, device) -> int:
+    if plan["smem"] > plan["smem_limit"] or (
+            dtype == torch.bfloat16 and plan["rows"] not in ROLLOUT_WIDTHS):
+        return 0
+    lib = _cell_rollout_library()
+    cap = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.recnet_cell_rollout_capacity(
+            _DTYPE_CODES[dtype], int(cell_type == "LSTM"), int(forward),
+            plan["rows"], plan["cluster"], plan["smem"], ctypes.byref(cap))
+    _raise_on(lib, err, "cell_rollout capacity query")
+    return cap.value
+
+
 def rollout_plan(cell_type: str, forward: bool, dtype: torch.dtype, B: int,
                  H: int, device, clusters: int = 0):
-    """The shape of a whole-rollout launch on ``device``: {"cluster": blocks
-    a cluster (the direction's), "clusters", "units": units a block,
-    "rows": padded product rows a block, "k_slice", "pass_rows", "smem":
-    bytes a block, "capacity": clusters the card holds at once,
-    "smem_limit"}, and the ctypes array the launch takes. ``clusters`` (0:
-    as many as H needs, spread over the card) is for tests. Raises
-    ValueError on widths a block cannot hold and RuntimeError on a grid
-    the card cannot hold at once: a persistent launch that is not
-    co-resident would never finish."""
+    """The shape of a whole-rollout launch on ``device`` (``rollout_shape``
+    at the card's SM count and shared-memory limit, with fewer clusters and
+    more units a block where the card holds fewer clusters at once), with
+    "capacity": the clusters the card holds at once and "smem_limit"; and
+    the ctypes array the launch takes. ``clusters`` (0: as many as H needs,
+    spread over the card) is for tests. Raises ValueError on widths a block
+    cannot hold and RuntimeError on a grid the card cannot hold at once: a
+    persistent launch that is not co-resident would never finish."""
     device = torch.device(device)
     what = f"cell_rollout_{'forward' if forward else 'backward'}"
     key = (cell_type, forward, dtype, B, H, device, clusters)
     if key not in _plans:
-        lib = _cell_rollout_library()
-        raw = (ctypes.c_int * len(_PLAN_FIELDS))()
-        with torch.cuda.device(device):
-            err = lib.recnet_cell_rollout_plan(
-                _DTYPE_CODES[dtype], int(cell_type == "LSTM"), int(forward),
-                B, H, clusters, raw)
-        _raise_on(lib, err, what)
-        _plans[key] = (dict(zip(_PLAN_FIELDS, raw)), raw)
+        sms, limit, words = _device_info(device)
+        plan = rollout_shape(cell_type, forward, dtype, B, H, sms, limit,
+                             clusters)
+        plan.update(smem_limit=limit, capacity=_capacity(
+            {**plan, "smem_limit": limit}, cell_type, forward, dtype,
+            device))
+        if not clusters and 0 < plan["capacity"] < plan["clusters"]:
+            plan = {**rollout_shape(cell_type, forward, dtype, B, H, sms,
+                                    limit, cap=plan["capacity"]),
+                    "smem_limit": limit}
+            plan["capacity"] = _capacity(plan, cell_type, forward, dtype,
+                                         device)
+        plan["words"] = words
+        raw = (ctypes.c_int * _KERNEL_FIELDS)(
+            *(plan[f] for f in _PLAN_FIELDS[:_KERNEL_FIELDS]))
+        _plans[key] = (plan, raw)
     plan, raw = _plans[key]
     widths = f"{cell_type} H={H}, B={B}, {dtype}"
-    if plan["rows"] > ROLLOUT_MAX_ROWS:
+    bf16 = dtype == torch.bfloat16
+    if plan["rows"] > (ROLLOUT_WIDTHS[-1] if bf16 else ROLLOUT_MAX_ROWS):
         raise ValueError(f"{what}: {widths} give a block {plan['rows']} "
-                         f"product rows, more than {ROLLOUT_MAX_ROWS}")
-    if plan["units"] * plan["pass_rows"] > ROLLOUT_MAX_PAIRS:
+                         f"product rows, more than "
+                         f"{ROLLOUT_WIDTHS[-1] if bf16 else ROLLOUT_MAX_ROWS}")
+    pairs = ROLLOUT_MAX_PAIRS if bf16 else _F32_MAX_PAIRS
+    if plan["pass_rows"] < 8 or plan["units"] * plan["pass_rows"] > pairs:
         raise ValueError(f"{what}: {widths} give a block {plan['units']} "
-                         f"units x {plan['pass_rows']} rows, more than "
-                         f"{ROLLOUT_MAX_PAIRS} pairs")
+                         f"units a pass of at least 8 rows, more than "
+                         f"{pairs} pairs")
+    if bf16 and plan["k_slice"] > 32 * _READY:
+        raise ValueError(f"{what}: {widths} give a block a k slice of "
+                         f"{plan['k_slice']}, more than {32 * _READY}")
     if plan["smem"] > plan["smem_limit"]:
         raise ValueError(f"{what}: {widths} need {plan['smem']} bytes of "
                          f"shared memory a block, more than the card's "
@@ -820,16 +933,32 @@ def rollout_plan(cell_type: str, forward: bool, dtype: torch.dtype, B: int,
                            f"on {device} (it holds {plan['capacity']} at "
                            f"once); a persistent rollout needs every block "
                            f"resident")
+    if plan["clusters"] * plan["cluster"] > plan["words"]:
+        raise ValueError(f"{what}: {widths} take more than {plan['words']} "
+                         f"blocks")
     return plan, raw
 
 
-def _barrier(device: torch.device) -> torch.Tensor:
-    """Two zeroed ints a launch's grid barrier counts on, one pair for each
-    stream (launches on one stream run in turn and leave them zeroed)."""
+def _scratch(device: torch.device, steps: int):
+    """The scratch of a launch of ``steps`` steps on the current stream of
+    ``device`` (launches on one stream run in turn) and its readiness base:
+    the f32 grid barrier's two words (left zeroed by each launch), then a
+    readiness word a block, which a bf16 launch leaves at most base +
+    steps. The base advances past that each launch, so that no word is
+    reset between launches; the words are zeroed only before the base
+    would wrap."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
-    if key not in _barriers:
-        _barriers[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return _barriers[key]
+    if key not in _scratches:
+        words = _device_info(device)[2]
+        _scratches[key] = [torch.zeros(2 + words, dtype=torch.int32,
+                                       device=device), 0]
+    entry = _scratches[key]
+    if entry[1] + steps + 1 >= 2 ** 31:
+        entry[0][2:].zero_()
+        entry[1] = 0
+    base = entry[1]
+    entry[1] += steps + 1
+    return entry[0], base
 
 
 def _vec(t: OptT, bit: int, width: Optional[int] = None) -> int:
@@ -932,13 +1061,13 @@ def _launch_forward(cell_type, gi_all, w_hh, b_hh, h0, c0, hs, cs, acts,
     _, raw = rollout_plan(cell_type, True, gi_all.dtype, B, H, gi_all.device,
                           clusters)
     lib = _cell_rollout_library()
-    bar = _barrier(gi_all.device)
+    scratch, base = _scratch(gi_all.device, T)
     err = lib.recnet_cell_rollout_fwd(
         _DTYPE_CODES[gi_all.dtype], int(lstm), raw, T, B, H, probe,
-        _vec(h0, _VEC_H0) | _vec(hs, _VEC_HS) | _vec(w_hh, _VEC_W, H),
+        _vec(h0, _VEC_H0) | _vec(hs, _VEC_HS) | _vec(w_hh, _VEC_W, H), base,
         _ptr(gi_all), _ptr(w_hh),
         _ptr(b_hh), _ptr(h0), _ptr(c0), _ptr(hs), _ptr(cs), _ptr(acts),
-        _ptr(bar), _stream(gi_all.device))
+        _ptr(scratch), _stream(gi_all.device))
     _raise_on(lib, err, "cell_rollout_forward")
 
 
@@ -1007,16 +1136,16 @@ def _launch_backward(cell_type, dhs, acts, w_hh, h0, hs, c0, cs, dgi, dgh,
     _, raw = rollout_plan(cell_type, False, dhs.dtype, B, H, dhs.device,
                           clusters)
     lib = _cell_rollout_library()
-    bar = _barrier(dhs.device)
+    scratch, base = _scratch(dhs.device, T)
     err = lib.recnet_cell_rollout_bwd(
         _DTYPE_CODES[dhs.dtype], int(lstm), raw, T, B, H, probe,
         _vec(dgi if lstm else dgh, _VEC_DG) | _vec(acts, _VEC_ACTS)
-        | _vec(w_hh, _VEC_W, H),
+        | _vec(w_hh, _VEC_W, H), base,
         _ptr(dhs), _ptr(acts), _ptr(w_hh), _ptr(h0),
         _ptr(None if lstm else hs), _ptr(c0 if lstm else None),
         _ptr(cs if lstm else None), _ptr(dgi), _ptr(None if lstm else dgh),
         _ptr(dh0), _ptr(dc0), *map(_ptr, steps_out or (None, None)),
-        _ptr(bar), _stream(dhs.device))
+        _ptr(scratch), _stream(dhs.device))
     _raise_on(lib, err, "cell_rollout_backward")
 
 
@@ -1066,12 +1195,13 @@ def cell_rollout_probe(kind: str, probe: str, *operands):
     """A split probe of the whole-rollout kernels on the card: ``kind``
     "forward" with the operands of ``cell_rollout_forward`` or "backward"
     with those of ``cell_rollout_backward``; ``probe`` "product" (no
-    staging and no product: the cell runs on P = 0, so its outputs are the
-    plain version's with w_hh = 0), "mma" (the staging kept, the MMAs
-    dropped: P = 0 as well) or "exchange" (no grid barrier and no cluster
-    sum: each block's own partial product over a fixed input, h0 forward
-    and acts[t] backward). Returns what the wrapper returns. Counts no
-    launch; CUDA tensors only."""
+    staging, no waits for readiness and no product: the cell runs on P =
+    0, so its outputs are the plain version's with w_hh = 0), "mma" (the
+    staging kept, the MMAs dropped: P = 0 as well) or "exchange" (no waits
+    for other blocks (bf16: the readiness words; f32: the grid barrier) and
+    no cluster sum: each block's own partial product over a fixed input,
+    h0 forward and acts[t] backward). Returns what the wrapper returns.
+    Counts no launch; CUDA tensors only."""
     if kind not in ("forward", "backward") or probe not in ROLLOUT_PROBES:
         raise ValueError(f"no {kind} probe {probe!r}")
     forward = kind == "forward"

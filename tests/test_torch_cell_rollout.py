@@ -273,3 +273,89 @@ def test_stepwise_references_from_their_own_run_repeat_it(cell):
         rollout.cell_rollout_backward(cell, dhs, acts, w, h0, hs, c0, cs,
                                       steps_out=(steps[0], None if lstm
                                                  else steps[0]))
+
+
+# the H100 80GB HBM3 the card tests run on: SMs, shared memory a block, and
+# the clusters it holds at once at the flagship's widths (forward clusters
+# of 2, backward of 8; chip_smoke.py [train] (d) prints them)
+H100 = dict(sms=132, smem_limit=232448)
+H100_CAP = {True: 66, False: 15}
+
+
+def _shape_holds(cell, forward, dtype, B, H, shape, limit):
+    """The invariants a launch shape keeps: every unit has a block, the
+    smem budget fits, the rows are a built wgmma width (bf16), the pass
+    takes whole 8-row groups and at most its pairs, and (bf16) the
+    partials fit over the ring."""
+    C = shape["cluster"]
+    assert C == (2 if forward else 8)
+    assert shape["clusters"] * C * shape["units"] >= H
+    assert shape["smem"] <= limit
+    assert shape["k_slice"] % 64 == 0
+    n_g = 4 if cell == "LSTM" else 3
+    K = H if forward else n_g * H
+    assert shape["k_slice"] * C >= K            # the slices cover k
+    assert shape["k_slice"] - 64 < -(-K // C)   # by whole chunks, no more
+    Bp = shape["pass_rows"]
+    assert Bp % 8 == 0 and 8 <= Bp
+    rows = (n_g if forward else 1) * C * shape["units"]
+    if dtype == torch.bfloat16:
+        assert shape["rows"] in rollout.ROLLOUT_WIDTHS
+        assert shape["rows"] >= rows
+        assert Bp <= rollout.ROLLOUT_PASS_ROWS
+        assert shape["units"] * Bp <= rollout.ROLLOUT_MAX_PAIRS
+        lo, hi = rollout.ROLLOUT_STAGES
+        assert lo <= shape["stages"] <= hi
+        partials = min(B, Bp) * -(-shape["rows"] // 32) * 32 * 4
+        assert partials <= shape["stages"] * Bp * 128
+    else:
+        assert shape["rows"] % 16 == 0 and shape["rows"] >= rows
+        assert shape["stages"] == 3
+
+
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_rollout_shape_at_the_flagship_fits_the_h100(cell, forward):
+    """The reconstructor's widths (B = 100, H = 1536) on the H100, first at
+    sms / cluster clusters and then at the clusters the card holds (the
+    backward's 15 clusters of 8 give 13 units a block, 104 rows): one pass,
+    the largest wgmma widths, within 227 KB; the f32 body within it too."""
+    bf16 = torch.bfloat16
+    first = rollout.rollout_shape(cell, forward, bf16, 100, 1536, **H100)
+    assert first["clusters"] == (64 if forward else 16)
+    shape = rollout.rollout_shape(cell, forward, bf16, 100, 1536, **H100,
+                                  cap=H100_CAP[forward])
+    _shape_holds(cell, forward, bf16, 100, 1536, shape, H100["smem_limit"])
+    assert shape["pass_rows"] == 104
+    assert shape["rows"] == (96 if forward else 104)
+    assert shape["clusters"] == (64 if forward else 15)
+    assert shape["stages"] >= 5
+    f32 = rollout.rollout_shape(cell, forward, torch.float32, 100, 1536,
+                                **H100, cap=H100_CAP[forward])
+    _shape_holds(cell, forward, torch.float32, 100, 1536, f32,
+                 H100["smem_limit"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(100, 37), (7, 37), (7, 200), (130, 64),
+                                 (100, 512), (100, 1024)])
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_rollout_shape_at_odd_widths(cell, forward, B, H, dtype):
+    """The card tests' odd widths (H not a multiple of 16, B = 7, B = 130 in
+    two passes) and the widths between: the same invariants."""
+    shape = rollout.rollout_shape(cell, forward, dtype, B, H, **H100)
+    _shape_holds(cell, forward, dtype, B, H, shape, H100["smem_limit"])
+    if B > 104 and dtype == torch.bfloat16:
+        assert shape["pass_rows"] == 104      # two passes
+
+
+def test_rollout_shape_of_widths_no_block_holds():
+    """Widths past the bf16 body's: more product rows than 104 (rollout_plan
+    refuses them by name), and a held slice beyond the card's memory."""
+    bf16 = torch.bfloat16
+    wide = rollout.rollout_shape("LSTM", True, bf16, 100, 4096, **H100)
+    assert wide["rows"] > rollout.ROLLOUT_WIDTHS[-1]
+    deep = rollout.rollout_shape("LSTM", True, bf16, 100, 8192, **H100,
+                                 clusters=4096)
+    assert deep["rows"] == 32 and deep["smem"] > H100["smem_limit"]

@@ -1509,6 +1509,58 @@ def test_cell_rollout_grid_that_cannot_be_co_resident_raises(cuda):
     assert rollout.cell_rollout_backward.n_launches == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t", [(FB, 1536, 31), (130, 64, 9)])
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_cell_rollout_reruns_are_bit_equal(cuda, cell, b, h, t, dtype):
+    """Two launches on the same inputs give bit-equal outputs, forward and
+    backward (the kernels' sums keep a fixed order and add no value
+    atomically); the second runs on the readiness words the first left."""
+    from recnet_tpu_torch.ops.cuda import rollout
+    lstm = cell == "LSTM"
+    w, bias, gi, h0, c0, dhs = _cell_roll_operands(cell, b, h, t, dtype, 4)
+    runs = []
+    for _ in range(2):
+        fwd = rollout.cell_rollout_forward(cell, gi, w, bias, h0, c0)
+        hs, cs, acts = fwd
+        steps = (h0.new_empty((t, b, h)),
+                 h0.new_empty((t, b, h)) if lstm else None)
+        bwd = rollout.cell_rollout_backward(cell, dhs, acts, w, h0, hs, c0,
+                                            cs, steps_out=steps)
+        runs.append(tuple(fwd) + tuple(bwd) + steps)
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert (first is None) == (second is None)
+        if first is not None:
+            assert torch.equal(first, second)
+
+
+def test_cell_rollout_plan_the_card_cannot_hold_raises(cuda):
+    """bf16 plans that a block cannot hold are refused before any launch:
+    more product rows than the widest wgmma body (104), and a held slice of
+    W_hh beyond the card's shared memory a block; the wrappers raise and
+    count nothing."""
+    from recnet_tpu_torch.ops.cuda import rollout
+    bf16 = torch.bfloat16
+    with pytest.raises(ValueError, match="product rows"):
+        rollout.rollout_plan("LSTM", True, bf16, FB, 4096, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        rollout.rollout_plan("LSTM", True, bf16, FB, 8192, cuda,
+                             clusters=4096)
+    w, bias, gi, h0, c0, dhs = _cell_roll_operands("LSTM", 8, 512, 2, bf16,
+                                                   0)
+    rollout.reset_counts()
+    with pytest.raises(ValueError, match="product rows"):
+        rollout.cell_rollout_forward("LSTM", gi, w, bias, h0, c0, clusters=1)
+    hs, cs, acts = rollout.cell_rollout_forward_reference("LSTM", gi, w,
+                                                          bias, h0, c0)
+    with pytest.raises(ValueError, match="product rows"):
+        rollout.cell_rollout_backward("LSTM", dhs, acts, w, h0, hs, c0, cs,
+                                      clusters=1)
+    assert rollout.cell_rollout_forward.n_launches == 0
+    assert rollout.cell_rollout_backward.n_launches == 0
+
+
 def test_cell_rollout_wrappers_hold_their_operands(cuda):
     """Wrapper calls on tensors that nothing else holds write what the
     plain versions give, after the allocator has handed out memory again,
