@@ -67,8 +67,13 @@ Phases, one line or more each; any failure exits non-zero before a result:
    attention forward and backward) at the flagship's shapes, f32 and
    bf16, each against its plain version at ROLL_SEEDS seeds, timed beside
    it, beside ATen's fused cell where one call computes the same and
-   beside the bound; the attention kernels' split (each split probe
-   against its plain part, and its device time beside the kernel's);
+   beside the bound; the cell kernels against their first design (the
+   "scalar" probe: f32 bit for bit, bf16 within 2 ulps, five seeds, on
+   their whole-run route) and the forward's split (device time of the
+   kernel, its first design, an empty kernel at that design's grid and
+   the kernel's loads and stores without the gates); the attention
+   kernels' split (each split probe against its plain part, and its
+   device time beside the kernel's);
    then the two rollouts' forward + backward, the Functions against the
    plain autograd loops in turns, and their kernels' launches a step; the
    reconstructor's whole-rollout kernels (``csrc/cell_rollout.cu``, one
@@ -112,11 +117,14 @@ Phases, one line or more each; any failure exits non-zero before a result:
    launches per shard.
 
 ``--compare`` times K1, K2 (seg_len 4), K3 and K4 with their library
-routes, the K4 loop, [train] (c)'s f32 and bf16 k-step dispatches with
-the loops' split, and the reconstructor's rollout forward + backward
-(the package's route and the plain loop, f32 and bf16), for this tree and
-another (an unpacked parent, say) in turns: this, other, other, this,
-each in a process of its own.
+routes, the K4 loop, the per-step cell kernels (a step of their
+launchers over a sweep of per-step operands out of L2, f32 and bf16),
+[train] (c)'s f32 and bf16 k-step dispatches with the loops' split, and
+the reconstructor's rollout forward + backward (the package's route and
+the plain loop, f32 and bf16), for this tree and another (an unpacked
+parent, say) in turns: this, other, other, this, each in a process of
+its own; and holds the per-step cell kernels' outputs on the same seeded
+inputs across the two trees, f32 bit for bit and bf16 within 2 ulps.
 ``--read-rates`` times a small read kernel over an L2-resident buffer and
 over device memory.
 
@@ -179,6 +187,10 @@ EARLY_STOP_BLOCKS = 0.5        # share of blocks the early exit must stop
 # the device-memory rate, whichever is longer (H100 SXM data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+PROFILE_TRIES = 5      # device_ms: profiler sessions at most, the
+PROFILE_LOSS = 0.1     # share of a kernel's events a session may miss,
+PROFILE_PAUSE_S = 0.5  # the pause before a session is run again and the
+PROFILE_PAD = 4        # spin kernels that open a session
 # the rollouts' kernels compute in f32 on the CUDA cores (their operations
 # at the f32 peak, H100 SXM data sheet); their f32 / bf16 check bounds (as
 # tests/test_torch_cuda.py): rtol and, over each output's largest |value|,
@@ -186,6 +198,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 ROLL_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 ROLL_SEEDS = 5         # (d) holds each rollout kernel at this many seeds
+SWEEP_L2 = 4           # (d) times a cell kernel over per-step operands of
+                       # at least this many times the card's L2
 CARD_BF16_STEPS = 2    # (a): bf16 card steps beside the f32 ones (the route
                        # of the whole-rollout kernels) in the counted window
 L2_PROBE_BYTES = 12 * 2 ** 20  # --read-rates: about one block-step of K1's
@@ -1218,26 +1232,97 @@ def timed(torch, fn, reps=3):
     return start.elapsed_time(end) / reps, wall
 
 
-def device_ms(torch, fn, names=("",), reps=10):
-    """{name: device ms per call} of the work on the card whose names
-    contain each of ``names`` ("" takes all of it), over ``reps`` calls of
-    ``fn`` after a warm-up, by torch.profiler: the kernels' own time, where
-    CUDA events around calls that the host paces read the host."""
+def profiled(torch, fn, reps=1):
+    """({name: count}, {name: device us}) of the card's activities in one
+    torch.profiler session of ``reps`` calls of ``fn``. The profiler on the
+    card may miss a session's first device events, so the session opens
+    with PROFILE_PAD spin kernels, left out of both."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = dict.fromkeys(names, 0.0)
+    counts, times = collections.Counter(), collections.Counter()
     for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA \
+                and "spin_kernel" not in ev.name:
+            counts[ev.name] += 1
+            times[ev.name] += ev.device_time
+    return counts, times
+
+
+def device_ms(torch, fn, names=("",), reps=10, launches=None):
+    """{name: device ms per call} of the work on the card whose names
+    contain each of ``names`` ("" takes all of it), over ``reps`` calls of
+    ``fn`` after a warm-up, by torch.profiler: the kernels' own time, where
+    CUDA events around calls that the host paces read the host. The
+    profiler on the card may miss a session's first device events (so
+    ``profiled`` opens each session with spin kernels), and now and then
+    all of a session's events, about half or one or two. ``launches`` gives, for some of ``names``, the device kernels a
+    call launches under that name (the wrappers' counts): the name's time a
+    call is its mean over the events reported times that count, and the
+    session stands if it misses at most PROFILE_LOSS of them. A name
+    without a count (a library's kernels, "" over a loop) takes each of its
+    kernels' counts from the sessions: the profiler drops events and adds
+    none, so the most a session has reported of each kernel is the count,
+    and it stands once two sessions have reported all of it (not always a
+    whole number a call: the first backward of a leaf makes its grad, the
+    next ones add to it); the name's time a call is then its events' sum
+    over ``reps``. Up to
+    PROFILE_TRIES sessions; fails when none stands."""
+    launches = launches or {}
+    fn()
+    torch.cuda.synchronize()
+    most = {}      # the most events of a name's kernels a session reported
+    full = {}      # the sessions that reported all of them
+    for attempt in range(PROFILE_TRIES):
+        counts, times = profiled(torch, fn, reps)
+        us, faults = {}, []
         for name in names:
-            if ev.device_type == DeviceType.CUDA and name in ev.name:
-                us[name] += ev.device_time
-    check(all(us.values()), f"the profiler saw no device time for {names}")
-    return {name: t / reps / 1000 for name, t in us.items()}
+            hit = {k: n for k, n in counts.items() if name in k}
+            n, t = sum(hit.values()), sum(times[k] for k in hit)
+            if name in launches:
+                want = launches[name] * reps
+                if not n or abs(n - want) > PROFILE_LOSS * want:
+                    faults.append(f"{name!r}: {n} of {want} events")
+                else:
+                    us[name] = t / n * launches[name]
+                continue
+            top = dict(most.get(name, {}))
+            for k, c in hit.items():
+                top[k] = max(c, top.get(k, 0))
+            if top != most.get(name):
+                most[name], full[name] = top, 0
+            if hit and hit == top:
+                full[name] += 1
+                if full[name] >= 2:
+                    us[name] = t / reps
+            else:
+                faults.append(f"{name!r}: events a kernel "
+                              f"{sorted(hit.values())}, the most seen "
+                              f"{sorted(top.values())}")
+        if len(us) == len(names):
+            break
+        if faults:
+            log("profile", f"session {attempt + 1} of {names}, {reps} "
+                           f"calls: " + "; ".join(faults))
+            time.sleep(PROFILE_PAUSE_S)
+    check(len(us) == len(names), f"no profiler session of {names} stood "
+                                 f"in {PROFILE_TRIES}")
+    return {name: t / 1000 for name, t in us.items()}
+
+
+def counted_launches(torch, fn, *wrappers):
+    """The launches one call of ``fn`` makes through ``wrappers`` (their
+    counts; every count is reset first)."""
+    reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    return sum(w.n_launches for w in wrappers)
 
 
 def host_ms(torch, fn, reps=50):
@@ -1483,7 +1568,11 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
     cores = lambda: fs.fused_gru_attn_step(*k4, emb_size=E, cuda_cores=True)
     step = fs.step_launcher(*k4, emb_size=E, tiles=tiles)
     e = entries["fused_gru_attn_step"]
-    split = device_ms(torch, route, ("attn_pass", "gate_gemm"))
+    # each of K4's two kernels once a launch of the route's wrapper
+    per_call = counted_launches(torch, route, fs.fused_gru_attn_step)
+    k4_launches = {"attn_pass": per_call, "gate_gemm": per_call}
+    split = device_ms(torch, route, ("attn_pass", "gate_gemm"),
+                      launches=k4_launches)
     e.update(device_ms=sum(split.values()),
              library_device_ms=device_ms(torch, library)[""],
              attn_pass_ms=split["attn_pass"], gate_gemm_ms=split["gate_gemm"],
@@ -1492,7 +1581,8 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
     # shrink with the batch
     k4_8 = k4_operands(torch, cfg, params, enc[:8].contiguous(), 14)
     split8 = device_ms(torch, lambda: fs.fused_gru_attn_step(
-        *k4_8, emb_size=E, tiles=tiles), ("attn_pass", "gate_gemm"))
+        *k4_8, emb_size=E, tiles=tiles), ("attn_pass", "gate_gemm"),
+        launches=k4_launches)
     log("times", f"fused_gru_attn_step B={B} bf16 frame_chunk 1, by CUDA "
                  f"events: tensor-core route {e['ms']:.4f} ms, CUDA-core body "
                  f"(cuda_cores) {timed(torch, cores, 10)[0]:.4f} ms, library "
@@ -1960,8 +2050,6 @@ def train_times(torch, tc, corpus):
     step (the loop's), the median of TIME_DISPATCHES, for f32 and bf16;
     the card's busy time a step by torch.profiler (kernels only) and its
     idle share; peak memory; the bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from recnet_tpu_torch.training import step as S
     k, B = tc.steps_per_dispatch, tc.batch_size
     cache = torch.from_numpy(corpus.train_dataset.feature_cache()).to(
@@ -1996,12 +2084,9 @@ def train_times(torch, tc, corpus):
             torch.cuda.synchronize()
             per_step.append(start.elapsed_time(end) / k)
         check(bool(torch.isfinite(m["loss"]).all()), f"{prec}: loss {m}")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        kernels = [ev for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA]
-        busy = sum(ev.device_time for ev in kernels) / 1000 / k
+        counts, times = profiled(torch, run)
+        n_kernels = sum(counts.values())
+        busy = sum(times.values()) / 1000 / k
         check(busy > 0, "the profiler saw no device time")
         med = float(np.median(per_step))
         flops, nbytes = train_work(ptc, dcfg, rcfg, B)
@@ -2010,13 +2095,13 @@ def train_times(torch, tc, corpus):
         bound_ms = max(t_ops, t_bytes)
         mem = torch.cuda.max_memory_allocated() / 2 ** 30
         out[prec] = dict(ms=med, steps_s=1000 / med, busy_ms=busy,
-                         idle=1 - busy / med, kernels=len(kernels) / k,
+                         idle=1 - busy / med, kernels=n_kernels / k,
                          bound_ms=bound_ms, peak_gib=mem)
         log("train", f"(c) {prec}, B={B}, k={k}: "
                      f"{', '.join(f'{x:.3f}' for x in per_step)} ms a step "
                      f"by CUDA events (median {med:.3f} ms, "
                      f"{1000 / med:.2f} steps/s); the card busy "
-                     f"{busy:.3f} ms a step ({len(kernels) / k:.0f} device "
+                     f"{busy:.3f} ms a step ({n_kernels / k:.0f} device "
                      f"activities a step; idle share {1 - busy / med:.3f}); "
                      f"peak memory {mem:.2f} GiB; bound {bound_ms:.3f} ms "
                      f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
@@ -2029,16 +2114,11 @@ def train_times(torch, tc, corpus):
 
 def device_activities(torch, fn) -> collections.Counter:
     """The activities on the card (kernels, copies, fills) of one call of
-    ``fn`` by name, by torch.profiler, after a warm-up call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``fn`` by name, by torch.profiler (``profiled``), after a warm-up
+    call."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return collections.Counter(ev.name for ev in prof.events()
-                               if ev.device_type == DeviceType.CUDA)
+    return profiled(torch, fn)[0]
 
 
 def loop_activities(torch, tc, corpus):
@@ -2167,13 +2247,28 @@ def rollout_launches(cells, whole):
     return out
 
 
-def rollout_cases(torch, tc, dtype, seed=0):
+def sweep_steps(torch, nbytes):
+    """Steps of a cell sweep whose per-step operands of ``nbytes`` bytes
+    come to SWEEP_L2 times the card's L2 (at least a rollout's T = 31):
+    each step's operands are then out of L2 when the sweep comes back to
+    them, so they come from device memory as the HBM bound counts them."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return max(31, -(-SWEEP_L2 * l2 // nbytes))
+
+
+def rollout_cases(torch, tc, dtype, seed=0, sweeps=False):
     """The rollouts' kernels at the flagship's shapes (the batch; the
     decoder's cell and attention over the encoder's frames, the
     reconstructor's cell), on inputs in ``dtype`` from ``seed``: {entry name:
-    (kernel call, plain call, library call or None, (flops, bytes), one
-    step of the kernel's ``*_steps`` launcher)}. Each call but the last
-    returns its outputs."""
+    (kernel call, plain call, library call or None, (flops, bytes), a call
+    of the kernel's ``*_steps`` launcher or None, its steps)}. Each call
+    but the launcher's returns its outputs. With ``sweeps`` the launcher
+    call is a sweep: the cells' launchers run every step of their own
+    per-step operands (``sweep_steps``: the operands a step reads and
+    writes lie apart, as a rollout's (T, B, .) buffers, and are out of L2
+    when the sweep comes to them; the state a step reads is the one the
+    step before wrote, as in a rollout); the attention's one step, whose
+    enc and uv a rollout reads at every step from L2."""
     from recnet_tpu_torch.ops.cuda import rollout as ro
     B, F, E = tc.batch_size, tc.encoder_output_len, tc.encoder_output_size
     Hd, A = tc.decoder_hidden_size, tc.decoder_attn_size
@@ -2214,27 +2309,32 @@ def rollout_cases(torch, tc, dtype, seed=0):
                 else bh * (1 + 4 + 1) + 2 * B * G + G)
         io_b = (bh * (3 + 4 + 2 + 1) + B * G if lstm
                 else bh * (3 + 4 + 1) + 2 * B * G)
-        # one step of each launcher over (1, B, .) buffers
-        one = lambda x: None if x is None else x[None]
-        hs, acts1 = rand(1, B, H), rand(1, B, 4 * H)
-        cs = rand(1, B, H) if lstm else None
-        fwd_step = ro.cell_forward_steps(
-            cell, gx[None], one(None if lstm else gh), bias, h,
-            c if lstm else None, hs, cs, acts1)
-        dgi, dgh = rand(1, B, G), rand(1, B, G)
-        dh_s, dc_s = dh.clone(), dc.clone()
-        bwd_step = ro.cell_backward_steps(
-            cell, dh_s, dh_out[None], dc_s if lstm else None, acts[None],
-            h[None], one(c if lstm else None), one(c_t if lstm else None),
-            dgi, dgh)
+        fwd_sweep = bwd_sweep = None
+        n_f = n_b = 1
+        if sweeps:
+            # every step of each launcher over its own (N, B, .) buffers
+            n_f = sweep_steps(torch, size * io_f)
+            maybe = lambda x, n, *shape: rand(n, *shape) if x else None
+            fwd_step = ro.cell_forward_steps(
+                cell, rand(n_f, B, G, scale=1.5),
+                maybe(not lstm, n_f, B, G), bias, h, c if lstm else None,
+                rand(n_f, B, H), maybe(lstm, n_f, B, H), rand(n_f, B, 4 * H))
+            fwd_sweep = lambda: [fwd_step(t) for t in range(n_f)]
+            n_b = sweep_steps(torch, size * io_b)
+            bwd_step = ro.cell_backward_steps(
+                cell, dh.clone(), rand(n_b, B, H), dc.clone() if lstm
+                else None, rand(n_b, B, 4 * H), maybe(not lstm, n_b, B, H),
+                maybe(lstm, n_b, B, H), maybe(lstm, n_b, B, H),
+                rand(n_b, B, G), rand(n_b, B, G))
+            bwd_sweep = lambda: [bwd_step(t) for t in range(n_b - 1, -1, -1)]
         cases[f"rollout_cell_forward[{cell}]"] = (
             lambda: ro.cell_forward(*fwd),
             lambda: ro.cell_forward_reference(*fwd), lib_f,
-            (10 * B * G, size * io_f), lambda: fwd_step(0))
+            (10 * B * G, size * io_f), fwd_sweep, n_f)
         cases[f"rollout_cell_backward[{cell}]"] = (
             lambda: ro.cell_backward(*bwd),
             lambda: ro.cell_backward_reference(*bwd), lib_b,
-            (12 * B * G, size * io_b), lambda: bwd_step(0))
+            (12 * B * G, size * io_b), bwd_sweep, n_b)
 
     for cell, H in ((tc.decoder_model, Hd),
                     (tc.reconstructor_model, tc.reconstructor_hidden_size)):
@@ -2250,6 +2350,8 @@ def rollout_cases(torch, tc, dtype, seed=0):
                                           rand(1, B, F), rand(1, B, E))
     bwd_step = ro.attention_backward_steps(dctx[None], enc, act[None], w,
                                            rand(1, B, F), dgw[None, :, Gd:])
+    fwd_one = (lambda: fwd_step(0)) if sweeps else None
+    bwd_one = (lambda: bwd_step(0)) if sweeps else None
     # bytes: what each kernel reads and writes (W's reads now in the
     # products that carry wh and dwh W^T)
     cases["rollout_attention_forward"] = (
@@ -2257,14 +2359,14 @@ def rollout_cases(torch, tc, dtype, seed=0):
         lambda: ro.attention_forward_reference(wh, uv, b, w, enc), None,
         (6 * B * F * A + 2 * B * F * E,
          size * (B * A + B * F * A + 2 * A + B * F * E + B * F + B * E)),
-        lambda: fwd_step(0))
+        fwd_one, 1)
     cases["rollout_attention_backward"] = (
         lambda: ro.attention_backward(dctx, enc, act, w,
                                       out=(None, dgw[:, Gd:])),
         lambda: ro.attention_backward_reference(dctx, enc, act, w), None,
         (2 * B * F * E + 4 * B * F * A,
          size * (B * E + B * F * E + B * F * A + A + B * F + B * A)),
-        lambda: bwd_step(0))
+        bwd_one, 1)
     return cases
 
 
@@ -2294,8 +2396,9 @@ def rollout_split(torch, tc):
                 "backward": (ro.attention_backward, (dctx, enc, act, w),
                              ro.BACKWARD_PROBES)}
         for kind, (kernel, operands, probes) in runs.items():
-            ms = {"full": device_ms(torch, lambda: kernel(*operands),
-                                    reps=50)[""]}
+            call = lambda: kernel(*operands)
+            ms = {"full": device_ms(torch, call, reps=50, launches={
+                "": counted_launches(torch, call, kernel)})[""]}
             for probe in probes:
                 got = ro.attention_probe(kind, probe, *operands)
                 want = ro.attention_probe_reference(kind, probe, *operands)
@@ -2316,6 +2419,150 @@ def rollout_split(torch, tc):
                                      f"(the part "
                                      f"{(ms['full'] - ms[p]) * 1e3:.2f})"
                                      for p in probes) + f" on {card}")
+    return out
+
+
+# the cell kernels' split: each part's kernel, by the name the profiler
+# gives it (the forward, its first design, the empty kernel, the copy; the
+# backward and its first design)
+CELL_SPLIT_KERNELS = {"kernel": "::cell_fwd_kernel<",
+                      "scalar": "::cell_fwd_scalar_kernel<",
+                      "empty": "::empty_kernel(",
+                      "copy": "::cell_fwd_copy_kernel<",
+                      "backward": "::cell_bwd_kernel<",
+                      "backward scalar": "::cell_bwd_scalar_kernel<"}
+
+
+def bf16_ulps(torch, got, want):
+    """The largest distance between two bf16 tensors in bf16 ulps (the bit
+    patterns on one integer line)."""
+    def line(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        mag = bits & 0x7FFF
+        return torch.where(bits >= 0x8000, -mag, mag)
+    return int((line(got) - line(want)).abs().max())
+
+
+def cell_split(torch, tc):
+    """(d) The cell kernels at the flagship's cells (the decoder's GRU, the
+    reconstructor's LSTM), f32 and bf16: the forward and the backward held
+    against their first design (the "scalar" probe) at ROLL_SEEDS seeds,
+    f32 bit for bit and bf16 within 2 ulps; then the device time
+    (torch.profiler) of the forward, its first design, an empty kernel at
+    the first design's grid (the launch's floor) and the forward's loads
+    and stores without the gates ("copy"), and of the backward and its
+    first design: one session in which each part runs a sweep of per-step
+    operands out of L2 (``sweep_steps``) in turn, each part read by its
+    kernel's name (CELL_SPLIT_KERNELS; the kernels' own names are those of
+    the whole-run route, so the flagship's operands must take it). Returns
+    {entry name: {prec: {part: device ms}}}."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    B = tc.batch_size
+    card = card_line()
+    out = {}
+
+    def held(name, prec, seed, got, first):
+        for i, (x, y) in enumerate(zip(got, first)):
+            if y is not None:
+                check(torch.equal(x, y) if prec == "float32"
+                      else bf16_ulps(torch, x, y) <= 2,
+                      f"{name} {prec} seed {seed}: output {i} against the "
+                      f"first design")
+
+    for cell, H in ((tc.decoder_model, tc.decoder_hidden_size),
+                    (tc.reconstructor_model, tc.reconstructor_hidden_size)):
+        lstm, G = cell == "LSTM", (4 if cell == "LSTM" else 3) * H
+        fname = f"rollout_cell_forward[{cell}]"
+        bname = f"rollout_cell_backward[{cell}]"
+        for prec in ("float32", "bfloat16"):
+            dtype = getattr(torch, prec)
+            g = None
+
+            def rand(*shape, scale=0.5):
+                return (torch.randn(shape, generator=g, device=DEVICE)
+                        * scale).to(dtype)
+
+            for seed in range(ROLL_SEEDS):
+                g = torch.Generator(device=DEVICE).manual_seed(
+                    SEED + 62 + 100 * seed)
+                gx, gh, bias = (rand(B, G, scale=1.5), rand(B, G, scale=1.5),
+                                rand(G))
+                h, c, dh, dh_out, dc = (rand(B, H) for _ in range(5))
+                fwd = (cell, gx, None if lstm else gh, bias, h,
+                       c if lstm else None)
+                got = ro.cell_forward(*fwd)
+                held(fname, prec, seed, got,
+                     ro.cell_forward_probe("scalar", *fwd))
+                bwd = (cell, dh, dh_out, dc if lstm else None, got[2], h,
+                       c if lstm else None, got[1] if lstm else None)
+                dgot = ro.cell_backward(*bwd)
+                held(bname, prec, seed, dgot,
+                     ro.cell_backward_probe("scalar", *bwd))
+                torch.cuda.synchronize()
+            # each step's operands and outputs of their own, n steps: a
+            # forward step reads gx[t] (gh[t]) and hs[t] or cs[t] and
+            # writes h_out[t], c_out[t], a_out[t]; a backward step reads
+            # the carries dh and dc, dhs[t], acts[t], hs[t] or cs[t] (and
+            # hs[t] as c_t) and writes dgi[t], dgh[t], dh_cell[t] or
+            # dc_prev[t]; n from the forward's bytes, the fewer
+            size = torch.finfo(dtype).bits // 8
+            n = sweep_steps(torch, size * B * (G + 7 * H if lstm
+                                               else 2 * G + 6 * H))
+            gxs, ghs = rand(n, B, G, scale=1.5), rand(n, B, G, scale=1.5)
+            hs, cs, dhs, acts = (rand(n, B, H), rand(n, B, H),
+                                 rand(n, B, H), rand(n, B, 4 * H))
+            h_out, c_out, a_out = (torch.empty_like(hs),
+                                   torch.empty_like(cs),
+                                   torch.empty_like(acts))
+            dgi, dgh, d_state = (torch.empty_like(gxs),
+                                 torch.empty_like(ghs),
+                                 torch.empty_like(hs))
+            fwd_t = lambda t: (cell, gxs[t], None if lstm else ghs[t], bias,
+                               hs[t], cs[t] if lstm else None)
+            fout_t = lambda t: (h_out[t], c_out[t] if lstm else None,
+                                a_out[t])
+            bwd_t = lambda t: (cell, dh, dhs[t], dc if lstm else None,
+                               acts[t], hs[t], cs[t] if lstm else None,
+                               hs[t] if lstm else None)
+            bout_t = lambda t: (dgi[t], None if lstm else dgh[t],
+                                None if lstm else d_state[t],
+                                d_state[t] if lstm else None)
+            parts = [lambda t: ro.cell_forward(*fwd_t(t), out=fout_t(t))]
+            parts += [functools.partial(
+                lambda probe, t: ro.cell_forward_probe(
+                    probe, *fwd_t(t), out=fout_t(t)), p)
+                for p in ro.CELL_FORWARD_PROBES]
+            parts += [lambda t: ro.cell_backward(*bwd_t(t), out=bout_t(t)),
+                      lambda t: ro.cell_backward_probe(
+                          "scalar", *bwd_t(t), out=bout_t(t))]
+
+            def sweeps():
+                for part in parts:
+                    for t in range(n):
+                        part(t)
+
+            per_call = counted_launches(torch, sweeps, ro.cell_forward)
+            check(per_call == n, f"{fname} {prec}: {per_call} launches of "
+                                 f"a {n}-step sweep")
+            got = device_ms(torch, sweeps, tuple(CELL_SPLIT_KERNELS.values()),
+                            reps=3, launches={
+                                CELL_SPLIT_KERNELS["kernel"]: per_call,
+                                CELL_SPLIT_KERNELS["backward"]: per_call})
+            ms = {p: got[k] / n for p, k in CELL_SPLIT_KERNELS.items()}
+            bms = {"kernel": ms.pop("backward"),
+                   "scalar": ms.pop("backward scalar")}
+            out.setdefault(fname, {})[prec] = ms
+            out.setdefault(bname, {})[prec] = bms
+            log("train", f"(d) cell kernels {cell} {prec}, B={B} H={H}: "
+                         f"forward and backward bit-equal (f32) / within 2 "
+                         f"ulps (bf16) to their first design at seeds "
+                         f"0-{ROLL_SEEDS - 1}; over a sweep of {n} steps' "
+                         f"operands, whole-run route, forward device "
+                         + ", ".join(f"{p} {v * 1e3:.3f} us"
+                                     for p, v in ms.items())
+                         + f"; backward device kernel "
+                         f"{bms['kernel'] * 1e3:.3f} us, scalar "
+                         f"{bms['scalar'] * 1e3:.3f} us a step on {card}")
     return out
 
 
@@ -2342,13 +2589,15 @@ def rollout_kernels(torch, tc):
     """(d) Each of the rollouts' kernels at the flagship's shapes, f32 and
     bf16: against its plain version on the same inputs (ROLL_TOL) from
     ROLL_SEEDS seeds, then a step of its ``*_steps`` launcher (the
-    rollouts' route) timed by CUDA events, by the profiler's device time
-    and by the host's time to launch it, beside a wrapper call, the plain
-    version, the one PyTorch call of the same function where there is one
-    (ATen's fused LSTM / GRU cell and their backward) and the bound (bytes
-    at the HBM rate or operations at the f32 peak). Returns {entry name:
-    kernels-line fields} (``max_abs_err`` over the seeds), the times in
-    the preset's train precision, bf16's beside them."""
+    rollouts' route; the cells' over a sweep of per-step operands out of
+    L2, ``rollout_cases``) timed by CUDA events, by the profiler's device
+    time and by the host's time to launch it, beside a wrapper call, the
+    plain version, the one PyTorch call of the same function where there
+    is one (ATen's fused LSTM / GRU cell and their backward) and the bound
+    (bytes at the HBM rate or operations at the f32 peak). Returns {entry
+    name: kernels-line fields} (``max_abs_err`` over the seeds), the times
+    in the preset's train precision, bf16's beside them."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
     card = card_line()
     entries = {}
     for prec in ("float32", "bfloat16"):
@@ -2358,20 +2607,24 @@ def rollout_kernels(torch, tc):
                                             seed).items():
                 margins[name].append(rollout_error(torch, name, prec,
                                                    *case[:2]))
-        cases = rollout_cases(torch, tc, getattr(torch, prec))
-        for name, (kernel, plain, library, (flops, nbytes),
-                   step) in cases.items():
+        cases = rollout_cases(torch, tc, getattr(torch, prec), sweeps=True)
+        for name, (kernel, plain, library, (flops, nbytes), sweep,
+                   steps) in cases.items():
             err = rollout_error(torch, name, prec, kernel, plain)
             log("train", f"(d) {name} {prec}: max |kernel - plain| at "
                          f"seeds 0-{ROLL_SEEDS - 1}: "
                          + ", ".join(f"{e:.3g}" for e in
                                      [err] + margins[name]))
             err = max([err] + margins[name])
-            ms, wrapper_ms, plain_ms = (timed(torch, fn, 100)[0]
-                                        for fn in (step, kernel, plain))
+            reps = max(100 // steps, 3)
+            ms = timed(torch, sweep, reps)[0] / steps
+            wrapper_ms, plain_ms = (timed(torch, fn, 100)[0]
+                                    for fn in (kernel, plain))
             lib_ms = timed(torch, library, 100)[0] if library else None
-            dev = device_ms(torch, step, reps=50)[""]
-            host = host_ms(torch, step, reps=100)
+            per_call = counted_launches(torch, sweep, *ro.KERNELS)
+            dev = device_ms(torch, sweep, reps=max(50 // steps, 3),
+                            launches={"": per_call})[""] / steps
+            host = host_ms(torch, sweep, reps=reps) / steps
             t_ops = flops / PEAK_F32_FLOPS * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             entry = entries.setdefault(name, {})
@@ -2387,6 +2640,7 @@ def rollout_kernels(torch, tc):
             lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f}"
             log("train", f"(d) {name} {prec}: max |kernel - plain| "
                          f"{err:.3g}; a step of its launcher "
+                         f"({steps} a sweep) "
                          f"{ms * 1e3:.2f} us by events (device "
                          f"{dev * 1e3:.2f} us, host {host * 1e3:.2f} us), "
                          f"a wrapper call {wrapper_ms * 1e3:.2f}, plain "
@@ -2689,7 +2943,10 @@ def whole_rollout_kernels(torch, tc):
         for kind, (kernel, plain, library) in runs.items():
             ms, plain_ms, lib_ms = (timed(torch, fn, reps)[0] for fn, reps in
                                     ((kernel, 20), (plain, 3), (library, 20)))
-            dev = device_ms(torch, kernel, reps=10)[""]
+            # the kernel's events held to its wrapper's count
+            name = "::cell_rollout"
+            dev = device_ms(torch, kernel, (name,), reps=10, launches={
+                name: counted_launches(torch, kernel, *ro.KERNELS)})[name]
             lib_dev = device_ms(torch, library, reps=10)[""]
             t_ops = flops / peak * 1e3
             t_bytes = io[kind] / HBM_BYTES_PER_S * 1e3
@@ -2847,6 +3104,12 @@ def train_phase(torch, tc, vocab):
                  + "; ".join(f"{k} {v[0]:g} a step, {v[1]} a call ({v[2]})"
                              for k, v in split.items()))
     entries = rollout_kernels(torch, ttc)
+    for name, by_prec in cell_split(torch, ttc).items():
+        for prec, ms in by_prec.items():
+            pre = "" if prec == ttc.train_precision else f"{prec}_"
+            entries[name].update({f"{pre}{part}_device_ms": v
+                                  for part, v in ms.items()
+                                  if part != "kernel"})
     entries.update(whole_rollout_kernels(torch, ttc))
     rollout_split(torch, ttc)
     whole_rollout_split(torch, ttc)
@@ -3644,13 +3907,15 @@ def dist_phase(torch, tc, vocab, cfg, params_np):
 # 7. two trees in turns: python3 chip_smoke.py --compare <other tree>
 # --------------------------------------------------------------------------
 
-def time_kernels(root: str) -> None:
+def time_kernels(root: str, outputs: str) -> None:
     """Time K1, K2 (seg_len 4), K3 and K4 of the package under ``root``
     and their library routes, and the K4 loop, as ``times`` does
     (``core_kernels``, bf16, B = TIME_B, on inputs from this script's
-    seeds); the whole-rollout kernels (``whole_rollout_times``); then
+    seeds); the per-step cell kernels (``cell_step_times``) and the
+    whole-rollout kernels (``whole_rollout_times``); then
     [train] (c)'s k-step dispatches, f32 and bf16, and the loops' split
-    (``train_timing``); print one JSON line. Runs in a
+    (``train_timing``); print one JSON line. The per-step cell kernels'
+    outputs on seed 0's inputs go to the file ``outputs``. Runs in a
     process of its own, so that ``root``'s package and its kernel builds
     are the ones imported."""
     import importlib.util
@@ -3693,9 +3958,37 @@ def time_kernels(root: str) -> None:
     ms["greedy_decode_pallas"] = timed(torch, loop)[0]
     ms["greedy_decode_pallas device"] = device_ms(torch, loop, reps=3)[""]
     del params, enc, core
+    ms.update(cell_step_times(torch, tc, outputs))
     ms.update(whole_rollout_times(torch, tc))
     print(json.dumps({"root": root, "build_s": built, "ms": ms,
                       "train": train_timing(torch)}), flush=True)
+
+
+def cell_step_times(torch, tc, outputs):
+    """{"<entry name> <prec>": ms a step of its ``*_steps`` launcher by
+    CUDA events, and with " device": device ms} of the imported package's
+    per-step cell kernels at the flagship's shapes, over a sweep of
+    per-step operands out of L2 (``rollout_cases``: the launchers'
+    signatures are the same in every tree that has them), f32 and bf16.
+    Each kernel's outputs from a wrapper call on the same inputs go to the
+    file ``outputs`` (torch.save of {"<entry name> <prec>": [tensors]})."""
+    from recnet_tpu_torch.ops.cuda import rollout as ro
+    out, saved = {}, {}
+    for prec in ("float32", "bfloat16"):
+        for name, case in rollout_cases(torch, tc, getattr(torch, prec),
+                                        sweeps=True).items():
+            if name.startswith("rollout_cell"):
+                sweep, steps = case[4], case[5]
+                out[f"{name} {prec}"] = timed(
+                    torch, sweep, max(100 // steps, 3))[0] / steps
+                per_call = counted_launches(torch, sweep, *ro.KERNELS)
+                out[f"{name} {prec} device"] = device_ms(
+                    torch, sweep, reps=max(50 // steps, 3),
+                    launches={"": per_call})[""] / steps
+                saved[f"{name} {prec}"] = [None if x is None else x.cpu()
+                                           for x in case[0]()]
+    torch.save(saved, outputs)
+    return out
 
 
 def whole_rollout_times(torch, tc):
@@ -3715,31 +4008,57 @@ def whole_rollout_times(torch, tc):
                 ("backward", lambda: ro.cell_rollout_backward(*bwd))):
             name = f"cell_rollout_{kind}[{cell}] bf16"
             out[name] = timed(torch, fn, 20)[0]
-            out[f"{name} device"] = device_ms(torch, fn, reps=10)[""]
+            kernel = "::cell_rollout"       # held to the wrapper's count
+            out[f"{name} device"] = device_ms(
+                torch, fn, (kernel,), reps=10, launches={
+                    kernel: counted_launches(torch, fn, *ro.KERNELS)})[kernel]
     return out
 
 
 def compare(other: str) -> None:
     """Time this tree and ``other`` in turns (this, other, other, this),
-    each in a process of its own; print each run's JSON line."""
+    each in a process of its own; print each run's JSON line. Then hold
+    the per-step cell kernels' outputs of the two trees on the same inputs
+    against each other: f32 bit for bit, bf16 within 2 ulps."""
+    import torch
     card = card_line()
-    for root in (str(REPO), other, other, str(REPO)):
+    tmp = Path(tempfile.mkdtemp(prefix="compare-"))
+    runs = []
+    for i, root in enumerate((str(REPO), other, other, str(REPO))):
+        runs.append(tmp / f"cells-{i}.pt")
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--time-kernels",
-             root], capture_output=True, text=True, timeout=900)
+             root, str(runs[-1])], capture_output=True, text=True,
+            timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             raise SmokeFailure(f"--time-kernels {root} exited "
                                f"{proc.returncode}")
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         log("compare", f"{json.dumps(result)} ({card})")
+    mine, theirs = torch.load(runs[0]), torch.load(runs[1])
+    shutil.rmtree(tmp)
+    for name, got in mine.items():
+        check(name in theirs, f"{other} has no {name}")
+        for i, (x, y) in enumerate(zip(got, theirs[name])):
+            if x is None or y is None:
+                check(x is y, f"{name} output {i}: None in one tree only")
+            elif name.endswith("float32"):
+                check(torch.equal(x, y), f"{name} output {i}: not bit-equal "
+                                         f"to {other}'s")
+            else:
+                check(bf16_ulps(torch, x, y) <= 2,
+                      f"{name} output {i}: over 2 ulps from {other}'s")
+    log("compare", f"the per-step cell kernels' outputs: f32 bit-equal and "
+                   f"bf16 within 2 ulps to {other}'s on the same inputs "
+                   f"({', '.join(mine)})")
 
 
 def main() -> int:
     import torch
 
     if sys.argv[1:2] == ["--time-kernels"]:
-        time_kernels(sys.argv[2])
+        time_kernels(sys.argv[2], sys.argv[3])
         return 0
     environment(torch)
     if sys.argv[1:2] == ["--compare"]:

@@ -51,7 +51,11 @@ passes.
 
 ``attention_probe`` launches the attention kernels' split probes, each
 without one part of its kernel's work; ``attention_probe_reference`` is
-their plain version. No rollout calls them.
+their plain version. ``cell_forward_probe`` and ``cell_backward_probe``
+launch the cell kernels' probes: each kernel's first design ("scalar":
+one thread a unit, the values the kernel is held to), and for the forward
+an empty kernel at that design's grid ("empty") and the kernel's loads
+and stores without the gates ("copy"). No rollout calls them.
 
 The reconstructor's cell rollout (``ops.rnn.lstm_rollout_pre`` /
 ``gru_rollout_pre``) runs whole: ``cell_rollout_forward`` and
@@ -96,17 +100,20 @@ def _library() -> ctypes.CDLL:
         return lib
     p, i, ld = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.recnet_cell_fwd.argtypes = [i, i, i, i, ld, ld] + [p] * 9
+    lib.recnet_cell_fwd_probe.argtypes = [i] * 5 + [ld, ld] + [p] * 9
     lib.recnet_cell_bwd.argtypes = [i, i, i, i, ld, ld] + [p] * 12
+    lib.recnet_cell_bwd_probe.argtypes = [i] * 5 + [ld, ld] + [p] * 12
     lib.recnet_attn_fwd.argtypes = [i] * 5 + [ld] + [p] * 8
     lib.recnet_attn_bwd.argtypes = [i] * 5 + [ld] + [p] * 7
     lib.recnet_attn_fwd_probe.argtypes = [i] * 6 + [ld] + [p] * 8
     lib.recnet_attn_bwd_probe.argtypes = [i] * 6 + [ld] + [p] * 7
     lib.recnet_attn_fwd_smem.argtypes = [i, i, i]
     lib.recnet_attn_bwd_smem.argtypes = [i, i, i, i]
-    for fn in (lib.recnet_cell_fwd, lib.recnet_cell_bwd, lib.recnet_attn_fwd,
-               lib.recnet_attn_bwd, lib.recnet_attn_fwd_probe,
-               lib.recnet_attn_bwd_probe, lib.recnet_attn_fwd_smem,
-               lib.recnet_attn_bwd_smem):
+    for fn in (lib.recnet_cell_fwd, lib.recnet_cell_fwd_probe,
+               lib.recnet_cell_bwd, lib.recnet_cell_bwd_probe,
+               lib.recnet_attn_fwd, lib.recnet_attn_bwd,
+               lib.recnet_attn_fwd_probe, lib.recnet_attn_bwd_probe,
+               lib.recnet_attn_fwd_smem, lib.recnet_attn_bwd_smem):
         fn.restype = i
     lib.recnet_rollout_error_string.argtypes = [i]
     lib.recnet_rollout_error_string.restype = ctypes.c_char_p
@@ -251,6 +258,34 @@ def cell_forward_reference(cell_type: str, gx: torch.Tensor, gh: OptT,
     return h_new.to(dt), c, torch.cat([r, z, n, hn], -1).to(dt)
 
 
+def _cell_forward_operands(what, cell_type, gx, gh, bias, h, c, outs):
+    """(B, H, LSTM, the operands as ``_on_cpu`` takes them) of a cell
+    forward; raises on a cell, a shape or an operand it does not take."""
+    B, H, G = _cell_dims(cell_type, h)
+    lstm = cell_type == "LSTM"
+    if lstm and (gh is not None or c is None):
+        raise ValueError(f"{what} LSTM: gh must be None and c given")
+    if not lstm and gh is None:
+        raise ValueError(f"{what} GRU: gh must be given")
+    operands = [("gx", gx, (B, G)), ("gh", gh, (B, G)), ("bias", bias, (G,)),
+                ("h", h, (B, H)), ("c", c if lstm else None, (B, H)),
+                ("h_out", outs[0], (B, H)),
+                ("c_out", outs[1] if lstm else None, (B, H)),
+                ("acts_out", outs[2], (B, 4 * H))]
+    _check_shapes(what, operands)
+    return B, H, lstm, operands
+
+
+def _cell_forward_args(cell_type, gx, gh, bias, h, c, h_new, c_new, acts):
+    """The ctypes arguments of ``recnet_cell_fwd`` but the stream."""
+    lstm = cell_type == "LSTM"
+    B, H = h.shape
+    return (_DTYPE_CODES[gx.dtype], int(lstm), B, H, _ld(gx), _ld(gh),
+            _ptr(gx), _ptr(gh), _ptr(bias), _ptr(h),
+            _ptr(c if lstm else None), _ptr(h_new),
+            _ptr(c_new if lstm else None), _ptr(acts))
+
+
 def cell_forward(cell_type: str, gx: torch.Tensor, gh: OptT,
                  bias: torch.Tensor, h: torch.Tensor, c: OptT,
                  out: Optional[Sequence[OptT]] = None):
@@ -258,19 +293,9 @@ def cell_forward(cell_type: str, gx: torch.Tensor, gh: OptT,
     (B, 4H), ``gh`` None, ``c`` (B, H); GRU ``gx = gi`` and ``gh = h w_hh``
     (B, 3H), ``c`` echoed. ``bias`` is b_hh. ``out`` = (h', c', acts).
     Returns (h', c', acts (B, 4H))."""
-    B, H, G = _cell_dims(cell_type, h)
-    lstm = cell_type == "LSTM"
-    if lstm and (gh is not None or c is None):
-        raise ValueError("cell_forward LSTM: gh must be None and c given")
-    if not lstm and gh is None:
-        raise ValueError("cell_forward GRU: gh must be given")
     outs = out or (None, None, None)
-    operands = [("gx", gx, (B, G)), ("gh", gh, (B, G)), ("bias", bias, (G,)),
-                ("h", h, (B, H)), ("c", c if lstm else None, (B, H)),
-                ("h_out", outs[0], (B, H)),
-                ("c_out", outs[1] if lstm else None, (B, H)),
-                ("acts_out", outs[2], (B, 4 * H))]
-    _check_shapes("cell_forward", operands)
+    B, H, lstm, operands = _cell_forward_operands(
+        "cell_forward", cell_type, gx, gh, bias, h, c, outs)
     if _on_cpu("cell_forward", operands, ("gx", "gh")):
         made = cell_forward_reference(cell_type, gx, gh, bias, h, c)
         return _outputs((outs[0], outs[1] if lstm else None, outs[2]), made)
@@ -279,10 +304,8 @@ def cell_forward(cell_type: str, gx: torch.Tensor, gh: OptT,
     acts = _empty(out, 2, (B, 4 * H), h)
     lib = _library()
     err = lib.recnet_cell_fwd(
-        _DTYPE_CODES[gx.dtype], int(lstm), B, H, _ld(gx), _ld(gh), _ptr(gx),
-        _ptr(gh), _ptr(bias), _ptr(h), _ptr(c if lstm else None),
-        _ptr(h_new), _ptr(c_new if lstm else None), _ptr(acts),
-        _stream(gx.device))
+        *_cell_forward_args(cell_type, gx, gh, bias, h, c, h_new, c_new,
+                            acts), _stream(gx.device))
     _raise_on(lib, err, "cell_forward")
     _count(cell_forward, cell_type)
     return h_new, c_new, acts
@@ -290,6 +313,68 @@ def cell_forward(cell_type: str, gx: torch.Tensor, gh: OptT,
 
 cell_forward.n_launches = 0
 cell_forward.cell_launches = collections.Counter()
+
+
+# the cell forward kernel's probes: its first design ("scalar": one thread
+# a (row, unit), scalar loads; the values the kernel is held to, bit for
+# bit in f32), an empty kernel at that design's grid ("empty": the launch's
+# floor) and the kernel's loads and stores with sums in place of the gates
+# ("copy": what moving the cell's bytes costs)
+CELL_FORWARD_PROBES = {"scalar": 1, "empty": 2, "copy": 3}
+
+
+def cell_forward_probe_reference(probe: str, cell_type: str,
+                                 gx: torch.Tensor, gh: OptT,
+                                 bias: torch.Tensor, h: torch.Tensor,
+                                 c: OptT):
+    """Plain version of ``cell_forward_probe``: "scalar" is
+    ``cell_forward_reference``; "copy" gives LSTM h' = c' = c, acts_k =
+    gx_k + b_k, GRU h' = h, acts_k = gi_k + gh_k + b_k (k < 3) and acts_3 =
+    gh_2 + b_2; "empty" None."""
+    if probe not in CELL_FORWARD_PROBES:
+        raise ValueError(f"no cell forward probe {probe!r}")
+    if probe == "empty":
+        return None
+    if probe == "scalar":
+        return cell_forward_reference(cell_type, gx, gh, bias, h, c)
+    dt = gx.dtype
+    f = _compute(dt)
+    H = h.shape[-1]
+    b = bias.to(f)
+    if cell_type == "LSTM":
+        return c, c, (gx.to(f) + b).to(dt)
+    gates = gx.to(f) + gh.to(f) + b
+    return h, c, torch.cat([gates, gh[:, 2 * H:].to(f) + b[2 * H:]],
+                           -1).to(dt)
+
+
+def cell_forward_probe(probe: str, cell_type: str, gx: torch.Tensor,
+                       gh: OptT, bias: torch.Tensor, h: torch.Tensor,
+                       c: OptT, out: Optional[Sequence[OptT]] = None):
+    """A probe of the cell forward kernel (CELL_FORWARD_PROBES) on
+    ``cell_forward``'s operands (``out`` as there). Returns (h', c', acts)
+    as ``cell_forward_probe_reference`` gives them, None for "empty". Not
+    counted as a launch of the kernel."""
+    if probe not in CELL_FORWARD_PROBES:
+        raise ValueError(f"no cell forward probe {probe!r}")
+    what = f"cell_forward_probe {probe}"
+    outs = out or (None, None, None)
+    B, H, lstm, operands = _cell_forward_operands(
+        what, cell_type, gx, gh, bias, h, c, outs)
+    if _on_cpu(what, operands, ("gx", "gh")):
+        made = cell_forward_probe_reference(probe, cell_type, gx, gh, bias,
+                                            h, c)
+        return made and _outputs((outs[0], outs[1] if lstm else None,
+                                  outs[2]), made)
+    h_new, acts = _empty(out, 0, (B, H), h), _empty(out, 2, (B, 4 * H), h)
+    c_new = _empty(out, 1, (B, H), h) if lstm else c
+    lib = _library()
+    err = lib.recnet_cell_fwd_probe(
+        CELL_FORWARD_PROBES[probe],
+        *_cell_forward_args(cell_type, gx, gh, bias, h, c, h_new, c_new,
+                            acts), _stream(gx.device))
+    _raise_on(lib, err, what)
+    return None if probe == "empty" else (h_new, c_new, acts)
 
 
 def cell_backward_reference(cell_type: str, dh: torch.Tensor, dh_out: OptT,
@@ -318,21 +403,16 @@ def cell_backward_reference(cell_type: str, dh: torch.Tensor, dh_out: OptT,
             torch.cat([dr, dz, dn * r], -1).to(dt), (d * z).to(dt), dc)
 
 
-def cell_backward(cell_type: str, dh: torch.Tensor, dh_out: OptT, dc: OptT,
-                  acts: torch.Tensor, h_prev: OptT, c_prev: OptT, c_t: OptT,
-                  out: Optional[Sequence[OptT]] = None):
-    """Cotangents of one ``cell_forward`` step from ``dh`` (carried) +
-    ``dh_out`` (the step's output cotangent, or None). LSTM takes ``dc``,
-    ``c_prev`` and ``c_t``; GRU ``h_prev``. ``out`` = (dgi, dgh, dh_cell,
-    dc_prev) (dgh, dh_cell ignored for LSTM). Returns (dgi, dgh, dh_cell,
-    dc_prev)."""
+def _cell_backward_operands(what, cell_type, dh, dh_out, dc, acts, h_prev,
+                            c_prev, c_t, outs):
+    """(B, H, G, LSTM, the operands as ``_on_cpu`` takes them) of a cell
+    backward; raises on a cell, a shape or an operand it does not take."""
     B, H, G = _cell_dims(cell_type, dh)
     lstm = cell_type == "LSTM"
     if lstm and (dc is None or c_prev is None or c_t is None):
-        raise ValueError("cell_backward LSTM: dc, c_prev and c_t needed")
+        raise ValueError(f"{what} LSTM: dc, c_prev and c_t needed")
     if not lstm and h_prev is None:
-        raise ValueError("cell_backward GRU: h_prev needed")
-    outs = out or (None, None, None, None)
+        raise ValueError(f"{what} GRU: h_prev needed")
     operands = [("dh", dh, (B, H)), ("dh_out", dh_out, (B, H)),
                 ("dc", dc if lstm else None, (B, H)),
                 ("acts", acts, (B, 4 * H)),
@@ -343,7 +423,45 @@ def cell_backward(cell_type: str, dh: torch.Tensor, dh_out: OptT, dc: OptT,
                 ("dgh_out", None if lstm else outs[1], (B, G)),
                 ("dh_cell_out", None if lstm else outs[2], (B, H)),
                 ("dc_out", outs[3] if lstm else None, (B, H))]
-    _check_shapes("cell_backward", operands)
+    _check_shapes(what, operands)
+    return B, H, G, lstm, operands
+
+
+def _cell_backward_args(cell_type, dh, dh_out, dc, acts, h_prev, c_prev,
+                        c_t, dgi, dgh, dh_cell, dc_prev):
+    """The ctypes arguments of ``recnet_cell_bwd`` but the stream."""
+    lstm = cell_type == "LSTM"
+    B, H = dh.shape
+    return (_DTYPE_CODES[dh.dtype], int(lstm), B, H, _ld(dgi),
+            _ld(None if lstm else dgh), _ptr(dh), _ptr(dh_out),
+            _ptr(dc if lstm else None), _ptr(acts),
+            _ptr(None if lstm else h_prev), _ptr(c_prev if lstm else None),
+            _ptr(c_t if lstm else None), _ptr(dgi),
+            _ptr(None if lstm else dgh), _ptr(dh_cell),
+            _ptr(dc_prev if lstm else None))
+
+
+def _cell_backward_outputs(out, lstm, B, H, G, dh, dc):
+    """(dgi, dgh, dh_cell, dc_prev) to write: ``out``'s, else new."""
+    dgi = _empty(out, 0, (B, G), dh)
+    dgh = dgi if lstm else _empty(out, 1, (B, G), dh)
+    dh_cell = None if lstm else _empty(out, 2, (B, H), dh)
+    dc_prev = _empty(out, 3, (B, H), dh) if lstm else dc
+    return dgi, dgh, dh_cell, dc_prev
+
+
+def cell_backward(cell_type: str, dh: torch.Tensor, dh_out: OptT, dc: OptT,
+                  acts: torch.Tensor, h_prev: OptT, c_prev: OptT, c_t: OptT,
+                  out: Optional[Sequence[OptT]] = None):
+    """Cotangents of one ``cell_forward`` step from ``dh`` (carried) +
+    ``dh_out`` (the step's output cotangent, or None). LSTM takes ``dc``,
+    ``c_prev`` and ``c_t``; GRU ``h_prev``. ``out`` = (dgi, dgh, dh_cell,
+    dc_prev) (dgh, dh_cell ignored for LSTM). Returns (dgi, dgh, dh_cell,
+    dc_prev)."""
+    outs = out or (None, None, None, None)
+    B, H, G, lstm, operands = _cell_backward_operands(
+        "cell_backward", cell_type, dh, dh_out, dc, acts, h_prev, c_prev,
+        c_t, outs)
     if _on_cpu("cell_backward", operands, ("dgi_out", "dgh_out")):
         made = cell_backward_reference(cell_type, dh, dh_out, dc, acts,
                                        h_prev, c_prev, c_t)
@@ -351,26 +469,52 @@ def cell_backward(cell_type: str, dh: torch.Tensor, dh_out: OptT, dc: OptT,
             dgi, _, _, dcp = _outputs((outs[0], None, None, outs[3]), made)
             return dgi, dgi, None, dcp
         return _outputs((outs[0], outs[1], outs[2], None), made)
-    dgi = _empty(out, 0, (B, G), dh)
-    dgh = dgi if lstm else _empty(out, 1, (B, G), dh)
-    dh_cell = None if lstm else _empty(out, 2, (B, H), dh)
-    dc_prev = _empty(out, 3, (B, H), dh) if lstm else dc
+    made = _cell_backward_outputs(out, lstm, B, H, G, dh, dc)
     lib = _library()
     err = lib.recnet_cell_bwd(
-        _DTYPE_CODES[dh.dtype], int(lstm), B, H, _ld(dgi),
-        _ld(None if lstm else dgh), _ptr(dh), _ptr(dh_out),
-        _ptr(dc if lstm else None), _ptr(acts),
-        _ptr(None if lstm else h_prev), _ptr(c_prev if lstm else None),
-        _ptr(c_t if lstm else None), _ptr(dgi),
-        _ptr(None if lstm else dgh), _ptr(dh_cell),
-        _ptr(dc_prev if lstm else None), _stream(dh.device))
+        *_cell_backward_args(cell_type, dh, dh_out, dc, acts, h_prev, c_prev,
+                             c_t, *made), _stream(dh.device))
     _raise_on(lib, err, "cell_backward")
     _count(cell_backward, cell_type)
-    return dgi, dgh, dh_cell, dc_prev
+    return made
 
 
 cell_backward.n_launches = 0
 cell_backward.cell_launches = collections.Counter()
+
+
+# the cell backward kernel's probe: its first design ("scalar": one thread
+# a (row, unit), scalar loads; the values the kernel is held to, bit for
+# bit in f32)
+CELL_BACKWARD_PROBES = {"scalar": 1}
+
+
+def cell_backward_probe(probe: str, cell_type: str, dh: torch.Tensor,
+                        dh_out: OptT, dc: OptT, acts: torch.Tensor,
+                        h_prev: OptT, c_prev: OptT, c_t: OptT,
+                        out: Optional[Sequence[OptT]] = None):
+    """A probe of the cell backward kernel (CELL_BACKWARD_PROBES) on
+    ``cell_backward``'s operands; returns what ``cell_backward`` returns,
+    its outputs ``out``'s (as there) or new (LSTM's dc_prev too). On CPU
+    tensors ``cell_backward``'s plain route. Not counted as a launch of
+    the kernel."""
+    if probe not in CELL_BACKWARD_PROBES:
+        raise ValueError(f"no cell backward probe {probe!r}")
+    what = f"cell_backward_probe {probe}"
+    outs = out or (None, None, None, None)
+    B, H, G, lstm, operands = _cell_backward_operands(
+        what, cell_type, dh, dh_out, dc, acts, h_prev, c_prev, c_t, outs)
+    if _on_cpu(what, operands, ("dgi_out", "dgh_out")):
+        return cell_backward(cell_type, dh, dh_out, dc, acts, h_prev,
+                             c_prev, c_t, out=out)
+    made = _cell_backward_outputs(out, lstm, B, H, G, dh, dc)
+    lib = _library()
+    err = lib.recnet_cell_bwd_probe(
+        CELL_BACKWARD_PROBES[probe],
+        *_cell_backward_args(cell_type, dh, dh_out, dc, acts, h_prev, c_prev,
+                             c_t, *made), _stream(dh.device))
+    _raise_on(lib, err, what)
+    return made
 
 
 # --------------------------------------------------------------------------

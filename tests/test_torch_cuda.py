@@ -4,7 +4,8 @@ bodies (tensor cores, and CUDA cores under ``cuda_cores``), the fused
 projection + top-k (K3), the fused attention + GRU step (K4: its
 tensor-core route, each of the route's two kernels against its plain
 stage, and its CUDA-core body), and the training rollouts' kernels (the
-per-step cell and attention kernels, the whole-rollout cell kernels).
+per-step cell and attention kernels, the cell kernels also against their
+first design, the whole-rollout cell kernels).
 
 Needs a CUDA card with sm_90a and nvcc; every test skips without a card.
 This file imports neither JAX nor the test conftest, so on the card run:
@@ -1259,6 +1260,228 @@ def test_reconstructor_rollout_bf16_takes_the_whole_rollout_kernels(cuda,
         np.testing.assert_allclose(got.detach().cpu().numpy(),
                                    want.detach().cpu().numpy(), rtol=0.05,
                                    atol=0.05 * float(want.abs().max()))
+
+
+# the cell forward kernel against its first design (the "scalar" probe,
+# one thread a (row, unit)): the flagship's widths and 515, which is no
+# whole number of the kernel's two-unit runs (each row's last run is cut,
+# and the gates' runs lie off their alignment, so the kernel reads and
+# writes element by element), at 1, 100 and 1024 rows; f32 bit-equal to it
+# (the same arithmetic, expression for expression), bf16 within 2 ulps of
+# it, and both within the rollout bound of the plain version
+CELL_FWD_WIDTHS = (512, 1536, 515)
+CELL_FWD_ROWS = (1, FB, 1024)
+
+
+def _bf16_ulps(got, want):
+    """The largest distance between two bf16 tensors in bf16 ulps (the
+    bit patterns on one integer line; +0 and -0 both 0)."""
+    def line(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        mag = bits & 0x7FFF
+        return torch.where(bits >= 0x8000, -mag, mag)
+    return int((line(got) - line(want)).abs().max())
+
+
+def _held_to_first_design(got, first, want, dtype, what,
+                          names=("h", "c", "acts")):
+    for name, g, s, w in zip(names, got, first, want):
+        if w is None:
+            continue
+        if dtype == torch.float32:
+            assert torch.equal(g, s), f"{what} {name}: not bit-equal"
+        else:
+            assert _bf16_ulps(g, s) <= 2, f"{what} {name}"
+        _roll_close(g, w, dtype, f"{what} {name}")
+
+
+def _cell_forward_inputs(device, dtype, cell, h, rows, seed, pad=0,
+                           shift=0):
+    """``cell_forward``'s operands; the gate products' rows ``pad``
+    elements wider than they are long and their start ``shift`` elements
+    into their buffer."""
+    n, lstm = (4 if cell == "LSTM" else 3), cell == "LSTM"
+    gxb, ghb, bias, hp, cp = _roll_tensors(
+        device, dtype, 30 + seed, (rows, n * h + pad + shift),
+        (rows, n * h + pad + shift), (n * h,), (rows, h), (rows, h),
+        scale=1.5)
+    gx, gh = gxb[:, shift:shift + n * h], ghb[:, shift:shift + n * h]
+    return (cell, gx, None if lstm else gh, bias, hp, cp if lstm else None)
+
+
+@pytest.mark.parametrize("seed", ROLL_SEEDS)
+@pytest.mark.parametrize("rows", CELL_FWD_ROWS)
+@pytest.mark.parametrize("h", CELL_FWD_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_cell_forward_matches_its_first_design(cuda, cell, dtype, h, rows,
+                                               seed):
+    from recnet_tpu_torch.ops.cuda import rollout
+    fwd = _cell_forward_inputs(cuda, dtype, cell, h, rows, seed)
+    got = rollout.cell_forward(*fwd)
+    first = rollout.cell_forward_probe("scalar", *fwd)
+    want = rollout.cell_forward_reference(*fwd)
+    torch.cuda.synchronize()
+    _held_to_first_design(got, first, want, dtype,
+                          f"{cell} {h} x {rows} seed {seed}")
+
+
+# gate products whose rows lie beside other columns (128 more: the whole
+# runs stay; 3 more: element by element) or start one element into their
+# buffer (element by element)
+CELL_LAYOUTS = [(128, 0, True), (3, 0, False), (0, 1, False)]
+
+
+@pytest.mark.parametrize("pad,shift,vector", CELL_LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_cell_forward_on_strided_and_unaligned_gates(cuda, cell, dtype, pad,
+                                                     shift, vector):
+    from recnet_tpu_torch.ops.cuda import rollout
+    fwd = _cell_forward_inputs(cuda, dtype, cell, 512, FB, 0, pad, shift)
+    got = rollout.cell_forward(*fwd)
+    first = rollout.cell_forward_probe("scalar", *fwd)
+    want = rollout.cell_forward_reference(*fwd)
+    torch.cuda.synchronize()
+    assert _route(lambda: rollout.cell_forward(*fwd), "cell_fwd") \
+        == ("runs" if vector else "tail")
+    _held_to_first_design(got, first, want, dtype,
+                          f"{cell} pad {pad} shift {shift}")
+
+
+def _route(fn, kernel):
+    """Which of ``kernel``'s two kernels (``<kernel>_kernel`` on whole
+    runs, ``<kernel>_tail_kernel`` element by element) three calls of
+    ``fn`` launched, by the names in a profile: "runs", "tail" or both.
+    A few spin kernels open each session, since the profiler may miss a
+    session's first events; a session that shows neither kernel (the
+    profiler now and then reports none of a session's events) is run
+    again, five at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names = {ev.name for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA}
+        seen = {route for route, name in
+                (("runs", f"::{kernel}_kernel<"),
+                 ("tail", f"::{kernel}_tail_kernel<"))
+                if any(name in n for n in names)}
+        if seen:
+            break
+    return "+".join(sorted(seen))
+
+
+@pytest.mark.parametrize("h", [512, 515])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_cell_kernels_take_whole_runs_where_the_width_allows(cuda, cell,
+                                                             dtype, h):
+    """Contiguous operands: whole runs at an even width, the element-by-
+    element kernel at 515, forward and backward."""
+    from recnet_tpu_torch.ops.cuda import rollout
+    want = "runs" if h % 2 == 0 else "tail"
+    fwd = _cell_forward_inputs(cuda, dtype, cell, h, FB, 0)
+    assert _route(lambda: rollout.cell_forward(*fwd), "cell_fwd") == want
+    bwd = _cell_backward_inputs(cuda, dtype, cell, h, FB, 0)
+    assert _route(lambda: rollout.cell_backward(*bwd), "cell_bwd") == want
+
+
+@pytest.mark.parametrize("h", [512, 515])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_cell_forward_probes_match_their_plain_versions(cuda, cell, dtype,
+                                                        h):
+    """"copy" bit-equal to its plain version (one or two sums an output);
+    "empty" launches and returns None; no probe counts a launch."""
+    from recnet_tpu_torch.ops.cuda import rollout
+    fwd = _cell_forward_inputs(cuda, dtype, cell, h, FB, 1)
+    rollout.reset_counts()
+    got = rollout.cell_forward_probe("copy", *fwd)
+    want = rollout.cell_forward_probe_reference("copy", *fwd)
+    assert rollout.cell_forward_probe("empty", *fwd) is None
+    torch.cuda.synchronize()
+    for name, g, w in zip(("h", "c", "acts"), got, want):
+        if w is not None:
+            assert torch.equal(g, w), name
+    assert rollout.cell_forward.n_launches == 0
+    with pytest.raises(ValueError, match="no cell forward probe"):
+        rollout.cell_forward_probe("gates", *fwd)
+
+
+# the cell backward kernel against its first design, at the forward's
+# widths and rows
+def _cell_backward_inputs(device, dtype, cell, h, rows, seed):
+    from recnet_tpu_torch.ops.cuda import rollout
+    lstm = cell == "LSTM"
+    fwd = _cell_forward_inputs(device, dtype, cell, h, rows, seed)
+    _, c_t, acts = rollout.cell_forward_reference(*fwd)
+    dh, dh_out, dc = _roll_tensors(device, dtype, 40 + seed, (rows, h),
+                                   (rows, h), (rows, h))
+    return (cell, dh, dh_out, dc if lstm else None, acts, fwd[4],
+            fwd[5] if lstm else None, c_t if lstm else None)
+
+
+CELL_BWD_NAMES = ("dgi", "dgh", "dh_cell", "dc_prev")
+
+
+@pytest.mark.parametrize("seed", ROLL_SEEDS)
+@pytest.mark.parametrize("rows", CELL_FWD_ROWS)
+@pytest.mark.parametrize("h", CELL_FWD_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_cell_backward_matches_its_first_design(cuda, cell, dtype, h, rows,
+                                                seed):
+    from recnet_tpu_torch.ops.cuda import rollout
+    bwd = _cell_backward_inputs(cuda, dtype, cell, h, rows, seed)
+    got = rollout.cell_backward(*bwd)
+    first = rollout.cell_backward_probe("scalar", *bwd)
+    want = rollout.cell_backward_reference(*bwd)
+    torch.cuda.synchronize()
+    _held_to_first_design(got, first, want, dtype,
+                          f"{cell} {h} x {rows} seed {seed}", CELL_BWD_NAMES)
+
+
+# the gate cotangents' rows beside other columns or one element into their
+# buffer (as the forward's gates), no output cotangent, and the carries
+# updated in place (dh_cell into dh, dc_prev into dc: the rollouts' use)
+@pytest.mark.parametrize("pad,shift,vector", CELL_LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_cell_backward_on_strided_gates_and_in_place_carries(
+        cuda, cell, dtype, pad, shift, vector):
+    from recnet_tpu_torch.ops.cuda import rollout
+    lstm, h = cell == "LSTM", 512
+    G = (4 if lstm else 3) * h
+    _, dh, _, dc, acts, hp, cp, c_t = _cell_backward_inputs(
+        cuda, dtype, cell, h, FB, 2)
+    bwd = (cell, dh, None, dc, acts, hp, cp, c_t)
+    first = rollout.cell_backward_probe("scalar", *bwd)
+    want = rollout.cell_backward_reference(*bwd)
+    bufs = [torch.zeros((FB, G + pad + shift), dtype=dtype, device=cuda)
+            for _ in range(2)]
+    dgi, dgh = (b[:, shift:shift + G] for b in bufs)
+    out = (dgi, dgh, None if lstm else dh, dc if lstm else None)
+    got = rollout.cell_backward(*bwd, out=out)
+    torch.cuda.synchronize()
+    assert got[0] is dgi and (got[2] is dh if not lstm else got[3] is dc)
+    _held_to_first_design(got, first, want, dtype,
+                          f"{cell} pad {pad} shift {shift}", CELL_BWD_NAMES)
+    # the carries are the cotangents' in place, so route on fresh ones
+    fresh = (cell, dh.clone(), None, dc.clone() if lstm else None, acts, hp,
+             cp, c_t)
+    assert _route(lambda: rollout.cell_backward(
+        *fresh, out=(dgi, dgh, None if lstm else fresh[1],
+                     fresh[3] if lstm else None)), "cell_bwd") \
+        == ("runs" if vector else "tail")
 
 
 def test_rollout_wrappers_reject_and_count(cuda):

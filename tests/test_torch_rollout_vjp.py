@@ -126,7 +126,18 @@ def test_decoder_rollout_matches_jax_vjp(cell):
     """Every cotangent of JAX's _tf_attn_rollout (d_att's U is zeros
     there: U's gradient flows through uv), d_uv taken through the
     port's precompute_uv product."""
-    att, rest, dhs = _dec_inputs(cell, 3)
+    _decoder_rollout_against_jax_vjp(cell, 3, 8)
+
+
+# H = 13: no whole number of the cell kernels' two-unit runs, the shape
+# their element-by-element body serves on the card
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_decoder_rollout_matches_jax_vjp_at_an_odd_width(cell):
+    _decoder_rollout_against_jax_vjp(cell, 7, 13)
+
+
+def _decoder_rollout_against_jax_vjp(cell, seed, H):
+    att, rest, dhs = _dec_inputs(cell, seed, H)
     enc = jnp.asarray(rest[3])
 
     def jfn(att, w_enc, w_hh, b_hh, enc, gi_emb):
@@ -186,9 +197,17 @@ def test_one_step_matches_jax_rollout_cell(cell):
     """rollout_cell_fwd / rollout_cell_bwd (the plain versions on the
     CPU) against JAX's: outputs, the activations' layout ([i, f, g, o] /
     [r, z, n, h_n]) and (dgi, dgh, dh_prev, dc_prev)."""
-    H = 16
+    _one_step_against_jax(cell, 16, 6)
+
+
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_one_step_matches_jax_rollout_cell_at_an_odd_width(cell):
+    _one_step_against_jax(cell, 13, 8)
+
+
+def _one_step_against_jax(cell, H, seed):
     n = 4 if cell == "LSTM" else 3
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(seed)
     gi, h, c, w_hh, b_hh, dh, dc = _arrays(
         rng, [(B, n * H), (B, H), (B, H), (H, n * H), (n * H,), (B, H),
               (B, H)])
@@ -434,3 +453,48 @@ def test_attention_probes_on_the_cpu_are_their_plain_parts(kind, probe):
     assert torch.equal(got[1], torch.zeros_like(full[1]))
     with pytest.raises(ValueError, match="no forward probe"):
         rollout.attention_probe("forward", "dwh", wh, uv, b, w, enc)
+
+
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_cell_probes_on_the_cpu_are_their_plain_versions(cell):
+    """On CPU tensors the cell kernels' probes run their plain versions and
+    count nothing: "scalar" gives the wrappers' values, "copy" its sums,
+    "empty" None; an unknown probe raises. H = 13."""
+    H, lstm = 13, cell == "LSTM"
+    G = (4 if lstm else 3) * H
+    rng = np.random.default_rng(14)
+    gx, gh, bias, h, c, dh, dh_out, dc = map(torch.from_numpy, _arrays(
+        rng, [(B, G), (B, G), (G,), (B, H), (B, H), (B, H), (B, H),
+              (B, H)]))
+    fwd = (cell, gx, None if lstm else gh, bias, h, c if lstm else None)
+    rollout.reset_counts()
+    for got, want in zip(rollout.cell_forward_probe("scalar", *fwd),
+                         rollout.cell_forward(*fwd)):
+        assert got is want is None or torch.equal(got, want)
+    h_new, c_new, acts = rollout.cell_forward_probe("copy", *fwd)
+    sums = gx + bias if lstm else torch.cat(
+        [gx + gh + bias, gh[:, 2 * H:] + bias[2 * H:]], -1)
+    assert torch.equal(acts, sums)
+    assert torch.equal(h_new, c if lstm else h)
+    assert c_new is fwd[5]
+    outs = (torch.empty_like(h), torch.empty_like(c) if lstm else None,
+            torch.empty_like(acts))
+    got = rollout.cell_forward_probe("copy", *fwd, out=outs)
+    assert got[0] is outs[0] and got[2] is outs[2]
+    assert torch.equal(outs[2], sums)
+    assert rollout.cell_forward_probe("empty", *fwd) is None
+    _, c_t, acts = rollout.cell_forward_reference(*fwd)
+    bwd = (cell, dh, dh_out, dc if lstm else None, acts, h,
+           c if lstm else None, c_t if lstm else None)
+    for got, want in zip(rollout.cell_backward_probe("scalar", *bwd),
+                         rollout.cell_backward(*bwd)):
+        assert got is want is None or torch.equal(got, want)
+    dgi = torch.empty((B, G), dtype=dh.dtype)
+    got = rollout.cell_backward_probe("scalar", *bwd, out=(dgi, None, None,
+                                                            None))
+    assert got[0] is dgi and torch.equal(dgi, rollout.cell_backward(*bwd)[0])
+    assert [fn.n_launches for fn in rollout.KERNELS] == [0] * 6
+    with pytest.raises(ValueError, match="no cell forward probe"):
+        rollout.cell_forward_probe("gates", *fwd)
+    with pytest.raises(ValueError, match="no cell backward probe"):
+        rollout.cell_backward_probe("copy", *bwd)

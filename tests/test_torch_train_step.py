@@ -37,8 +37,22 @@ def test_three_steps_match_jax(recon, clip):
     """Dropout 0, teacher forcing 1.0, AMSGrad on for the decoder: each
     step's losses (and grad_norm), then every leaf of the state (params and
     both Adam states)."""
+    _three_steps_match_jax(recon, clip)
+
+
+def test_three_steps_match_jax_at_an_odd_width():
+    """The same at H = 13 for the decoder's GRU and the global
+    reconstructor's LSTM (and the features), a width that is no whole
+    number of the cell kernels' two-unit runs: the shape their
+    element-by-element body serves on the card."""
+    _three_steps_match_jax("global", 50.0, decoder_hidden_size=13,
+                           reconstructor_hidden_size=13,
+                           encoder_output_size=13)
+
+
+def _three_steps_match_jax(recon, clip, **widths):
     jtc, ttc = configs(recon, gradient_clip=clip, decoder_use_amsgrad=True,
-                       **NO_DROPOUT)
+                       **NO_DROPOUT, **widths)
     jstate, dcfg, rcfg, tstate = both_states(jtc, ttc)
     j_fn = j_step.build_train_step(jtc, dcfg, rcfg)
     t_fn = t_step.build_train_step(ttc, *_port_cfgs(ttc))
