@@ -169,7 +169,14 @@ EOS_WIN_SHARE = 0.3
 BEAM = 5               # the flagship preset's beam width
 # K3 checks: (rows, k) at the flagship beam (B = 1024 x beam 5 = 5120 rows)
 # and a ragged N
-TOPK_CHECKS = ((5120, 1), (5120, 3), (5120, 5), (1001, 5))
+TOPK_CHECKS = ((5120, 1), (5120, 3), (5120, 5), (1001, 5), (500, 5))
+EVAL_B = 100           # the flagship's eval batch (tc.batch_size): f32 eval
+                       # and the training loop's test pass decode it
+# the TF32 body's checks: (B, cluster) at the eval batch for every cluster
+# size the wrapper can pick (C = 1 first: the others are held bit-equal to
+# it), one row, and TIME_B
+TF32_CLUSTERS = ((EVAL_B, 1), (EVAL_B, 2), (EVAL_B, 4), (EVAL_B, 8), (1, 8),
+                 (TIME_B, 1))
 TOPK_RTOL = TOPK_ATOL = 1e-5   # f32 sums of exact products, another order
 BEAM_CHECK_VIDEOS = 256        # f32 beam captions, kernel against plain
 EVAL_VIDEOS = 128              # the in-memory score corpus
@@ -196,6 +203,12 @@ PROFILE_PAD = 4        # spin kernels that open a session
 # tests/test_torch_cuda.py): rtol and, over each output's largest |value|,
 # atol
 PEAK_F32_FLOPS = 67e12
+# the f32 decode route's bound: its products as three-term TF32 products
+# at the TF32 tensor-core peak (the least time for f32-accurate products
+# on the card), or its bytes at the device-memory rate; the f32 CUDA-core
+# peak's time is printed beside it (H100 SXM data sheet, dense)
+PEAK_TF32_FLOPS = 494.7e12
+TF32_TERMS = 3
 ROLL_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 ROLL_SEEDS = 5         # (d) holds each rollout kernel at this many seeds
 SWEEP_L2 = 4           # (d) times a cell kernel over per-step operands of
@@ -270,8 +283,8 @@ def build_kernels():
     """One nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from recnet_tpu_torch.ops.cuda import build
-    sources = ("whole_decode", "whole_decode_probes", "topk_proj",
-               "fused_step", "rollout", "cell_rollout")
+    sources = ("whole_decode", "whole_decode_probes", "whole_decode_tf32",
+               "topk_proj", "fused_step", "rollout", "cell_rollout")
     t0 = time.perf_counter()
 
     def timed_build(name):
@@ -288,10 +301,15 @@ def build_kernels():
     for path in paths:
         kernel = ""
         for line in path.with_suffix(".log").read_text().splitlines():
-            entry = re.search(r"entry function .*?\d([a-z_]+_kernel)"
-                              r"(I[A-Za-z0-9_]*?EE)?", line)
-            if entry:     # the mangled name: kernel and template arguments
-                kernel = entry.group(1) + (entry.group(2) or "")
+            if "entry function" in line:
+                # the mangled name: kernel (its length before it) and
+                # template arguments
+                for m in re.finditer(r"(?=([a-z][a-z0-9_]*?_kernel)"
+                                     r"(I[A-Za-z0-9_]*?EE)?)", line):
+                    size = str(len(m.group(1)))
+                    if line[m.start() - len(size):m.start()] == size:
+                        kernel = m.group(1) + (m.group(2) or "")
+                        break
             elif "registers" in line or "spill" in line:
                 log("build", f"{path.stem} {kernel}: {line.strip()}")
 
@@ -335,7 +353,7 @@ def first_divergence_margin(wd, ops, row, t, sos_token, kw):
 
 
 def kernels_against_twins(torch, tc, cfg_base):
-    """K1 and K2 against their twins, GRU and LSTM: f32 (CUDA-core body)
+    """K1 and K2 against their twins, GRU and LSTM: f32 (the TF32 body)
     tokens on F32_ROWS of rows and h within H_RTOL/H_ATOL on them; bf16
     (tensor-core body, the timed one) tokens on BF16_TOKENS and h and c
     within BF16_RTOL/BF16_ATOL on the rows that agree. Returns the bf16
@@ -428,6 +446,106 @@ def kernels_against_twins(torch, tc, cfg_base):
     return errs
 
 
+def tf32_against_twins(torch, tc, cfg_base):
+    """K1/K2's TF32 body against the twin at every cluster size
+    (TF32_CLUSTERS), GRU and LSTM: K1 tokens on F32_ROWS of rows; K2 from
+    <SOS> (two chained segments of 4, and T steps: K1's launch) tokens on
+    F32_ROWS and h (and c) within H_RTOL/H_ATOL on those rows; at the eval
+    batch every C's tokens, h and c bit-equal to C = 1's (the body's sums
+    do not depend on C); the first design (the CUDA-core body,
+    ``cuda_cores``) against the twin at the eval batch, K1 and K2. Returns
+    the max |state - twin| on the agreeing rows of K1 (T steps) and of K2,
+    under the kernels line's names."""
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    T, L, f32 = tc.caption_max_len + 1, tc.encoder_output_len, torch.float32
+    errs = {"whole_greedy_decode[f32]": 0.0,
+            "whole_greedy_decode_segment[f32]": 0.0}
+    for cell in ("GRU", "LSTM"):
+        cfg = cfg_base._replace(cell_type=cell)
+        params = seeded_params(cfg, f32)
+        kw = dict(emb_size=cfg.embedding_size, cell_type=cell)
+        n_states = 2 if cell == "LSTM" else 1
+        first = {}
+        for B, C in TF32_CLUSTERS:
+            ops = decode_operands(params, seeded_features(torch, B, L, cfg,
+                                                          f32, 1))
+            got = wd.whole_greedy_decode(*ops, max_len=T - 1, cluster=C, **kw)
+            want = wd.whole_greedy_decode_reference(*ops, max_len=T - 1, **kw)
+            torch.cuda.synchronize()
+            share = (got == want).all(dim=1).double().mean().item()
+            outs, parts = [got], [f"K1 rows equal {share:.4f}"]
+            check(share >= F32_ROWS, f"K1 {cell} f32 TF32 body B={B} C={C}: "
+                                     f"rows equal {share} < {F32_ROWS}")
+            z = torch.zeros((B, cfg.hidden_size), dtype=f32, device=DEVICE)
+            sos = torch.full((B, 1), cfg.sos_token, dtype=torch.int32,
+                             device=DEVICE)
+            for seg_len in (4, T):
+                k_state = t_state = (z, z, sos)
+                k_toks, t_toks = [], []
+                for _ in range(2 if seg_len == 4 else 1):
+                    k_out = wd.whole_greedy_decode_segment(
+                        *ops, *k_state, seg_len=seg_len, cluster=C, **kw)
+                    t_out = wd.whole_greedy_decode_segment_reference(
+                        *ops, *t_state, seg_len=seg_len, **kw)
+                    k_state, t_state = k_out[1:], t_out[1:]
+                    k_toks.append(k_out[0])
+                    t_toks.append(t_out[0])
+                torch.cuda.synchronize()
+                k_toks, t_toks = torch.cat(k_toks, 1), torch.cat(t_toks, 1)
+                rows = (k_toks == t_toks).all(dim=1)
+                share = rows.double().mean().item()
+                check(share >= F32_ROWS, f"K2 {cell} f32 TF32 body B={B} "
+                                         f"C={C} seg_len={seg_len}: rows "
+                                         f"equal {share} < {F32_ROWS}")
+                for i in range(1, 1 + n_states):
+                    check(torch.allclose(k_out[i][rows], t_out[i][rows],
+                                         rtol=H_RTOL, atol=H_ATOL),
+                          f"K2 {cell} f32 TF32 body B={B} C={C} seg_len="
+                          f"{seg_len}: {'hc'[i - 1]} off the twin beyond "
+                          f"rtol {H_RTOL} atol {H_ATOL}")
+                err = max(float((k_out[i] - t_out[i]).abs()[rows].max())
+                          for i in range(1, 1 + n_states))
+                name = ("whole_greedy_decode[f32]" if seg_len == T
+                        else "whole_greedy_decode_segment[f32]")
+                errs[name] = max(errs[name], err)
+                outs += [k_toks, *k_out[1:1 + n_states]]
+                parts.append(f"K2 seg_len={seg_len} rows equal {share:.4f}, "
+                             f"max |state - twin| {err:.3e}")
+            if B == EVAL_B:
+                first.setdefault(B, outs)
+                same = all(torch.equal(a, b) for a, b in zip(outs, first[B]))
+                parts.append(f"bit-equal to C=1: {same}")
+                check(same, f"{cell} f32 TF32 body B={B}: C={C} differs "
+                            f"from C=1")
+            log("kernels", f"TF32 body {cell} f32 B={B} cluster={C}: "
+                           + "; ".join(parts))
+        # the first design at the eval batch
+        ops = decode_operands(params, seeded_features(torch, EVAL_B, L, cfg,
+                                                      f32, 1))
+        got = wd.whole_greedy_decode(*ops, max_len=T - 1, cuda_cores=True,
+                                     **kw)
+        want = wd.whole_greedy_decode_reference(*ops, max_len=T - 1, **kw)
+        z = torch.zeros((EVAL_B, cfg.hidden_size), dtype=f32, device=DEVICE)
+        sos = torch.full((EVAL_B, 1), cfg.sos_token, dtype=torch.int32,
+                         device=DEVICE)
+        k2 = wd.whole_greedy_decode_segment(*ops, z, z, sos, seg_len=4,
+                                            cuda_cores=True, **kw)
+        k2_twin = wd.whole_greedy_decode_segment_reference(
+            *ops, z, z, sos, seg_len=4, **kw)
+        torch.cuda.synchronize()
+        rows = (got == want).all(dim=1).double().mean().item()
+        rows2 = (k2[0] == k2_twin[0]).all(dim=1)
+        log("kernels", f"CUDA-core body (first design) {cell} f32 B={EVAL_B}: "
+                       f"K1 rows equal {rows:.4f}, K2 seg_len=4 rows equal "
+                       f"{rows2.double().mean().item():.4f}")
+        check(rows >= F32_ROWS and rows2.double().mean().item() >= F32_ROWS,
+              f"{cell} f32 CUDA-core body off the twin")
+        check(torch.allclose(k2[1][rows2], k2_twin[1][rows2], rtol=H_RTOL,
+                             atol=H_ATOL),
+              f"{cell} f32 CUDA-core body: h off the twin")
+    return errs
+
+
 def bf16_agreement(torch, wd, cfg, T, L, got, want):
     """The bf16 token agreement of the tensor-core body (``got``) with the
     twin (``want``), beside the CUDA-core body's on the same inputs, at
@@ -463,21 +581,29 @@ def topk_margin(out, w, b, row, k):
 
 
 def topk_against_twin(torch, cfg):
-    """K3 against its twin at the flagship beam's shapes, f32 and bf16;
-    returns the max |value - twin value| on the rows whose columns agree."""
+    """K3 against its twin at the flagship beam's shapes (and the eval
+    batch's, N = EVAL_B x BEAM), bf16 on the split route, f32 on the split
+    route (three-term TF32) and on the first design (the single pass,
+    ``f32_single_pass``): columns equal on F32_ROWS of rows, values within
+    TOPK_RTOL/TOPK_ATOL on them; then the tie case. Returns the max |value
+    - twin value| on the rows whose columns agree: "outproj_topk" over bf16
+    and the f32 single pass, "outproj_topk[f32]" of the f32 split route."""
     from recnet_tpu_torch.ops.cuda import topk_proj as tp
     H, V = cfg.hidden_size, cfg.vocab_size
     g = torch.Generator(device=DEVICE).manual_seed(5)
     hidden = torch.tanh(torch.randn((max(n for n, _ in TOPK_CHECKS), H),
                                     generator=g, device=DEVICE))
-    err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = "f32" if dtype == torch.float32 else "bf16"
+    errs = {"outproj_topk": 0.0, "outproj_topk[f32]": 0.0}
+    routes = ((torch.float32, "f32", {}, "outproj_topk[f32]"),
+              (torch.float32, "f32 single pass", {"f32_single_pass": True},
+               "outproj_topk"),
+              (torch.bfloat16, "bf16", {}, "outproj_topk"))
+    for dtype, dname, opt, key in routes:
         params = seeded_params(cfg, dtype)
         w, b = params["out_w"], params["out_b"]
         for n, k in TOPK_CHECKS:
             out = hidden[:n].to(dtype)
-            got_v, got_i = tp.outproj_topk(out, w, b, k=k)
+            got_v, got_i = tp.outproj_topk(out, w, b, k=k, **opt)
             want_v, want_i = tp.outproj_topk_reference(out, w, b, k=k)
             torch.cuda.synchronize()
             rows = (got_i == want_i).all(dim=1)
@@ -496,7 +622,7 @@ def topk_against_twin(torch, cfg):
                                  atol=TOPK_ATOL),
                   f"K3 {dname} N={n} k={k}: values off the twin beyond "
                   f"rtol {TOPK_RTOL} atol {TOPK_ATOL}")
-            err = max(err, dv)
+            errs[key] = max(errs[key], dv)
         # exact ties across every vocab tile: column j of out_w is the unit
         # vector e_(j mod 8), so logit j equals out[:, j % 8] exactly
         w_tie = torch.zeros((H, V), dtype=dtype, device=DEVICE)
@@ -504,16 +630,29 @@ def topk_against_twin(torch, cfg):
         w_tie[cols % 8, cols] = 1.0
         b_tie = torch.zeros(V, dtype=dtype, device=DEVICE)
         out = hidden[:1001].to(dtype)
-        got = tp.outproj_topk(out, w_tie, b_tie, k=BEAM)
+        got = tp.outproj_topk(out, w_tie, b_tie, k=BEAM, **opt)
         want = tp.outproj_topk_reference(out, w_tie, b_tie, k=BEAM)
         torch.cuda.synchronize()
         best = out[:, :8].float().argmax(dim=1).int()   # first of the max
-        exact = (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
-                 and torch.equal(got[1][:, 0], best))
+        columns = (torch.equal(got[1], want[1])
+                   and torch.equal(got[1][:, 0], best))
+        if key == "outproj_topk[f32]":
+            # three TF32 terms carry x 1 as tf32(x) + tf32(x - tf32(x)),
+            # within 2^-22 of x: every tied column gets the same value, so
+            # the order is the twin's; the values hold the route's bound
+            values = torch.allclose(got[0], want[0], rtol=TOPK_RTOL,
+                                    atol=TOPK_ATOL)
+        else:
+            values = torch.equal(got[0], want[0])
         log("kernels", f"K3 {dname} tie case N=1001 V={V} k={BEAM}: columns "
-                       f"and values {'equal' if exact else 'DIFFER'}")
-        check(exact, f"K3 {dname} tie case differs from the twin")
-    return err
+                       f"{'equal' if columns else 'DIFFER'}, values "
+                       f"{'equal' if values else 'DIFFER'}"
+                       + (f" (max |dvalue| "
+                          f"{float((got[0] - want[0]).abs().max()):.3e})"
+                          if key == "outproj_topk[f32]" else ""))
+        check(columns and values, f"K3 {dname} tie case differs from the "
+                                  f"twin")
+    return errs
 
 
 def k4_operands(torch, cfg, params, enc, seed):
@@ -658,7 +797,9 @@ def variants_against_k1(torch, tc, cfg_base):
                                                   dtype, 1))
             f32 = dtype == torch.float32
             body = "CUDA-core body f32" if f32 else "tensor-core body bf16"
-            production = wd.whole_greedy_decode(*ops, **kw)
+            # the probes' own body's production step (f32's runs on the
+            # TF32 body)
+            production = wd.whole_greedy_decode(*ops, cuda_cores=f32, **kw)
             for part in ABLATE_PARTS:
                 got = wd.whole_greedy_decode(*ops, ablate=part, **kw)
                 want = wd.whole_greedy_decode_reference(*ops, ablate=part,
@@ -698,8 +839,11 @@ def reset_counts():
     for fn in (wd.whole_greedy_decode, wd.whole_greedy_decode_segment,
                tp.outproj_topk, fs.fused_gru_attn_step):
         fn.n_launches = 0
-    wd.whole_greedy_decode.variant_launches.clear()
-    fs.fused_gru_attn_step.body_launches.clear()
+        # the counters by body or route (``--compare`` imports a tree that
+        # may lack some)
+        for name in ("variant_launches", "body_launches", "route_launches"):
+            if hasattr(fn, name):
+                getattr(fn, name).clear()
     rollout.reset_counts()
 
 
@@ -887,12 +1031,23 @@ def main_path(torch, tc, vocab, cfg, params, eos_params):
     check(share >= BF16_TOKENS, f"bf16 served captions: words equal to the "
                                 f"twin's at {share} < {BF16_TOKENS}")
 
-    # f32 on the card: kernel path against the plain twin, per video
+    # f32 on the card (the TF32 body, counted from 0): K2 and K1 paths
+    # against the plain twin, per video
+    reset_counts()
     cap_f32 = Captioner(tc, vocab, eos_params, dtype="float32",
                         device=DEVICE, use_pallas=True,
                         greedy_segment=tc.greedy_segment)
+    cap_f32_k1 = Captioner(tc, vocab, eos_params, dtype="float32",
+                           device=DEVICE, use_pallas=True,
+                           greedy_segment=None)
     feats = requests[2]
     got = cap_f32.caption(feats)
+    got_k1 = cap_f32_k1.caption(feats)
+    torch.cuda.synchronize()
+    launches["whole_greedy_decode[f32]"] = (
+        wd.whole_greedy_decode.body_launches["tf32"])
+    launches["whole_greedy_decode_segment[f32]"] = (
+        wd.whole_greedy_decode_segment.body_launches["tf32"])
     videos = torch.from_numpy(cap_f32.prepare(feats)).to(DEVICE,
                                                          torch.float32)
     ops = decode_operands(cap_f32.params, videos)
@@ -900,9 +1055,17 @@ def main_path(torch, tc, vocab, cfg, params, eos_params):
     want = tokens_to_sentences(twin.T.cpu().numpy(), vocab.idx2word,
                                cfg.eos_token)
     share = float(np.mean([g == w for g, w in zip(got, want)]))
-    log("main", f"f32 kernel-path captions equal to the twin's on "
-                f"{share:.4f} of {len(feats)} videos")
-    check(share >= F32_ROWS, f"f32 captions agree on {share} < {F32_ROWS}")
+    share_k1 = float(np.mean([g == w for g, w in zip(got_k1, want)]))
+    log("main", f"f32 kernel-path captions (TF32 body) equal to the twin's "
+                f"on {share:.4f} (K2 segments) and {share_k1:.4f} (K1) of "
+                f"{len(feats)} videos; TF32 body launches: K1 "
+                f"{launches['whole_greedy_decode[f32]']}, K2 "
+                f"{launches['whole_greedy_decode_segment[f32]']}")
+    check(share >= F32_ROWS and share_k1 >= F32_ROWS,
+          f"f32 captions agree on {share}, {share_k1} < {F32_ROWS}")
+    check(launches["whole_greedy_decode[f32]"] > 0
+          and launches["whole_greedy_decode_segment[f32]"] > 0,
+          "the TF32 body never launched on the f32 serving path")
     return launches
 
 
@@ -946,17 +1109,11 @@ def beam_path(torch, tc, vocab, cfg, params):
     return launches
 
 
-def eval_path(torch, tc, vocab, cfg, params_np, tmp: Path):
-    """``evaluation.evaluate`` with beam 5 and greedy at the flagship width
-    (f32 params, as a trained checkpoint holds them, use_pallas and
-    greedy_segment from the preset) on an in-memory score corpus of random
-    features and reference captions. Returns each kernel's launches."""
+def eval_corpus(tc, vocab, cfg):
+    """An in-memory score corpus of EVAL_VIDEOS videos of random features
+    (batches of tc.batch_size, the last padded) and random reference
+    captions, as ``evaluation.evaluate`` reads one."""
     import types
-    from recnet_tpu_torch.evaluation import evaluate
-    from recnet_tpu_torch.ops.cuda import topk_proj as tp
-    from recnet_tpu_torch.ops.cuda import whole_decode as wd
-    from recnet_tpu_torch.weights import params_from_jax
-    params = params_from_jax(params_np, DEVICE, torch.float32)
     rng = np.random.default_rng(40)
     vids = [f"vid{i}" for i in range(EVAL_VIDEOS)]
     bs, L, Fdim = tc.batch_size, tc.encoder_output_len, cfg.encoder_size
@@ -968,9 +1125,23 @@ def eval_path(torch, tc, vocab, cfg, params_np, tmp: Path):
     words = [vocab.idx2word[i] for i in range(3, 40)]
     pairs = [(v, " ".join(rng.choice(words, int(rng.integers(3, 9)))))
              for v in vids for _ in range(3)]
-    corpus = types.SimpleNamespace(
+    return types.SimpleNamespace(
         score_batcher=batches, vocab=vocab,
         test_dataset=types.SimpleNamespace(video_caption_pairs=pairs))
+
+
+def eval_path(torch, tc, vocab, cfg, params_np, tmp: Path):
+    """``evaluation.evaluate`` with beam 5 and greedy at the flagship width
+    (f32 params, as a trained checkpoint holds them, use_pallas and
+    greedy_segment from the preset: the f32 route, the TF32 body and K3's
+    TF32 split route) on ``eval_corpus``. Returns each kernel's launches."""
+    from recnet_tpu_torch.evaluation import evaluate
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.weights import params_from_jax
+    params = params_from_jax(params_np, DEVICE, torch.float32)
+    corpus = eval_corpus(tc, vocab, cfg)
+    bs, batches = tc.batch_size, corpus.score_batcher
     launches = {}
     for search in (("beam", BEAM), "greedy"):
         reset_counts()
@@ -982,7 +1153,10 @@ def eval_path(torch, tc, vocab, cfg, params_np, tmp: Path):
         launches[name] = {
             "outproj_topk": tp.outproj_topk.n_launches,
             "whole_greedy_decode_segment":
-                wd.whole_greedy_decode_segment.n_launches}
+                wd.whole_greedy_decode_segment.n_launches,
+            "outproj_topk[f32]": tp.outproj_topk.route_launches["tf32_split"],
+            "whole_greedy_decode_segment[f32]":
+                wd.whole_greedy_decode_segment.body_launches["tf32"]}
         lines = pred.read_text().splitlines()
         log("eval", f"evaluate {name}, {len(batches)} batches of {bs}: "
                     f"{time.perf_counter() - t0:.2f} s, {len(lines)} "
@@ -997,6 +1171,12 @@ def eval_path(torch, tc, vocab, cfg, params_np, tmp: Path):
           "K3 never launched in evaluate")
     check(launches["greedy"]["whole_greedy_decode_segment"] > 0,
           "K2 never launched in evaluate")
+    check(launches[f"beam {BEAM}"]["outproj_topk[f32]"]
+          == launches[f"beam {BEAM}"]["outproj_topk"],
+          "an f32 K3 launch in evaluate left the TF32 split route")
+    check(launches["greedy"]["whole_greedy_decode_segment[f32]"]
+          == launches["greedy"]["whole_greedy_decode_segment"],
+          "an f32 K2 launch in evaluate left the TF32 body")
     return launches
 
 
@@ -1345,8 +1525,19 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def decode_work(cfg, L, B, row_steps, n_steps, ablate="", state=False):
-    """(flops, bytes) of greedy decode steps in bf16: ``row_steps`` rows x
+def bound_f32(flops, nbytes):
+    """The f32 route's (bound ms, "operations" or "bytes"): ``flops`` as
+    TF32_TERMS TF32 products at PEAK_TF32_FLOPS, or ``nbytes`` at the
+    device-memory rate, whichever is longer."""
+    t_ops = TF32_TERMS * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def decode_work(cfg, L, B, row_steps, n_steps, ablate="", state=False,
+                elem=2):
+    """(flops, bytes) of greedy decode steps in bf16 (``elem`` = 4: f32):
+    ``row_steps`` rows x
     steps run (B x n_steps unless blocks stop early), each input read once
     (weights, enc, uv; h and c when ``state``), tokens written once.
     ``ablate`` drops the work of the stubbed part."""
@@ -1362,7 +1553,7 @@ def decode_work(cfg, L, B, row_steps, n_steps, ablate="", state=False):
                + (0 if proj else H * V + V))
     acts = ((0 if attn or ablate == "fma" else B * L * F)
             + (0 if attn else B * L * A) + (4 * B * H if state else 0))
-    return 2 * row_steps * macs, 2 * (weights + acts) + 4 * B * n_steps
+    return 2 * row_steps * macs, elem * (weights + acts) + 4 * B * n_steps
 
 
 # a read-only kernel: every thread reads 16 bytes at a time through L2
@@ -1686,6 +1877,132 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
                  f"{1 - busy / decode_ms:.3f}); K4 {T} x "
                  f"{entries['fused_gru_attn_step']['device_ms']:.4f} ms of it "
                  f"({card})")
+    return entries
+
+
+def f32_cases(torch, tc, cfg, params, B):
+    """The f32 route's rows at B: {name: (route, first design, plain twin,
+    library route, (flops, bytes), timing reps, {profiler name: kernels a
+    call} of the route and of the first design, launches a decode)}. K1
+    from <SOS> for T steps; K2 seg_len 4 from a zero state and <SOS> (the
+    library route: ``greedy_decode`` of 4 steps); K3 at B x BEAM rows of GRU
+    output, k = BEAM (the library route: the cuBLAS f32 product, then
+    ``topk_rounds``). The first design: the CUDA-core body
+    (``cuda_cores``), the single pass (``f32_single_pass``)."""
+    from recnet_tpu_torch import decoding
+    from recnet_tpu_torch.ops.cuda import topk_proj as tp
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    T, L, H = tc.caption_max_len + 1, tc.encoder_output_len, cfg.hidden_size
+    f32 = torch.float32
+    enc = seeded_features(torch, B, L, cfg, f32, 3)
+    ops = decode_operands(params, enc)
+    kw = dict(emb_size=cfg.embedding_size, cell_type=cfg.cell_type)
+    k1 = dict(max_len=T - 1, **kw)
+    z = torch.zeros((B, H), dtype=f32, device=DEVICE)
+    sos = torch.full((B, 1), cfg.sos_token, dtype=torch.int32, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    hidden = torch.tanh(torch.randn((B * BEAM, H), generator=g,
+                                    device=DEVICE))
+    w, b = params["out_w"], params["out_b"]
+    # the parameter set's padded out_w (a tree without f32 layouts has none)
+    padded = (params.get("layouts") or {}).get("out_w_padded")
+    k3 = dict(k=BEAM, **({"padded_w": padded} if padded is not None else {}))
+    N, V = B * BEAM, cfg.vocab_size
+    tf32, cores = "tf32_decode_kernel", "whole_decode_kernel"
+    split = {"topk_split_kernel": 1, "topk_merge_kernel": 1}
+    return {
+        "whole_greedy_decode[f32]": (
+            lambda: wd.whole_greedy_decode(*ops, **k1),
+            lambda: wd.whole_greedy_decode(*ops, cuda_cores=True, **k1),
+            lambda: wd.whole_greedy_decode_reference(*ops, **k1),
+            lambda: decoding.greedy_decode(params, cfg, enc, T - 1),
+            decode_work(cfg, L, B, B * T, T, elem=4), 3,
+            {tf32: 1}, {cores: 1}, 1),
+        "whole_greedy_decode_segment[f32]": (
+            lambda: wd.whole_greedy_decode_segment(*ops, z, z, sos,
+                                                   seg_len=4, **kw),
+            lambda: wd.whole_greedy_decode_segment(*ops, z, z, sos,
+                                                   seg_len=4,
+                                                   cuda_cores=True, **kw),
+            lambda: wd.whole_greedy_decode_segment_reference(
+                *ops, z, z, sos, seg_len=4, **kw),
+            lambda: decoding.greedy_decode(params, cfg, enc, 3),
+            decode_work(cfg, L, B, B * 4, 4, state=True, elem=4), 3,
+            {tf32: 1}, {cores: 1}, -(-T // tc.greedy_segment)),
+        "outproj_topk[f32]": (
+            lambda: tp.outproj_topk(hidden, w, b, **k3),
+            lambda: tp.outproj_topk(hidden, w, b, k=BEAM,
+                                    f32_single_pass=True),
+            lambda: tp.outproj_topk_reference(hidden, w, b, k=BEAM),
+            lambda: tp.topk_rounds(hidden @ w + b, BEAM),
+            (2 * N * H * V, 4 * (N * H + H * V + V) + 8 * N * BEAM), 10,
+            split, {"topk_proj_kernel": 1}, T),
+    }
+
+
+def f32_times(torch, tc, cfg, params_np):
+    """[times] of the f32 route at the eval batch (EVAL_B) and at TIME_B:
+    each of ``f32_cases`` on its route (the TF32 body, K3's TF32 split
+    route), its first design, its plain twin and its library route by CUDA
+    events; the device time of the route and of the first design by the
+    profiler (held to the kernels a call); the launches a decode; the bound
+    (``bound_f32``) and the f32 CUDA-core peak's time beside it. Returns
+    the kernels line's entries at EVAL_B, TIME_B's under "at_<TIME_B>"."""
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    from recnet_tpu_torch.weights import params_from_jax
+    params = params_from_jax(params_np, DEVICE, torch.float32)
+    card = card_line()
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    T = tc.caption_max_len + 1
+    entries = {}
+    for B in (EVAL_B, TIME_B):
+        for name, (route, first, plain, library, work, reps, names, names1,
+                   per_decode) in f32_cases(torch, tc, cfg, params, B).items():
+            ms, first_ms, plain_ms, library_ms = (
+                timed(torch, fn, reps)[0]
+                for fn in (route, first, plain, library))
+            dev = sum(device_ms(torch, route, tuple(names),
+                                launches=names).values())
+            dev1 = sum(device_ms(torch, first, tuple(names1),
+                                 launches=names1).values())
+            bound_ms, bound_by = bound_f32(*work)
+            e = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, device_ms=dev,
+                     first_design_ms=first_ms, first_design_device_ms=dev1,
+                     f32_core_bound_ms=work[0] / PEAK_F32_FLOPS * 1e3,
+                     launches_a_decode=per_decode,
+                     shape=(f"N={B * BEAM} k={BEAM}" if "topk" in name
+                            else f"B={B}"))
+            if "topk" not in name:
+                e["cluster"] = wd.cluster_size(B, cfg.hidden_size, n_sms)
+            if name == "whole_greedy_decode[f32]" and B == EVAL_B:
+                # K1 at each cluster size the body takes (the spread's gain)
+                ops = decode_operands(params, seeded_features(
+                    torch, B, tc.encoder_output_len, cfg, torch.float32, 3))
+                kw = dict(emb_size=cfg.embedding_size, max_len=T - 1,
+                          cell_type=cfg.cell_type)
+                e["cluster_ms"] = {
+                    c: timed(torch, lambda: wd.whole_greedy_decode(
+                        *ops, cluster=c, **kw))[0] for c in (1, 2, 4, 8)}
+                log("times", f"{name} B={B} f32 by cluster size: "
+                             + ", ".join(f"C={c} {t:.4f} ms" for c, t in
+                                         e["cluster_ms"].items())
+                             + f" ({card})")
+            log("times", f"{name} {e['shape']} f32: route {ms:.4f} ms "
+                         f"(device {dev:.4f}), first design {first_ms:.4f} "
+                         f"ms (device {dev1:.4f}), plain twin "
+                         f"{plain_ms:.4f} ms, library route "
+                         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({bound_by}; at the f32 CUDA-core peak "
+                         f"{e['f32_core_bound_ms']:.4f}), share "
+                         f"{bound_ms / ms:.3f}, {per_decode} launches a "
+                         f"decode" + (f", cluster {e['cluster']}"
+                                      if "cluster" in e else "")
+                         + f" ({card})")
+            if B == EVAL_B:
+                entries[name] = e
+            else:
+                entries[name][f"at_{B}"] = e
     return entries
 
 
@@ -3935,8 +4252,10 @@ def time_kernels(root: str, outputs: str) -> None:
     cfg = config_from_train(tc, VOCAB)
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    for name in ("whole_decode", "topk_proj", "fused_step"):
-        build.load(name)
+    for name in ("whole_decode", "whole_decode_tf32", "topk_proj",
+                 "fused_step"):
+        if (build.CSRC / f"{name}.cu").is_file():   # the tree's sources
+            build.load(name)
     built = time.perf_counter() - t0
     params = params_from_jax(random_params(cfg, SEED), DEVICE, torch.bfloat16)
     enc = seeded_features(torch, TIME_B, tc.encoder_output_len, cfg,
@@ -3957,21 +4276,75 @@ def time_kernels(root: str, outputs: str) -> None:
         params, cfg, enc, tc.caption_max_len)
     ms["greedy_decode_pallas"] = timed(torch, loop)[0]
     ms["greedy_decode_pallas device"] = device_ms(torch, loop, reps=3)[""]
+    # the bf16 route's outputs on these inputs, held bit for bit across the
+    # trees
+    decoded = {f"decode bf16 {name}": [x.cpu() for x in (
+        out if isinstance(out, tuple) else (out,))]
+        for name, out in (("whole_greedy_decode", core[
+            "whole_greedy_decode"][0]()), ("whole_greedy_decode_segment",
+                                           core["whole_greedy_decode_segment"]
+                                           [0]()), ("outproj_topk", core[
+                                               "outproj_topk"][0]()))}
     del params, enc, core
-    ms.update(cell_step_times(torch, tc, outputs))
+    ms.update(f32_route_times(torch, tc, cfg))
+    ms.update(cell_step_times(torch, tc, outputs, decoded))
     ms.update(whole_rollout_times(torch, tc))
     print(json.dumps({"root": root, "build_s": built, "ms": ms,
                       "train": train_timing(torch)}), flush=True)
 
 
-def cell_step_times(torch, tc, outputs):
+def f32_route_times(torch, tc, cfg):
+    """{"<name> B=<B>": ms by CUDA events} of the imported package's f32
+    route through its production wrappers (whatever body each tree takes
+    for f32: the first designs in a tree without the TF32 body) and the
+    library routes, at EVAL_B and TIME_B (``f32_cases``' shapes); then
+    ``evaluation.evaluate`` of the f32 flagship over ``eval_corpus``'s
+    batches of EVAL_B, greedy and beam 5: the wall seconds of a run after
+    one warm-up, and the decode of one batch by CUDA events."""
+    from recnet_tpu_torch.checkpoint import load_config_and_vocab
+    from recnet_tpu_torch.evaluation import decode_batch, evaluate
+    from recnet_tpu_torch.weights import params_from_jax, random_params
+    params = params_from_jax(random_params(cfg, SEED), DEVICE, torch.float32)
+    out = {}
+    for B in (EVAL_B, TIME_B):
+        for name, case in f32_cases(torch, tc, cfg, params, B).items():
+            route, _, _, library, _, reps = case[:6]
+            out[f"{name} B={B}"] = timed(torch, route, reps)[0]
+            out[f"{name} library B={B}"] = timed(torch, library, reps)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        _, vocab = load_config_and_vocab(
+            str(flagship_checkpoint_dir(Path(tmp), VOCAB)))
+    corpus = eval_corpus(tc, vocab, cfg)
+    videos = corpus.score_batcher[0][1]
+    with tempfile.TemporaryDirectory() as tmp:
+        for search in ("greedy", ("beam", BEAM)):
+            name = search if isinstance(search, str) else f"beam {BEAM}"
+            run = lambda: evaluate(tc, corpus, params, cfg, search,
+                                   predictions_fpath=str(Path(tmp) / "p"),
+                                   n_test=EVAL_VIDEOS)
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            out[f"evaluate f32 {name} s"] = time.perf_counter() - t0
+            out[f"decode_batch f32 {name} B={EVAL_B}"] = timed(
+                torch, lambda: decode_batch(
+                    params, cfg, videos, search, tc.caption_max_len,
+                    use_pallas=tc.use_pallas,
+                    greedy_segment=tc.greedy_segment))[0]
+    return out
+
+
+def cell_step_times(torch, tc, outputs, decoded=None):
     """{"<entry name> <prec>": ms a step of its ``*_steps`` launcher by
     CUDA events, and with " device": device ms} of the imported package's
     per-step cell kernels at the flagship's shapes, over a sweep of
     per-step operands out of L2 (``rollout_cases``: the launchers'
     signatures are the same in every tree that has them), f32 and bf16.
     Each kernel's outputs from a wrapper call on the same inputs go to the
-    file ``outputs`` (torch.save of {"<entry name> <prec>": [tensors]})."""
+    file ``outputs`` (torch.save of {"<entry name> <prec>": [tensors]}),
+    with ``decoded`` (other outputs to hold across trees) beside them."""
     from recnet_tpu_torch.ops.cuda import rollout as ro
     out, saved = {}, {}
     for prec in ("float32", "bfloat16"):
@@ -3987,6 +4360,7 @@ def cell_step_times(torch, tc, outputs):
                     launches={"": per_call})[""] / steps
                 saved[f"{name} {prec}"] = [None if x is None else x.cpu()
                                            for x in case[0]()]
+    saved.update(decoded or {})
     torch.save(saved, outputs)
     return out
 
@@ -4043,14 +4417,15 @@ def compare(other: str) -> None:
         for i, (x, y) in enumerate(zip(got, theirs[name])):
             if x is None or y is None:
                 check(x is y, f"{name} output {i}: None in one tree only")
-            elif name.endswith("float32"):
+            elif name.endswith("float32") or name.startswith("decode bf16"):
                 check(torch.equal(x, y), f"{name} output {i}: not bit-equal "
                                          f"to {other}'s")
             else:
                 check(bf16_ulps(torch, x, y) <= 2,
                       f"{name} output {i}: over 2 ulps from {other}'s")
     log("compare", f"the per-step cell kernels' outputs: f32 bit-equal and "
-                   f"bf16 within 2 ulps to {other}'s on the same inputs "
+                   f"bf16 within 2 ulps to {other}'s on the same inputs; the "
+                   f"bf16 decode kernels' (K1, K2, K3) bit-equal "
                    f"({', '.join(mine)})")
 
 
@@ -4079,14 +4454,20 @@ def main() -> int:
     cfg = config_from_train(tc, vocab.n_vocabs)
     params_np = random_params(cfg, SEED)
     errs = kernels_against_twins(torch, tc, cfg)
-    errs["outproj_topk"] = topk_against_twin(torch, cfg)
+    errs.update(tf32_against_twins(torch, tc, cfg))
+    errs.update(topk_against_twin(torch, cfg))
     errs["fused_gru_attn_step"] = fused_step_against_twin(torch, tc, cfg)
     variant_errs = variants_against_k1(torch, tc, cfg)
     eos_np = eos_biased(torch, tc, cfg, params_np)
     launches = main_path(torch, tc, vocab, cfg, params_np, eos_np)
     launches["outproj_topk"] = beam_path(torch, tc, vocab, cfg, params_np)
     with tempfile.TemporaryDirectory() as tmp:
-        eval_path(torch, tc, vocab, cfg, params_np, Path(tmp))
+        eval_launches = eval_path(torch, tc, vocab, cfg, params_np,
+                                  Path(tmp))
+    launches["outproj_topk[f32]"] = eval_launches[f"beam {BEAM}"][
+        "outproj_topk[f32]"]
+    launches["whole_greedy_decode_segment[f32]"] += eval_launches["greedy"][
+        "whole_greedy_decode_segment[f32]"]
     launches["fused_gru_attn_step"] = pallas_path(torch, tc, cfg,
                                                   params_np)
     pad_np = pad_timed(torch, tc, cfg, params_np)
@@ -4094,6 +4475,7 @@ def main() -> int:
     variant_launches["early_exit"], variant_errs["early_exit"] = (
         early_exit_path(torch, tc, cfg, pad_np))
     entries = times(torch, tc, cfg, params_np, eos_np, pad_np)
+    entries.update(f32_times(torch, tc, cfg, params_np))
     sweep_launches, sweep_ms, sweep_errs = ablate_sweep(torch, tc, cfg,
                                                         params_np)
     variant_launches.update(sweep_launches)
@@ -4119,7 +4501,13 @@ def main() -> int:
             ("whole_greedy_decode_segment", "whole_decode.cu",
              "whole_decode.py:360"),
             ("outproj_topk", "topk_proj.cu", "topk_proj.py:77"),
-            ("fused_gru_attn_step", "fused_step.cu", "fused_step.py:92")]
+            ("fused_gru_attn_step", "fused_step.cu", "fused_step.py:92"),
+            # the f32 route: the TF32 body and K3's TF32 split route
+            ("whole_greedy_decode[f32]", "whole_decode_tf32.cu",
+             "whole_decode.py:440"),
+            ("whole_greedy_decode_segment[f32]", "whole_decode_tf32.cu",
+             "whole_decode.py:360"),
+            ("outproj_topk[f32]", "topk_proj.cu", "topk_proj.py:77")]
     # the K5 variants, each under its variant_launches key: the
     # tensor-core probes are built from whole_decode_probes.cu, the rest
     # (the early exit, and the CUDA-core body's variants) from
@@ -4162,6 +4550,7 @@ def main() -> int:
     for k in kernels:     # the body each whole-decode row ran on
         if k["name"].startswith("whole_greedy_decode"):
             k["body"] = ("cuda_cores" if "cuda_cores" in k["name"]
+                         else "tf32" if "[f32]" in k["name"]
                          else "tensor_cores")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -7,11 +7,16 @@
 // lax.top_k order (value descending; among equal values the lowest column
 // first). Beam search calls it once per step with N = batch x beam rows.
 //
-// Precision. The logits are f32. f32 inputs are multiplied and summed in f32
-// FMAs on CUDA cores (no TF32). bf16 inputs go to the tensor cores
-// (mma.sync m16n8k16 with f32 accumulators): the products of bf16 values are
-// exact and the sums f32. The bias is added in f32 after the sum, as the
-// Pallas kernel does.
+// Precision. The logits are f32. On the split route (k <= 8) f32 inputs go
+// to the tensor cores as three-term TF32 products (mma.sync m16n8k8: each
+// operand split in registers into hi = tf32(x) and lo = tf32(x - hi), a
+// product a_lo b_hi + a_hi b_lo + a_hi b_hi from a zero accumulator, added
+// to the f32 sums on the CUDA cores; about 2^-21 of |a b| a product,
+// hopper_mma.cuh mma_3xtf32); on the single pass they are multiplied and
+// summed in f32 FMAs on CUDA cores (no TF32). bf16 inputs go to the tensor
+// cores (mma.sync m16n8k16 with f32 accumulators): the products of bf16
+// values are exact and the sums f32. The bias is added in f32 after the
+// sum, as the Pallas kernel does.
 //
 // What bounds it. At the flagship beam (B = 1024, beam 5: N = 5120, H = 512,
 // V = 4188) one call is 11.0 G multiply-adds (21.96 GFLOP: 0.022 ms at the
@@ -24,20 +29,27 @@
 //
 // Two designs:
 //
-// * bf16 with k <= 8 (the beam path): the vocabulary splits into S
+// * k <= 8 (the beam path), bf16 and f32: the vocabulary splits into S
 //   contiguous ranges of 128-column tiles, one block per (64 rows, range), S
 //   chosen by the wrapper so that the blocks fill two a SM in one wave (N =
 //   5120: 80 x 3 = 240 blocks for 132 SMs; 4 ranges, 320 blocks, took a
-//   second wave and 0.32 ms against 0.26). 64-deep slices of out and out_w
-//   come through a 3-slot cp.async ring in 16-byte copies (the wrapper pads
-//   out_w's rows to a multiple of 16 bytes once per parameter set, V = 4188
-//   -> 4192 columns) into mma.sync with ldmatrix. Each thread keeps the k
+//   second wave and 0.32 ms against 0.26; at the eval batch's beam, N =
+//   500, 8 x 6 = 48 blocks where the single pass has 8). Slices of out and
+//   out_w (64 deep in bf16, 32 in f32: the same bytes) come through a
+//   3-slot cp.async ring in 16-byte copies (the wrapper pads out_w's rows
+//   to a multiple of 16 bytes once per parameter set, bf16 V = 4188 ->
+//   4192 columns; f32 rows of 4188 already are) into mma.sync, the bf16
+//   fragments by ldmatrix, the f32 ones by 32-bit shared loads on row
+//   strides that keep them free of bank conflicts. Each thread keeps the k
 //   best of its two rows in registers, offered in ascending column order,
 //   and the 8 lists of a row are merged in shared memory at the end. Each
 //   block writes its rows' k best of its range to an (N, S, k) scratch; a
 //   second small kernel, one warp a row, merges the S sorted lists with the
-//   lower column first among equal values, as lax.top_k orders them.
-// * f32, and bf16 with k > 8: one pass, below.
+//   lower column first among equal values, as lax.top_k orders them (f32
+//   may take S k up to 64, two entries a lane: at the eval batch's N = 500,
+//   8 x 12 blocks).
+// * k > 8: one pass, below (and the f32 first design, kept as the split
+//   route's baseline).
 //
 // Single-pass design. A block owns BM = 64 rows and walks the vocabulary in
 // tiles of BN = 128 columns, so no block ever holds a whole logit row and
@@ -398,25 +410,41 @@ int launch(const void* out, const void* out_w, const void* out_b, float* vals,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, k <= KR_MAX: vocab ranges split across blocks, then a merge
+// k <= KR_MAX: vocab ranges split across blocks, then a merge
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 
 constexpr int KR_MAX = 8;        // the longest list kept in registers
-constexpr int SBK = 64;          // depth of a staged slice
 constexpr int SSTAGES = 3;       // slices in the cp.async ring
-constexpr int SA_LD = SBK + 8;   // out slice [BM][SA_LD], rows padded so
-constexpr int SB_LD = BN + 8;    // that ldmatrix reads hit distinct banks
-constexpr int SA_ELEMS = BM * SA_LD;
-constexpr int SSTAGE = SA_ELEMS + SBK * SB_LD;  // bf16 elements a slot
 constexpr int LISTS = 8;         // lists a row: 4 lanes x 2 column halves
-constexpr size_t SPLIT_RING = sizeof(bf16) * SSTAGES * SSTAGE;
+
+// The staging of one operand type: a slice SBK deep of out [BM][SA_LD]
+// and out_w [SBK][SB_LD]. bf16: 64 deep, rows padded so that ldmatrix
+// reads hit distinct banks. f32: 32 deep (the same bytes), the out row
+// stride 4 mod 32 words (the A fragment's (row g, k t) loads) and the
+// out_w stride 8 mod 32 (the B fragment's (k t, column g) loads), so
+// that both hit 32 distinct banks.
+template <typename T>
+struct Stage {
+  static constexpr int SBK = std::is_same<T, float>::value ? 32 : 64;
+  static constexpr int SA_LD = std::is_same<T, float>::value ? SBK + 4
+                                                             : SBK + 8;
+  static constexpr int SB_LD = BN + 8;
+  static constexpr int SA_ELEMS = BM * SA_LD;
+  static constexpr int ELEMS = SA_ELEMS + SBK * SB_LD;   // a slot
+  static constexpr int CHUNK = 16 / (int)sizeof(T);     // a 16-byte copy
+};
+static_assert(Stage<bf16>::ELEMS * sizeof(bf16)
+                  == Stage<float>::ELEMS * sizeof(float),
+              "both types stage the same bytes");
+static_assert(Stage<bf16>::ELEMS * sizeof(bf16) % 16 == 0,
+              "slots stay 16-byte aligned");
+constexpr size_t SPLIT_RING = sizeof(bf16) * SSTAGES * Stage<bf16>::ELEMS;
 constexpr size_t SPLIT_LISTS =
     (sizeof(float) + sizeof(int)) * (size_t)BM * LISTS * KR_MAX;
 constexpr size_t SPLIT_SMEM = SPLIT_RING > SPLIT_LISTS ? SPLIT_RING
                                                        : SPLIT_LISTS;
-static_assert(SSTAGE * sizeof(bf16) % 16 == 0, "slots stay 16-byte aligned");
 
 // Offer (v, c) to the sorted list (lv, li) of the KR best; static indices
 // only, so the list stays in registers
@@ -442,20 +470,24 @@ __device__ __forceinline__ void offer(float (&lv)[KR], int (&li)[KR],
 // Block (row block x, vocab range y): the k best of rows m0.. over the
 // columns of tiles [y tpr, (y + 1) tpr), written to scratch (N, S, k).
 // Warp w owns rows (w % 4) * 16.. and columns (w / 4) * 64.. of each 64 x
-// 128 tile: one m16 x eight n8 mma.sync tiles. out and out_w slices come
+// 128 tile: one m16 x eight n8 mma.sync tiles (bf16: m16n8k16; f32:
+// m16n8k8 in three TF32 terms). out and out_w slices come
 // through a ring of SSTAGES slots by cp.async, every thread copying its
 // share, one __syncthreads an item. Each thread keeps the KR best of each
 // of its two rows in registers, offered in ascending column order; at the
 // end the 8 lists of a row meet in shared memory and one thread merges them.
-template <int KR>
-__global__ void __launch_bounds__(THREADS)
-topk_split_kernel(const bf16* __restrict__ out,
-                  const bf16* __restrict__ out_w,
-                  const bf16* __restrict__ out_b, float* __restrict__ scr_v,
+template <typename T, int KR>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
+topk_split_kernel(const T* __restrict__ out, const T* __restrict__ out_w,
+                  const T* __restrict__ out_b, float* __restrict__ scr_v,
                   int* __restrict__ scr_i, int N, int H, int V, int ldw,
                   int k, int S, int tpr, bool aligned_a, bool aligned_b) {
+  using St = Stage<T>;
+  constexpr int SBK = St::SBK, SA_LD = St::SA_LD, SB_LD = St::SB_LD;
+  constexpr int SA_ELEMS = St::SA_ELEMS, SSTAGE = St::ELEMS;
+  constexpr int CH = St::CHUNK;
   extern __shared__ float4 smem_f4[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_f4);
+  T* ring = reinterpret_cast<T*>(smem_f4);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -481,26 +513,26 @@ topk_split_kernel(const bf16* __restrict__ out,
 
   int i_tile = t0, i_k = 0;   // the next item to issue
   auto issue = [&](int slot) {
-    bf16* a_s = ring + slot * SSTAGE;
-    bf16* b_s = a_s + SA_ELEMS;
+    T* a_s = ring + slot * SSTAGE;
+    T* b_s = a_s + SA_ELEMS;
     const int k0 = i_k * SBK, v0 = i_tile * BN;
-    // out rows m0.., depth k0.., in chunks of 8
+    // out rows m0.., depth k0.., in 16-byte chunks
 #pragma unroll
-    for (int idx = tid; idx < BM * SBK / 8; idx += THREADS) {
-      const int row = idx / (SBK / 8), kc = idx % (SBK / 8) * 8;
+    for (int idx = tid; idx < BM * SBK / CH; idx += THREADS) {
+      const int row = idx / (SBK / CH), kc = idx % (SBK / CH) * CH;
       const bool ok = m0 + row < N;
       recnet::copy_chunk(a_s + row * SA_LD + kc,
-                         ok ? out + (size_t)(m0 + row) * H : out, k0 + kc, H,
-                         ok, aligned_a);
+                 ok ? out + (size_t)(m0 + row) * H : out, k0 + kc, H, ok,
+                 aligned_a);
     }
     // out_w depth k0.., columns v0..
 #pragma unroll
-    for (int idx = tid; idx < SBK * BN / 8; idx += THREADS) {
-      const int kk = idx / (BN / 8), cc = idx % (BN / 8) * 8;
+    for (int idx = tid; idx < SBK * BN / CH; idx += THREADS) {
+      const int kk = idx / (BN / CH), cc = idx % (BN / CH) * CH;
       const bool ok = k0 + kk < H;
       recnet::copy_chunk(b_s + kk * SB_LD + cc,
-                         ok ? out_w + (size_t)(k0 + kk) * ldw : out_w,
-                         v0 + cc, ldw, ok, aligned_b);
+                 ok ? out_w + (size_t)(k0 + kk) * ldw : out_w, v0 + cc, ldw,
+                 ok, aligned_b);
     }
     if (++i_k == nk) {
       i_k = 0;
@@ -519,19 +551,53 @@ topk_split_kernel(const bf16* __restrict__ out,
     __syncthreads();   // item i landed for all; slot i - 1 was read
     if (i + SSTAGES - 1 < n_items) issue((i + SSTAGES - 1) % SSTAGES);
     recnet::cp_async_commit();
-    const bf16* a_s = ring + (i % SSTAGES) * SSTAGE;
-    const bf16* b_s = a_s + SA_ELEMS;
+    const T* a_s = ring + (i % SSTAGES) * SSTAGE;
+    const T* b_s = a_s + SA_ELEMS;
+    if constexpr (std::is_same<T, float>::value) {
+      // three-term TF32 products of two k8 steps from a zero accumulator
+      // (the tensor cores' own sums stay 16 products deep), added in f32
 #pragma unroll
-    for (int ks = 0; ks < SBK; ks += 16) {
-      unsigned af[4];
-      ldmatrix_x4<false>(af, a_s + (wm + lr) * SA_LD + ks + lc);
+      for (int ks = 0; ks < SBK; ks += 16) {
+        unsigned ahi[2][4], alo[2][4];
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        unsigned rr[4];
-        ldmatrix_x4<true>(rr, b_s + (ks + lr) * SB_LD + wn + np * 16 + lc);
-        const unsigned b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
-        mma_bf16(acc[2 * np], af, b0);
-        mma_bf16(acc[2 * np + 1], af, b1);
+        for (int kk = 0; kk < 2; ++kk) {
+          const float* ap = a_s + (wm + g) * SA_LD + ks + 8 * kk + t4;
+          recnet::split_tf32(ap[0], ahi[kk][0], alo[kk][0]);
+          recnet::split_tf32(ap[8 * SA_LD], ahi[kk][1], alo[kk][1]);
+          recnet::split_tf32(ap[4], ahi[kk][2], alo[kk][2]);
+          recnet::split_tf32(ap[8 * SA_LD + 4], ahi[kk][3], alo[kk][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            const float* bp =
+                b_s + (ks + 8 * kk + t4) * SB_LD + wn + nt * 8 + g;
+            unsigned bhi[2], blo[2];
+            recnet::split_tf32(bp[0], bhi[0], blo[0]);
+            recnet::split_tf32(bp[4 * SB_LD], bhi[1], blo[1]);
+            recnet::mma_tf32(d, alo[kk], bhi);
+            recnet::mma_tf32(d, ahi[kk], blo);
+            recnet::mma_tf32(d, ahi[kk], bhi);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] += d[e];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < SBK; ks += 16) {
+        unsigned af[4];
+        ldmatrix_x4<false>(af, a_s + (wm + lr) * SA_LD + ks + lc);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          unsigned rr[4];
+          ldmatrix_x4<true>(rr, b_s + (ks + lr) * SB_LD + wn + np * 16 + lc);
+          const unsigned b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
+          mma_bf16(acc[2 * np], af, b0);
+          mma_bf16(acc[2 * np + 1], af, b1);
+        }
       }
     }
     if (++c_k < nk) continue;
@@ -584,8 +650,9 @@ topk_split_kernel(const bf16* __restrict__ out,
   }
 }
 
-// One warp a row: the k best of the row's S sorted lists of k (S k <= 32),
-// ties to the lower column, so to the lower range
+// One warp a row: the k best of the row's S sorted lists of k (S k <= 32
+// PER: PER entries a lane), ties to the lower column, so to the lower range
+template <int PER>
 __global__ void topk_merge_kernel(const float* __restrict__ scr_v,
                                   const int* __restrict__ scr_i,
                                   float* __restrict__ vals,
@@ -595,15 +662,25 @@ __global__ void topk_merge_kernel(const float* __restrict__ scr_v,
   const int row = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   if (row >= N) return;   // the whole warp
   const int n = S * k;
-  float v = -INFINITY;
-  int c = INT_MAX;
-  if (lane < n) {
-    v = scr_v[(size_t)row * n + lane];
-    c = scr_i[(size_t)row * n + lane];
+  float v[PER];
+  int c[PER];
+#pragma unroll
+  for (int p = 0; p < PER; ++p) {
+    const int j = lane + 32 * p;
+    v[p] = j < n ? scr_v[(size_t)row * n + j] : -INFINITY;
+    c[p] = j < n ? scr_i[(size_t)row * n + j] : INT_MAX;
   }
   for (int s = 0; s < k; ++s) {
-    float bv = v;
-    int bc = c, bl = lane;
+    float bv = v[0];
+    int bc = c[0], bp = 0;
+#pragma unroll
+    for (int p = 1; p < PER; ++p)
+      if (ranks_before(v[p], c[p], bv, bc)) {
+        bv = v[p];
+        bc = c[p];
+        bp = p;
+      }
+    int bl = lane;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       const float ov = __shfl_xor_sync(FULL, bv, off);
@@ -621,17 +698,21 @@ __global__ void topk_merge_kernel(const float* __restrict__ scr_v,
       idxs[(size_t)row * k + s] = bc;
     }
     if (lane == bl) {
-      v = -INFINITY;
-      c = INT_MAX;
+#pragma unroll
+      for (int p = 0; p < PER; ++p)
+        if (p == bp) {
+          v[p] = -INFINITY;
+          c[p] = INT_MAX;
+        }
     }
   }
 }
 
-template <int KR>
+template <typename T, int KR>
 int launch_split(const void* out, const void* out_w, const void* out_b,
                  float* vals, int* idxs, float* scr_v, int* scr_i, int N,
                  int H, int V, int ldw, int k, int S, cudaStream_t stream) {
-  auto kernel = topk_split_kernel<KR>;
+  auto kernel = topk_split_kernel<T, KR>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SPLIT_SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -639,14 +720,19 @@ int launch_split(const void* out, const void* out_w, const void* out_b,
   const int tpr = (n_tiles + S - 1) / S;
   const dim3 grid((N + BM - 1) / BM, S);
   kernel<<<grid, THREADS, SPLIT_SMEM, stream>>>(
-      (const bf16*)out, (const bf16*)out_w, (const bf16*)out_b, scr_v, scr_i,
-      N, H, V, ldw, k, S, tpr, recnet::rows_aligned16(out, H),
-      recnet::rows_aligned16(out_w, ldw));
+      (const T*)out, (const T*)out_w, (const T*)out_b, scr_v, scr_i, N, H,
+      V, ldw, k, S, tpr, recnet::rows_aligned16<T>(out, H),
+      recnet::rows_aligned16<T>(out_w, ldw));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   constexpr int ROWS = 8;   // rows (warps) of a merge block
-  topk_merge_kernel<<<(N + ROWS - 1) / ROWS, 32 * ROWS, 0, stream>>>(
-      scr_v, scr_i, vals, idxs, N, S, k);
+  const dim3 mgrid((N + ROWS - 1) / ROWS);
+  if (S * k > 32)
+    topk_merge_kernel<2><<<mgrid, 32 * ROWS, 0, stream>>>(scr_v, scr_i, vals,
+                                                          idxs, N, S, k);
+  else
+    topk_merge_kernel<1><<<mgrid, 32 * ROWS, 0, stream>>>(scr_v, scr_i, vals,
+                                                          idxs, N, S, k);
   return (int)cudaGetLastError();
 }
 
@@ -659,11 +745,11 @@ const char* recnet_topk_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Needs N, H >= 1 and 1 <= k <= min(128,
-// V). splits > 0 (bf16, k <= 8, splits x k <= 32) runs the vocab split
-// into `splits` ranges, with (N, splits, k) scratch at scr_v / scr_i and
-// out_w's rows ldw >= V columns apart (columns past V are never read as
-// logits); splits = 0 the single-pass kernel, with ldw = V. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// V). splits > 0 (k <= 8, splits x k <= 32 in bf16, 64 in f32) runs the
+// vocab split into `splits` ranges, with (N, splits, k) scratch at scr_v /
+// scr_i and out_w's rows ldw >= V columns apart (columns past V are never
+// read as logits); splits = 0 the single-pass kernel, with ldw = V.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 int recnet_topk_proj(int dtype, const void* out, const void* out_w,
                      const void* out_b, float* vals, int* idxs, int N, int H,
                      int V, int ldw, int k, float* scr_v, int* scr_i,
@@ -673,16 +759,27 @@ int recnet_topk_proj(int dtype, const void* out, const void* out_w,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (splits > 0) {
-    if (dtype != 1 || k > KR_MAX || splits * k > 32)
+    if ((dtype != 0 && dtype != 1) || k > KR_MAX
+        || splits * k > (dtype == 0 ? 64 : 32))
       return (int)cudaErrorInvalidValue;
+    if (dtype == 0) {
+      if (k <= 2)
+        return launch_split<float, 2>(out, out_w, out_b, vals, idxs, scr_v,
+                                      scr_i, N, H, V, ldw, k, splits, s);
+      if (k <= 4)
+        return launch_split<float, 4>(out, out_w, out_b, vals, idxs, scr_v,
+                                      scr_i, N, H, V, ldw, k, splits, s);
+      return launch_split<float, 8>(out, out_w, out_b, vals, idxs, scr_v,
+                                    scr_i, N, H, V, ldw, k, splits, s);
+    }
     if (k <= 2)
-      return launch_split<2>(out, out_w, out_b, vals, idxs, scr_v, scr_i, N,
-                             H, V, ldw, k, splits, s);
+      return launch_split<bf16, 2>(out, out_w, out_b, vals, idxs, scr_v,
+                                   scr_i, N, H, V, ldw, k, splits, s);
     if (k <= 4)
-      return launch_split<4>(out, out_w, out_b, vals, idxs, scr_v, scr_i, N,
-                             H, V, ldw, k, splits, s);
-    return launch_split<8>(out, out_w, out_b, vals, idxs, scr_v, scr_i, N, H,
-                           V, ldw, k, splits, s);
+      return launch_split<bf16, 4>(out, out_w, out_b, vals, idxs, scr_v,
+                                   scr_i, N, H, V, ldw, k, splits, s);
+    return launch_split<bf16, 8>(out, out_w, out_b, vals, idxs, scr_v, scr_i,
+                                 N, H, V, ldw, k, splits, s);
   }
   if (dtype == 0)
     return launch<float, false>(out, out_w, out_b, vals, idxs, N, H, V, k, s);

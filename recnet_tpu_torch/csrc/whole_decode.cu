@@ -31,8 +31,11 @@
 // Each step also reads the rows' encoder features (88 MB at B = 1024) from
 // device memory, since they do not fit in L2 beside the weights.
 //
-// Two bodies; the wrapper (ops/cuda/whole_decode.py, kernel_route) picks
-// one for each launch, and every K5 variant exists on both:
+// Two bodies here, and a third for f32 in whole_decode_tf32.cu (its own
+// library: three-term TF32 products on the tensor cores, an 8-row tile
+// spread over a cluster at small batches); the wrapper
+// (ops/cuda/whole_decode.py, kernel_route) picks one for each launch, and
+// every K5 variant exists on the two here:
 //
 // * The tensor-core body (tc_decode_kernel, whole_decode_tc.cuh) runs
 //   every bf16 launch with H a multiple of 16 unless cuda_cores asks for
@@ -69,10 +72,11 @@
 //   decode). The ctx reads of enc take 8 features (16 bytes) a thread,
 //   frames summed f = 0..L-1 in order, 4 in flight.
 // * The CUDA-core body (whole_decode_kernel, below), the first design: f32
-//   (no TF32, so the f32 tokens equal the plain twin's), bf16 shapes the
+//   where the TF32 body does not take it (H not a multiple of 16, rows too
+//   wide for its shared memory) and f32's probes, bf16 shapes the
 //   tensor-core body does not take (H not a multiple of 16), and any
-//   variant asked for with cuda_cores (in bf16: the first design's
-//   production step and its probes, kept as the redesign's baseline). A
+//   variant asked for with cuda_cores (the first design's production step
+//   and its probes, kept as the redesigns' baseline). A
 //   thread owns one hidden unit across all gates and each weight load
 //   feeds TB = 8 f32 FMAs, one per row, from [k][TB] f32 row vectors in
 //   shared memory.

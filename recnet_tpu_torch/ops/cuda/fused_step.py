@@ -82,7 +82,9 @@ def step_body(dtype: torch.dtype, hidden: int,
     """The body that runs the step on the card: "tensor_cores" for bf16
     with ``hidden`` a multiple of 16 (the rule of the whole decode's
     tensor-core body), else "cuda_cores"; ``cuda_cores`` forces the
-    latter. f32 stays off the tensor cores: their f32 products are TF32."""
+    latter. f32 stays on the CUDA-core body: K4 runs on no production
+    path, so its f32 body has not been redesigned on three-term TF32
+    products as K1/K2's has (``whole_decode.TF32``)."""
     return ("tensor_cores" if not cuda_cores and _tensor_cores(dtype, hidden)
             else "cuda_cores")
 

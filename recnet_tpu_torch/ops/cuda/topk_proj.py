@@ -12,18 +12,24 @@ kernel does not take; for CPU tensors it runs the twin,
 ``outproj_topk_reference``. The twin does not use ``torch.topk``, whose
 order among equal values is not specified: it runs k rounds of row max,
 first column of the max, mask, as the Pallas kernel does. The wrapper
-counts its launches in ``n_launches``, one a call. In bf16 with k <= 8 a
-call is two CUDA kernels, counted as one launch and timed as one: the
-split kernel, which writes an (N, S, k) scratch (``splits`` gives S), then
-the merge kernel over it. The split kernel reads out_w with its rows
-padded to 16 bytes (``layout.padded_columns``), which the caller makes
-once per parameter set and passes as ``padded_w``. Unlike the Pallas
+counts its launches in ``n_launches``, one a call, and by route in
+``route_launches`` ("split" for bf16, "tf32_split" for f32, "single_pass").
+With k <= 8 a call is two CUDA kernels, counted as one launch and timed as
+one: the split kernel, which writes an (N, S, k) scratch (``splits`` gives
+S), then the merge kernel over it; bf16 on m16n8k16, f32 on three-term
+TF32 products (each operand split into hi = tf32(x) and lo = tf32(x - hi)
+as it is loaded). The split kernel reads out_w with its rows padded to 16
+bytes (``layout.padded_columns``; f32 rows of V = 4188 already are), which
+the caller makes once per parameter set and passes as ``padded_w``.
+``f32_single_pass=True`` runs f32 on the first design, the single pass on
+CUDA-core FMAs, kept as the split route's baseline. Unlike the Pallas
 wrapper there is no ``block_b``: the kernel masks the ragged edges itself,
 so any N and V work.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from typing import Optional, Tuple
@@ -84,12 +90,15 @@ def _check(out: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
 def splits(N: int, V: int, k: int, dtype: torch.dtype, n_sms: int) -> int:
     """S, the vocab ranges of the split kernel: as many (64 rows, range)
     blocks as fit two an SM in one wave, at most one range a 128-column
-    tile and S k <= 32 for the merge warp; 0 (the single-pass kernel) for
-    f32 or k > 8."""
-    if dtype != torch.bfloat16 or k > SPLIT_MAX_K:
+    tile and S k <= 32 for the merge warp (64 in f32, two entries a lane);
+    0 (the single-pass kernel) for k > 8 or another type than bf16 and
+    f32. The flagship beam: N = 5120 (B = 1024) 3 ranges; N = 500 (the
+    eval batch, B = 100) 6 in bf16, 12 in f32."""
+    if dtype not in _DTYPE_CODES or k > SPLIT_MAX_K:
         return 0
     row_blocks, tiles = -(-N // _ROWS), -(-V // _COLS)
-    return max(1, min(2 * n_sms // row_blocks, tiles, 32 // k))
+    merge = 64 if dtype == torch.float32 else 32
+    return max(1, min(2 * n_sms // row_blocks, tiles, merge // k))
 
 
 def topk_rounds(work: torch.Tensor,
@@ -117,7 +126,8 @@ def outproj_topk_reference(out: torch.Tensor, out_w: torch.Tensor,
 
 
 def outproj_topk(out: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
-                 *, k: int, padded_w: Optional[torch.Tensor] = None
+                 *, k: int, padded_w: Optional[torch.Tensor] = None,
+                 f32_single_pass: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``top_k(out @ out_w + out_b, k)`` in one launch, without writing the
     logits. out (N, H); out_w (H, V); out_b (V,); float32 or bfloat16 and
@@ -147,6 +157,8 @@ def outproj_topk(out: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
     idxs = torch.empty((N, k), dtype=torch.int32, device=out.device)
     S = splits(N, V, k, out.dtype, torch.cuda.get_device_properties(
         out.device).multi_processor_count)
+    if f32_single_pass and out.dtype == torch.float32:
+        S = 0
     scr_v = torch.empty((N, S, k), dtype=torch.float32, device=out.device)
     scr_i = torch.empty((N, S, k), dtype=torch.int32, device=out.device)
     if S:
@@ -173,9 +185,13 @@ def outproj_topk(out: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
         raise RuntimeError(
             f"top-k projection kernel launch failed: "
             f"{lib.recnet_topk_error_string(err).decode()} ({err})")
+    route = ("single_pass" if not S else
+             "tf32_split" if out.dtype == torch.float32 else "split")
     with _COUNT_LOCK:    # a mesh Captioner's shards launch from threads
         outproj_topk.n_launches += 1      # split + merge count as one
+        outproj_topk.route_launches[route] += 1
     return vals, idxs
 
 
 outproj_topk.n_launches = 0
+outproj_topk.route_launches = collections.Counter()

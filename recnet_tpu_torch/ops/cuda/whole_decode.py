@@ -10,12 +10,16 @@ Counterpart of ``recnet_tpu/ops/pallas/whole_decode.py``:
 * ``whole_greedy_decode_segment`` (K2) runs ``seg_len`` steps from a
   carried (h, c, token) and returns (tokens (B, seg_len), h, c, token).
 
-Both launch one CUDA kernel (K1 from a zero state and <SOS>) on one of two
-bodies, chosen by ``kernel_route``: every bf16 launch with H a multiple of
-16 runs on the tensor-core body, production, the early exit and the K5
-probes ``dual`` and ``ablate`` alike (the probes from a library of their
-own, ``whole_decode_probes``); f32, bf16 with other H, and any launch asked
-for with ``cuda_cores`` run on the CUDA-core body. ``dual`` on the
+Both launch one CUDA kernel (K1 from a zero state and <SOS>) on one of
+three bodies, chosen by ``kernel_route``: every bf16 launch with H a
+multiple of 16 runs on the tensor-core body, production, the early exit and
+the K5 probes ``dual`` and ``ablate`` alike (the probes from a library of
+their own, ``whole_decode_probes``); f32 production and early-exit launches
+with H a multiple of 16 run on the TF32 body (``csrc/whole_decode_tf32.cu``:
+three-term TF32 products on the tensor cores, a tile of 8 rows spread over a
+cluster of ``cluster_size`` blocks); f32's ``dual`` and ``ablate``, f32 and
+bf16 with other H, and any launch asked for with ``cuda_cores`` run on the
+CUDA-core body. ``dual`` on the
 tensor-core body takes 16 rows a block as two 8-row halves that share each
 weight tile read from L2, half the production step's L2 bytes a row; each
 SM's own read stream, not the L2 bytes in total, bounds the decode, so it
@@ -23,13 +27,14 @@ takes production's time where both fit one wave (B = 1024 on an H100) and
 gains where production needs two (B = 2048: 0.58 of its time). The
 ``ablate`` parts there split the production step by phase (full -
 variant).
-A build or launch failure on either body raises; nothing falls back to the
-other body or to the twin. A wrapper launches the kernel for CUDA tensors
+A build or launch failure on any body raises; nothing falls back to
+another body or to the twin. A wrapper launches the kernel for CUDA tensors
 and raises on anything the kernel does not take; for CPU tensors it runs
 its plain twin (``*_reference``), which mirrors the Pallas step's casts in
-plain PyTorch. Each wrapper counts its launches in ``n_launches``; K1
-counts its K5 variants apart, in ``variant_launches``, each under its name
-and, on the CUDA-core body, with "[cuda_cores]" after it.
+plain PyTorch. Each wrapper counts its launches in ``n_launches`` and by
+body in ``body_launches``; K1 counts its K5 variants apart, in
+``variant_launches``, each under its name and, on the CUDA-core body, with
+"[cuda_cores]" after it.
 
 Unlike the Pallas wrappers there is no ``block_b``: a block owns 8 rows (16
 under the tensor-core ``dual``) and masks the ragged tail, so any B works.
@@ -64,8 +69,15 @@ _BUILT_VARIANTS = frozenset(
     + [m << _ABL_ATTN_SHIFT for m in (1, 2, 3)]
     + [m << _ABL_PROJ_SHIFT for m in (1, 2, 3)])
 
-# the two bodies (``kernel_route``)
-TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+# the three bodies (``kernel_route``)
+TENSOR_CORES, CUDA_CORES, TF32 = "tensor_cores", "cuda_cores", "tf32"
+# Whether f32 takes the TF32 body (else the CUDA-core body, the first
+# design). A fixed rule, not a fallback: the TF32 body took 4.0-4.1 ms a
+# flagship decode at the eval batch (B = 100) against 22.1-22.3, and
+# 16.2-16.9 at B = 1024 against 23.7-24.1, on the H100 (chip_smoke.py
+# [times]); the two give the same tokens up to the sum order.
+F32_ON_TF32 = True
+MAX_CLUSTER = 8        # the TF32 body's largest cluster (the portable one)
 # the shared memory a Hopper block can have, and the tensor-core body's
 # warps (csrc/whole_decode_tc.cuh SMEM_LIMIT, NWARPS)
 SMEM_LIMIT = 232_448
@@ -107,15 +119,25 @@ def _tensor_cores(dtype: torch.dtype, H: int) -> bool:
     return dtype == torch.bfloat16 and H % 16 == 0
 
 
+def _tf32(dtype: torch.dtype, H: int) -> bool:
+    """Whether the TF32 body takes these operands: f32 in 16-unit tiles."""
+    return dtype == torch.float32 and H % 16 == 0
+
+
 def kernel_route(dtype: torch.dtype, H: int, *, early_exit: bool = False,
                  dual: bool = False, ablate: str = "",
-                 cuda_cores: bool = False) -> Route:
+                 cuda_cores: bool = False, tf32_fits: bool = True) -> Route:
     """The body and variant bits of a launch. Every variant (production,
     ``early_exit``, ``dual``, one ``ablate`` part) runs on the tensor-core
     body where it takes the operands (bf16, H % 16 == 0), unless
     ``cuda_cores`` asks for the CUDA-core body, which takes any of them;
     the tensor-core probes (``dual``, ``ablate``) live in the library
-    ``whole_decode_probes``. Raises ``ValueError`` on options the kernel is
+    ``whole_decode_probes``. f32 production and early-exit launches with
+    H % 16 == 0 run on the TF32 body (library ``whole_decode_tf32``) while
+    ``F32_ON_TF32`` holds and its buffers fit a block (``tf32_fits``, from
+    ``tf32_smem_bytes``: not at H = 1536, say); f32's probes, and f32 the
+    TF32 body does not take, run on the CUDA-core body, by this rule and
+    never after a failure. Raises ``ValueError`` on options the kernel is
     not built for."""
     _check_options(early_exit, dual, ablate)
     variant = _variant(early_exit, dual, ablate)
@@ -123,6 +145,9 @@ def kernel_route(dtype: torch.dtype, H: int, *, early_exit: bool = False,
         raise ValueError("the kernel is built for one ablated part at a "
                          "time (emb, attn, score1, fma, proj, nativeargmax, "
                          "argmax)")
+    if (not cuda_cores and F32_ON_TF32 and _tf32(dtype, H) and tf32_fits
+            and variant & ~_EARLY_EXIT == 0):
+        return Route(TF32, variant, "whole_decode_tf32")
     if cuda_cores or not _tensor_cores(dtype, H):
         return Route(CUDA_CORES, variant, "whole_decode")
     probe = (variant & ~_EARLY_EXIT) != 0
@@ -167,18 +192,68 @@ def check_tc_fits(n_gates: int, variant: int, L: int, A: int, K: int,
     return need
 
 
+def tf32_smem_bytes(n_gates: int, L: int, A: int, K: int, H: int) -> int:
+    """The TF32 body's shared memory in bytes (K = E + F): the rows' f32
+    buffers (x, h double-buffered, c, W h, scores; row strides of 4 mod 32
+    words over whole k8 steps), the reductions, the cluster's exchange of
+    (key, index) and each warp's ring of 4 slots (3 for an LSTM) of
+    n_gates 512-byte tiles. Mirrors ``Tf32Smem`` in
+    ``csrc/whole_decode_tf32.cu`` (``recnet_whole_decode_tf32_smem``)."""
+    slots = 3 if n_gates == 4 else 4
+    ld = lambda n: -(-(-(-n // 8) * 8) // 32) * 32 + 4
+    align16 = lambda n: -(-n // 16) * 16
+    o = 0
+    for nbytes in (4 * ROWS_PER_BLOCK * ld(K),      # x = [emb, ctx]
+                   4 * 2 * ROWS_PER_BLOCK * ld(H),  # h, double-buffered
+                   4 * ROWS_PER_BLOCK * H,          # c
+                   4 * ROWS_PER_BLOCK * A,          # W h
+                   4 * 2 * A,                       # attn w, b
+                   4 * ROWS_PER_BLOCK * L,          # scores
+                   4 * 2 * _TC_WARPS * ROWS_PER_BLOCK,    # argmax
+                   4 * 2 * MAX_CLUSTER * ROWS_PER_BLOCK,  # cluster's best
+                   4 * ROWS_PER_BLOCK):             # tokens
+        o = align16(o + nbytes)
+    return o + 4 * _TC_WARPS * slots * n_gates * 128
+
+
+def check_tf32_fits(n_gates: int, L: int, A: int, K: int, H: int) -> int:
+    """The TF32 body's shared memory for these shapes; raises
+    ``ValueError`` where a block cannot have it."""
+    need = tf32_smem_bytes(n_gates, L, A, K, H)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"the TF32 body needs {need} bytes of shared memory at L={L}, "
+            f"A={A}, E+F={K}, H={H} ({n_gates} gates); a Hopper block has "
+            f"{SMEM_LIMIT}")
+    return need
+
+
+def cluster_size(B: int, H: int, n_sms: int) -> int:
+    """Blocks of the TF32 body's cluster that share one tile of 8 rows: the
+    largest C of 8, 4, 2 with ceil(B / 8) C blocks at most the card's SM
+    count and C at most the H / 16 unit tiles; else 1. At the flagship
+    (H = 512) on 132 SMs: 8 up to B = 128 (the eval batch B = 100: 13
+    tiles, 104 blocks), 4 up to 264, 2 up to 528, 1 beyond (B = 1024)."""
+    tiles = -(-B // ROWS_PER_BLOCK)
+    for C in (8, 4, 2):
+        if C <= MAX_CLUSTER and C <= H // 16 and tiles * C <= n_sms:
+            return C
+    return 1
+
+
 def _variant_name(early_exit: bool, dual: bool, ablate: str,
                   cuda_cores: bool = False, body: str = TENSOR_CORES) -> str:
     """The key of ``variant_launches``: "early_exit", "dual" or
     "ablate=<part>", followed by "[cuda_cores]" where it ran on the
-    CUDA-core body; "cuda_cores" for the production step asked for on
-    that body; "" is the production kernel."""
+    CUDA-core body and "[tf32]" on the TF32 body; "cuda_cores" for the
+    production step asked for on that body; "" is the production kernel."""
     name = ("early_exit" if early_exit else "dual" if dual
             else f"ablate={ablate}" if _variant(False, False, ablate)
             else "")
     if not name:
         return "cuda_cores" if cuda_cores else ""
-    return name if body == TENSOR_CORES else f"{name}[cuda_cores]"
+    return {CUDA_CORES: f"{name}[cuda_cores]",
+            TF32: f"{name}[tf32]"}.get(body, name)
 
 
 def _check_options(early_exit: bool, dual: bool, ablate: str) -> None:
@@ -191,13 +266,30 @@ _COUNT_LOCK = threading.Lock()
 
 def _library(name: str = "whole_decode") -> ctypes.CDLL:
     """The built library ``name``: "whole_decode" (production, the early
-    exit, the CUDA-core probes) or "whole_decode_probes" (the tensor-core
-    probes), bound at first use."""
+    exit, the CUDA-core probes), "whole_decode_probes" (the tensor-core
+    probes) or "whole_decode_tf32" (the TF32 body), bound at first use."""
     lib = build.load(name)
     if getattr(lib, "_recnet_bound", False):
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
     args = [i, i, i] + [p] * 18 + [i] * 8 + [ctypes.c_float, p]
+    if name == "whole_decode_tf32":
+        lib.recnet_whole_decode_tf32.argtypes = (
+            [i, i, i] + [p] * 17 + [i] * 8 + [ctypes.c_float, p])
+        lib.recnet_whole_decode_tf32.restype = i
+        lib.recnet_whole_decode_tf32_smem.argtypes = [i] * 5
+        lib.recnet_whole_decode_tf32_smem.restype = ctypes.c_longlong
+        lib.recnet_whole_decode_tf32_out_group.argtypes = []
+        lib.recnet_whole_decode_tf32_out_group.restype = i
+        lib.recnet_tf32_error_string.argtypes = [i]
+        lib.recnet_tf32_error_string.restype = ctypes.c_char_p
+        if lib.recnet_whole_decode_tf32_out_group() != layout.PROJ_GROUP:
+            raise RuntimeError(
+                f"the TF32 body's out_w column group "
+                f"{lib.recnet_whole_decode_tf32_out_group()} != "
+                f"layout.PROJ_GROUP {layout.PROJ_GROUP}")
+        lib._recnet_bound = True
+        return lib
     if name == "whole_decode_probes":
         lib.recnet_whole_decode_probe.argtypes = args
         lib.recnet_whole_decode_probe.restype = i
@@ -252,12 +344,12 @@ def check_sm90(device: torch.device, what: str) -> None:
 
 
 def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
-            n_steps: int, cell_type: str, emb_scale: float,
-            route: Route = None):
-    """Run the CUDA kernel for ``n_steps`` steps on ``route`` (the
-    production step's route when None); returns (tokens (B, n_steps), h,
-    c, token (B, 1)). Token columns a block never reached (early exit)
-    read 0."""
+            n_steps: int, cell_type: str, emb_scale: float, route: Route,
+            cluster: int = None):
+    """Run the CUDA kernel for ``n_steps`` steps on ``route``; returns
+    (tokens (B, n_steps), h, c, token (B, 1)). Token columns a block never
+    reached (early exit) read 0. ``cluster``: the TF32 body's blocks a
+    tile (``cluster_size`` when None)."""
     device, dtype = enc.device, enc.dtype
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {dtype}")
@@ -288,8 +380,9 @@ def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
         raise ValueError(f"embedding width {E} != emb_size {emb_size}")
     if B < 1 or n_steps < 1:
         raise ValueError(f"empty decode: B={B}, n_steps={n_steps}")
-    if route is None:
-        route = kernel_route(dtype, H)
+    if route.body == TF32:
+        return _launch_tf32(params, enc, uv, bias2, h, c, token, route,
+                            n_gates, E, n_steps, emb_scale, cluster)
     lib = _library()
     entry = lib.recnet_whole_decode
     if route.body == TENSOR_CORES:
@@ -323,6 +416,66 @@ def _launch(params, enc, uv, bias2, h, c, token, *, emb_size: int,
     return tokens, h_out, c_out, tok_out
 
 
+def _launch_tf32(params, enc, uv, bias2, h, c, token, route: Route,
+                 n_gates: int, E: int, n_steps: int, emb_scale: float,
+                 cluster: int = None):
+    """``_launch`` on the TF32 body, its operands checked there: the f32
+    tiles (the parameter set's, or made for this call) and the cluster."""
+    device = enc.device
+    B, L, F = enc.shape
+    H, A = params["attention"]["W"].shape
+    V = params["out_w"].shape[1]
+    check_tf32_fits(n_gates, L, A, E + F, H)
+    if cluster is None:
+        cluster = cluster_size(B, H, torch.cuda.get_device_properties(
+            device).multi_processor_count)
+    if cluster not in (1, 2, 4, 8) or cluster > H // 16:
+        raise ValueError(f"cluster {cluster}: the TF32 body takes 1, 2, 4 or "
+                         f"8 blocks a tile, at most H / 16 = {H // 16}")
+    tiles = params.get("layouts") or {}
+    if "gates" not in tiles or tiles["gates"].dtype != torch.float32:
+        tiles = layout.decode_tiles(params)
+    for name, t in (("gates", tiles["gates"]), ("attn_W", tiles["attn_W"]),
+                    ("out_w", tiles["out_w"])):
+        if (t.dtype != torch.float32 or t.device != device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"the TF32 body's {name} tiles must be "
+                             f"contiguous f32 on {device}, 16-byte aligned")
+    lib = _library("whole_decode_tf32")
+    tokens = torch.zeros((B, n_steps), dtype=torch.int32, device=device)
+    h_out, c_out = torch.empty_like(h), torch.empty_like(c)
+    tok_out = torch.empty((B, 1), dtype=torch.int32, device=device)
+    a = params["attention"]
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.recnet_whole_decode_tf32(
+            n_gates, route.variant, cluster, ptr(enc), ptr(uv),
+            ptr(params["embedding"]), ptr(tiles["attn_W"]), ptr(a["w"]),
+            ptr(a["b"]), ptr(tiles["gates"]), ptr(bias2),
+            ptr(tiles["out_w"]), ptr(params["out_b"]), ptr(h), ptr(c),
+            ptr(token), ptr(tokens), ptr(h_out), ptr(c_out), ptr(tok_out),
+            B, L, F, A, E, H, V, n_steps, ctypes.c_float(emb_scale),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"whole-decode kernel launch failed (tf32 body, cluster "
+            f"{cluster}): {lib.recnet_tf32_error_string(err).decode()} "
+            f"({err})")
+    return tokens, h_out, c_out, tok_out
+
+
+def _operand_route(params: Dict, enc: torch.Tensor, emb_size: int,
+                   cell_type: str, **options) -> Route:
+    """``kernel_route`` for these operands: whether the TF32 body's buffers
+    fit a block is read from their shapes."""
+    H, A = params["attention"]["W"].shape
+    L, F = enc.shape[1], enc.shape[2]
+    fits = (tf32_smem_bytes(_N_GATES.get(cell_type, 4), L, A, emb_size + F,
+                            H) <= SMEM_LIMIT)
+    return kernel_route(enc.dtype, H, tf32_fits=fits, **options)
+
+
 def _device_route(enc: torch.Tensor) -> str:
     if enc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no whole-decode route for {enc.device}")
@@ -343,6 +496,25 @@ def _intkey_argmax(logits: torch.Tensor) -> torch.Tensor:
     iota = torch.arange(V, dtype=torch.int32, device=logits.device)
     masked = torch.where(key == top, iota, torch.full_like(iota, V))
     return masked.min(dim=-1, keepdim=True).values
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: the low
+    13 mantissa bits to nearest, ties away from zero (finite values)."""
+    bits = x.float().contiguous().view(torch.int32).long()
+    bits = (bits + 0x1000) & ~0x1FFF
+    return bits.to(torch.int32).view(torch.float32).view(x.shape)
+
+
+def matmul_3xtf32_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A plain model of the TF32 body's products: each f32 operand split as
+    hi = tf32(x), lo = tf32(x - hi), and a @ b as a_lo b_hi + a_hi b_lo +
+    a_hi b_hi (the products of TF32 values are exact in f32; the sums
+    here are f32, in matmul's order). For tests and chip_smoke.py."""
+    a, b = a.float(), b.float()
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
 
 
 def _embedding_rows(emb: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
@@ -366,7 +538,8 @@ def _live_tiles(token: torch.Tensor) -> torch.Tensor:
 
 def _decode_reference(params, enc, uv, bias2, h, c, token, *, emb_size: int,
                       n_steps: int, cell_type: str, emb_scale: float,
-                      ablate: str = "", early_exit: bool = False):
+                      ablate: str = "", early_exit: bool = False,
+                      matmul=torch.matmul):
     """``n_steps`` greedy steps in plain PyTorch with the casts of the
     Pallas step (``_make_step``): dtype operands, f32 accumulation (a
     product of dtype values widened to f32), ctx cast to dtype before its
@@ -374,7 +547,9 @@ def _decode_reference(params, enc, uv, bias2, h, c, token, *, emb_size: int,
     stubs parts as ``_make_step`` does. With ``early_exit`` a tile of
     ``ROWS_PER_BLOCK`` rows stops once all its tokens are 0 (the token
     freezes, so its later columns read 0), and the loop ends when every
-    tile has stopped."""
+    tile has stopped. ``matmul`` computes the products with the weights (W
+    h, the gates, the logits): a model of a kernel's products in tests,
+    ``matmul_3xtf32_reference`` for the TF32 body's."""
     f32 = torch.float32
     dtype = enc.dtype
     emb, W, w, b, w_ih, w_hh, out_w, out_b = _weights(params)
@@ -401,7 +576,7 @@ def _decode_reference(params, enc, uv, bias2, h, c, token, *, emb_size: int,
         h32 = h.to(f32)
         ctx = torch.zeros_like(enc_f[:, 0])
         if attn != 1:
-            act = torch.tanh((h32 @ W)[:, None, :] + uv_f + b)  # (B, L, A)
+            act = torch.tanh(matmul(h32, W)[:, None, :] + uv_f + b)
             score = act[:, :, :1] if attn == 2 else act @ w      # (B, L, 1)
             if attn == 3:
                 acc = torch.zeros_like(score[:, 0])
@@ -413,8 +588,8 @@ def _decode_reference(params, enc, uv, bias2, h, c, token, *, emb_size: int,
                     ctx = ctx + score[:, f] * enc_f[:, f]
                 ctx = ctx / L
         ctx = ctx.to(dtype).to(f32)
-        gi = e @ w_emb + ctx @ w_ctx + b_ih
-        gh = h32 @ w_hh + b_hh
+        gi = matmul(e, w_emb) + matmul(ctx, w_ctx) + b_ih
+        gh = matmul(h32, w_hh) + b_hh
         if cell_type == "GRU":
             r = torch.sigmoid(gi[:, :H] + gh[:, :H])
             z = torch.sigmoid(gi[:, H:2 * H] + gh[:, H:2 * H])
@@ -430,7 +605,7 @@ def _decode_reference(params, enc, uv, bias2, h, c, token, *, emb_size: int,
             raise ValueError(f"Unknown cell type: {cell_type}")
         new = token
         if proj != 1:
-            logits = h.to(f32) @ out_w + out_b
+            logits = matmul(h.to(f32), out_w) + out_b
             if proj == 2:      # first max; -0.0 ties +0.0
                 new = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
             elif proj == 3:    # int(max logit), often outside [0, V)
@@ -486,7 +661,8 @@ def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
                         sos: int = 1, cell_type: str = "GRU",
                         emb_scale: float = 1.0, early_exit: bool = False,
                         dual: bool = False, ablate: str = "",
-                        cuda_cores: bool = False) -> torch.Tensor:
+                        cuda_cores: bool = False,
+                        cluster: int = None) -> torch.Tensor:
     """K1: the whole greedy decode in one launch.
 
     params: decoder params (embedding, attention{W,w,b}, rnn[0], out_w,
@@ -504,13 +680,15 @@ def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
     ``dual`` with ``early_exit`` or ``ablate`` raises ``ValueError``.
 
     The body (``kernel_route``): bf16 with H % 16 == 0 runs every variant
-    on the tensor-core body; f32 and other H on the CUDA-core body;
+    on the tensor-core body; f32 with H % 16 == 0 runs production and the
+    early exit on the TF32 body; the rest on the CUDA-core body;
     ``cuda_cores`` asks for the CUDA-core body for any variant (the first
-    design, kept as the redesign's baseline: in bf16 the same tokens up to
-    the sum order). The tensor-core body reads the tiles in
-    ``params["layouts"]`` (see ``layout.kernel_layouts``), or makes them
+    design, kept as the redesigns' baseline: the same tokens up to the sum
+    order). The tensor-core and TF32 bodies read the tiles in
+    ``params["layouts"]`` (see ``layout.kernel_layouts``), or make them
     for the call where they are missing; a launch whose shared memory a
-    block cannot have raises ``ValueError``."""
+    block cannot have raises ``ValueError``. ``cluster`` sets the TF32
+    body's blocks a tile (``cluster_size`` when None)."""
     _check_options(early_exit, dual, ablate)
     kw = dict(emb_size=emb_size, cell_type=cell_type, emb_scale=emb_scale)
     if _device_route(enc) == "cpu":
@@ -518,44 +696,55 @@ def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
             params, enc, uv, bias2, max_len=max_len, sos=sos,
             early_exit=early_exit, dual=dual, ablate=ablate, **kw)
     B, H = enc.shape[0], params["attention"]["W"].shape[0]
-    route = kernel_route(enc.dtype, H, early_exit=early_exit, dual=dual,
-                         ablate=ablate, cuda_cores=cuda_cores)
+    route = _operand_route(params, enc, emb_size, cell_type,
+                           early_exit=early_exit, dual=dual, ablate=ablate,
+                           cuda_cores=cuda_cores)
     V = params["embedding"].shape[0]
     if not 0 <= sos < V:
         raise ValueError(f"sos token {sos} outside the vocab of {V}")
     z = torch.zeros((B, H), dtype=enc.dtype, device=enc.device)
     tok = torch.full((B, 1), sos, dtype=torch.int32, device=enc.device)
     tokens = _launch(params, enc, uv, bias2, z, z, tok,
-                     n_steps=max_len + 1, route=route, **kw)[0]
+                     n_steps=max_len + 1, route=route, cluster=cluster,
+                     **kw)[0]
     name = _variant_name(early_exit, dual, ablate, cuda_cores, route.body)
     with _COUNT_LOCK:         # a mesh Captioner's shards launch from threads
         if name:
             whole_greedy_decode.variant_launches[name] += 1
         else:
             whole_greedy_decode.n_launches += 1
+        whole_greedy_decode.body_launches[route.body] += 1
     return tokens
 
 
 whole_greedy_decode.n_launches = 0
 whole_greedy_decode.variant_launches = collections.Counter()
+whole_greedy_decode.body_launches = collections.Counter()
 
 
 def whole_greedy_decode_segment(
         params: Dict, enc: torch.Tensor, uv: torch.Tensor,
         bias2: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
         token: torch.Tensor, *, emb_size: int, seg_len: int,
-        cell_type: str = "GRU", emb_scale: float = 1.0
+        cell_type: str = "GRU", emb_scale: float = 1.0,
+        cuda_cores: bool = False, cluster: int = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2: ``seg_len`` greedy steps from (h, c, token (B, 1) int32).
-    Returns (tokens (B, seg_len), h, c, token)."""
+    Returns (tokens (B, seg_len), h, c, token). The body as K1's
+    production step's (``cuda_cores``, ``cluster`` as there)."""
     kw = dict(emb_size=emb_size, cell_type=cell_type, emb_scale=emb_scale)
     if _device_route(enc) == "cpu":
         return whole_greedy_decode_segment_reference(
             params, enc, uv, bias2, h, c, token, seg_len=seg_len, **kw)
-    out = _launch(params, enc, uv, bias2, h, c, token, n_steps=seg_len, **kw)
+    route = _operand_route(params, enc, emb_size, cell_type,
+                           cuda_cores=cuda_cores)
+    out = _launch(params, enc, uv, bias2, h, c, token, n_steps=seg_len,
+                  route=route, cluster=cluster, **kw)
     with _COUNT_LOCK:
         whole_greedy_decode_segment.n_launches += 1
+        whole_greedy_decode_segment.body_launches[route.body] += 1
     return out
 
 
 whole_greedy_decode_segment.n_launches = 0
+whole_greedy_decode_segment.body_launches = collections.Counter()

@@ -44,7 +44,7 @@ def params_from_jax(tree: Dict, device="cpu", dtype=None) -> Dict:
     tensors on ``device``. Floating arrays are cast to ``dtype`` when given;
     the values are copied bit for bit otherwise, into contiguous tensors
     whatever the arrays' strides (a transposed view included: the kernels
-    take contiguous operands only). bf16 params on a CUDA card also carry
+    take contiguous operands only). bf16 and f32 params on a CUDA card carry
     ``"layouts"``, the weight copies the kernels read
     (``ops.cuda.layout.kernel_layouts``), made here once."""
     params = _map(tree, lambda x: torch.from_numpy(

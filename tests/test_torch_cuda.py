@@ -1,6 +1,7 @@
 """The CUDA kernels on the card, against their plain twins: the whole
-decode (K1/K2) with its K5 variants (early exit, dual, ablate) on both
-bodies (tensor cores, and CUDA cores under ``cuda_cores``), the fused
+decode (K1/K2) with its K5 variants (early exit, dual, ablate) on its
+bodies (tensor cores in bf16, the TF32 body in f32 at every cluster size,
+and CUDA cores under ``cuda_cores``), the fused
 projection + top-k (K3), the fused attention + GRU step (K4: its
 tensor-core route, each of the route's two kernels against its plain
 stage, and its CUDA-core body), and the training rollouts' kernels (the
@@ -205,8 +206,14 @@ def test_k3_ties_take_the_lowest_column(cuda, v):
     b = torch.zeros(w.shape[1], device=cuda)
     got = topk_proj.outproj_topk(out, w, b, k=k)
     want = topk_proj.outproj_topk_reference(out, w, b, k=k)
+    single = topk_proj.outproj_topk(out, w, b, k=k, f32_single_pass=True)
     torch.cuda.synchronize()
-    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(single[1], want[1])
+    # the single pass's x 1 is exact; the TF32 split route's three terms
+    # carry x as tf32(x) + tf32(x - tf32(x)), within 2^-22 of it, the same
+    # for every tied column
+    assert torch.equal(single[0], want[0])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
     best = out.argmax(dim=1, keepdim=True).int()
     assert torch.equal(got[1], best + 8 * torch.arange(
         k, device=cuda, dtype=torch.int32))
@@ -252,8 +259,8 @@ def test_beam_kernel_route_equals_plain_route(cuda, cell):
 @pytest.mark.parametrize("cell", ["GRU", "LSTM"])
 def test_k5_dual_is_bit_equal_to_k1(cuda, cell, dtype):
     """dual against K1's production step on the same (CUDA-core) body,
-    asked for by ``cuda_cores`` (bf16 runs on the tensor cores otherwise;
-    f32 always runs on CUDA cores)."""
+    asked for by ``cuda_cores`` (bf16 runs on the tensor cores otherwise,
+    f32's production step on the TF32 body)."""
     ops = _operands(cell, cuda, dtype=dtype, seed=6)
     kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell)
     got = wd.whole_greedy_decode(*ops, dual=True, cuda_cores=True, **kw)
@@ -271,12 +278,12 @@ def test_k5_early_exit_matches_twin_with_a_zero_tail(cuda, cell):
     params["out_b"][0] += 2.0
     kw = dict(emb_size=E, max_len=MAX_LEN, cell_type=cell, early_exit=True)
     ops = (params, enc, uv, bias2)
-    n = wd.whole_greedy_decode.variant_launches["early_exit[cuda_cores]"]
+    n = wd.whole_greedy_decode.variant_launches["early_exit[tf32]"]
     got = wd.whole_greedy_decode(*ops, **kw)
     want = wd.whole_greedy_decode_reference(*ops, **kw)
     torch.cuda.synchronize()
-    assert (wd.whole_greedy_decode.variant_launches["early_exit[cuda_cores]"]
-            == n + 1)    # f32 runs on the CUDA-core body
+    assert (wd.whole_greedy_decode.variant_launches["early_exit[tf32]"]
+            == n + 1)    # f32 runs on the TF32 body
     assert torch.equal(got, want)
     assert (got[:, -1] == 0).all()
 
@@ -836,13 +843,18 @@ def test_k3_split_boundaries_inside_equal_logits(cuda, dtype, k):
     w[0] = 1.0
     b = torch.zeros(v, device=cuda, dtype=dtype)
     assert topk_proj.splits(n, v, k, torch.bfloat16, 132) > 1
+    assert topk_proj.splits(n, v, k, dtype, 132) > 1
     got = topk_proj.outproj_topk(out, w, b, k=k)
     want = topk_proj.outproj_topk_reference(out, w, b, k=k)
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[1], torch.arange(k, device=cuda, dtype=torch.int32)
                        .expand(n, k))
-    assert torch.equal(got[0], want[0])
+    if dtype == torch.bfloat16:
+        assert torch.equal(got[0], want[0])
+    else:   # three TF32 terms: x 1 within 2^-22 of x, equal across columns
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+        assert bool((got[0] == got[0][:, :1]).all())
 
 
 # --------------------------------------------------------------------------
@@ -1876,3 +1888,244 @@ def test_cell_rollout_probes(cuda, cell, dtype):
                                          cs))):
         for x in rollout.cell_rollout_probe(kind, "exchange", *operands):
             assert x is None or bool(torch.isfinite(x.float()).all())
+
+
+# --------------------------------------------------------------------------
+# the f32 route: K1/K2's TF32 body and K3's TF32 split route
+# --------------------------------------------------------------------------
+
+F32_ROWS = 0.99                 # rows of f32 tokens equal to the twin's
+H_RTOL, H_ATOL = 1e-4, 1e-5     # f32 h and c against the twin
+TF32_SEEDS = range(5)
+TF32_E, TF32_F = 468, 1536      # the flagship's embedding and features
+
+
+def _tf32_operands(cell, device, b, h=512, seed=0, v=4188):
+    """Flagship-width f32 operands (E 468, F 1536, A 128, L 28) at H = h."""
+    cfg = DecoderConfig(cell_type=cell, vocab_size=v, embedding_size=TF32_E,
+                        encoder_size=TF32_F, hidden_size=h, attn_size=128)
+    params = params_from_jax(random_params(cfg, seed), device, torch.float32)
+    enc = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b, 28, TF32_F)).astype(np.float32)).to(device)
+    r = params["rnn"][0]
+    return cfg, (params, enc, precompute_uv(params["attention"], enc),
+                 torch.stack([r["b_ih"], r["b_hh"]]))
+
+
+def _zero_start(device, b, h, sos=1):
+    z = torch.zeros((b, h), device=device)
+    return z, z, torch.full((b, 1), sos, dtype=torch.int32, device=device)
+
+
+def _share(rows):
+    """The share of True in ``rows``, in float64 (99 of 100 is 0.99)."""
+    return rows.double().mean().item()
+
+
+@pytest.mark.parametrize("seed", TF32_SEEDS)
+@pytest.mark.parametrize("b", [1, 100, 1024])
+@pytest.mark.parametrize("h", [512, 528])   # 528: 33 unit tiles, uneven
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_tf32_body_matches_the_twin_and_the_cuda_core_body(cuda, cell, h, b,
+                                                           seed):
+    """K1 and K2 (two chained segments of 4) on the TF32 body against the
+    twin and against the first design (``cuda_cores``): tokens on F32_ROWS
+    of rows, h and c within H_RTOL / H_ATOL on them. Under 100 rows the
+    bound allows no row off, so B = 1 pools 100 launches of one row."""
+    launches = max(1, 100 // b)
+    cfg, ops = _tf32_operands(cell, cuda, b * launches, h, seed)
+    kw = dict(emb_size=TF32_E, cell_type=cell)
+    bodies = wd.whole_greedy_decode.body_launches
+    n = bodies["tf32"]
+    parts = [tuple(x[i * b:(i + 1) * b] for x in ops[1:3])
+             for i in range(launches)]
+    got, cores, want, k_rows, k_outs, t_outs = [], [], [], [], [], []
+    for enc, uv in parts:
+        one = (ops[0], enc, uv, ops[3])
+        got.append(wd.whole_greedy_decode(*one, max_len=MAX_LEN, **kw))
+        cores.append(wd.whole_greedy_decode(*one, max_len=MAX_LEN,
+                                            cuda_cores=True, **kw))
+        want.append(wd.whole_greedy_decode_reference(*one, max_len=MAX_LEN,
+                                                     **kw))
+        k_state = t_state = _zero_start(cuda, b, h)
+        for _ in range(2):
+            k_out = wd.whole_greedy_decode_segment(*one, *k_state, seg_len=4,
+                                                   **kw)
+            t_out = wd.whole_greedy_decode_segment_reference(
+                *one, *t_state, seg_len=4, **kw)
+            k_state, t_state = k_out[1:], t_out[1:]
+        k_outs.append(k_out)
+        t_outs.append(t_out)
+    torch.cuda.synchronize()
+    assert bodies["tf32"] == n + launches
+    got, cores, want = (torch.cat(x) for x in (got, cores, want))
+    for other in (want, cores):
+        assert _share((got == other).all(dim=1)) >= F32_ROWS
+    k_out = [torch.cat(x) for x in zip(*k_outs)]
+    t_out = [torch.cat(x) for x in zip(*t_outs)]
+    rows = (k_out[0] == t_out[0]).all(dim=1)
+    assert _share(rows) >= F32_ROWS
+    for i in (1, 2):
+        torch.testing.assert_close(k_out[i][rows], t_out[i][rows],
+                                   rtol=H_RTOL, atol=H_ATOL)
+
+
+@pytest.mark.parametrize("b", [1, 100])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_tf32_body_is_bit_equal_at_every_cluster_size(cuda, cell, b):
+    """C = 1, 2, 4, 8 blocks a tile of 8 rows: the tokens, h and c of K2
+    (T steps from <SOS>) bit-equal to C = 1's, and the twin's tokens on
+    F32_ROWS of rows; the wrapper picks C = 8 at B = 1 and 100."""
+    cfg, ops = _tf32_operands(cell, cuda, b, seed=3)
+    kw = dict(emb_size=TF32_E, cell_type=cell, seg_len=MAX_LEN + 1)
+    start = _zero_start(cuda, b, 512)
+    assert wd.cluster_size(b, 512, torch.cuda.get_device_properties(
+        cuda).multi_processor_count) == 8
+    want = wd.whole_greedy_decode_segment_reference(*ops, *start, **kw)
+    first = None
+    for c in (1, 2, 4, 8, None):
+        got = wd.whole_greedy_decode_segment(*ops, *start, cluster=c, **kw)
+        torch.cuda.synchronize()
+        if first is None:
+            first = got
+        assert all(torch.equal(x, y) for x, y in zip(got, first))
+    assert _share((first[0] == want[0]).all(dim=1)) >= F32_ROWS
+
+
+def test_tf32_body_refuses_a_cluster_it_cannot_take(cuda):
+    cfg, ops = _tf32_operands("GRU", cuda, 8)
+    for c in (3, 16):
+        with pytest.raises(ValueError, match="cluster"):
+            wd.whole_greedy_decode(*ops, emb_size=TF32_E, max_len=2, cluster=c)
+
+
+def test_tf32_early_exit_matches_twin(cuda):
+    """The early exit on the TF32 body, at a cluster of 8 and of 1, with
+    <PAD> lifted: each block's tokens equal the twin's, 0 after its stop."""
+    cfg, (params, enc, uv, bias2) = _tf32_operands("GRU", cuda, 100, seed=4)
+    params = dict(params, out_b=params["out_b"].clone())
+    params["out_b"][0] += 3.0
+    ops = (params, enc, uv, bias2)
+    kw = dict(emb_size=TF32_E, max_len=MAX_LEN, early_exit=True)
+    want = wd.whole_greedy_decode_reference(*ops, **kw)
+    for c in (8, 1):
+        got = wd.whole_greedy_decode(*ops, cluster=c, **kw)
+        torch.cuda.synchronize()
+        assert _share((got == want).all(dim=1)) >= F32_ROWS
+    assert bool((want == 0).any())
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_tf32_wide_decoder_runs_on_the_cuda_core_body(cuda, cell):
+    """H = 1536: the TF32 body's rows do not fit a block, so the f32
+    launch runs on the CUDA-core body by the rule, counted there."""
+    cfg, ops = _tf32_operands(cell, cuda, 16, h=1536, seed=5)
+    bodies = wd.whole_greedy_decode.body_launches
+    n = bodies["cuda_cores"]
+    kw = dict(emb_size=TF32_E, max_len=3, cell_type=cell)
+    got = wd.whole_greedy_decode(*ops, **kw)
+    want = wd.whole_greedy_decode_reference(*ops, **kw)
+    torch.cuda.synchronize()
+    assert bodies["cuda_cores"] == n + 1
+    assert _share((got == want).all(dim=1)) >= F32_ROWS
+
+
+def _kernel_names(fn, part):
+    """Whether a kernel whose name holds ``part`` runs in ``fn``, by
+    torch.profiler: each session opens with spin kernels (the profiler
+    misses a session's first device events) and, as chip_smoke.py's
+    device_ms does, a session that reports none of ``fn``'s kernels is run
+    again, three times at most. Returns the names of the last session."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if "spin_kernel" not in e.name}
+        if any(part in n for n in names):
+            break
+    return names
+
+
+def test_f32_routes_by_kernel_name(cuda):
+    """f32 K1/K2 launch tf32_decode_kernel, ``cuda_cores`` the CUDA-core
+    body's whole_decode_kernel; f32 K3 with k <= 8 the float split and
+    merge kernels, ``f32_single_pass`` the single pass; bf16 is unchanged
+    (tc_decode_kernel, the bf16 split kernel)."""
+    cfg, ops = _tf32_operands("GRU", cuda, 100)
+    kw = dict(emb_size=TF32_E, max_len=MAX_LEN)
+    has = lambda fn, part: any(part in n for n in _kernel_names(fn, part))
+    assert has(lambda: wd.whole_greedy_decode(*ops, **kw),
+               "tf32_decode_kernel")
+    assert has(lambda: wd.whole_greedy_decode(*ops, cuda_cores=True, **kw),
+               "whole_decode_kernel")
+    assert not has(lambda: wd.whole_greedy_decode(*ops, **kw),
+                   "whole_decode_kernel")
+    out = torch.tanh(torch.randn((500, 512), device=cuda))
+    w, b = ops[0]["out_w"], ops[0]["out_b"]
+    assert has(lambda: topk_proj.outproj_topk(out, w, b, k=5),
+               "topk_split_kernel<float")
+    assert has(lambda: topk_proj.outproj_topk(out, w, b, k=5,
+                                              f32_single_pass=True),
+               "topk_proj_kernel<float")
+    bf = params_from_jax(random_params(cfg, 0), cuda, torch.bfloat16)
+    enc = ops[1].bfloat16()
+    r = bf["rnn"][0]
+    b_ops = (bf, enc, precompute_uv(bf["attention"], enc),
+             torch.stack([r["b_ih"], r["b_hh"]]))
+    assert has(lambda: wd.whole_greedy_decode(*b_ops, **kw),
+               "tc_decode_kernel")
+    assert has(lambda: topk_proj.outproj_topk(out.bfloat16(), bf["out_w"],
+                                              bf["out_b"], k=5),
+               "topk_split_kernel<__nv_bfloat16")
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_tf32_layout_mirror_equals_the_kernel(cuda, cell):
+    lib = wd._library("whole_decode_tf32")
+    n_gates = 3 if cell == "GRU" else 4
+    for shape in ((28, 128, 468 + 1536, 512), (7, 8, 36, 16),
+                  (28, 128, 2004, 528)):
+        want = wd.tf32_smem_bytes(n_gates, *shape)
+        assert lib.recnet_whole_decode_tf32_smem(n_gates, *shape) == want
+
+
+def test_f32_parameter_sets_carry_the_tf32_tiles(cuda):
+    """f32 params on the card carry the TF32 body's tiles, made once; K1
+    gives the same tokens with them as with tiles made for the call."""
+    cfg, ops = _tf32_operands("GRU", cuda, 100)
+    params = ops[0]
+    assert params["layouts"]["gates"].dtype == torch.float32
+    bare = {k: v for k, v in params.items() if k != "layouts"}
+    kw = dict(emb_size=TF32_E, max_len=MAX_LEN)
+    assert torch.equal(wd.whole_greedy_decode(*ops, **kw),
+                       wd.whole_greedy_decode(bare, *ops[1:], **kw))
+
+
+@pytest.mark.parametrize("seed", TF32_SEEDS)
+@pytest.mark.parametrize("n,k", [(500, 5), (5120, 5), (1001, 1), (77, 8)])
+def test_k3_tf32_split_matches_twin_and_single_pass(cuda, n, k, seed):
+    """K3's f32 split route at the flagship width: columns equal the
+    twin's and the single pass's on 99% of rows, values within 1e-5 on
+    them; counted as "tf32_split"."""
+    out, w, b = _topk_operands(cuda, n, 512, 4188, torch.float32, seed=seed)
+    out = torch.tanh(out)
+    routes = topk_proj.outproj_topk.route_launches
+    m = routes["tf32_split"]
+    got = topk_proj.outproj_topk(out, w, b, k=k)
+    single = topk_proj.outproj_topk(out, w, b, k=k, f32_single_pass=True)
+    want = topk_proj.outproj_topk_reference(out, w, b, k=k)
+    torch.cuda.synchronize()
+    assert routes["tf32_split"] == m + 1
+    for other in (want, single):
+        rows = (got[1] == other[1]).all(dim=1)
+        assert _share(rows) >= 0.99
+        torch.testing.assert_close(got[0][rows], other[0][rows], rtol=1e-5,
+                                   atol=1e-5)

@@ -102,7 +102,7 @@ def test_outproj_topk_rejects_what_the_kernel_does_not_take():
     (1001, 4188, 1, torch.bfloat16, 16),
     (64, 200, 3, torch.bfloat16, 2),      # at most one range a 128-column tile
     (20000, 4188, 5, torch.bfloat16, 1),  # more row blocks than two an SM
-    (5120, 4188, 5, torch.float32, 0),    # f32: the single-pass kernel
+    (5120, 4188, 5, torch.float32, 3),    # f32: the same split, on TF32
     (5120, 4188, 9, torch.bfloat16, 0),   # k > 8: the single-pass kernel
 ])
 def test_splits_fill_one_wave(n, v, k, dtype, want):
@@ -132,7 +132,8 @@ def test_padded_columns_is_made_once_and_follows_changes():
     assert kept["out_w_padded"] is p              # kept with the set
     assert "layouts" not in cast_params(params, "float32")
     assert set(params_to_numpy(params)) == set(random_params(cfg, 0))
-    assert kernel_layouts(cast_params(params, "float32")) is None
+    f32 = kernel_layouts(cast_params(params, "float32"))   # TF32 tiles
+    assert f32["out_w_padded"].dtype == f32["gates"].dtype == torch.float32
     w.add_(1.0)                                   # changed in place
     q = padded_columns(w)
     assert q is not p and torch.equal(q[:, :4188], w)

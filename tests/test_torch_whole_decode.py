@@ -385,8 +385,9 @@ TC, CC = wd.TENSOR_CORES, wd.CUDA_CORES
      (CC, 1 << 5, "whole_decode")),
     (torch.bfloat16, 512, dict(early_exit=True, cuda_cores=True),
      (CC, 1, "whole_decode")),
-    # f32, and bf16 without 16-unit tiles: the CUDA-core body
-    (torch.float32, 512, {}, (CC, 0, "whole_decode")),
+    # f32 production in 16-unit tiles: the TF32 body; f32's probes, and
+    # bf16 without 16-unit tiles: the CUDA-core body
+    (torch.float32, 512, {}, (wd.TF32, 0, "whole_decode_tf32")),
     (torch.float32, 512, dict(dual=True), (CC, 2, "whole_decode")),
     (torch.float32, 512, dict(ablate="argmax"), (CC, 3 << 5, "whole_decode")),
     (torch.bfloat16, 24, dict(dual=True), (CC, 2, "whole_decode")),
