@@ -3,6 +3,9 @@
     python3 chip_smoke.py                        # from the repository root
     python3 chip_smoke.py --compare <other tree> # K1-K4 and [train] (c)
                                                  # of two trees
+    python3 chip_smoke.py --compare-train <other tree> [rounds]
+                                                 # [train] (c) alone, the
+                                                 # trees in turns
     python3 chip_smoke.py --read-rates           # the card's L2 and HBM
                                                  # read rates
 
@@ -125,6 +128,9 @@ the plain loop, f32 and bf16), for this tree and another (an unpacked
 parent, say) in turns: this, other, other, this, each in a process of
 its own; and holds the per-step cell kernels' outputs on the same seeded
 inputs across the two trees, f32 bit for bit and bf16 within 2 ulps.
+``--compare-train`` runs [train] (c)'s f32 and bf16 k-step dispatches
+alone, ``rounds`` times (3 unless given) this, other, other, this, each
+in a process of its own, and prints each tree's readings side by side.
 ``--read-rates`` times a small read kernel over an L2-resident buffer and
 over device memory.
 
@@ -1880,16 +1886,23 @@ def times(torch, tc, cfg, params_np, eos_np, pad_np):
     return entries
 
 
-def f32_cases(torch, tc, cfg, params, B):
+def f32_cases(torch, tc, cfg, params, B, pad_params=None):
     """The f32 route's rows at B: {name: (route, first design, plain twin,
     library route, (flops, bytes), timing reps, {profiler name: kernels a
     call} of the route and of the first design, launches a decode)}. K1
     from <SOS> for T steps; K2 seg_len 4 from a zero state and <SOS> (the
     library route: ``greedy_decode`` of 4 steps); K3 at B x BEAM rows of GRU
     output, k = BEAM (the library route: the cuBLAS f32 product, then
-    ``topk_rounds``). The first design: the CUDA-core body
+    ``topk_rounds``); K4 (its f32 body on CUDA-core FMAs is its own first
+    design; the library route: the composed
+    ``gru_attn_step_reference``; launches a decode: T in
+    ``greedy_decode_pallas``, which no entry point calls); with
+    ``pad_params`` (the PAD-timed weights) the early exit on the TF32 body,
+    its work counted over the row-steps its 8-row tiles run (the library
+    route: ``greedy_decode``). The first design: the CUDA-core body
     (``cuda_cores``), the single pass (``f32_single_pass``)."""
     from recnet_tpu_torch import decoding
+    from recnet_tpu_torch.ops.cuda import fused_step as fs
     from recnet_tpu_torch.ops.cuda import topk_proj as tp
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     T, L, H = tc.caption_max_len + 1, tc.encoder_output_len, cfg.hidden_size
@@ -1910,7 +1923,9 @@ def f32_cases(torch, tc, cfg, params, B):
     N, V = B * BEAM, cfg.vocab_size
     tf32, cores = "tf32_decode_kernel", "whole_decode_kernel"
     split = {"topk_split_kernel": 1, "topk_merge_kernel": 1}
-    return {
+    k4 = k4_operands(torch, cfg, params, enc, 14)
+    E, k4_flops, k4_bytes = cfg.embedding_size, *k4_work(cfg, L, B)
+    cases = {
         "whole_greedy_decode[f32]": (
             lambda: wd.whole_greedy_decode(*ops, **k1),
             lambda: wd.whole_greedy_decode(*ops, cuda_cores=True, **k1),
@@ -1937,27 +1952,57 @@ def f32_cases(torch, tc, cfg, params, B):
             lambda: tp.topk_rounds(hidden @ w + b, BEAM),
             (2 * N * H * V, 4 * (N * H + H * V + V) + 8 * N * BEAM), 10,
             split, {"topk_proj_kernel": 1}, T),
+        "fused_gru_attn_step[f32]": (
+            lambda: fs.fused_gru_attn_step(*k4, emb_size=E),
+            lambda: fs.fused_gru_attn_step(*k4, emb_size=E, cuda_cores=True),
+            lambda: fs.fused_gru_attn_step_reference(*k4, emb_size=E),
+            lambda: fs.gru_attn_step_reference(*k4[:9], k4[9][0], k4[9][1],
+                                               E),
+            (k4_flops, 2 * k4_bytes), 10, {"fused_step_kernel": 1},
+            {"fused_step_kernel": 1}, T),
     }
+    if pad_params is not None:
+        pad_ops = decode_operands(pad_params, enc)
+        early = dict(k1, early_exit=True)
+        full = wd.whole_greedy_decode(*pad_ops, **k1)
+        zero = torch.ones((-(-B // 8) * 8, T), dtype=torch.bool,
+                          device=DEVICE)
+        zero[:B] = full == 0
+        zero = zero.view(-1, 8, T).all(dim=1)
+        stop = torch.where(zero.any(dim=1), zero.int().argmax(dim=1) + 1, T)
+        row_steps = int((stop.clamp(max=T) * 8).sum())
+        cases["whole_greedy_decode[early_exit][f32]"] = (
+            lambda: wd.whole_greedy_decode(*pad_ops, **early),
+            lambda: wd.whole_greedy_decode(*pad_ops, cuda_cores=True,
+                                           **early),
+            lambda: wd.whole_greedy_decode_reference(*pad_ops, **early),
+            lambda: decoding.greedy_decode(pad_params, cfg, enc, T - 1),
+            decode_work(cfg, L, B, row_steps, T, elem=4), 3, {tf32: 1},
+            {cores: 1}, 1)
+    return cases
 
 
-def f32_times(torch, tc, cfg, params_np):
+def f32_times(torch, tc, cfg, params_np, pad_np):
     """[times] of the f32 route at the eval batch (EVAL_B) and at TIME_B:
-    each of ``f32_cases`` on its route (the TF32 body, K3's TF32 split
-    route), its first design, its plain twin and its library route by CUDA
-    events; the device time of the route and of the first design by the
+    each of ``f32_cases`` (the early exit on ``pad_np``'s PAD-timed
+    weights) on its route (the TF32 body, K3's TF32 split route, K4's
+    CUDA-core body), its first design, its plain twin and its library route
+    by CUDA events; the device time of the route and of the first design by the
     profiler (held to the kernels a call); the launches a decode; the bound
     (``bound_f32``) and the f32 CUDA-core peak's time beside it. Returns
     the kernels line's entries at EVAL_B, TIME_B's under "at_<TIME_B>"."""
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     from recnet_tpu_torch.weights import params_from_jax
     params = params_from_jax(params_np, DEVICE, torch.float32)
+    pad_params = params_from_jax(pad_np, DEVICE, torch.float32)
     card = card_line()
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     T = tc.caption_max_len + 1
     entries = {}
     for B in (EVAL_B, TIME_B):
         for name, (route, first, plain, library, work, reps, names, names1,
-                   per_decode) in f32_cases(torch, tc, cfg, params, B).items():
+                   per_decode) in f32_cases(torch, tc, cfg, params, B,
+                                            pad_params).items():
             ms, first_ms, plain_ms, library_ms = (
                 timed(torch, fn, reps)[0]
                 for fn in (route, first, plain, library))
@@ -1973,7 +2018,7 @@ def f32_times(torch, tc, cfg, params_np):
                      launches_a_decode=per_decode,
                      shape=(f"N={B * BEAM} k={BEAM}" if "topk" in name
                             else f"B={B}"))
-            if "topk" not in name:
+            if "whole" in name:
                 e["cluster"] = wd.cluster_size(B, cfg.hidden_size, n_sms)
             if name == "whole_greedy_decode[f32]" and B == EVAL_B:
                 # K1 at each cluster size the body takes (the spread's gain)
@@ -2170,9 +2215,14 @@ def train_card_against_cpu(torch, tc, corpus):
     REPEAT_STEPS more card steps on the one batch, whose loss must fall.
     The launch counts are set to 0 just before the card's steps and read
     just after them, with CARD_BF16_STEPS bf16 card steps (finite losses)
-    after the f32 ones: the rollouts' kernels of the train step in both
-    precisions (the reconstructor's whole-rollout kernels take bf16, f32
-    its per-step route). Returns {rollout kernel name: launches}."""
+    after the f32 ones and one f32 step with an LSTM decoder (the per-step
+    LSTM cells: the flagship's decoder is GRU) between them: the rollouts'
+    kernels of the train step in both precisions. The reconstructor's
+    whole-rollout kernels are counted by precision: "cell_rollout_<kind>
+    [<cell>]" in the bf16 steps, and "...[f32]" in the f32 steps: the
+    flagship's reconstructor width is one that ``ops.rnn.whole_rollout``
+    runs whole (``whole_rollout_kernels`` checks the rule on the card).
+    Returns {rollout kernel name: launches}."""
     from recnet_tpu_torch.checkpoint import state_leaves
     from recnet_tpu_torch.training import step as S
     tc = tc.replace(embedding_dropout=0.0, decoder_dropout=0.0,
@@ -2194,6 +2244,19 @@ def train_card_against_cpu(torch, tc, corpus):
         ms = [step(state, v, c) for _ in range(CARD_CPU_STEPS)]
         seconds = time.perf_counter() - t0
         if device == DEVICE:
+            # an f32 step with an LSTM decoder: the per-step LSTM cells,
+            # which the flagship's steps no longer launch (its decoder is
+            # GRU, and its reconstructor's rollout runs whole)
+            ltc = tc.replace(decoder_model="LSTM")
+            lstate, ldcfg, lrcfg = S.init_train_state(
+                SEED, ltc, corpus.vocab.n_vocabs, device)
+            lstm_loss = float(S.build_train_step(ltc, ldcfg, lrcfg)(
+                lstate, v, c)["loss"])
+            del lstate
+            torch.cuda.synchronize()
+            f32_whole = {f"{k}[f32]": n for k, n in rollout_launches(
+                (), tc.reconstructor_model).items()
+                if k.startswith("cell_rollout")}
             btc = tc.replace(train_precision="bfloat16")
             bstate, bdcfg, brcfg = S.init_train_state(
                 SEED, btc, corpus.vocab.n_vocabs, device)
@@ -2204,8 +2267,13 @@ def train_card_against_cpu(torch, tc, corpus):
             launches = rollout_launches((tc.decoder_model,
                                          tc.reconstructor_model),
                                         tc.reconstructor_model)
+            for name, n in f32_whole.items():
+                launches[name[:-len("[f32]")]] -= n     # the bf16 steps'
+            launches.update(f32_whole)
             del bstate, bstep
             check(np.isfinite(bf16).all(), f"bf16 card steps: loss {bf16}")
+            check(np.isfinite(lstm_loss), f"the LSTM decoder's f32 step: "
+                                          f"loss {lstm_loss}")
         runs[device] = dict(
             losses=[(float(m["loss"]), float(m["grad_norm"])) for m in ms],
             sums=checksums(state_leaves(state)),
@@ -2237,8 +2305,9 @@ def train_card_against_cpu(torch, tc, corpus):
     log("train", f"(a) bf16 card steps from the same init: loss "
                  f"{', '.join(f'{x:.5f}' for x in bf16)}")
     log("train", f"(a) the rollouts' kernels launched in the "
-                 f"{CARD_CPU_STEPS} f32 and {CARD_BF16_STEPS} bf16 card "
-                 f"steps: {launches}")
+                 f"{CARD_CPU_STEPS} f32 steps, an f32 step with an LSTM "
+                 f"decoder (loss {lstm_loss:.5f}) and {CARD_BF16_STEPS} "
+                 f"bf16 card steps (\"[f32]\": the f32 steps'): {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} never launched in the card's train steps")
     return launches
@@ -3027,11 +3096,13 @@ def rollout_times(torch, tc):
                          f"T={T}: kernels {ms['kernels']} ms, plain autograd "
                          f"loop {ms['plain']} ms (events, in turns) on "
                          f"{card}")
-        # a loop step's launches: T against T - SPLIT_STEPS steps; f32 (the
-        # per-step route of both loops), and bf16 for the reconstructor
-        # (its whole-rollout kernels: none a step, one a direction)
+        # a loop step's launches: T against T - SPLIT_STEPS steps; f32, and
+        # bf16 for the reconstructor. The decoder's loop runs per step; the
+        # reconstructor's runs its whole-rollout kernels (none a step, one a
+        # direction): ops.rnn.whole_rollout holds its width in both
         for dtype in (None,) + ((torch.bfloat16,) if name == "reconstructor"
                                 else ()):
+            whole_route = name == "reconstructor"
             full, cut = (loop_launches(torch, ft.partial(run, kernels, dtype,
                                                          n))
                          for n in (T, T - SPLIT_STEPS))
@@ -3045,7 +3116,7 @@ def rollout_times(torch, tc):
                          f"{prod:g} products (cuBLAS calls); at T = {T}: "
                          f"whole-rollout launches {whole}; device "
                          f"activities a step {per_step(full[2], cut[2])}")
-            if dtype is None:
+            if not whole_route:
                 check(kern == (4 if name == "decoder" else 2)
                       and kern + prod <= (8 if name == "decoder" else 4),
                       f"the {name} loop launches {kern} kernels and {prod} "
@@ -3053,8 +3124,9 @@ def rollout_times(torch, tc):
             else:
                 check(kern == 0 and prod == 0 and whole == {
                     "cell_rollout_forward": 1, "cell_rollout_backward": 1},
-                      f"the bf16 {name} loop launches {kern} kernels and "
-                      f"{prod} products a step, {whole} a rollout")
+                      f"the {name} loop ({dtype or 'f32'}) launches {kern} "
+                      f"kernels and {prod} products a step, {whole} a "
+                      f"rollout")
 
 
 def whole_rollout_operands(torch, tc, dtype, seed=0, cell=None):
@@ -3176,10 +3248,12 @@ def cudnn_rollout(torch, cell, T, B, H, dtype):
 
 
 # the whole-rollout kernels timed in (d): (cell, precision); the
-# reconstructor's cell first, then GRU at the same width (bf16: the body
-# the Functions take)
+# reconstructor's cell first, then GRU at the same width
 WHOLE_ROLLOUT_RUNS = (("LSTM", "bfloat16"), ("LSTM", "float32"),
-                      ("GRU", "bfloat16"))
+                      ("GRU", "bfloat16"), ("GRU", "float32"))
+# a reconstructor width past what one whole-rollout launch holds on the
+# H100 (the ResNet features' 2048): the route rule sends it per step
+ROUTE_WIDE_H = 2048
 
 
 def whole_rollout_plans(torch, tc, cell, dtype):
@@ -3204,13 +3278,17 @@ def whole_rollout_kernels(torch, tc):
     WHOLE_ROLLOUT_RUNS: held against their plain versions at ROLL_SEEDS
     seeds (``whole_rollout_check``); a wrapper call timed by CUDA events
     and by the profiler's device time beside the plain version, cuDNN's
-    (``cudnn_rollout``) and the bound (operations at the bf16 or f32 peak,
-    or bytes at the HBM rate); then, for the reconstructor's cell, forward
-    + backward of the whole-rollout route against the per-step route
-    (``ops.rnn.steps_forward`` / ``steps_backward``) in turns, in both
-    precisions: the measurement behind ``ops.rnn.STEP_ROUTE_DTYPES``.
-    Returns {entry name: kernels-line fields} of the reconstructor's cell
-    in bf16, with f32's and GRU's (bf16) beside them, prefixed."""
+    (``cudnn_rollout``) and the bound (operations at the bf16 peak or, in
+    f32, as TF32_TERMS TF32 products at PEAK_TF32_FLOPS, with the f32
+    CUDA-core peak's time beside it; or bytes at the HBM rate); then, for
+    the reconstructor's cell, forward + backward of the whole-rollout route
+    against the per-step route (``ops.rnn.steps_forward`` /
+    ``steps_backward``) in turns, in both precisions: the measurement
+    behind the route rule ``ops.rnn.whole_rollout``, checked here to run
+    the flagship's width whole and ROUTE_WIDE_H per step. Returns {entry name: kernels-line
+    fields}: the reconstructor's cell in bf16 ("cell_rollout_<kind>[LSTM]")
+    and in f32 ("...[LSTM][f32]"), each with GRU's fields in its precision
+    beside them, prefixed "gru_"."""
     from recnet_tpu_torch.ops import rnn as rnn_ops
     from recnet_tpu_torch.ops.cuda import rollout as ro
     card = card_line()
@@ -3240,7 +3318,7 @@ def whole_rollout_kernels(torch, tc):
         bwd = (cell, dhs, acts, w, h0, hs, c0, cs)
         lib_f, lib_b = cudnn_rollout(torch, cell, T, B, H, dtype)
         flops = 2 * B * H * G * T
-        peak = PEAK_BF16_FLOPS if prec == "bfloat16" else PEAK_F32_FLOPS
+        f32 = prec == "float32"
         # bytes: each input read once, each output written once
         bh, tbh = B * H, T * B * H
         carried = 2 if cell == "LSTM" else 1       # h (and c) states
@@ -3265,32 +3343,37 @@ def whole_rollout_kernels(torch, tc):
             dev = device_ms(torch, kernel, (name,), reps=10, launches={
                 name: counted_launches(torch, kernel, *ro.KERNELS)})[name]
             lib_dev = device_ms(torch, library, reps=10)[""]
-            t_ops = flops / peak * 1e3
-            t_bytes = io[kind] / HBM_BYTES_PER_S * 1e3
             i = 0 if kind == "forward" else 1
+            bound_ms, bound_by = (bound_f32 if f32 else bound)(flops,
+                                                               io[kind])
             fields = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=max(t_ops, t_bytes),
-                          bound_by="operations" if t_ops >= t_bytes
-                          else "bytes", max_abs_err=max(c[i] for c in checks),
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=max(c[i] for c in checks),
                           device_ms=dev, library_device_ms=lib_dev,
-                          precision="bfloat16")
-            entry = entries.setdefault(f"cell_rollout_{kind}[{main_cell}]",
-                                       {})
-            if cell == main_cell and prec == "bfloat16":
+                          precision=prec)
+            if f32:
+                fields["f32_core_bound_ms"] = flops / PEAK_F32_FLOPS * 1e3
+            name = (f"cell_rollout_{kind}[{main_cell}]"
+                    + ("[f32]" if f32 else ""))
+            entry = entries.setdefault(name, {})
+            if cell == main_cell:
                 entry.update(fields)
             else:
                 del fields["precision"]
-                prefix = prec if cell == main_cell else cell.lower()
-                entry.update({f"{prefix}_{k}": v for k, v in fields.items()})
+                entry.update({f"{cell.lower()}_{k}": v
+                              for k, v in fields.items()})
             log("train", f"(d) cell_rollout_{kind}[{cell}] {prec}, B={B}, "
                          f"H={H}, T={T}: one launch {ms:.4f} ms by events "
                          f"(device {dev:.4f}), plain loop {plain_ms:.4f}, "
                          f"cuDNN {lib_ms:.4f} (device {lib_dev:.4f}), bound "
-                         f"{fields['bound_ms']:.4f} ms ({fields['bound_by']}:"
-                         f" {flops / 1e9:.1f} GFLOP, {io[kind] / 1e6:.1f} MB)"
-                         f"; device {dev / lib_dev:.2f}x cuDNN's, "
-                         f"{dev / fields['bound_ms']:.1f}x the bound on "
-                         f"{card}")
+                         f"{bound_ms:.4f} ms ({bound_by}: "
+                         f"{flops / 1e9:.1f} GFLOP"
+                         + (f" as {TF32_TERMS} TF32 terms; "
+                            f"{fields['f32_core_bound_ms']:.4f} ms on the "
+                            f"CUDA cores" if f32 else "")
+                         + f", {io[kind] / 1e6:.1f} MB); device "
+                         f"{dev / lib_dev:.2f}x cuDNN's, "
+                         f"{dev / bound_ms:.1f}x the bound on {card}")
         if cell != main_cell:
             continue
         # the route rule's measurement: whole rollout against per-step, in
@@ -3303,12 +3386,17 @@ def whole_rollout_kernels(torch, tc):
             f, b = routes[route]
             ms[route].append(timed(torch, lambda: (f(cell, *fwd),
                                                    b(*bwd)))[0])
+        rule = {h: rnn_ops.whole_rollout(cell, dtype, B, h,
+                                         torch.device(DEVICE))
+                for h in (H, ROUTE_WIDE_H)}
         log("train", f"(d) the reconstructor's cell rollout {prec}, forward "
                      f"+ backward, by events in turns: one launch a "
                      f"direction {ms['whole']} ms, per step {ms['steps']} ms"
-                     f" (ops.rnn.STEP_ROUTE_DTYPES: "
-                     f"{[str(d) for d in rnn_ops.STEP_ROUTE_DTYPES]}) on "
-                     f"{card}")
+                     f" on {card}; the route rule (ops.rnn.whole_rollout) "
+                     f"runs whole at H = {H}: {rule[H]}, at H = "
+                     f"{ROUTE_WIDE_H}: {rule[ROUTE_WIDE_H]}")
+        check(rule == {H: True, ROUTE_WIDE_H: False},
+              f"the route rule at B={B}, {prec}: {rule} (whole?)")
     return entries
 
 
@@ -4366,21 +4454,24 @@ def cell_step_times(torch, tc, outputs, decoded=None):
 
 
 def whole_rollout_times(torch, tc):
-    """{"cell_rollout_<kind>[<cell>] bf16": ms by events, and with
-    " device": device ms} of the imported package's whole-rollout wrappers
-    at the flagship's shapes, LSTM and GRU, on this script's inputs (the
-    wrappers' signatures are the same in every tree that has them)."""
+    """{"cell_rollout_<kind>[<cell>] <bf16 or f32>": ms by events, and
+    with " device": device ms} of the imported package's whole-rollout
+    wrappers at the flagship's shapes, LSTM and GRU, bf16 and f32, on this
+    script's inputs (the wrappers' signatures are the same in every tree
+    that has them)."""
     from recnet_tpu_torch.ops.cuda import rollout as ro
     out = {}
-    for cell in ("LSTM", "GRU"):
-        _, fwd, dhs = whole_rollout_operands(torch, tc, torch.bfloat16,
-                                             cell=cell)
+    runs = [(cell, dtype) for cell in ("LSTM", "GRU")
+            for dtype in (torch.bfloat16, torch.float32)]
+    for cell, dtype in runs:
+        prec = "bf16" if dtype == torch.bfloat16 else "f32"
+        _, fwd, dhs = whole_rollout_operands(torch, tc, dtype, cell=cell)
         hs, cs, acts = ro.cell_rollout_forward_reference(cell, *fwd)
         bwd = (cell, dhs, acts, fwd[1], fwd[3], hs, fwd[4], cs)
         for kind, fn in (
                 ("forward", lambda: ro.cell_rollout_forward(cell, *fwd)),
                 ("backward", lambda: ro.cell_rollout_backward(*bwd))):
-            name = f"cell_rollout_{kind}[{cell}] bf16"
+            name = f"cell_rollout_{kind}[{cell}] {prec}"
             out[name] = timed(torch, fn, 20)[0]
             kernel = "::cell_rollout"       # held to the wrapper's count
             out[f"{name} device"] = device_ms(
@@ -4429,16 +4520,69 @@ def compare(other: str) -> None:
                    f"({', '.join(mine)})")
 
 
+def time_train(root: str) -> None:
+    """[train] (c)'s k-step dispatches (``train_times``, f32 and bf16) of
+    the package under ``root``; print one JSON line. Runs in a process of
+    its own, so that ``root``'s package and its kernel builds are the ones
+    imported."""
+    import torch
+    sys.path.insert(0, str(Path(root).resolve()))
+    from recnet_tpu_torch.checkpoint import load_config_and_vocab
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        tc, vocab = load_config_and_vocab(
+            str(flagship_checkpoint_dir(Path(tmp), VOCAB)))
+    ttc = train_config(tc)
+    steps = train_times(torch, ttc, train_corpus(ttc, vocab))
+    print(json.dumps({"root": root, "steps": steps}), flush=True)
+
+
+def compare_train(other: str, rounds: int) -> None:
+    """[train] (c) of this tree and ``other`` in turns, ``rounds`` times
+    (this, other, other, this), each in a process of its own; print each
+    run's JSON line, then each tree's ms a step, busy ms, idle share and
+    activities a step by precision, in the order run."""
+    card = card_line()
+    seen = {str(REPO): [], other: []}
+    for _ in range(rounds):
+        for root in (str(REPO), other, other, str(REPO)):
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--time-train", root], capture_output=True, text=True,
+                timeout=600)
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                raise SmokeFailure(f"--time-train {root} exited "
+                                   f"{proc.returncode}")
+            result = json.loads(proc.stdout.strip().splitlines()[-1])
+            log("compare", f"{json.dumps(result)} ({card})")
+            seen[root].append(result["steps"])
+    for root, runs in seen.items():
+        for prec in ("float32", "bfloat16"):
+            log("compare", f"{root} {prec}: " + "; ".join(
+                f"{key} " + ", ".join(f"{r[prec][key]:.3f}" for r in runs)
+                for key in ("ms", "busy_ms", "idle", "kernels"))
+                + f" ({card})")
+
+
 def main() -> int:
     import torch
 
     if sys.argv[1:2] == ["--time-kernels"]:
         time_kernels(sys.argv[2], sys.argv[3])
         return 0
+    if sys.argv[1:2] == ["--time-train"]:
+        time_train(sys.argv[2])
+        return 0
     environment(torch)
     if sys.argv[1:2] == ["--compare"]:
         build_kernels()
         compare(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--compare-train"]:
+        build_kernels()
+        compare_train(sys.argv[2], int(sys.argv[3]) if sys.argv[3:] else 3)
         return 0
     if sys.argv[1:2] == ["--read-rates"]:
         read_rates(torch)
@@ -4475,7 +4619,7 @@ def main() -> int:
     variant_launches["early_exit"], variant_errs["early_exit"] = (
         early_exit_path(torch, tc, cfg, pad_np))
     entries = times(torch, tc, cfg, params_np, eos_np, pad_np)
-    entries.update(f32_times(torch, tc, cfg, params_np))
+    entries.update(f32_times(torch, tc, cfg, params_np, pad_np))
     sweep_launches, sweep_ms, sweep_errs = ablate_sweep(torch, tc, cfg,
                                                         params_np)
     variant_launches.update(sweep_launches)
@@ -4541,7 +4685,8 @@ def main() -> int:
               "cell_rollout_backward[GRU]": "recnet_tpu/ops/rnn.py:265"}
     for name, entry in rollout_entries.items():
         whole = name.startswith("cell_rollout")
-        kind = name if whole else name[len("rollout_"):].split("[")[0]
+        kind = (name.split("]")[0] + "]" if whole
+                else name[len("rollout_"):].split("[")[0])
         kernels.append(dict({"name": name, "route": "cuda",
                              "source": csrc + ("cell_rollout.cu" if whole
                                                else "rollout.cu"),

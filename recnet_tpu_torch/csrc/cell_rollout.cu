@@ -28,40 +28,32 @@
 // repeats its numbers bit for bit.
 //
 // What bounds them on the H100 (flagship reconstructor: LSTM, B = 100,
-// H = 1536, G = 6144, T = 31): bf16, the operations, 2 B H G T = 58.5
-// GFLOP a direction, 0.059 ms at 989 TFLOP/s (bytes 0.03-0.04 ms); f32 on
-// the CUDA cores (TF32 stays off), 1.1 ms at 51.5 TFLOP/s. What a step
-// needs of other blocks is what paces it: every block needs every other
-// block's h_t (forward) or dgates_t (backward) before the next product.
+// H = 1536, G = 6144, T = 31): the operations, 2 B H G T = 58.5 GFLOP a
+// direction; bf16 0.059 ms at 989 TFLOP/s (bytes 0.03-0.04 ms); f32 as
+// three TF32 products (TF32 stays off for the libraries) 0.355 ms at 494.7
+// TFLOP/s (on the CUDA cores, 0.873 ms at 67 TFLOP/s). What a step needs of
+// other blocks is what paces it: every block needs every other block's h_t
+// (forward) or dgates_t (backward) before the next product.
 //
-// Both bodies: persistent and co-resident, one block an SM, launched
-// cooperatively (the runtime refuses a grid the card cannot hold at once)
-// in clusters of C blocks that split k: a cluster owns U = C ub units,
-// block rank r takes the k slice r of the product's activations (h: C =
-// 2 forward; dgates: C = 8 backward) against all of the cluster's product
-// rows (forward: the U units' gate columns of W_hh, 4U or 3U; backward:
-// the U units' rows), and runs the cells of its own ub units. The C
-// partial sums of a unit cross the cluster through distributed shared
-// memory and are added rank by rank. Only h_t (forward) or dgates_t
-// (backward) crosses clusters, through global memory (L2).
-//
-// The bf16 body (cell_rollout_wgmma_kernel; two warpgroups, 256 threads):
-// * The recurrent weight held on chip: the block's slice (NW product rows
-//   x the k slice; NW = 32, 64, 96 or 104, the wgmma widths built: 96 x
-//   768 forward, 104 x 768 backward at the flagship, 147 and 160 KB) is
-//   laid out once at entry as K-major tiles of 64 k in the 128-byte swizzle
-//   that wgmma's matrix descriptors name (wgmma.cuh).
-// * The product on wgmma: P (batch rows x NW) = X W_blk^T, the batch as M
-//   (warpgroup w takes rows 64 w .. 64 w + 63 of a pass), the block's
-//   product rows as N, m64nNWk16 with both operands read from shared
-//   memory by descriptor and f32 accumulators in registers; one warpgroup
-//   walks the whole k slice, so no k halves are summed.
-// * The activations staged by 16-byte cp.async (cg: L2 only) into a ring
-//   of S swizzled 64-k tiles (104 rows a pass; S = 6 forward, 5 backward
-//   at the flagship), S - 2 chunks ahead: a chunk's copies land while the
-//   last chunk's MMAs run (one wgmma group kept in flight), and each tile
-//   is fenced to the async proxy before the wgmma that reads it.
-// * Readiness flags in place of a grid barrier: after a block has written
+// Both bodies: persistent and co-resident, one block an SM (bf16: two
+// warpgroups; f32: three), launched cooperatively (the runtime refuses a
+// grid the card cannot hold at once) in clusters of C blocks that split k: a
+// cluster owns U = C ub units, block rank r takes the k slice r of the
+// product's activations (h: C = 2 forward; dgates: C = 8 backward) against
+// all of the cluster's product rows (forward: the U units' gate columns of
+// W_hh, 4U or 3U; backward: the U units' rows), and runs the cells of its
+// own ub units. The C partial sums of a unit cross the cluster through
+// distributed shared memory and are added rank by rank. Only h_t (forward)
+// or dgates_t (backward) crosses clusters, through global memory (L2).
+// Shared by both:
+// * The product P (batch rows x NW) = X W_blk^T with the batch as M
+//   (warpgroup w takes rows 64 w .. 64 w + 63 of a pass) and the block's
+//   product rows as N (NW = 32, 64, 96 or 104, the wgmma widths built: 96
+//   forward, 104 backward at the flagship), f32 accumulators in registers;
+//   one warpgroup walks the whole k slice, so no k halves are summed.
+// * The activations staged by 16-byte cp.async (cg: L2 only) into a ring,
+//   chunks ahead of the MMAs that read them.
+// * Readiness words in place of a grid barrier: after a block has written
 //   its units' h_t (dgates_t) it publishes its step count (st.release.gpu)
 //   in its own word of the launch's scratch. At the start of a pass the
 //   block looks once at the word of every block that writes a column of
@@ -73,21 +65,31 @@
 //   which the wrapper advances a launch: they are never reset within a
 //   launch, nor zeroed between launches.
 // * The exchange: each block's partials (its rows < B of the pass x NW,
-//   f32, its k slice's sum) go over the ring, whose stages are free after
-//   the product; a cluster barrier (arrive.release, wait.acquire) makes
-//   them visible; each block sums its own units' partials from the C ranks
-//   in order. The barrier's next phase is arrived at once a block has read
-//   its peers' partials and waited for only before the next pass stages
-//   into the ring.
-// * The cells off the dependent chain: each thread's (unit, row) pairs
-//   are fixed for the whole launch; their inputs (gi_t, the backward's
-//   dhs, acts, cs / hs) and their carries (c: cs[t - 1]; dc: dc0; GRU's h:
-//   hs[t - 1]; its dh z: dh0; each written by the same thread a step
-//   before) are loaded as stored bf16 at the start of the pass and
-//   converted where the cells use them, so that they land while the
-//   product runs; b_hh of the block's units is held in shared memory (every
-//   acquire of a step invalidates L1, so a read of it through L1 would go to
-//   L2 in each cell).
+//   f32, its k slice's sum) go over the activations' ring, whose stages are
+//   free after the product; a cluster barrier (arrive.release,
+//   wait.acquire) makes them visible; each block sums its own units'
+//   partials from the C ranks in order. The barrier's next phase is
+//   arrived at once a block has read its peers' partials and waited for
+//   only before the next pass stages into the ring.
+// * The cells: each thread's (unit, row) pairs are fixed for the whole
+//   launch; their carries (c: cs[t - 1]; dc: dc0; GRU's h: hs[t - 1]; its
+//   dh z: dh0) are the same thread's stores of a step before; b_hh of the
+//   block's units is held in shared memory (every acquire of a step
+//   invalidates L1, so a read of it through L1 would go to L2 in each cell).
+//
+// The bf16 body (cell_rollout_wgmma_kernel):
+// * The recurrent weight held on chip: the block's slice (NW product rows
+//   x the k slice: 96 x 768 forward, 104 x 768 backward at the flagship,
+//   147 and 160 KB) is laid out once at entry as K-major tiles of 64 k in
+//   the 128-byte swizzle that wgmma's matrix descriptors name (wgmma.cuh);
+//   m64nNWk16 reads both operands from shared memory. The ring: S stages
+//   of 64 k (6 forward, 5 backward at the flagship), S - 2 chunks ahead;
+//   one wgmma group kept in flight, each tile fenced to the async proxy
+//   before the wgmma that reads it.
+// * The cells' inputs (gi_t, the backward's dhs, acts, cs / hs, and the
+//   carries) are loaded as stored bf16 at the start of the pass and
+//   converted where the cells use them, so that they land while the product
+//   runs.
 // What the split showed (chip_smoke.py [train] (d), the flagship's
 // reconstructor in bf16 on an H100 80GB HBM3 at 700 W, device time a step
 // of 31): forward 21.4 us, of which the product 13.0 (staging, waits and
@@ -98,24 +100,47 @@
 // a persistent grid pays on this card (the stagings' L2 reads and the
 // hand-offs), no longer by their MMAs.
 //
-// The f32 body (cell_rollout_f32_kernel; 512 threads): the f32 slice of
-// W_hh does not fit on chip (295 KB a block), so each 64-k chunk of it
-// streams from L2 beside the activations' chunk, three in flight, into
-// 8 x 4 register tiles of FMAs; the k slice's partials go over the stages
-// and are summed as above; one sense-reversing grid barrier a step on a
-// counter and a generation word (release on arrival, acquire on the
-// wait). ops/rnn.py keeps f32 on the per-step route (its cuBLAS products
-// are faster); this body serves the tests and the measurement of that
-// rule.
+// The f32 body (cell_rollout_tf32_kernel): products accurate to f32 on the
+// tensor cores, as three TF32 terms a k8 step: a_lo b_hi + a_hi b_lo + a_hi
+// b_hi (hi = tf32(x), lo = tf32(x - hi), rounded as hopper_mma.cuh's
+// split_tf32), wgmma m64nNWk8 from a zero accumulator, added to the f32
+// sums in IEEE f32 on the CUDA cores, so that the tensor cores' own
+// accumulation never sums more than one k8 step.
+// * The split: the activations are A, read from the staged rows (padded
+//   to 36 floats: no bank conflict) into the m64nNk8 A fragment and split
+//   in registers. The weight is B, which wgmma reads from shared memory
+//   only, K-major, as a hi and a lo tile a 32-k chunk (NW rows of 128
+//   bytes in the swizzle).
+// * The weight split once a launch, streamed every step: the f32 slice
+//   (295 KB a block at the flagship; its hi and lo tiles 590 KB) does not
+//   fit on chip beside the rest. At entry each block writes its slice's
+//   tiles, chunk by chunk in the slots' byte layout, to its part of a
+//   device buffer (wsplit: 75.5 MB forward, 76.7 MB backward at the
+//   flagship; generic writes fenced to the async proxy); every step then
+//   takes each chunk's two tiles by one 26.6 KB bulk copy (TMA). W_hh is
+//   read once a launch and split once; a split in shared memory a chunk
+//   cost the producer more than the stream of the doubled bytes.
+// * Warp-specialised: warpgroup 2 is the producer, warpgroups 0 and 1 the
+//   consumers (the batch's 64-row M tiles). The producer fills a ring of 5
+//   slots (a chunk's tiles and its rows): it waits for a slot's consumers
+//   (a named barrier), waits for the chunk's writers (the readiness
+//   words), stages the rows by cp.async (each thread's arrival on the
+//   slot's mbarrier follows its copies' landing) and issues the tiles' bulk
+//   copy, whose bytes the same mbarrier counts; it waits for no data. The
+//   consumers wait on the slot's mbarrier, run the chunk's 4 k8 steps (a
+//   wait a step: the registers hold one k8 accumulator beside the sums)
+//   and free the slot.
+// * The cells' inputs are read once the product is done, beside the
+//   cluster barrier; the consumers store the partials over the rows.
 //
 // Split probes (probe bits; 0 is the kernel the rollouts launch):
-// kNoProduct drops the staging (with its waits for readiness) and the
-// products (P = 0); kNoMma keeps the staging and drops the MMAs (P = 0);
-// kNoExchange drops the waits for other blocks (bf16: the readiness
-// flags; f32: the grid barrier) and the cluster's sum (each block adds
-// only its own partial) and reads the product's activations from an input
-// of the same width (h0 forward, acts[t] backward), so that its outputs
-// are defined. The probes are timed by chip_smoke.py and count no launch.
+// kNoProduct drops the staging (with its waits for readiness; f32: the
+// weight's split and stream too) and the products (P = 0); kNoMma keeps
+// the staging (f32: and the weight's stream) and drops the MMAs (P = 0);
+// kNoExchange drops the waits for other blocks (the readiness words) and
+// the cluster's sum (each block adds only its own partial) and reads the
+// product's activations from an input of the same width (h0 forward,
+// acts[t] backward), so that its outputs are defined. The probes are timed by chip_smoke.py and count no launch.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -141,36 +166,42 @@ using recnet::round_to;
 using recnet::sigmoid;
 using recnet::to_f;
 
-constexpr int kKC = 64;          // k of a staged chunk
+constexpr int kKC = 64;          // k of a staged chunk (bf16)
 constexpr int kNoProduct = 1, kNoExchange = 2, kNoMma = 4;
 constexpr int kMaxBlocks = 1024; // readiness words in the scratch
 // which product sources may be copied in 16-byte pieces
 constexpr int kVecH0 = 1, kVecHs = 2, kVecDg = 4, kVecActs = 8, kVecW = 16;
 
-// the f32 body
-constexpr int kThreads = 512;
-constexpr int kStages = 3;       // chunks in flight
-constexpr int kMaxRows = 128;    // padded product rows a block
-constexpr int kPassRows = 112;   // batch rows a pass
-constexpr int kFT = 1;           // 8 x 4 register tiles a thread
-constexpr int kMaxPairs = 4;     // (unit, row) pairs a thread in a pass
-
-// the bf16 body
+// both bodies
 constexpr int kWThreads = 256;   // two warpgroups
 constexpr int kWPassRows = 104;  // batch rows a pass: a stage's rows
 constexpr int kWMaxPairs = 6;    // (unit, row) pairs a thread in a pass
-constexpr int kWMinStages = 3, kWMaxStages = 8;
 constexpr int kWAlign = 1024;    // the swizzled tiles' alignment
 constexpr int kWReady = 128;     // the readiness scan's bytes
+
+// the bf16 body
+constexpr int kWMinStages = 3, kWMaxStages = 8;
+
+// the f32 body: two consumer warpgroups (the MMAs) and a producer
+// warpgroup (the copies)
+constexpr int kFConsumers = 256, kFProducer = 128;
+constexpr int kFThreads = kFConsumers + kFProducer;
+constexpr int kFMaxPairs = 4;        // (unit, row) pairs a thread in a pass
+constexpr int kFKC = 32;             // k of a chunk: a 128-byte f32 row
+constexpr int kFPitch = kFKC + 4;    // floats a staged row (144 bytes)
+constexpr int kFSlots = 5;           // chunks in the slots' ring
+// named barriers: the producer's own, a slot is free (the consumers
+// arrive, the producer waits), the consumers' own
+constexpr int kBarProducer = 1, kBarEmpty = 2, kBarConsumers = 2 + kFSlots;
 
 template <typename T>
 struct RollArgs {
   int steps, B, H, G;          // T, batch, hidden, gate width (nG H)
-  int C, ub, Mpad, kc, Bp;     // cluster size, units a block, padded rows
-                               // (bf16: NW), k slice, batch rows a pass
-  int stages;                  // bf16: the ring's stages
+  int C, ub, Mpad, kc, Bp;     // cluster size, units a block, product
+                               // rows (NW), k slice, batch rows a pass
+  int stages;                  // the activations' ring's stages
   int probe, vec;
-  unsigned base;               // bf16: the readiness count before launch
+  unsigned base;               // the readiness count before the launch
   const T* gi;                 // forward: (T, B, G)
   const T* w;                  // (H, G)
   const T* bias;               // (G)
@@ -186,8 +217,8 @@ struct RollArgs {
   T* dc0;                      // backward out; LSTM's dc carry
   T* dh_steps;                 // backward out, or null: the carried dh
   T* dc_steps;                 // and dc (LSTM) into each step (T, B, H)
-  unsigned* bar;               // f32: grid barrier (count, generation)
-  unsigned* flags;             // bf16: a readiness word a block
+  unsigned* flags;             // a readiness word a block
+  float* wsplit;               // f32: the weight slices' tile images
 };
 
 __host__ __device__ constexpr int ceil_div(int a, int b) {
@@ -198,10 +229,9 @@ __host__ __device__ constexpr int round_up(int a, int b) {
   return ceil_div(a, b) * b;
 }
 
-__device__ __forceinline__ float ldcg_f(const float* p) { return __ldcg(p); }
-
-// 4 bytes global -> shared (L1 allowed: only read-only operands), or 4 zero
-// bytes when !ok
+// 4 bytes global -> shared, or 4 zero bytes when !ok (src is not read;
+// through L1: after an acquire of this step, or of operands no block
+// writes)
 __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
                                                 bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
@@ -224,114 +254,9 @@ __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
                : "memory");
 }
 
-__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p,
-                                                     unsigned v) {
-  unsigned old;
-  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n"
-               : "=r"(old)
-               : "l"(p), "r"(v)
-               : "memory");
-  return old;
-}
-
 // cycles a block waits for other blocks before it gives up (about 10 s: a
 // launch whose blocks are not all resident faults instead of hanging)
 constexpr long long kBarrierTimeout = 20000000000LL;
-
-// f32: every block of the grid waits here until all have arrived. bar[0]
-// counts arrivals and is back at 0 when the barrier opens; bar[1] is the
-// generation, advanced by the last block to arrive. Needs every block
-// resident at once (the cooperative launch).
-__device__ __forceinline__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned gen = ld_acquire(bar + 1);
-    __threadfence();
-    if (atom_add_acq_rel(bar, 1u) == gridDim.x - 1) {
-      *reinterpret_cast<volatile unsigned*>(bar) = 0u;
-      st_release(bar + 1, gen + 1u);
-    } else {
-      const long long start = clock64();
-      while (ld_acquire(bar + 1) == gen) {
-        __nanosleep(32);
-        if (clock64() - start > kBarrierTimeout) __trap();
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-template <typename T>
-__device__ __forceinline__ T zero_t() {
-  return from_f<T>(0.0f);
-}
-
-// The block's weight element at product row m, slice column k (the k
-// slice starts at kbeg), as an index into W_hh (H, G); -1 outside it.
-// Forward rows: gate g of the cluster's unit cu at m = g (C ub) + cu, k
-// along H. Backward rows: the cluster's unit m, k along G.
-template <bool FWD>
-__device__ __forceinline__ long w_index(int m, int k, int M, int cu0,
-                                        int Cub, int kbeg, int kend, int H,
-                                        int G) {
-  const int kk = kbeg + k;
-  if (m >= M || kk >= kend) return -1;
-  if (FWD) {
-    const int g = m / Cub, unit = cu0 + m % Cub;
-    return unit < H ? (long)kk * G + (long)g * H + unit : -1;
-  }
-  const int unit = cu0 + m;
-  return unit < H ? (long)unit * G + kk : -1;
-}
-
-// Block-wide: activations X[b][k0 .. k0 + kKC) of rows b_lo .. b_lo +
-// rows into dst [rows][XP], zero past B and past kend. Whole 16-byte
-// pieces by cp.async (cg) where vec allows it; the rest by L2 loads.
-template <typename T>
-__device__ __forceinline__ void stage_x(T* dst, const T* X, int ldx, bool vec,
-                                        int B, int b_lo, int rows, int k0,
-                                        int kend) {
-  constexpr int E = 16 / (int)sizeof(T), PER_ROW = kKC / E, XP = kKC + E;
-  for (int i = threadIdx.x; i < rows * PER_ROW; i += kThreads) {
-    const int r = i / PER_ROW, c = (i - r * PER_ROW) * E;
-    T* d = dst + r * XP + c;
-    const int b = b_lo + r, k = k0 + c;
-    if (b >= B || k >= kend) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-      continue;
-    }
-    const T* s = X + (long)b * ldx + k;
-    if (vec && k + E <= kend) {
-      cp_async16(d, s);
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        d[e] = k + e < kend ? from_f<T>(ldcg_f(s + e)) : zero_t<T>();
-    }
-  }
-}
-
-// Block-wide (f32): the weight chunk [Mpad][k0 .. k0 + kKC) of the block's
-// slice into dst [Mpad][XP] by 4-byte cp.async (W_hh is read-only).
-template <bool FWD>
-__device__ __forceinline__ void stage_w(float* dst, const float* w, int Mpad,
-                                        int k0, int M, int cu0, int Cub,
-                                        int kbeg, int kend, int H, int G) {
-  constexpr int XP = kKC + 4;
-  for (int i = threadIdx.x; i < Mpad * kKC; i += kThreads) {
-    int m, k;
-    if (FWD) {            // along the gate columns: contiguous in W_hh
-      m = i % Mpad;
-      k = i / Mpad;
-    } else {              // along k: contiguous in W_hh
-      k = i % kKC;
-      m = i / kKC;
-    }
-    const long idx = w_index<FWD>(m, k0 + k, M, cu0, Cub, kbeg, kend, H, G);
-    cp_async4_zfill(dst + m * XP + k, idx >= 0 ? w + idx : w, idx >= 0);
-  }
-}
 
 // The inputs of the backward cell of unit j, batch row b at step t (the
 // carried dh and, unless `first`, dc aside): dhs, the four activations,
@@ -437,246 +362,6 @@ __device__ __forceinline__ void fwd_gru_store(const RollArgs<T>& a, long row,
 }
 
 // ---------------------------------------------------------------------------
-// the f32 body
-// ---------------------------------------------------------------------------
-
-template <bool LSTM, bool FWD>
-__global__ void __launch_bounds__(kThreads, 1)
-cell_rollout_f32_kernel(const RollArgs<float> a) {
-  using T = float;
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int nG = LSTM ? 4 : 3;
-  constexpr int XP = kKC + 4;
-  const int tid = threadIdx.x;
-  const int H = a.H, G = a.G, B = a.B, C = a.C, ub = a.ub, Mpad = a.Mpad;
-  const int rank = (int)(blockIdx.x % C), q = (int)(blockIdx.x / C);
-  const int Cub = C * ub, cu0 = q * Cub;        // the cluster's units
-  const int M = FWD ? nG * Cub : Cub;           // product rows
-  const int K = FWD ? H : G;
-  const int kbeg = rank * a.kc, kend = min(K, kbeg + a.kc);
-  const int nchunks = a.kc / kKC;
-  const int u_lo = cu0 + rank * ub;             // the block's own units
-  const bool exchange = !(a.probe & kNoExchange);
-  const bool cluster_sum = exchange && C > 1;
-  const bool product = !(a.probe & kNoProduct);
-  const bool mma = !(a.probe & kNoMma);
-  const int PP = a.Bp + 4;                      // partial sums' pitch
-  T* Xs = reinterpret_cast<T*>(smem);           // [kStages][Bp][XP]
-  float* Wst = Xs + kStages * a.Bp * XP;        // [kStages][Mpad][XP]
-  float* Ps = reinterpret_cast<float*>(smem);   // [Mpad][PP], over the stages
-
-  // One pass of step t over batch rows b_lo .. b_lo + bp: P = W_blk X^T
-  // over the block's k slice into Ps[m][b - b_lo] (all Mpad rows, bp
-  // rounded up to 8 columns); the cluster's sum; then each of the block's
-  // own (unit, row) pairs: its P summed over the cluster's ranks in order
-  // and its inputs read for all of a thread's pairs first, then its cell.
-  // Unless a grid barrier follows (`barrier_next`: every block has then
-  // read its peers' partials before any block overwrites its own), a
-  // barrier of the cluster (or the block) ends the pass.
-  auto pass = [&](const T* X, int ldx, bool xvec, int b_lo, int bp, int t,
-                  bool barrier_next) {
-    const int bp8 = round_up(bp, 8);
-    // 8 x 4 tiles a thread, rows m = tm + i tmn, batch rows b = tb + j
-    // tbn, from the staged weight and activation chunks
-    const int tmn = Mpad / 8, tbn = bp8 / 4, tiles = tmn * tbn;
-    float acc[kFT][8][4];
-#pragma unroll
-    for (int s = 0; s < kFT; ++s)
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[s][i][j] = 0.0f;
-    if (product) {
-#pragma unroll 1
-      for (int s = 0; s < kStages - 1; ++s) {
-        if (s < nchunks) {
-          stage_x(Xs + s * a.Bp * XP, X, ldx, xvec, B, b_lo, bp8,
-                  kbeg + s * kKC, kend);
-          stage_w<FWD>(Wst + s * Mpad * XP, a.w, Mpad, s * kKC, M, cu0, Cub,
-                       kbeg, kend, H, G);
-        }
-        cp_async_commit();
-      }
-#pragma unroll 1
-      for (int c = 0; c < nchunks; ++c) {
-        cp_async_wait<kStages - 2>();
-        __syncthreads();
-        const int nx = c + kStages - 1;
-        if (nx < nchunks) {
-          stage_x(Xs + (nx % kStages) * a.Bp * XP, X, ldx, xvec, B, b_lo,
-                  bp8, kbeg + nx * kKC, kend);
-          stage_w<FWD>(Wst + (nx % kStages) * Mpad * XP, a.w, Mpad,
-                       nx * kKC, M, cu0, Cub, kbeg, kend, H, G);
-        }
-        cp_async_commit();
-        if (!mma) continue;
-        const float* xs = Xs + (c % kStages) * a.Bp * XP;
-        const float* ws = Wst + (c % kStages) * Mpad * XP;
-#pragma unroll
-        for (int s = 0; s < kFT; ++s) {
-          const int tau = tid + s * kThreads;
-          if (tau < tiles) {
-            const int tm = tau % tmn, tb = tau / tmn;
-#pragma unroll 2
-            for (int k = 0; k < kKC; k += 4) {
-              float4 wv[8], xv[4];
-#pragma unroll
-              for (int i = 0; i < 8; ++i)
-                wv[i] = *reinterpret_cast<const float4*>(
-                    ws + (tm + i * tmn) * XP + k);
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                xv[j] = *reinterpret_cast<const float4*>(
-                    xs + (tb + j * tbn) * XP + k);
-#pragma unroll
-              for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                  float v = acc[s][i][j];
-                  v = fmaf(wv[i].x, xv[j].x, v);
-                  v = fmaf(wv[i].y, xv[j].y, v);
-                  v = fmaf(wv[i].z, xv[j].z, v);
-                  v = fmaf(wv[i].w, xv[j].w, v);
-                  acc[s][i][j] = v;
-                }
-            }
-          }
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();        // the stages are free: Ps lies over them
-#pragma unroll
-    for (int s = 0; s < kFT; ++s) {
-      const int tau = tid + s * kThreads;
-      if (tau < tiles) {
-        const int tm = tau % tmn, tb = tau / tmn;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            Ps[(tm + i * tmn) * PP + tb + j * tbn] = acc[s][i][j];
-      }
-    }
-    __syncthreads();
-    if (cluster_sum) cg::this_cluster().sync();   // the partials are out
-    const int npairs = ub * bp;
-    constexpr int kIn = FWD ? 3 * nG + 1 : 9;
-    float in[kMaxPairs][kIn];
-    // first every input of the thread's pairs (a thread past its pairs or
-    // a unit past H reads a valid pair's, and stores nothing)
-#pragma unroll
-    for (int s = 0; s < kMaxPairs; ++s) {
-      const int i = min(tid + s * kThreads, npairs - 1);
-      const int u = i % ub, j = min(u_lo + u, H - 1), b = b_lo + i / ub;
-      const long bj = (long)b * H + j;
-      float* v = in[s];
-      float P[nG];
-#pragma unroll
-      for (int g = 0; g < nG; ++g) P[g] = 0.0f;
-      for (int r = 0; r < (cluster_sum ? C : 1); ++r) {
-        const float* src =
-            cluster_sum ? cg::this_cluster().map_shared_rank(Ps, r) : Ps;
-        if (FWD) {
-#pragma unroll
-          for (int g = 0; g < nG; ++g)
-            P[g] += src[(g * Cub + rank * ub + u) * PP + i / ub];
-        } else {
-          P[0] += src[(rank * ub + u) * PP + i / ub];
-        }
-      }
-      if constexpr (FWD) {
-        const long row = (long)t * B + b;
-        const T* gi = a.gi + row * G + j;
-#pragma unroll
-        for (int g = 0; g < nG; ++g) {
-          v[g] = P[g];
-          v[nG + g] = to_f(gi[g * H]);
-          v[2 * nG + 1 + g] = to_f(a.bias[g * H + j]);
-        }
-        if constexpr (LSTM)
-          v[2 * nG] = t == 0 ? to_f(a.c0[bj])
-                             : ldcg_f(a.cs + (row - B) * H + j);
-        else
-          v[2 * nG] = t == 0 ? to_f(a.h0[bj])
-                             : ldcg_f(a.hs + (row - B) * H + j);
-      } else {
-        v[7] = P[0];
-        v[8] = ldcg_f((LSTM ? a.dc0 : a.dh0) + bj);   // dc, or GRU's dh z
-        if (t > 0) bwd_cell_load<T, LSTM>(a, t - 1, j, b, v);
-      }
-    }
-    // then each pair's cell
-#pragma unroll
-    for (int s = 0; s < kMaxPairs; ++s) {
-      const int i = tid + s * kThreads;
-      const int j = u_lo + i % ub, b = b_lo + i / ub;
-      if (i >= npairs || j >= H) continue;
-      const float* v = in[s];
-      const long row = (long)t * B + b, bj = (long)b * H + j;
-      if constexpr (FWD) {
-        if constexpr (LSTM) {
-          float pre[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g) pre[g] = round_to<T>(v[4 + g] + v[g]);
-          fwd_lstm_store<T>(a, row, j, pre, v + 9, v[8]);
-        } else {
-          fwd_gru_store<T>(a, row, j, v, v + 3, v + 7, v[6]);
-        }
-      } else {
-        const float dh = LSTM ? round_to<T>(v[7]) : round_to<T>(v[8] + v[7]);
-        if (t > 0)
-          bwd_cell_store<T, LSTM>(a, t - 1, j, b, v, dh, LSTM ? v[8] : 0.0f);
-        else
-          a.dh0[bj] = from_f<T>(dh);
-      }
-    }
-    if (barrier_next) return;
-    if (cluster_sum)
-      cg::this_cluster().sync();   // every block has read the partials
-    else
-      __syncthreads();
-  };
-
-  const bool vec_h0 = a.vec & kVecH0, vec_hs = a.vec & kVecHs;
-  const bool vec_dg = a.vec & kVecDg, vec_acts = a.vec & kVecActs;
-  if constexpr (FWD) {
-#pragma unroll 1
-    for (int t = 0; t < a.steps; ++t) {
-      const bool first = t == 0 || !exchange;
-      const T* X = first ? a.h0 : a.hs + (long)(t - 1) * B * H;
-      const bool barrier = t + 1 < a.steps && exchange;
-#pragma unroll 1
-      for (int b_lo = 0; b_lo < B; b_lo += a.Bp)
-        pass(X, H, first ? vec_h0 : vec_hs, b_lo, min(a.Bp, B - b_lo), t,
-             barrier && b_lo + a.Bp >= B);
-      if (barrier) grid_barrier(a.bar);
-    }
-  } else {
-    // step T - 1's cell from zero carries
-    for (int i = tid; i < ub * B; i += kThreads) {
-      const int j = u_lo + i % ub, b = i / ub;
-      if (j < H) {
-        float v[7];
-        bwd_cell_load<T, LSTM>(a, a.steps - 1, j, b, v);
-        bwd_cell_store<T, LSTM>(a, a.steps - 1, j, b, v, 0.0f, 0.0f);
-      }
-    }
-#pragma unroll 1
-    for (int t = a.steps - 1; t >= 0; --t) {
-      if (exchange) grid_barrier(a.bar);     // dgates[t] is complete
-      const T* X = exchange ? (LSTM ? a.dgi : a.dgh) + (long)t * B * G
-                            : a.acts + (long)t * B * 4 * H;
-#pragma unroll 1
-      for (int b_lo = 0; b_lo < B; b_lo += a.Bp)
-        pass(X, exchange ? G : 4 * H, exchange ? vec_dg : vec_acts, b_lo,
-             min(a.Bp, B - b_lo), t,
-             t > 0 && exchange && b_lo + a.Bp >= B);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // the bf16 body
 // ---------------------------------------------------------------------------
 
@@ -699,8 +384,8 @@ __device__ __forceinline__ float bits_f(unsigned short x) {
   return __bfloat162float(__ushort_as_bfloat16(x));
 }
 
-// Block-wide: one look at the readiness word of every block that writes a
-// column of the k slice [kbeg, kbeg + kc) below kend (unit k forward, k
+// Over threads t of nthreads (whole warps): one look at the readiness word
+// of every block that writes a column of the k slice [kbeg, kbeg + kc) below kend (unit k forward, k
 // mod H backward): ready[c / 32] = whether every writer of the columns c
 // .. c + 31 of the slice has published `need`. In each warp only the lane
 // whose column starts a new writer reads that writer's word (acquire), so
@@ -710,10 +395,11 @@ __device__ __forceinline__ void scan_ready(unsigned char* ready,
                                            const unsigned* flags,
                                            unsigned need, int kbeg, int kc,
                                            int kend, int H, int U, int ub,
-                                           int C) {
-  const int lane = threadIdx.x & 31;
-  for (int c0 = 0; c0 < kc; c0 += kWThreads) {
-    const int c = c0 + threadIdx.x, k = kbeg + c;
+                                           int C, int t = threadIdx.x,
+                                           int nthreads = kWThreads) {
+  const int lane = t & 31;
+  for (int c0 = 0; c0 < kc; c0 += nthreads) {
+    const int c = c0 + t, k = kbeg + c;
     const int p = c < kc && k < kend ? owner(k % H, U, ub, C) : -1;
     const int before = __shfl_up_sync(0xffffffffu, p, 1);
     const bool polled = p >= 0 && !(lane > 0 && p == before);
@@ -1142,6 +828,416 @@ cell_rollout_wgmma_kernel(const RollArgs<bf16> a) {
 }
 
 // ---------------------------------------------------------------------------
+// the f32 body
+// ---------------------------------------------------------------------------
+
+// the named barrier `id` of n threads: wait, or arrive without waiting
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// waits for the phase of parity `parity` of the mbarrier `bar` (trapping
+// after about 10 s)
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (recnet::mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!recnet::mbar_try_wait(bar, parity))
+    if (clock64() - start > kBarrierTimeout) __trap();
+}
+
+// By the f32 body's producer thread t: rows b_lo .. b_lo + bp of X's
+// columns [k0, k0 + 32) into `dst`, rows of kFPitch floats (zero past
+// kend), all by cp.async (so that the thread's arrival on the slot's
+// mbarrier covers them): 16-byte pieces (cg: L2 only, since other SMs
+// wrote them) where vec allows, the rest 4 bytes at a time.
+__device__ __forceinline__ void stage_rows(float* dst, const float* X,
+                                           int ldx, bool vec, int b_lo,
+                                           int bp, int k0, int kend, int t) {
+  for (int i = t; i < bp * 8; i += kFProducer) {
+    const int r = i >> 3, j = i & 7, k = k0 + 4 * j;
+    float* d = dst + r * kFPitch + 4 * j;
+    const float* s = X + (long)(b_lo + r) * ldx + k;
+    if (vec && k + 4 <= kend) {
+      cp_async16(d, s);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cp_async4_zfill(d + e, k + e < kend ? s + e : X, k + e < kend);
+    }
+  }
+}
+
+// One k8 step of a warpgroup in three TF32 terms into t, from zero: the A
+// fragment (rows r0 and r0 + 8 of the staged rows xs where ok0 / ok1, k
+// columns kq and kq + 4) split into ah / al in registers; B the split
+// weight tiles at shared addresses bhi / blo (the k8 slice's start). The
+// group is committed, not waited for.
+template <int NW>
+__device__ __forceinline__ void tf32_k8(float (&t)[NW / 2], unsigned (&ah)[4],
+                                        unsigned (&al)[4], const float* xs,
+                                        int r0, bool ok0, bool ok1, int kq,
+                                        unsigned bhi, unsigned blo) {
+  const float* x0 = xs + r0 * kFPitch + kq;
+  const float* x1 = x0 + 8 * kFPitch;
+  const float x[4] = {ok0 ? x0[0] : 0.0f, ok1 ? x1[0] : 0.0f,
+                      ok0 ? x0[4] : 0.0f, ok1 ? x1[4] : 0.0f};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) recnet::split_tf32(x[e], ah[e], al[e]);
+  recnet::fence_operands(t);
+  recnet::wgmma_fence();
+  recnet::wgmma_tf32<NW>(t, al, recnet::sw128_desc(bhi), 0);
+  recnet::wgmma_tf32<NW>(t, ah, recnet::sw128_desc(blo), 1);
+  recnet::wgmma_tf32<NW>(t, ah, recnet::sw128_desc(bhi), 1);
+  recnet::wgmma_commit();
+  recnet::fence_operands(t);
+  recnet::fence_operands(ah);
+  recnet::fence_operands(al);
+}
+
+// acc += t in IEEE f32, once t's group has been waited for (the fences keep
+// t's and the A fragment's registers as they are until here)
+template <int R>
+__device__ __forceinline__ void add_k8(float (&acc)[R], float (&t)[R],
+                                       unsigned (&ah)[4], unsigned (&al)[4]) {
+  recnet::fence_operands(t);
+  recnet::fence_operands(ah);
+  recnet::fence_operands(al);
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] += t[i];
+}
+
+template <bool LSTM, bool FWD, int NW>
+__global__ void __launch_bounds__(kFThreads, 1)
+cell_rollout_tf32_kernel(const RollArgs<float> a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((kWAlign - (recnet::smem_addr(smem_raw) & (kWAlign - 1))) &
+                  (kWAlign - 1));
+  constexpr int nG = LSTM ? 4 : 3;
+  constexpr int R = NW / 2;                     // accumulators a thread
+  constexpr int RP = ps_pitch(NW);
+  constexpr int kIn = FWD ? nG + 1 : 8;         // a pair's inputs
+  constexpr int kTile = NW * 128;               // a split tile's bytes
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2;                     // 0, 1: rows 64 wg ..; 2
+  const bool producer = wg == 2;
+  const int ptid = tid - kFConsumers;           // the producer's threads
+  const int H = a.H, G = a.G, B = a.B, C = a.C, ub = a.ub, U = C * ub;
+  const int rank = (int)(blockIdx.x % C), q = (int)(blockIdx.x / C);
+  const int cu0 = q * U;                        // the cluster's units
+  const int Uv = min(U, H - cu0);               // ... below H
+  const int K = FWD ? H : G;
+  const int kbeg = rank * a.kc, kend = min(K, kbeg + a.kc);
+  const int nchunks = a.kc / kFKC;
+  const int u_lo = cu0 + rank * ub;             // the block's own units
+  const bool exchange = !(a.probe & kNoExchange);
+  const bool cluster_sum = exchange && C > 1;
+  const bool product = !(a.probe & kNoProduct);
+  const bool mma = !(a.probe & kNoMma);
+  const int stage_bytes = a.Bp * kFPitch * 4;
+  // the slots' split weight tiles (a hi and a lo tile a chunk), their
+  // staged rows (the partials lie over them after the product), their
+  // mbarriers, the readiness scan's bytes, b_hh of the block's units
+  unsigned char* split = smem;
+  unsigned char* ring = split + kFSlots * 2 * kTile;
+  float* Ps = reinterpret_cast<float*>(ring);
+  const unsigned full0 = recnet::smem_addr(ring + kFSlots * stage_bytes);
+  unsigned char* ready = ring + kFSlots * stage_bytes + kFSlots * 8;
+  float* bias_s = reinterpret_cast<float*>(ready + kWReady);
+  // the block's part of the images: chunk c's hi tile, then its lo tile
+  unsigned char* images = reinterpret_cast<unsigned char*>(a.wsplit) +
+                          (long)blockIdx.x * nchunks * 2 * kTile;
+
+  if (FWD)
+    for (int i = tid; i < nG * ub; i += kFThreads) {
+      const int j = u_lo + i % ub;
+      bias_s[i] = j < H ? a.bias[(i / ub) * H + j] : 0.0f;
+    }
+  if (tid == 0)
+    for (int s = 0; s < kFSlots; ++s)
+      recnet::mbar_init(full0 + 8 * s, kFProducer + 1);
+  recnet::fence_mbar_init();
+  // The block's slice of W_hh split once for the launch into the chunks'
+  // tile images, in the layout of the slots' tiles (swizzled K-major rows
+  // of 32 k a product row; zero outside the slice): piece (chunk c,
+  // product row n, k 4j .. 4j + 3), 16 bytes of hi and of lo. Forward row n
+  // is gate n / U of the cluster's unit n % U, backward the cluster's unit
+  // n. The images are read back through the async proxy (bulk copies).
+  if (product) {
+    for (int i = tid; i < nchunks * NW * 8; i += kFThreads) {
+      const int c = i / (NW * 8), r = i - c * NW * 8;
+      const int n = r % NW, j = r / NW, k = kbeg + c * kFKC + 4 * j;
+      const int gate = n / U, u = n - gate * U;
+      const bool row_ok = FWD ? gate < nG && u < Uv : n < Uv;
+      unsigned hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long idx = FWD ? (long)(k + e) * G + (long)gate * H + cu0 + u
+                             : (long)(cu0 + n) * G + k + e;
+        recnet::split_tf32(row_ok && k + e < kend ? __ldg(a.w + idx) : 0.0f,
+                           hi[e], lo[e]);
+      }
+      unsigned char* tile = images + c * 2 * kTile + recnet::sw128(n, j);
+      *reinterpret_cast<uint4*>(tile) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(tile + kTile) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    recnet::fence_proxy_async_global();
+  }
+  __syncthreads();
+
+  // the chunks in the order the products take them, every pass of every
+  // step: chunk g is the slice's chunk g % nchunks, in slot g % kFSlots,
+  // the (g / kFSlots)-th phase of the slot's mbarrier
+  const long passes = (B + a.Bp - 1) / a.Bp;
+  const long total = product ? (long)a.steps * passes * nchunks : 0;
+  long g0 = 0;       // the pass's first chunk
+
+  int round = 0;   // passes so far: each is one phase pair of the cluster
+  // One pass of step t over batch rows b_lo .. b_lo + bp: P = X W_blk^T
+  // over the block's k slice (X's rows from b_lo, the chunks staged once
+  // `need` is published by their writers; no wait where need = 0); the
+  // cells' inputs loaded; the partials out; the cluster's sum; the cells.
+  auto pass = [&](const float* X, int ldx, bool xvec, unsigned need,
+                  int b_lo, int bp, int t) {
+    // the peers have read the last pass's partials, which lie over the rows
+    if (round > 0) {
+      if (cluster_sum)
+        recnet::cluster_wait();
+      else
+        __syncthreads();
+    }
+    ++round;
+    const int npairs = ub * bp;
+    if (product && producer) {
+      // the chunks whose writers have all published, from one look at every
+      // writer of the slice; a chunk found short is staged after looks at
+      // all of them again (one L2 round trip each), until it is ready
+      if (need) {
+        scan_ready(ready, a.flags, need, kbeg, a.kc, kend, H, U, ub, C, ptid,
+                   kFProducer);
+        named_sync(kBarProducer, kFProducer);
+      }
+      // chunk c into its slot once the consumers are done with chunk c -
+      // kFSlots: its rows by cp.async (each thread's arrival on the slot's
+      // mbarrier follows its copies' landing), its tile images by one bulk
+      // copy whose bytes the mbarrier counts
+#pragma unroll 1
+      for (int c = 0; c < nchunks; ++c) {
+        const long g = g0 + c;
+        const int slot = (int)(g % kFSlots);
+        if (g >= kFSlots) named_sync(kBarEmpty + slot, kFThreads);
+        if (need) {
+          const long long start = clock64();
+          while (!ready[c]) {                   // producer-uniform
+            __nanosleep(64);
+            named_sync(kBarProducer, kFProducer);
+            scan_ready(ready, a.flags, need, kbeg, a.kc, kend, H, U, ub, C,
+                       ptid, kFProducer);
+            named_sync(kBarProducer, kFProducer);
+            if (clock64() - start > kBarrierTimeout) __trap();
+          }
+        }
+        stage_rows(reinterpret_cast<float*>(ring + slot * stage_bytes), X,
+                   ldx, xvec, b_lo, bp, kbeg + c * kFKC, kend, ptid);
+        recnet::mbar_arrive_cp_async(full0 + 8 * slot);
+        if (ptid == 0) {
+          recnet::mbar_arrive_expect(full0 + 8 * slot, 2 * kTile);
+          recnet::bulk_copy_g2s(recnet::smem_addr(split + slot * 2 * kTile),
+                                images + c * 2 * kTile, 2 * kTile,
+                                full0 + 8 * slot);
+        }
+      }
+    } else if (!producer) {
+      // the consumers: each k8 step's three terms from zero into tk, added
+      // to acc once waited for
+      float acc[R], tk[R];
+#pragma unroll
+      for (int e = 0; e < R; ++e) acc[e] = 0.0f;
+      unsigned ah[4], al[4];
+      const bool rows_on = 64 * wg < bp;        // warpgroup-uniform
+      const int r0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+      const bool ok0 = r0 < bp, ok1 = r0 + 8 < bp;
+      const bool on = mma && rows_on;
+      const int kq = lane & 3;
+#pragma unroll 1
+      for (int c = 0; c < (product ? nchunks : 0); ++c) {
+        const long g = g0 + c;
+        const int slot = (int)(g % kFSlots);
+        mbar_wait(full0 + 8 * slot, (unsigned)((g / kFSlots) & 1));
+        if (on) {
+          const float* xs =
+              reinterpret_cast<const float*>(ring + slot * stage_bytes);
+          const unsigned bhi = recnet::smem_addr(split + slot * 2 * kTile);
+          const unsigned blo = bhi + kTile;
+#pragma unroll
+          for (int kk = 0; kk < kFKC / 8; ++kk) {
+            tf32_k8<NW>(tk, ah, al, xs, r0, ok0, ok1, kq + 8 * kk,
+                        bhi + 32 * kk, blo + 32 * kk);
+            recnet::wgmma_wait<0>();
+            add_k8(acc, tk, ah, al);
+          }
+        }
+        // the slot is free (its rows read, its tiles' MMAs waited for),
+        // where the producer will wait for it
+        if (g + kFSlots < total)
+          named_arrive(kBarEmpty + slot, kFThreads);
+      }
+      // both consumer warpgroups have read the rows (all landed): the
+      // partials go over them
+      named_sync(kBarConsumers, kFConsumers);
+      if (rows_on) {
+        float2* P2 = reinterpret_cast<float2*>(Ps);
+#pragma unroll
+        for (int j = 0; j < NW / 8; ++j) {
+          const int p = (4 * j + (lane & 3)) ^ ((r0 & 7) << 1);
+          if (ok0) P2[r0 * RP + p] = make_float2(acc[4 * j], acc[4 * j + 1]);
+          if (ok1)
+            P2[(r0 + 8) * RP + p] =
+                make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+    }
+    if (product) g0 += nchunks;
+    // the cells' inputs, landing beside the cluster's barrier (a thread past
+    // its pairs or a unit past H reads a valid pair's)
+    float in[kFMaxPairs][kIn];
+#pragma unroll
+    for (int s = 0; s < kFMaxPairs; ++s) {
+      const int i = min(tid + s * kFThreads, npairs - 1);
+      const int j = min(u_lo + i % ub, H - 1), b = b_lo + i / ub;
+      const long bj = (long)b * H + j, row = (long)t * B + b;
+      float* v = in[s];
+      if constexpr (FWD) {
+#pragma unroll
+        for (int g = 0; g < nG; ++g) v[g] = __ldg(a.gi + row * G + g * H + j);
+        // the carry, c or h: the thread's own store of the last step
+        v[nG] = t == 0 ? __ldg((LSTM ? a.c0 : a.h0) + bj)
+                       : __ldcg((LSTM ? a.cs : a.hs) + (row - B) * H + j);
+      } else {
+        v[7] = __ldcg((LSTM ? a.dc0 : a.dh0) + bj);   // dc, or GRU's dh z
+        if (t > 0) {                                // step t - 1's inputs
+          const long rw = row - B;
+          v[0] = __ldg(a.dhs + rw * H + j);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) v[1 + g] = __ldg(a.acts + rw * 4 * H + g * H + j);
+          if constexpr (LSTM) {
+            v[5] = __ldg(a.cs + rw * H + j);
+            v[6] = __ldg(t == 1 ? a.c0 + bj : a.cs + (rw - B) * H + j);
+          } else {
+            v[5] = __ldg(t == 1 ? a.h0 + bj : a.hs + (rw - B) * H + j);
+          }
+        }
+      }
+    }
+    if (cluster_sum) {
+      recnet::cluster_arrive();    // the partials are out
+      recnet::cluster_wait();
+    } else {
+      __syncthreads();
+    }
+    // each pair's P summed over the cluster's ranks in order: every load
+    // first, then the cells
+    float P[kFMaxPairs][FWD ? nG : 1];
+#pragma unroll
+    for (int s = 0; s < kFMaxPairs; ++s) {
+      const int i = min(tid + s * kFThreads, npairs - 1);
+      const int u = i % ub, bl = i / ub;
+#pragma unroll
+      for (int g = 0; g < (FWD ? nG : 1); ++g) P[s][g] = 0.0f;
+      for (int r = 0; r < (cluster_sum ? C : 1); ++r) {
+        const float* src =
+            cluster_sum ? cg::this_cluster().map_shared_rank(Ps, r) : Ps;
+#pragma unroll
+        for (int g = 0; g < (FWD ? nG : 1); ++g)
+          P[s][g] += src[ps_offset(bl, g * U + rank * ub + u, NW)];
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kFMaxPairs; ++s) {
+      const int i = tid + s * kFThreads;
+      const int j = u_lo + i % ub, b = b_lo + i / ub;
+      if (i >= npairs || j >= H) continue;
+      const float* v = in[s];
+      const long row = (long)t * B + b;
+      if constexpr (FWD) {
+        float bias[nG];
+#pragma unroll
+        for (int g = 0; g < nG; ++g) bias[g] = bias_s[g * ub + i % ub];
+        if constexpr (LSTM) {
+          float pre[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) pre[g] = v[g] + P[s][g];
+          fwd_lstm_store<float>(a, row, j, pre, bias, v[nG]);
+        } else {
+          fwd_gru_store<float>(a, row, j, P[s], v, bias, v[nG]);
+        }
+      } else {
+        const float dh = LSTM ? P[s][0] : v[7] + P[s][0];
+        if (t > 0)
+          bwd_cell_store<float, LSTM>(a, t - 1, j, b, v, dh,
+                                      LSTM ? v[7] : 0.0f);
+        else
+          a.dh0[(long)b * H + j] = dh;
+      }
+    }
+    if (cluster_sum) recnet::cluster_arrive();   // the peers' partials read
+  };
+  // this block's units are written up to `count`
+  auto publish = [&](unsigned count) {
+    __syncthreads();
+    if (tid == 0) st_release(a.flags + blockIdx.x, a.base + count);
+  };
+
+  const bool vec_h0 = a.vec & kVecH0, vec_hs = a.vec & kVecHs;
+  const bool vec_dg = a.vec & kVecDg, vec_acts = a.vec & kVecActs;
+  if constexpr (FWD) {
+#pragma unroll 1
+    for (int t = 0; t < a.steps; ++t) {
+      const bool first = t == 0 || !exchange;
+      const float* X = first ? a.h0 : a.hs + (long)(t - 1) * B * H;
+#pragma unroll 1
+      for (int b_lo = 0; b_lo < B; b_lo += a.Bp)
+        pass(X, H, first ? vec_h0 : vec_hs, first ? 0u : a.base + t, b_lo,
+             min(a.Bp, B - b_lo), t);
+      publish(t + 1);                           // h_t
+    }
+  } else {
+    // step T - 1's cell from zero carries, on the passes' pairs
+#pragma unroll 1
+    for (int b_lo = 0; b_lo < B; b_lo += a.Bp) {
+      const int npairs = ub * min(a.Bp, B - b_lo);
+      for (int i = tid; i < npairs; i += kFThreads) {
+        const int j = u_lo + i % ub, b = b_lo + i / ub;
+        if (j < H) {
+          float v[7];
+          bwd_cell_load<float, LSTM>(a, a.steps - 1, j, b, v);
+          bwd_cell_store<float, LSTM>(a, a.steps - 1, j, b, v, 0.0f, 0.0f);
+        }
+      }
+    }
+    publish(1);                                 // dgates[T - 1]
+#pragma unroll 1
+    for (int t = a.steps - 1; t >= 0; --t) {
+      const float* X = exchange ? (LSTM ? a.dgi : a.dgh) + (long)t * B * G
+                                : a.acts + (long)t * B * 4 * H;
+#pragma unroll 1
+      for (int b_lo = 0; b_lo < B; b_lo += a.Bp)
+        pass(X, exchange ? G : 4 * H, exchange ? vec_dg : vec_acts,
+             exchange ? a.base + (a.steps - t) : 0u, b_lo,
+             min(a.Bp, B - b_lo), t);
+      if (t > 0) publish(a.steps - t + 1);      // dgates[t - 1]
+    }
+  }
+  // no block leaves while a peer may still read its partials
+  if (cluster_sum) recnet::cluster_wait();
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1180,12 +1276,17 @@ int capacity(const void* kern, int threads, int C, int smem, int* cap) {
   return 0;
 }
 
-// The kernel of a plan: f32's body, or bf16's for NW product rows
-// (nullptr for an NW the build has no kernel for).
+// The kernel of a plan for NW product rows (nullptr for an NW the build has
+// no kernel for).
 template <typename T, bool LSTM, bool FWD>
 void* kernel_of(int NW) {
   if constexpr (std::is_same<T, float>::value) {
-    return (void*)cell_rollout_f32_kernel<LSTM, FWD>;
+    switch (NW) {
+      case 32: return (void*)cell_rollout_tf32_kernel<LSTM, FWD, 32>;
+      case 64: return (void*)cell_rollout_tf32_kernel<LSTM, FWD, 64>;
+      case 96: return (void*)cell_rollout_tf32_kernel<LSTM, FWD, 96>;
+      case 104: return (void*)cell_rollout_tf32_kernel<LSTM, FWD, 104>;
+    }
   } else {
     switch (NW) {
       case 32: return (void*)cell_rollout_wgmma_kernel<LSTM, FWD, 32>;
@@ -1193,13 +1294,13 @@ void* kernel_of(int NW) {
       case 96: return (void*)cell_rollout_wgmma_kernel<LSTM, FWD, 96>;
       case 104: return (void*)cell_rollout_wgmma_kernel<LSTM, FWD, 104>;
     }
-    return nullptr;
   }
+  return nullptr;
 }
 
 template <typename T>
 constexpr int threads_of() {
-  return std::is_same<T, float>::value ? kThreads : kWThreads;
+  return std::is_same<T, float>::value ? kFThreads : kWThreads;
 }
 
 // the plan's fields against what the body takes
@@ -1207,17 +1308,16 @@ template <typename T>
 bool plan_ok(const int* p, int B, int H) {
   const int C = p[kPlanC], NB = p[kPlanNB], ub = p[kPlanUb];
   const int rows = p[kPlanRows], kc = p[kPlanKc], Bp = p[kPlanBp];
+  const int stages = p[kPlanStages];
   if (B < 1 || H < 1 || C < 1 || NB < 1 || ub < 1 || kc < kKC ||
       kc % kKC || Bp < 8 || Bp % 8 || (long)C * NB > kMaxBlocks ||
-      (long)C * NB * ub < H)
+      (long)C * NB * ub < H || kc > 32 * kWReady || Bp > kWPassRows ||
+      !(rows == 32 || rows == 64 || rows == 96 || rows == 104))
     return false;
   if (std::is_same<T, float>::value)
-    return rows % 16 == 0 && rows <= kMaxRows && Bp <= kPassRows &&
-           ub * Bp <= kMaxPairs * kThreads;
-  return (rows == 32 || rows == 64 || rows == 96 || rows == 104) &&
-         Bp <= kWPassRows && kc <= 32 * kWReady &&
-         ub * Bp <= kWMaxPairs * kWThreads &&
-         p[kPlanStages] >= kWMinStages && p[kPlanStages] <= kWMaxStages;
+    return ub * Bp <= kFMaxPairs * kFThreads && stages == kFSlots;
+  return ub * Bp <= kWMaxPairs * kWThreads && stages >= kWMinStages &&
+         stages <= kWMaxStages;
 }
 
 template <typename T, bool LSTM, bool FWD>
@@ -1249,28 +1349,9 @@ int launch(const int* p, RollArgs<T> a, cudaStream_t s) {
   }
   cfg.attrs = attrs;
   cfg.numAttrs = n;
-  if constexpr (std::is_same<T, float>::value) {
-    RECNET_TRY(cudaLaunchKernelEx(&cfg, cell_rollout_f32_kernel<LSTM, FWD>,
-                                  a));
-  } else {
-    switch (a.Mpad) {
-      case 32:
-        RECNET_TRY(cudaLaunchKernelEx(
-            &cfg, cell_rollout_wgmma_kernel<LSTM, FWD, 32>, a));
-        break;
-      case 64:
-        RECNET_TRY(cudaLaunchKernelEx(
-            &cfg, cell_rollout_wgmma_kernel<LSTM, FWD, 64>, a));
-        break;
-      case 96:
-        RECNET_TRY(cudaLaunchKernelEx(
-            &cfg, cell_rollout_wgmma_kernel<LSTM, FWD, 96>, a));
-        break;
-      default:
-        RECNET_TRY(cudaLaunchKernelEx(
-            &cfg, cell_rollout_wgmma_kernel<LSTM, FWD, 104>, a));
-    }
-  }
+  void* kern = kernel_of<T, LSTM, FWD>(a.Mpad);
+  void* args[] = {&a};
+  RECNET_TRY(cudaLaunchKernelExC(&cfg, kern, args));
   return (int)cudaGetLastError();
 }
 
@@ -1278,7 +1359,7 @@ template <typename T, bool LSTM>
 int forward(const int* p, int steps, int B, int H, int probe, int vec,
             unsigned base, const void* gi, const void* w, const void* bias,
             const void* h0, const void* c0, void* hs, void* cs, void* acts,
-            void* scratch, cudaStream_t s) {
+            void* scratch, void* wsplit, cudaStream_t s) {
   RollArgs<T> a = {};
   a.steps = steps;
   a.B = B;
@@ -1295,8 +1376,8 @@ int forward(const int* p, int steps, int B, int H, int probe, int vec,
   a.hs = (T*)hs;
   a.cs = (T*)cs;
   a.acts = (T*)acts;
-  a.bar = (unsigned*)scratch;
-  a.flags = (unsigned*)scratch + 2;
+  a.flags = (unsigned*)scratch;
+  a.wsplit = (float*)wsplit;
   return launch<T, LSTM, true>(p, a, s);
 }
 
@@ -1305,7 +1386,7 @@ int backward(const int* p, int steps, int B, int H, int probe, int vec,
              unsigned base, const void* dhs, const void* acts, const void* w,
              const void* h0, const void* hs, const void* c0, const void* cs,
              void* dgi, void* dgh, void* dh0, void* dc0, void* dh_steps,
-             void* dc_steps, void* scratch, cudaStream_t s) {
+             void* dc_steps, void* scratch, void* wsplit, cudaStream_t s) {
   RollArgs<T> a = {};
   a.steps = steps;
   a.B = B;
@@ -1327,8 +1408,8 @@ int backward(const int* p, int steps, int B, int H, int probe, int vec,
   a.dc0 = (T*)dc0;
   a.dh_steps = (T*)dh_steps;
   a.dc_steps = (T*)dc_steps;
-  a.bar = (unsigned*)scratch;
-  a.flags = (unsigned*)scratch + 2;
+  a.flags = (unsigned*)scratch;
+  a.wsplit = (float*)wsplit;
   return launch<T, LSTM, false>(p, a, s);
 }
 
@@ -1354,8 +1435,8 @@ int recnet_cell_rollout_device(int* out) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16; lstm: 1 = LSTM, 0 = GRU; fwd: 1 =
-// the forward kernel, 0 = the backward; rows: the bf16 body's NW (32, 64,
-// 96 or 104; unread for f32). cap: the clusters of C blocks the current device
+// the forward kernel, 0 = the backward; rows: the body's NW (32, 64, 96 or
+// 104). cap: the clusters of C blocks the current device
 // holds at once with `smem` bytes a block. Returns a CUDA error code.
 int recnet_cell_rollout_capacity(int dtype, int lstm, int fwd, int rows,
                                  int C, int smem, int* cap) {
@@ -1383,21 +1464,22 @@ int recnet_cell_rollout_capacity(int dtype, int lstm, int fwd, int rows,
 // The forward of a T-step rollout on `plan` (kPlanFields ints, made by
 // rollout_plan): gi (T, B, G), w (H, G), bias (G), h0, c0 (LSTM) (B, H) ->
 // hs, cs (LSTM) (T, B, H), acts (T, B, 4H). vec: kVecH0 | kVecHs | kVecW
-// where h0 / hs / w rows may be copied in 16-byte pieces. scratch: the
-// f32 grid barrier's two words (zeroed, left zeroed), then kMaxBlocks
-// readiness words (bf16), each at most `base` before the launch and left
-// at most base + T + 1; not shared with a launch that may run at the same
+// where h0 / hs / w rows may be copied in 16-byte pieces (bf16). scratch:
+// kMaxBlocks readiness words, each at most `base` before the launch and
+// left at most base + T + 1; wsplit (f32; unread in bf16): the blocks' tile
+// images of W_hh, C NB (k slice / 32) 2 NW 128 bytes, which the launch
+// writes and reads; neither shared with a launch that may run at the same
 // time. probe: 0, or the split probes' bits. Launches on `stream`.
 int recnet_cell_rollout_fwd(int dtype, int lstm, const int* plan, int T,
                             int B, int H, int probe, int vec, unsigned base,
                             const void* gi, const void* w, const void* bias,
                             const void* h0, const void* c0, void* hs,
-                            void* cs, void* acts, void* scratch,
+                            void* cs, void* acts, void* scratch, void* wsplit,
                             void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
 #define RECNET_FWD(T_, L_)                                                  \
   return forward<T_, L_>(plan, T, B, H, probe, vec, base, gi, w, bias, h0, \
-                         c0, hs, cs, acts, scratch, s)
+                         c0, hs, cs, acts, scratch, wsplit, s)
   if (dtype == 0 && lstm) RECNET_FWD(float, true);
   if (dtype == 0) RECNET_FWD(float, false);
   if (dtype == 1 && lstm) RECNET_FWD(bf16, true);
@@ -1411,19 +1493,19 @@ int recnet_cell_rollout_fwd(int dtype, int lstm, const int* plan, int T,
 // dh0, dc0 (LSTM) (B, H); dh_steps and dc_steps (LSTM) (T, B, H), or null:
 // the carries into each step. vec: kVecDg where dgi's (LSTM) or dgh's
 // (GRU) rows may be copied in 16-byte pieces, kVecActs for acts, kVecW for
-// w. base and scratch as for the forward.
+// w. base, scratch and wsplit as for the forward.
 int recnet_cell_rollout_bwd(int dtype, int lstm, const int* plan, int T,
                             int B, int H, int probe, int vec, unsigned base,
                             const void* dhs, const void* acts, const void* w,
                             const void* h0, const void* hs, const void* c0,
                             const void* cs, void* dgi, void* dgh, void* dh0,
                             void* dc0, void* dh_steps, void* dc_steps,
-                            void* scratch, void* stream) {
+                            void* scratch, void* wsplit, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
 #define RECNET_BWD(T_, L_)                                                   \
   return backward<T_, L_>(plan, T, B, H, probe, vec, base, dhs, acts, w, h0, \
                           hs, c0, cs, dgi, dgh, dh0, dc0, dh_steps,          \
-                          dc_steps, scratch, s)
+                          dc_steps, scratch, wsplit, s)
   if (dtype == 0 && lstm) RECNET_BWD(float, true);
   if (dtype == 0) RECNET_BWD(float, false);
   if (dtype == 1 && lstm) RECNET_BWD(bf16, true);

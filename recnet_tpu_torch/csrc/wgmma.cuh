@@ -1,18 +1,25 @@
-// Hopper (sm_90a) warpgroup tensor-core helpers of cell_rollout.cu's bf16
+// Hopper (sm_90a) warpgroup tensor-core helpers of cell_rollout.cu's
 // bodies: the shared-memory matrix descriptor of a K-major tile in the
-// 128-byte swizzle, wgmma.mma_async m64nNk16 (bf16 in, f32 accumulators,
-// both operands from shared memory) for N = 32, 64, 96 and 104, its
-// fences, the generic-to-async proxy fence, and a cluster barrier split
-// into its arrive and its wait.
+// 128-byte swizzle; wgmma.mma_async m64nNk16 (bf16 in, f32 accumulators,
+// both operands from shared memory) and m64nNk8 on TF32 (A from
+// registers, B from shared memory: the f32 body's three-term products) for
+// N = 32, 64, 96 and 104; their fences; the generic-to-async proxy fence;
+// a cluster barrier split into its arrive and its wait; and the mbarrier,
+// bulk-copy (TMA) and global proxy-fence instructions of the f32 body's
+// slots.
 //
-// The tile layout the descriptors name (K-major, SWIZZLE_128B): rows of 64
-// bf16 (128 bytes), 8-row groups of 1024 bytes one after another; the
-// 16-byte piece j of row r lies at r * 128 + ((j ^ (r % 8)) * 16). A tile
-// starts 1024-byte aligned; the k16 slice kk of a 64-wide row starts 32 kk
-// bytes in (the hardware applies the XOR to the address it forms).
+// The tile layout the descriptors name (K-major, SWIZZLE_128B): rows of 128
+// bytes (64 bf16 or 32 f32), 8-row groups of 1024 bytes one after another;
+// the 16-byte piece j of row r lies at r * 128 + ((j ^ (r % 8)) * 16). A
+// tile starts 1024-byte aligned; a k step of 32 bytes (k16 in bf16, k8 in
+// TF32) kk starts 32 kk bytes into the row (the hardware applies the XOR to
+// the address it forms).
 //
-// Accumulator layout of m64nNk16 (warp w of the warpgroup, lane l): d[4j +
-// e] holds row 16 w + l / 4 + 8 (e / 2), column 8 j + 2 (l % 4) + e % 2.
+// Accumulator layout of m64nNk16 and m64nNk8 (warp w of the warpgroup,
+// lane l): d[4j + e] holds row 16 w + l / 4 + 8 (e / 2), column 8 j + 2 (l
+// % 4) + e % 2. The A fragment of m64nNk8 TF32 in registers: a[0] = (row 16
+// w + l / 4, k l % 4), a[1] = (row + 8, k), a[2] = (row, k + 4), a[3] =
+// (row + 8, k + 4).
 
 #pragma once
 
@@ -53,6 +60,18 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_operands(unsigned (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// this thread's global-memory writes made visible to the async proxy that
+// bulk copies (TMA) read through
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // this thread's shared-memory writes (st.shared, cp.async) made visible to
@@ -173,6 +192,175 @@ __device__ __forceinline__ void wgmma_bf16<104>(float (&d)[52], uint64_t a,
         "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+
+// d (+)= A B^T over one k8 step in TF32: A (64 x 8) in registers (the
+// fragment above, TF32 bit patterns), B (N x 8) a K-major tile named by its
+// descriptor; accumulate = 0 overwrites d. A's registers must stay as they
+// are until the wgmma is waited for.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const unsigned (&a)[4], uint64_t b,
+                                           int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16],
+                                                 const unsigned (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
+                                                 const unsigned (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<96>(float (&d)[48],
+                                                 const unsigned (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<104>(float (&d)[52],
+                                                 const unsigned (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, {%52, %53, %54, %55}, %56, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// the mbarrier at shared address `bar` expects `count` arrivals a phase
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// the barriers' initialisation made visible to the async proxy (and the
+// cluster) before any copy completes on them
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` more of bulk copies this phase
+__device__ __forceinline__ void mbar_arrive_expect(unsigned bar,
+                                                   unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// an arrival once this thread's cp.async copies so far have landed (the
+// barrier's count includes it: noinc)
+__device__ __forceinline__ void mbar_arrive_cp_async(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
+// whether the phase of parity `parity` has completed
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// a bulk copy (TMA) of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global memory to this block's shared memory, completing
+// its bytes on the mbarrier `bar`
+__device__ __forceinline__ void bulk_copy_g2s(unsigned dst, const void* src,
+                                              unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 }  // namespace recnet

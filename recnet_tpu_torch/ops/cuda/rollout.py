@@ -61,17 +61,19 @@ The reconstructor's cell rollout (``ops.rnn.lstm_rollout_pre`` /
 ``gru_rollout_pre``) runs whole: ``cell_rollout_forward`` and
 ``cell_rollout_backward`` launch ``csrc/cell_rollout.cu``'s persistent
 kernels, one launch for all T steps of a direction, with the step loop as
-their plain versions (``cell_rollout_*_reference``). In bf16 the
-recurrent product runs on ``wgmma`` with the block's slice of W_hh held
-in shared memory, and a block waits only for the blocks that write the
-columns it stages, through a readiness word a block in the launch's
-scratch (``_scratch``); f32 keeps a body of CUDA-core FMAs and a grid
-barrier a step. ``rollout_shape`` computes a launch's shape and shared
+their plain versions (``cell_rollout_*_reference``). The recurrent
+product runs on ``wgmma``: in bf16 with the block's slice of W_hh held in
+shared memory, in f32 as three TF32 terms with W_hh's chunks streamed
+through an mbarrier ring; a block waits only for the blocks that write
+the columns it stages, through a readiness word a block in the launch's
+scratch (``_scratch``). ``rollout_shape`` computes a launch's shape and shared
 memory from the card's SM count and limit (pure Python, tested on the
 CPU); ``rollout_plan`` asks the card for both and for the clusters it
-holds at once, and raises on a shape the card cannot hold;
-``cell_rollout_probe`` launches the split probes. The per-step cell
-kernels above stay for the decoder's attention rollout and f32.
+holds at once, and raises ``rollout_refusal``'s error on a shape the card
+cannot hold; ``rollout_holds`` asks the same before a launch, for the
+route rule ``ops.rnn.whole_rollout``. ``cell_rollout_probe`` launches the
+split probes. The per-step cell kernels above stay for the decoder's
+attention rollout and for the widths no whole-rollout launch holds.
 """
 
 from __future__ import annotations
@@ -889,21 +891,21 @@ _PLAN_FIELDS = ("cluster", "clusters", "units", "rows", "k_slice",
                 "pass_rows", "stages", "smem", "capacity", "smem_limit")
 _KERNEL_FIELDS = 8
 ROLLOUT_CLUSTER = {True: 2, False: 8}   # blocks a cluster: forward, backward
-_KC = 64                      # k of a staged chunk (cell_rollout.cu)
-# the bf16 body (cell_rollout_wgmma_kernel): its wgmma widths NW (product
-# rows a block), batch rows a pass (a stage's rows), (unit, row) pairs a
-# block in a pass, the ring's stages and the tiles' alignment
+_KC = 64                      # the k slice's granule (cell_rollout.cu)
+# both bodies (cell_rollout_wgmma_kernel, cell_rollout_tf32_kernel): the
+# wgmma widths NW (product rows a block), batch rows a pass (a stage's
+# rows), (unit, row) pairs a block in a pass, the tiles' alignment
 ROLLOUT_WIDTHS = (32, 64, 96, 104)
 ROLLOUT_PASS_ROWS = 104
 ROLLOUT_MAX_PAIRS = 6 * 256
-ROLLOUT_STAGES = (3, 8)
 _ALIGN = 1024
 _READY = 128                  # the readiness scan's bytes (k slice <= 4096)
-# the f32 body (cell_rollout_f32_kernel)
-ROLLOUT_MAX_ROWS = 128        # padded product rows a block
-_F32_PASS_ROWS = 112
-_F32_MAX_PAIRS = 4 * 512
-_F32_STAGES = 3
+# the bf16 body: its ring's stages (as many as fit)
+ROLLOUT_STAGES = (3, 8)
+# the f32 body: its slots (a 32-k chunk's split weight tiles, its staged
+# rows and an mbarrier), a staged row's floats
+ROLLOUT_F32_SLOTS = 5
+_F32_PITCH = 36
 # which product sources may be copied in 16-byte pieces (cell_rollout.cu)
 _VEC_H0, _VEC_HS, _VEC_DG, _VEC_ACTS, _VEC_W = 1, 2, 4, 8, 16
 # the split probes: without the staging and the product (P = 0), without
@@ -913,6 +915,7 @@ ROLLOUT_PROBES = {"product": 1, "exchange": 2, "mma": 4}
 _plans: dict = {}
 _devices: dict = {}
 _scratches: dict = {}
+_images: dict = {}
 
 
 def _cell_rollout_library() -> ctypes.CDLL:
@@ -922,8 +925,8 @@ def _cell_rollout_library() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.recnet_cell_rollout_device.argtypes = [p]
     lib.recnet_cell_rollout_capacity.argtypes = [i] * 6 + [p]
-    lib.recnet_cell_rollout_fwd.argtypes = [i, i, p] + [i] * 5 + [u] + [p] * 10
-    lib.recnet_cell_rollout_bwd.argtypes = [i, i, p] + [i] * 5 + [u] + [p] * 15
+    lib.recnet_cell_rollout_fwd.argtypes = [i, i, p] + [i] * 5 + [u] + [p] * 11
+    lib.recnet_cell_rollout_bwd.argtypes = [i, i, p] + [i] * 5 + [u] + [p] * 16
     for fn in (lib.recnet_cell_rollout_device,
                lib.recnet_cell_rollout_capacity, lib.recnet_cell_rollout_fwd,
                lib.recnet_cell_rollout_bwd):
@@ -962,38 +965,47 @@ def rollout_shape(cell_type: str, forward: bool, dtype: torch.dtype, B: int,
     ``smem_limit`` bytes of shared memory a block, before the card's
     capacity is asked: the direction's cluster size, the clusters (as many
     as H needs over ``cap`` clusters, or sms / cluster; ``clusters`` where
-    given), units a block, product rows a block (bf16: the wgmma width NW;
-    f32: padded to 16), the k slice, batch rows a pass, the bf16 ring's
-    stages (as many as fit, up to 8; at least the partials' bytes) and the
-    shared memory a block (bf16: 1024 bytes of alignment, the ring, the
-    rows a warpgroup's tile reads past its last stage, the held slice of
-    W_hh, the readiness scan's bytes and the block's b_hh)."""
+    given), units a block, product rows a block (the wgmma width NW), the
+    k slice, batch rows a pass, the ring's stages and the shared memory a
+    block: 1024 bytes of alignment, the ring, the readiness scan's bytes
+    and the block's b_hh. bf16: a stage is a 64-k tile of the pass's rows
+    (as many as fit, up to 8; at least the partials' bytes), beside the
+    rows a warpgroup's tile reads past its last stage and the held slice of
+    W_hh. f32: 5 slots, each a 32-k chunk's split weight tiles (a hi and a
+    lo tile of NW rows of 128 bytes), its rows (36 floats each) and an
+    mbarrier; the partials lie over the slots' rows. "images": the bytes
+    of the f32 launch's weight tile images in device memory (0 in bf16)."""
     n_g = 4 if cell_type == "LSTM" else 3
     C = ROLLOUT_CLUSTER[forward]
     kc = _round_up(_ceil(H if forward else n_g * H, C), _KC)
     ub = _ceil(H, C * (clusters or cap or max(sms // C, 1)))
     NB = clusters or _ceil(H, C * ub)
     rows = (n_g if forward else 1) * C * ub
+    NW = min((w for w in ROLLOUT_WIDTHS if w >= rows),
+             default=_round_up(rows, 8))
+    Bp = min(_round_up(B, 8), ROLLOUT_PASS_ROWS,
+             ROLLOUT_MAX_PAIRS // ub // 8 * 8)
+    partials = min(B, Bp) * _round_up(NW, 32) * 4
     if dtype == torch.bfloat16:
-        NW = min((w for w in ROLLOUT_WIDTHS if w >= rows),
-                 default=_round_up(rows, 8))
-        Bp = min(_round_up(B, 8), ROLLOUT_PASS_ROWS,
-                 ROLLOUT_MAX_PAIRS // ub // 8 * 8)
         stage, w = max(Bp, 8) * 128, NW * kc * 2
         tail = ((128 if Bp > 64 else 64) - Bp) * 128
         lo, hi = ROLLOUT_STAGES
-        free = smem_limit - _ALIGN - _READY - ub * 16 - tail - w
-        stages = max(min(free // stage, hi), lo,
-                     _ceil(min(B, Bp) * _round_up(NW, 32) * 4, stage))
-        smem = _ALIGN + stages * stage + tail + w + _READY + ub * 16
+        fixed = _ALIGN + tail + w + _READY + ub * 16
+        stages = max(min((smem_limit - fixed) // stage, hi), lo,
+                     _ceil(partials, stage))
     else:
-        NW = _round_up(rows, 16)
-        Bp = min(_round_up(B, 8), _F32_PASS_ROWS)
-        xp = _KC + 4
-        stages = _F32_STAGES
-        smem = max(stages * (Bp + NW) * xp * 4, NW * (Bp + 4) * 4)
+        # a slot: a hi and a lo tile of NW rows of 128 bytes, the rows, an
+        # mbarrier
+        stage = 2 * NW * 128 + max(Bp, 8) * _F32_PITCH * 4 + 8
+        fixed = _ALIGN + _READY + ub * 16
+        stages = ROLLOUT_F32_SLOTS
+    # f32: the blocks' tile images of W_hh in device memory, a hi and a lo
+    # tile a 32-k chunk of the slice
+    images = (0 if dtype == torch.bfloat16
+              else C * NB * (kc // 32) * 2 * NW * 128)
     return {"cluster": C, "clusters": NB, "units": ub, "rows": NW,
-            "k_slice": kc, "pass_rows": Bp, "stages": stages, "smem": smem}
+            "k_slice": kc, "pass_rows": Bp, "stages": stages,
+            "smem": fixed + stages * stage, "images": images}
 
 
 def _device_info(device: torch.device):
@@ -1009,8 +1021,8 @@ def _device_info(device: torch.device):
 
 
 def _capacity(plan: dict, cell_type, forward, dtype, device) -> int:
-    if plan["smem"] > plan["smem_limit"] or (
-            dtype == torch.bfloat16 and plan["rows"] not in ROLLOUT_WIDTHS):
+    if plan["smem"] > plan["smem_limit"] or \
+            plan["rows"] not in ROLLOUT_WIDTHS:
         return 0
     lib = _cell_rollout_library()
     cap = ctypes.c_int(0)
@@ -1022,18 +1034,10 @@ def _capacity(plan: dict, cell_type, forward, dtype, device) -> int:
     return cap.value
 
 
-def rollout_plan(cell_type: str, forward: bool, dtype: torch.dtype, B: int,
-                 H: int, device, clusters: int = 0):
-    """The shape of a whole-rollout launch on ``device`` (``rollout_shape``
-    at the card's SM count and shared-memory limit, with fewer clusters and
-    more units a block where the card holds fewer clusters at once), with
-    "capacity": the clusters the card holds at once and "smem_limit"; and
-    the ctypes array the launch takes. ``clusters`` (0: as many as H needs,
-    spread over the card) is for tests. Raises ValueError on widths a block
-    cannot hold and RuntimeError on a grid the card cannot hold at once: a
-    persistent launch that is not co-resident would never finish."""
-    device = torch.device(device)
-    what = f"cell_rollout_{'forward' if forward else 'backward'}"
+def _plan(cell_type: str, forward: bool, dtype: torch.dtype, B: int,
+          H: int, device: torch.device, clusters: int):
+    """``rollout_plan``'s plan and ctypes array, made once a key; checked
+    by no one here."""
     key = (cell_type, forward, dtype, B, H, device, clusters)
     if key not in _plans:
         sms, limit, words = _device_info(device)
@@ -1052,57 +1056,110 @@ def rollout_plan(cell_type: str, forward: bool, dtype: torch.dtype, B: int,
         raw = (ctypes.c_int * _KERNEL_FIELDS)(
             *(plan[f] for f in _PLAN_FIELDS[:_KERNEL_FIELDS]))
         _plans[key] = (plan, raw)
-    plan, raw = _plans[key]
-    widths = f"{cell_type} H={H}, B={B}, {dtype}"
-    bf16 = dtype == torch.bfloat16
-    if plan["rows"] > (ROLLOUT_WIDTHS[-1] if bf16 else ROLLOUT_MAX_ROWS):
-        raise ValueError(f"{what}: {widths} give a block {plan['rows']} "
-                         f"product rows, more than "
-                         f"{ROLLOUT_WIDTHS[-1] if bf16 else ROLLOUT_MAX_ROWS}")
-    pairs = ROLLOUT_MAX_PAIRS if bf16 else _F32_MAX_PAIRS
-    if plan["pass_rows"] < 8 or plan["units"] * plan["pass_rows"] > pairs:
-        raise ValueError(f"{what}: {widths} give a block {plan['units']} "
-                         f"units a pass of at least 8 rows, more than "
-                         f"{pairs} pairs")
-    if bf16 and plan["k_slice"] > 32 * _READY:
-        raise ValueError(f"{what}: {widths} give a block a k slice of "
-                         f"{plan['k_slice']}, more than {32 * _READY}")
+    return _plans[key]
+
+
+def rollout_refusal(plan: dict, what: str = "cell_rollout",
+                    widths: str = "these widths", device="the card"):
+    """The error a launch of ``plan`` (``rollout_shape``'s fields with
+    "smem_limit", "capacity" and "words") meets, or None where the card
+    holds it: a ValueError on widths a block cannot hold, a RuntimeError
+    on a grid the card cannot hold at once (a persistent launch that is
+    not co-resident would never finish). Pure Python."""
+    if plan["rows"] > ROLLOUT_WIDTHS[-1]:
+        return ValueError(f"{what}: {widths} give a block {plan['rows']} "
+                          f"product rows, more than {ROLLOUT_WIDTHS[-1]}")
+    if plan["pass_rows"] < 8 or \
+            plan["units"] * plan["pass_rows"] > ROLLOUT_MAX_PAIRS:
+        return ValueError(f"{what}: {widths} give a block {plan['units']} "
+                          f"units a pass of at least 8 rows, more than "
+                          f"{ROLLOUT_MAX_PAIRS} pairs")
+    if plan["k_slice"] > 32 * _READY:
+        return ValueError(f"{what}: {widths} give a block a k slice of "
+                          f"{plan['k_slice']}, more than {32 * _READY}")
     if plan["smem"] > plan["smem_limit"]:
-        raise ValueError(f"{what}: {widths} need {plan['smem']} bytes of "
-                         f"shared memory a block, more than the card's "
-                         f"{plan['smem_limit']}")
+        return ValueError(f"{what}: {widths} need {plan['smem']} bytes of "
+                          f"shared memory a block, more than the card's "
+                          f"{plan['smem_limit']}")
     if plan["clusters"] > plan["capacity"]:
-        raise RuntimeError(f"{what}: {plan['clusters']} clusters of "
-                           f"{plan['cluster']} blocks cannot be co-resident "
-                           f"on {device} (it holds {plan['capacity']} at "
-                           f"once); a persistent rollout needs every block "
-                           f"resident")
+        return RuntimeError(f"{what}: {plan['clusters']} clusters of "
+                            f"{plan['cluster']} blocks cannot be co-resident "
+                            f"on {device} (it holds {plan['capacity']} at "
+                            f"once); a persistent rollout needs every block "
+                            f"resident")
     if plan["clusters"] * plan["cluster"] > plan["words"]:
-        raise ValueError(f"{what}: {widths} take more than {plan['words']} "
-                         f"blocks")
+        return ValueError(f"{what}: {widths} take more than {plan['words']} "
+                          f"blocks")
+    return None
+
+
+def rollout_plan(cell_type: str, forward: bool, dtype: torch.dtype, B: int,
+                 H: int, device, clusters: int = 0):
+    """The shape of a whole-rollout launch on ``device`` (``rollout_shape``
+    at the card's SM count and shared-memory limit, with fewer clusters and
+    more units a block where the card holds fewer clusters at once), with
+    "capacity": the clusters the card holds at once and "smem_limit"; and
+    the ctypes array the launch takes. ``clusters`` (0: as many as H needs,
+    spread over the card) is for tests. Raises ``rollout_refusal``'s error
+    where the card cannot hold the launch."""
+    device = torch.device(device)
+    plan, raw = _plan(cell_type, forward, dtype, B, H, device, clusters)
+    err = rollout_refusal(
+        plan, f"cell_rollout_{'forward' if forward else 'backward'}",
+        f"{cell_type} H={H}, B={B}, {dtype}", device)
+    if err is not None:
+        raise err
     return plan, raw
+
+
+def rollout_holds(cell_type: str, dtype: torch.dtype, B: int, H: int,
+                  device) -> bool:
+    """Whether ``device`` holds both directions' whole-rollout launches of
+    a (B, H) rollout: ``rollout_refusal`` finds nothing in either plan.
+    ``ops.rnn``'s route rule, asked before a launch. On the H100 (132 SMs,
+    clusters of 8 backward, 15 of them at once) the LSTM's backward holds
+    H up to 15 x 8 x 13 = 1560: 13 units a block are its 104 product
+    rows."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"cell_rollout: {dtype}; the kernels take "
+                         f"{sorted(map(str, _DTYPE_CODES))}")
+    device = torch.device(device)
+    return all(rollout_refusal(_plan(cell_type, forward, dtype, B, H,
+                                     device, 0)[0]) is None
+               for forward in (True, False))
 
 
 def _scratch(device: torch.device, steps: int):
     """The scratch of a launch of ``steps`` steps on the current stream of
     ``device`` (launches on one stream run in turn) and its readiness base:
-    the f32 grid barrier's two words (left zeroed by each launch), then a
-    readiness word a block, which a bf16 launch leaves at most base +
-    steps. The base advances past that each launch, so that no word is
-    reset between launches; the words are zeroed only before the base
-    would wrap."""
+    a readiness word a block, which a launch leaves at most base + steps.
+    The base advances past that each launch, so that no word is reset
+    between launches; the words are zeroed only before the base would
+    wrap."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     if key not in _scratches:
         words = _device_info(device)[2]
-        _scratches[key] = [torch.zeros(2 + words, dtype=torch.int32,
+        _scratches[key] = [torch.zeros(words, dtype=torch.int32,
                                        device=device), 0]
     entry = _scratches[key]
     if entry[1] + steps + 1 >= 2 ** 31:
-        entry[0][2:].zero_()
+        entry[0].zero_()
         entry[1] = 0
     base = entry[1]
     entry[1] += steps + 1
     return entry[0], base
+
+
+def _images_buffer(device: torch.device, nbytes: int) -> torch.Tensor:
+    """At least ``nbytes`` of device memory for an f32 launch's weight tile
+    images on the current stream of ``device`` (launches on one stream run
+    in turn), kept and grown as launches need; an empty tensor for 0."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _images.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _images[key] = torch.empty(nbytes, dtype=torch.uint8,
+                                         device=device)
+    return buf
 
 
 def _vec(t: OptT, bit: int, width: Optional[int] = None) -> int:
@@ -1118,14 +1175,16 @@ def _vec(t: OptT, bit: int, width: Optional[int] = None) -> int:
 def cell_rollout_forward_reference(cell_type: str, gi_all: torch.Tensor,
                                    w_hh: torch.Tensor, b_hh: torch.Tensor,
                                    h0: torch.Tensor, c0: OptT,
-                                   states: Optional[Sequence[OptT]] = None):
+                                   states: Optional[Sequence[OptT]] = None,
+                                   matmul=torch.matmul):
     """Plain version of ``cell_rollout_forward``: the step loop, each
     product ``h w_hh`` in float32 (float64) over stored values, LSTM's
     gates rounded to the operands' dtype after ``gi +``, GRU's gh after the
     product, as the per-step route's cuBLAS products store them. With
     ``states`` = (hs, cs) given, step t starts from hs[t - 1], cs[t - 1]
     (h0, c0 at t = 0) in place of its own: each step from another run's
-    state."""
+    state. ``matmul`` computes the products (the f32 kernel's three TF32
+    terms: ``whole_decode.matmul_3xtf32_reference``)."""
     dt = gi_all.dtype
     w = w_hh.to(_compute(dt))
     lstm = cell_type == "LSTM"
@@ -1133,7 +1192,7 @@ def cell_rollout_forward_reference(cell_type: str, gi_all: torch.Tensor,
     for t, gi in enumerate(gi_all):
         if states is not None and t > 0:
             h, c = states[0][t - 1], states[1][t - 1] if lstm else None
-        p = h.to(w.dtype) @ w
+        p = matmul(h.to(w.dtype), w)
         if lstm:
             h, c, a = cell_forward_reference(
                 cell_type, (gi.to(w.dtype) + p).to(dt), None, b_hh, h, c)
@@ -1152,13 +1211,15 @@ def cell_rollout_backward_reference(cell_type: str, dhs: torch.Tensor,
                                     h0: torch.Tensor, hs: OptT, c0: OptT,
                                     cs: OptT,
                                     steps_out: Optional[Sequence[OptT]] = None,
-                                    carries: Optional[Sequence[OptT]] = None):
+                                    carries: Optional[Sequence[OptT]] = None,
+                                    matmul=torch.matmul):
     """Plain version of ``cell_rollout_backward``: the reversed step loop,
     each product ``dgates w_hh^T`` in float32 (float64), dh rounded to the
     operands' dtype after it (GRU: after adding the cell's dh z).
     ``steps_out`` = (dh_steps, dc_steps) as for the wrapper; with
     ``carries`` = (dh_steps, dc_steps) given, step t takes its carries from
-    them in place of its own (each step from another run's carries)."""
+    them in place of its own (each step from another run's carries).
+    ``matmul`` computes the products, as for the forward."""
     dt = dhs.dtype
     w_t = w_hh.to(_compute(dt)).t()
     lstm = cell_type == "LSTM"
@@ -1178,7 +1239,7 @@ def cell_rollout_backward_reference(cell_type: str, dhs: torch.Tensor,
             None if lstm else (h0 if t == 0 else hs[t - 1]),
             (c0 if t == 0 else cs[t - 1]) if lstm else None,
             cs[t] if lstm else None)
-        p = gh_t.to(w_t.dtype) @ w_t
+        p = matmul(gh_t.to(w_t.dtype), w_t)
         dh = p.to(dt) if lstm else (dh_cell.to(w_t.dtype) + p).to(dt)
         dgi[t], dgh[t] = gi_t, gh_t
     dgi = torch.stack(dgi)
@@ -1202,16 +1263,17 @@ def _launch_forward(cell_type, gi_all, w_hh, b_hh, h0, c0, hs, cs, acts,
                     clusters, probe):
     T, B, H = gi_all.shape[0], gi_all.shape[1], h0.shape[1]
     lstm = cell_type == "LSTM"
-    _, raw = rollout_plan(cell_type, True, gi_all.dtype, B, H, gi_all.device,
-                          clusters)
+    plan, raw = rollout_plan(cell_type, True, gi_all.dtype, B, H,
+                             gi_all.device, clusters)
     lib = _cell_rollout_library()
     scratch, base = _scratch(gi_all.device, T)
+    images = _images_buffer(gi_all.device, plan["images"])
     err = lib.recnet_cell_rollout_fwd(
         _DTYPE_CODES[gi_all.dtype], int(lstm), raw, T, B, H, probe,
         _vec(h0, _VEC_H0) | _vec(hs, _VEC_HS) | _vec(w_hh, _VEC_W, H), base,
         _ptr(gi_all), _ptr(w_hh),
         _ptr(b_hh), _ptr(h0), _ptr(c0), _ptr(hs), _ptr(cs), _ptr(acts),
-        _ptr(scratch), _stream(gi_all.device))
+        _ptr(scratch), _ptr(images), _stream(gi_all.device))
     _raise_on(lib, err, "cell_rollout_forward")
 
 
@@ -1277,10 +1339,11 @@ def _launch_backward(cell_type, dhs, acts, w_hh, h0, hs, c0, cs, dgi, dgh,
                      dh0, dc0, clusters, probe, steps_out=None):
     T, B, H = dhs.shape[0], dhs.shape[1], h0.shape[1]
     lstm = cell_type == "LSTM"
-    _, raw = rollout_plan(cell_type, False, dhs.dtype, B, H, dhs.device,
-                          clusters)
+    plan, raw = rollout_plan(cell_type, False, dhs.dtype, B, H, dhs.device,
+                             clusters)
     lib = _cell_rollout_library()
     scratch, base = _scratch(dhs.device, T)
+    images = _images_buffer(dhs.device, plan["images"])
     err = lib.recnet_cell_rollout_bwd(
         _DTYPE_CODES[dhs.dtype], int(lstm), raw, T, B, H, probe,
         _vec(dgi if lstm else dgh, _VEC_DG) | _vec(acts, _VEC_ACTS)
@@ -1289,7 +1352,7 @@ def _launch_backward(cell_type, dhs, acts, w_hh, h0, hs, c0, cs, dgi, dgh,
         _ptr(None if lstm else hs), _ptr(c0 if lstm else None),
         _ptr(cs if lstm else None), _ptr(dgi), _ptr(None if lstm else dgh),
         _ptr(dh0), _ptr(dc0), *map(_ptr, steps_out or (None, None)),
-        _ptr(scratch), _stream(dhs.device))
+        _ptr(scratch), _ptr(images), _stream(dhs.device))
     _raise_on(lib, err, "cell_rollout_backward")
 
 
@@ -1342,8 +1405,7 @@ def cell_rollout_probe(kind: str, probe: str, *operands):
     staging, no waits for readiness and no product: the cell runs on P =
     0, so its outputs are the plain version's with w_hh = 0), "mma" (the
     staging kept, the MMAs dropped: P = 0 as well) or "exchange" (no waits
-    for other blocks (bf16: the readiness words; f32: the grid barrier) and
-    no cluster sum: each block's own partial product over a fixed input,
+    for other blocks (the readiness words) and no cluster sum: each block's own partial product over a fixed input,
     h0 forward and acts[t] backward). Returns what the wrapper returns.
     Counts no launch; CUDA tensors only."""
     if kind not in ("forward", "backward") or probe not in ROLLOUT_PROBES:

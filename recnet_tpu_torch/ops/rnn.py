@@ -18,10 +18,10 @@ loop carries only (dh, dc), and ``dw_hh`` and ``db_hh`` are one product and
 one sum over all T B rows after it. On the card each direction is one
 launch of ``ops/cuda/rollout.py``'s ``cell_rollout_forward`` /
 ``cell_rollout_backward`` (the recurrent products inside; their plain
-versions, the step loops, on the CPU); the dtypes of ``STEP_ROUTE_DTYPES``
-take the per-step route instead (``steps_forward`` / ``steps_backward``: a
-cell kernel launched through its ``*_steps`` launcher and a cuBLAS product
-a step). ``rollout_cell_fwd`` /
+versions, the step loops, on the CPU); widths the card cannot hold in
+one launch (``whole_rollout``, a rule on the shape) take the per-step
+route instead (``steps_forward`` / ``steps_backward``: a cell kernel
+launched through its ``*_steps`` launcher and a cuBLAS product a step). ``rollout_cell_fwd`` /
 ``rollout_cell_bwd`` are one such step and its cotangents, with the JAX
 functions' signatures and returns. ``rnn_rollout_pre_reference`` is the
 plain loop over T whose gradient autograd gives.
@@ -165,15 +165,25 @@ def cast_operands(dtype: torch.dtype, *xs: torch.Tensor):
     return [x.to(dtype).contiguous() for x in xs]
 
 
-# The dtypes whose rollouts stay on the per-step route (a cell kernel and a
-# cuBLAS product a step); every other dtype runs each direction as one
-# launch of ``rollout.cell_rollout_forward`` / ``cell_rollout_backward``. A
-# fixed rule on the dtype, not a fallback: both routes compute the same
-# values in the same rounding. float32 stays per step: its whole-rollout
-# kernels multiply on the CUDA cores and took about twice the per-step
-# route's time on the H100 (chip_smoke.py [train] (d)), where cuBLAS runs
-# the f32 products.
-STEP_ROUTE_DTYPES: Tuple[torch.dtype, ...] = (torch.float32,)
+def whole_rollout(cell_type: str, dtype: torch.dtype, B: int, H: int,
+                  device: torch.device) -> bool:
+    """The route rule, fixed by the shape before a launch (not a fallback
+    on an error): whether a (B, H) rollout runs each direction as one
+    launch of ``rollout.cell_rollout_forward`` / ``cell_rollout_backward``,
+    else the per-step route (``steps_forward`` / ``steps_backward``: a
+    cuBLAS product and a cell kernel a step). On the card, where
+    ``rollout.rollout_holds`` finds both launches fit it (on the H100 up to
+    H = 1560: the flagship's reconstructor, 1536, runs whole, a 2048-wide
+    one per step); on the CPU, always (the plain versions hold any width).
+    bf16's whole-rollout kernels compute the per-step route's values in its
+    rounding; f32's multiply as three TF32 terms on the tensor cores, so
+    the two f32 routes agree within the f32 rollout bound (rtol and atol
+    1e-5 of the largest value, tests/test_torch_cuda.py), not bit for bit.
+    Both precisions took less of the card forward + backward than the
+    per-step route, in turns at the flagship's reconstructor (chip_smoke.py
+    [train] (d))."""
+    return device.type != "cuda" or rollout.rollout_holds(cell_type, dtype,
+                                                          B, H, device)
 
 
 def steps_forward(cell_type: str, gi_all, w_hh, b_hh, h0, c0):
@@ -231,11 +241,12 @@ def steps_backward(cell_type: str, dhs, acts, w_hh, h0, hs, c0, cs):
     return dgi, dgh, dh, None
 
 
-def _route(dtype: torch.dtype):
-    """(forward, backward) of the rollout route ``dtype`` takes."""
-    if dtype in STEP_ROUTE_DTYPES:
-        return steps_forward, steps_backward
-    return rollout.cell_rollout_forward, rollout.cell_rollout_backward
+def _route(cell_type: str, gi_all: torch.Tensor, h0: torch.Tensor):
+    """(forward, backward) of the route ``whole_rollout`` gives a rollout
+    of ``gi_all`` (T, B, .) from ``h0`` (B, H) in their dtype."""
+    if whole_rollout(cell_type, gi_all.dtype, *h0.shape, gi_all.device):
+        return rollout.cell_rollout_forward, rollout.cell_rollout_backward
+    return steps_forward, steps_backward
 
 
 class _LstmRolloutPre(torch.autograd.Function):
@@ -248,7 +259,8 @@ class _LstmRolloutPre(torch.autograd.Function):
         dt = compute_dtype(gi_all)
         w_hh, b_hh, gi_all, h0, c0 = cast_operands(dt, w_hh, b_hh, gi_all,
                                                    h0, c0)
-        hs, cs, acts = _route(dt)[0]("LSTM", gi_all, w_hh, b_hh, h0, c0)
+        ctx.route = _route("LSTM", gi_all, h0)
+        hs, cs, acts = ctx.route[0]("LSTM", gi_all, w_hh, b_hh, h0, c0)
         ctx.save_for_backward(w_hh, hs, cs, acts, h0, c0)
         return hs
 
@@ -258,8 +270,8 @@ class _LstmRolloutPre(torch.autograd.Function):
         w_hh, hs, cs, acts, h0, c0 = ctx.saved_tensors
         dhs = dhs.to(hs.dtype).contiguous()
         T, B, H = hs.shape
-        dgates, _, dh, dc = _route(hs.dtype)[1]("LSTM", dhs, acts, w_hh, h0,
-                                                hs, c0, cs)
+        dgates, _, dh, dc = ctx.route[1]("LSTM", dhs, acts, w_hh, h0, hs,
+                                          c0, cs)
         h_prev = torch.cat([h0[None], hs[:-1]])
         d_w_hh = h_prev.reshape(T * B, H).t() @ dgates.reshape(T * B, 4 * H)
         grads = (d_w_hh, dgates.sum((0, 1)), dgates, dh, dc)
@@ -275,7 +287,8 @@ class _GruRolloutPre(torch.autograd.Function):
         ctx.dtypes = [x.dtype for x in (w_hh, b_hh, gi_all, h0)]
         dt = compute_dtype(gi_all)
         w_hh, b_hh, gi_all, h0 = cast_operands(dt, w_hh, b_hh, gi_all, h0)
-        hs, _, acts = _route(dt)[0]("GRU", gi_all, w_hh, b_hh, h0, None)
+        ctx.route = _route("GRU", gi_all, h0)
+        hs, _, acts = ctx.route[0]("GRU", gi_all, w_hh, b_hh, h0, None)
         ctx.save_for_backward(w_hh, hs, acts, h0)
         return hs
 
@@ -285,8 +298,8 @@ class _GruRolloutPre(torch.autograd.Function):
         w_hh, hs, acts, h0 = ctx.saved_tensors
         dhs = dhs.to(hs.dtype).contiguous()
         T, B, H = hs.shape
-        dgi, dgh, dh, _ = _route(hs.dtype)[1]("GRU", dhs, acts, w_hh, h0, hs,
-                                              None, None)
+        dgi, dgh, dh, _ = ctx.route[1]("GRU", dhs, acts, w_hh, h0, hs, None,
+                                        None)
         h_prev = torch.cat([h0[None], hs[:-1]])
         d_w_hh = h_prev.reshape(T * B, H).t() @ dgh.reshape(T * B, 3 * H)
         grads = (d_w_hh, dgh.sum((0, 1)), dgi, dh)

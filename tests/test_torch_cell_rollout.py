@@ -5,7 +5,7 @@ package's custom-VJP rollouts (``_lstm_rollout_fwd`` / ``_gru_rollout_fwd``
 residuals, and ``jax.vjp`` of ``lstm_rollout_pre`` / ``gru_rollout_pre``),
 against the per-step route (``ops.rnn.steps_forward`` /
 ``steps_backward``), the wrappers' counts, ``out`` buffers and refusals,
-and the route rule of ``ops.rnn``.
+the launch shapes (``rollout_shape``) and the route rule of ``ops.rnn``.
 
 Inputs from numpy seeds at B = 3 and 7, T = 5, H = 5 and 16 (odd widths,
 as the card tests take). f32 tolerance rtol 1e-5 / atol 1e-6, the JAX
@@ -208,11 +208,39 @@ def test_probes_run_on_the_card_only(kind, probe):
         rollout.cell_rollout_probe("forward", "ctx", *operands)
 
 
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_plain_versions_take_their_products_from_matmul(cell):
+    """``matmul`` computes every recurrent product of the plain versions, T
+    a direction (the f32 kernel's three TF32 terms are modelled through
+    it, tests/test_torch_tf32.py), and defaults to ``torch.matmul``: the
+    same values bit for bit."""
+    w, b, gi, h0, c0, dhs = _torch(*_inputs(cell, 3, 16, 5))
+    calls = []
+
+    def counted(x, y):
+        calls.append((tuple(x.shape), tuple(y.shape)))
+        return torch.matmul(x, y)
+
+    fwd = rollout.cell_rollout_forward_reference(cell, gi, w, b, h0, c0)
+    got = rollout.cell_rollout_forward_reference(cell, gi, w, b, h0, c0,
+                                                 matmul=counted)
+    G = w.shape[1]
+    assert calls == [((3, 16), (16, G))] * T
+    hs, cs, acts = fwd
+    bwd = rollout.cell_rollout_backward_reference(cell, dhs, acts, w, h0, hs,
+                                                  c0, cs)
+    got_b = rollout.cell_rollout_backward_reference(
+        cell, dhs, acts, w, h0, hs, c0, cs, matmul=counted)
+    assert calls[T:] == [((3, G), (G, 16))] * T
+    for g, x in zip(tuple(got) + tuple(got_b), tuple(fwd) + tuple(bwd)):
+        assert (g is None and x is None) or torch.equal(g, x)
+
+
 def test_route_rule_is_by_dtype(monkeypatch):
-    """float32 (in STEP_ROUTE_DTYPES) takes the per-step route and bfloat16
-    the whole-rollout wrappers, on the CPU as on the card; with the rule
-    emptied float32 takes the wrappers too, to the same gradients."""
-    assert t_rnn.STEP_ROUTE_DTYPES == (torch.float32,)
+    """On CPU tensors float32 and bfloat16 take the whole-rollout wrappers
+    (ops.rnn.whole_rollout: the plain versions hold any width); where the
+    rule gives the per-step route, float32 takes it, to the same
+    gradients."""
     calls = []
     for module, name in ((rollout, "cell_rollout_forward"),
                          (rollout, "cell_rollout_backward"),
@@ -229,14 +257,16 @@ def test_route_rule_is_by_dtype(monkeypatch):
         t_rnn.lstm_rollout_pre(w, b, gi, h0, c0).backward(dhs)
         return [x.grad for x in (w, b, gi, h0, c0)]
 
+    for dtype in (torch.float32, torch.bfloat16):
+        assert t_rnn.whole_rollout("LSTM", dtype, 3, 16, torch.device("cpu"))
     want = run(torch.float32)
-    assert calls == ["steps_forward", "steps_backward"]
+    assert calls == ["cell_rollout_forward", "cell_rollout_backward"]
     run(torch.bfloat16)
     assert calls[2:] == ["cell_rollout_forward", "cell_rollout_backward"]
-    monkeypatch.setattr(t_rnn, "STEP_ROUTE_DTYPES", ())
+    monkeypatch.setattr(t_rnn, "whole_rollout", lambda *a: False)
     for g, x in zip(run(torch.float32), want):
         _close(g, x)
-    assert calls[4:] == ["cell_rollout_forward", "cell_rollout_backward"]
+    assert calls[4:] == ["steps_forward", "steps_backward"]
 
 
 @pytest.mark.parametrize("cell", ["LSTM", "GRU"])
@@ -284,9 +314,10 @@ H100_CAP = {True: 66, False: 15}
 
 def _shape_holds(cell, forward, dtype, B, H, shape, limit):
     """The invariants a launch shape keeps: every unit has a block, the
-    smem budget fits, the rows are a built wgmma width (bf16), the pass
-    takes whole 8-row groups and at most its pairs, and (bf16) the
-    partials fit over the ring."""
+    smem budget fits, the rows are a built wgmma width, the pass takes
+    whole 8-row groups and at most its pairs, the partials fit over the
+    activations' ring, and the shared memory is the sum of the body's
+    parts (f32: cell_rollout_tf32_kernel's layout)."""
     C = shape["cluster"]
     assert C == (2 if forward else 8)
     assert shape["clusters"] * C * shape["units"] >= H
@@ -299,18 +330,27 @@ def _shape_holds(cell, forward, dtype, B, H, shape, limit):
     Bp = shape["pass_rows"]
     assert Bp % 8 == 0 and 8 <= Bp
     rows = (n_g if forward else 1) * C * shape["units"]
+    NW, ub, S = shape["rows"], shape["units"], shape["stages"]
+    assert NW in rollout.ROLLOUT_WIDTHS
+    assert NW >= rows
+    assert Bp <= rollout.ROLLOUT_PASS_ROWS
+    assert ub * Bp <= rollout.ROLLOUT_MAX_PAIRS
+    partials = min(B, Bp) * -(-NW // 32) * 32 * 4
     if dtype == torch.bfloat16:
-        assert shape["rows"] in rollout.ROLLOUT_WIDTHS
-        assert shape["rows"] >= rows
-        assert Bp <= rollout.ROLLOUT_PASS_ROWS
-        assert shape["units"] * Bp <= rollout.ROLLOUT_MAX_PAIRS
         lo, hi = rollout.ROLLOUT_STAGES
-        assert lo <= shape["stages"] <= hi
-        partials = min(B, Bp) * -(-shape["rows"] // 32) * 32 * 4
-        assert partials <= shape["stages"] * Bp * 128
+        assert lo <= S <= hi
+        assert partials <= S * Bp * 128
     else:
-        assert shape["rows"] % 16 == 0 and shape["rows"] >= rows
-        assert shape["stages"] == 3
+        assert S == rollout.ROLLOUT_F32_SLOTS
+        rows_bytes = Bp * 36 * 4                # rows of 36 floats
+        assert partials <= S * rows_bytes
+        # alignment, the slots (a hi and a lo tile of NW rows of 128 bytes,
+        # the rows, an mbarrier), the readiness bytes, b_hh; the weight's
+        # tile images in device memory, two tiles a 32-k chunk a block
+        assert shape["smem"] == (1024 + S * (2 * NW * 128 + rows_bytes + 8)
+                                 + 128 + ub * 16)
+        assert shape["images"] == (shape["clusters"] * C
+                                   * shape["k_slice"] // 32 * 2 * NW * 128)
 
 
 @pytest.mark.parametrize("forward", [True, False])
@@ -334,6 +374,15 @@ def test_rollout_shape_at_the_flagship_fits_the_h100(cell, forward):
                                 **H100, cap=H100_CAP[forward])
     _shape_holds(cell, forward, torch.float32, 100, 1536, f32,
                  H100["smem_limit"])
+    # the f32 body's launch: the bf16 body's grid, 5 slots; the LSTM's tile
+    # images 75.5 MB forward (128 blocks of 24 chunks) and 76.7 MB backward
+    for key in ("clusters", "units", "rows", "k_slice", "pass_rows"):
+        assert f32[key] == shape[key]
+    assert f32["stages"] == 5
+    assert f32["smem"] == (199144 if forward else 209400)
+    if cell == "LSTM":
+        assert f32["images"] == (128 * 24 * 2 * 96 * 128 if forward
+                                 else 120 * 24 * 2 * 104 * 128)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -346,16 +395,89 @@ def test_rollout_shape_at_odd_widths(cell, forward, B, H, dtype):
     two passes) and the widths between: the same invariants."""
     shape = rollout.rollout_shape(cell, forward, dtype, B, H, **H100)
     _shape_holds(cell, forward, dtype, B, H, shape, H100["smem_limit"])
-    if B > 104 and dtype == torch.bfloat16:
+    if B > 104:
         assert shape["pass_rows"] == 104      # two passes
 
 
 def test_rollout_shape_of_widths_no_block_holds():
-    """Widths past the bf16 body's: more product rows than 104 (rollout_plan
-    refuses them by name), and a held slice beyond the card's memory."""
-    bf16 = torch.bfloat16
-    wide = rollout.rollout_shape("LSTM", True, bf16, 100, 4096, **H100)
-    assert wide["rows"] > rollout.ROLLOUT_WIDTHS[-1]
+    """Widths past both bodies': more product rows than 104 (rollout_plan
+    refuses them by name); bf16's held slice beyond the card's memory; a k
+    slice past the readiness scan's 4096 columns. The f32 body holds no
+    slice of W_hh: at that depth it fits."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype in (bf16, f32):
+        wide = rollout.rollout_shape("LSTM", True, dtype, 100, 4096, **H100)
+        assert wide["rows"] > rollout.ROLLOUT_WIDTHS[-1]
     deep = rollout.rollout_shape("LSTM", True, bf16, 100, 8192, **H100,
                                  clusters=4096)
     assert deep["rows"] == 32 and deep["smem"] > H100["smem_limit"]
+    deep = rollout.rollout_shape("LSTM", True, f32, 100, 8192, **H100,
+                                 clusters=4096)
+    assert deep["rows"] == 32 and deep["smem"] <= H100["smem_limit"]
+    long = rollout.rollout_shape("LSTM", True, f32, 100, 16384, **H100,
+                                 clusters=8192)
+    assert long["k_slice"] > 32 * rollout._READY
+
+
+def _h100(monkeypatch):
+    """rollout_plan's card queries answered as the H100 answers them (132
+    SMs, 232,448 bytes a block, 1024 readiness words; H100_CAP clusters at
+    once of a shape a block holds, none of one it does not)."""
+    monkeypatch.setattr(rollout, "_plans", {})
+    monkeypatch.setattr(rollout, "_device_info",
+                        lambda device: (H100["sms"], H100["smem_limit"], 1024))
+
+    def capacity(plan, cell, forward, dtype, device):
+        fits = plan["smem"] <= plan["smem_limit"] and \
+            plan["rows"] in rollout.ROLLOUT_WIDTHS
+        return H100_CAP[forward] if fits else 0
+    monkeypatch.setattr(rollout, "_capacity", capacity)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,whole", [(1536, True), (1560, True),
+                                     (1568, False), (2048, False)])
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_route_rule_by_shape_on_the_h100(monkeypatch, cell, H, whole,
+                                         dtype):
+    """ops.rnn.whole_rollout on the H100's answers, before any launch: the
+    flagship's reconstructor (B = 100, H = 1536) and widths up to the
+    backward's 15 clusters x 8 x 13 units = 1560 run whole; from 1568 (14
+    units a block, 112 product rows) and at the ResNet features' 2048 the
+    rule takes the per-step route, where rollout_plan would raise the
+    ValueError rollout_refusal names."""
+    _h100(monkeypatch)
+    cuda = torch.device("cuda", 0)
+    assert rollout.rollout_holds(cell, dtype, 100, H, cuda) == whole
+    assert t_rnn.whole_rollout(cell, dtype, 100, H, cuda) == whole
+    back = rollout._plan(cell, False, dtype, 100, H, cuda, 0)[0]
+    err = rollout.rollout_refusal(back)
+    if whole:
+        assert err is None and back["rows"] <= 104
+        assert rollout.rollout_plan(cell, False, dtype, 100, H,
+                                    cuda)[0] is back
+    else:
+        assert isinstance(err, ValueError) and "product rows" in str(err)
+        with pytest.raises(ValueError, match="product rows"):
+            rollout.rollout_plan(cell, False, dtype, 100, H, cuda)
+
+
+def test_rollout_refusal_names_each_limit():
+    """rollout_refusal on plans past each of rollout_plan's limits: the
+    rows, the pairs a pass, the k slice, the shared memory (ValueError) and
+    the clusters the card holds at once (RuntimeError); None on the
+    flagship's plan."""
+    plan = rollout.rollout_shape("LSTM", False, torch.float32, 100, 1536,
+                                 **H100, cap=H100_CAP[False])
+    plan.update(smem_limit=H100["smem_limit"], capacity=H100_CAP[False],
+                words=1024)
+    assert rollout.rollout_refusal(plan) is None
+    for change, kind, words in (
+            (dict(rows=112), ValueError, "product rows"),
+            (dict(units=16), ValueError, "pairs"),
+            (dict(k_slice=8192), ValueError, "k slice"),
+            (dict(smem=H100["smem_limit"] + 1), ValueError, "shared memory"),
+            (dict(capacity=14), RuntimeError, "co-resident"),
+            (dict(words=64), ValueError, "blocks")):
+        err = rollout.rollout_refusal({**plan, **change})
+        assert type(err) is kind and words in str(err)

@@ -905,6 +905,77 @@ def test_train_steps_on_the_card_match_the_cpu(cuda, recon, prec):
                                    rtol=0.05)
 
 
+@pytest.mark.parametrize("width,route", [(1536, "rule"), (1536, "steps"),
+                                         (2048, "rule")])
+def test_f32_train_step_takes_the_reconstructor_route_of_the_rule(
+        cuda, monkeypatch, width, route):
+    """Three f32 steps with the global reconstructor on the card against
+    the CPU's, at the flagship's reconstructor width (1536: one
+    whole-rollout launch a direction a step) and at the ResNet features'
+    (2048: past what a launch holds, so ops.rnn.whole_rollout sends it to
+    the per-step cells); "steps" forces the per-step route at 1536, the
+    control. The first step's gradients elementwise within rtol 1e-4 and
+    atol 1e-5 of the leaf's largest |g|; losses within 1e-5; after three
+    steps each leaf's sum (params and Adam moments) within 1e-4 of its sum
+    of |values| (chip_smoke.py [train] (a)'s TRAIN_RTOL: Adam's normalised
+    steps carry a gradient's sum-order noise whole to single elements near
+    0). Prints the leaves' elementwise reading after three steps (elements
+    past rtol 1e-4 / atol 1e-6, the largest relative difference) for the
+    record."""
+    from recnet_tpu_torch.checkpoint import state_leaves
+    from recnet_tpu_torch.ops import rnn
+    from recnet_tpu_torch.ops.cuda import rollout
+    from recnet_tpu_torch.training import step as S
+    rng = np.random.default_rng(4)
+    videos = rng.standard_normal((B, L, width)).astype(np.float32)
+    captions = rng.integers(3, V, (9, B)).astype(np.int32)
+    captions[6:] = 0
+    whole = route == "rule" and width == 1536
+    assert rnn.whole_rollout("LSTM", torch.float32, B, width,
+                             torch.device("cuda")) == (width == 1536)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        if dev == "cuda" and route == "steps":
+            monkeypatch.setattr(rnn, "whole_rollout", lambda *a: False)
+        tc = _train_config("global", train_precision="float32").replace(
+            encoder_output_size=width, reconstructor_hidden_size=width)
+        state, dcfg, rcfg = S.init_train_state(0, tc, V, dev)
+        fn = S.build_train_step(tc, dcfg, rcfg)
+        rollout.reset_counts()
+        losses, grads = [], None
+        for _ in range(3):
+            losses.append(float(fn(state, torch.from_numpy(videos).to(dev),
+                                   torch.from_numpy(captions).to(dev))
+                                ["loss"]))
+            grads = grads or [np.zeros(0) if p.grad is None
+                              else p.grad.detach().cpu().numpy().copy()
+                              for opt in (state.dec_opt, state.rec_opt)
+                              for p in opt.param_groups[0]["params"]]
+        runs[dev] = losses, grads, state_leaves(state)
+    launches = (rollout.cell_rollout_forward.cell_launches["LSTM"],
+                rollout.cell_rollout_backward.cell_launches["LSTM"],
+                rollout.cell_forward.cell_launches["LSTM"])
+    over, worst = 0, 0.0
+    for a, b in zip(runs["cuda"][2], runs["cpu"][2]):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        over += int((np.abs(a - b) > 1e-6 + 1e-4 * np.abs(b)).sum())
+        worst = max(worst, float((np.abs(a - b) / np.maximum(
+            np.abs(b), 1e-30)).max(initial=0.0)))
+    print(f"H={width}, route {route} (whole: {whole}): leaves after three "
+          f"steps, {over} of {sum(np.size(x) for x in runs['cpu'][2])} "
+          f"elements past rtol 1e-4 / atol 1e-6, largest relative "
+          f"difference {worst:.3g}")
+    assert launches[:2] == ((3, 3) if whole else (0, 0))
+    assert (launches[2] > 0) != whole
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(b).max()))
+    for a, b in zip(runs["cuda"][2], runs["cpu"][2]):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        assert abs(a.sum() - b.sum()) <= 1e-4 * np.abs(b).sum()
+
+
 def test_prefetch_pins_and_copies_to_the_card(cuda):
     from recnet_tpu_torch.data import prefetch_to_device
     src = [(["v"], np.full((4, 3), i, np.float32),
@@ -1206,10 +1277,11 @@ def test_rollout_functions_on_the_card_match_the_cpu(cuda, cell):
                                  if k != "dhs" and x[k].grad is not None]
         if dev == "cuda":
             torch.cuda.synchronize()
-            # f32: both rollouts on the per-step kernels (the whole-rollout
-            # kernels take bf16)
-            assert [fn.n_launches for fn in rollout.KERNELS] == [18, 18, 9,
-                                                                 9, 0, 0]
+            # f32: the decoder's rollout on the per-step kernels; the
+            # reconstructor's in one whole-rollout launch a direction (the
+            # route ops.rnn.whole_rollout gives a width this small)
+            assert [fn.n_launches for fn in rollout.KERNELS] == [9, 9, 9, 9,
+                                                                 1, 1]
     for got, want in zip(runs["cuda"], runs["cpu"]):
         np.testing.assert_allclose(got.detach().cpu().numpy(),
                                    want.detach().numpy(), rtol=1e-4,
@@ -1245,8 +1317,8 @@ def test_rollout_bf16_autocast_on_the_card(cuda):
 @pytest.mark.parametrize("cell", ["GRU", "LSTM"])
 def test_reconstructor_rollout_bf16_takes_the_whole_rollout_kernels(cuda,
                                                                     cell):
-    """Under bf16 autocast the reconstructor's Function runs one launch of
-    each whole-rollout kernel and no per-step kernel, and returns
+    """In f32 and under bf16 autocast the reconstructor's Function runs one
+    launch of each whole-rollout kernel and no per-step kernel, and returns
     gradients in the leaves' f32 within 5% of the f32 run's (the bf16
     train step's own bound against f32)."""
     from recnet_tpu_torch.ops import rnn
@@ -1262,8 +1334,8 @@ def test_reconstructor_rollout_bf16_takes_the_whole_rollout_kernels(cuda,
                                            x["h0"]))
             (hs.float() * x["dhs"]).sum().backward()
         torch.cuda.synchronize()
-        whole = [0, 0, 0, 0, 1, 1] if autocast else [9, 9, 0, 0, 0, 0]
-        assert [fn.n_launches for fn in rollout.KERNELS] == whole
+        assert [fn.n_launches for fn in rollout.KERNELS] == [0, 0, 0, 0, 1,
+                                                             1]
         leaves = ["w_hh", "b_hh", "gi", "h0"] + (["c0"] if cell == "LSTM"
                                                  else [])
         assert all(x[k].grad.dtype == torch.float32 for k in leaves)
@@ -1728,7 +1800,7 @@ def test_cell_rollout_grid_that_cannot_be_co_resident_raises(cuda):
         plan, _ = rollout.rollout_plan("LSTM", forward, torch.bfloat16, FB,
                                        1536, cuda)
         assert 0 < plan["clusters"] <= plan["capacity"]
-        assert plan["rows"] <= rollout.ROLLOUT_MAX_ROWS
+        assert plan["rows"] in rollout.ROLLOUT_WIDTHS
         assert plan["smem"] <= plan["smem_limit"]
         print(f"forward={forward}: {plan}")
     rollout.reset_counts()
@@ -1888,6 +1960,37 @@ def test_cell_rollout_probes(cuda, cell, dtype):
                                          cs))):
         for x in rollout.cell_rollout_probe(kind, "exchange", *operands):
             assert x is None or bool(torch.isfinite(x.float()).all())
+
+
+@pytest.mark.parametrize("b,h", [(FB, 1536), (FB, 37)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_cell_rollout_mma_probe_matches_its_plain_part(cuda, cell, dtype, b,
+                                                       h):
+    """The mma probe (the staging kept, with f32's weight stream and split:
+    H = 37 copies W_hh element by element, 1536 by bulk copies; the MMAs
+    dropped, so P = 0) equals the plain versions with w_hh = 0 within
+    _roll_close, forward and backward; the product probe likewise at the
+    odd width."""
+    from recnet_tpu_torch.ops.cuda import rollout
+    w, bias, gi, h0, c0, dhs = _cell_roll_operands(cell, b, h, 4, dtype, 3)
+    zero = torch.zeros_like(w)
+    want = rollout.cell_rollout_forward_reference(cell, gi, zero, bias, h0,
+                                                  c0)
+    hs, cs, acts = want
+    want_b = rollout.cell_rollout_backward_reference(cell, dhs, acts, zero,
+                                                     h0, hs, c0, cs)
+    for probe in ("mma", "product"):
+        got = rollout.cell_rollout_probe("forward", probe, cell, gi, w,
+                                         bias, h0, c0)
+        for g, x in zip(got, want):
+            if x is not None:
+                _roll_close(g, x, dtype, f"forward {probe} probe")
+        got = rollout.cell_rollout_probe("backward", probe, cell, dhs, acts,
+                                         w, h0, hs, c0, cs)
+        for g, x in zip(got, want_b):
+            if x is not None:
+                _roll_close(g, x, dtype, f"backward {probe} probe")
 
 
 # --------------------------------------------------------------------------

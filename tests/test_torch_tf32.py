@@ -305,3 +305,75 @@ def test_f32_the_tf32_body_cannot_hold_takes_the_cuda_core_body():
     params = {"attention": {"W": torch.zeros(512, cfg.attn_size)}}
     assert wd._operand_route(params, enc, cfg.embedding_size, "LSTM").body \
         == TF
+
+
+# the reconstructor's rollout on the f32 whole-rollout kernels' products
+# (csrc/cell_rollout.cu's tf32 body): the flagship's width H = 1536 at a
+# small batch, and an odd width, over the flagship's T = 31. Bound: the
+# card tests' f32 bound (tests/test_torch_cuda.py _roll_close), rtol 1e-5
+# and an atol of 1e-5 of each output's largest value
+ROLL_RTOL = 1e-5
+
+
+def _roll_inputs(cell, B, H, seed):
+    """w_hh (at the init's scale, 1 / sqrt(H)), b_hh, gi_all, h0, c0 (None
+    for GRU), dhs: float32 numpy, the card tests' recipe."""
+    n = 4 if cell == "LSTM" else 3
+    rng = np.random.default_rng(seed)
+    arr = lambda *s, scale=0.5: (rng.standard_normal(s) * scale).astype(
+        np.float32)
+    w, b = arr(H, n * H, scale=H ** -0.5), arr(n * H)
+    gi, h0, c0 = arr(T_FLAG, B, n * H, scale=1.5), arr(B, H), arr(B, H)
+    return w, b, gi, h0, c0 if cell == "LSTM" else None, arr(T_FLAG, B, H)
+
+
+def _roll_close(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=ROLL_RTOL,
+                               atol=ROLL_RTOL * np.abs(want).max(),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("B,H", [(2, 1536), (3, 13)])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_tf32_rollout_model_matches_jax_rollouts(cell, B, H):
+    """The whole-rollout plain versions with the three-term split's
+    products (``matmul=matmul_3xtf32_reference``) against the JAX package's
+    ``lstm_rollout_pre`` / ``gru_rollout_pre``: the forward's hs, cs and
+    acts against its residuals, the backward's d gi_all, dh0 and dc0
+    against ``jax.vjp``, within ROLL_RTOL."""
+    from recnet_tpu.ops import rnn as j_rnn
+    from recnet_tpu_torch.ops.cuda import rollout
+    w, b, gi, h0, c0, dhs = _roll_inputs(cell, B, H, 11)
+    lstm = cell == "LSTM"
+    args = (w, b, gi, h0, c0) if lstm else (w, b, gi, h0)
+    if lstm:
+        _, (_, j_hs, j_cs, j_acts, _, _) = j_rnn._lstm_rollout_fwd(
+            *map(jnp.asarray, args))
+    else:
+        _, (_, j_hs, j_acts, _) = j_rnn._gru_rollout_fwd(
+            *map(jnp.asarray, args))
+        j_cs = None
+    jfn = j_rnn.lstm_rollout_pre if lstm else j_rnn.gru_rollout_pre
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(dhs))
+    t = [None if x is None else torch.from_numpy(x)
+         for x in (w, b, gi, h0, c0, dhs)]
+    tw, tb, tgi, th0, tc0, tdhs = t
+    mm = wd.matmul_3xtf32_reference
+    hs, cs, acts = rollout.cell_rollout_forward_reference(
+        cell, tgi, tw, tb, th0, tc0, matmul=mm)
+    for name, g, x in (("hs", hs, j_hs), ("cs", cs, j_cs),
+                       ("acts", acts, j_acts)):
+        if x is None:
+            assert g is None
+        else:
+            _roll_close(g, x, name)
+    dgi, _, dh0, dc0 = rollout.cell_rollout_backward_reference(
+        cell, tdhs, acts, tw, th0, hs, tc0, cs, matmul=mm)
+    _roll_close(dgi, want[2], "gi_all")
+    _roll_close(dh0, want[3], "h0")
+    if lstm:
+        _roll_close(dc0, want[4], "c0")
+    else:
+        assert dc0 is None
