@@ -8,6 +8,8 @@
                                                  # trees in turns
     python3 chip_smoke.py --read-rates           # the card's L2 and HBM
                                                  # read rates
+    python3 chip_smoke.py --gate-rows            # K4 f32's gate kernel at
+                                                 # each rows a block
 
 Phases, one line or more each; any failure exits non-zero before a result:
 
@@ -20,9 +22,12 @@ Phases, one line or more each; any failure exits non-zero before a result:
    the rows that agree within 2 bf16 ulps, its token agreement beside the
    CUDA-core body's at B=256 and 1024); K3 (projection + top-k) against
    its twin at the flagship beam's shapes; K4 (fused attention + GRU
-   step) against its twin, frame chunks 1 and 7: f32 (CUDA-core body),
-   bf16 on the tensor-core route at B=256 and 1024 (and each of its two
-   kernels against its plain stage), bf16 under ``cuda_cores``; the K5
+   step) against its twin, frame chunks 1 and 7: f32 on the TF32 route at
+   B=256, 100, 1024 and a ragged 45 (each of its two kernels against its
+   plain stage, a row's h' bit-equal across the gate kernel's rows a
+   block), f32 under ``cuda_cores`` (the first design), bf16 on the
+   tensor-core route at B=256 and 1024 (and each of its two kernels
+   against its plain stage), bf16 under ``cuda_cores``; the K5
    variants of K1 on both bodies: ``dual`` bit-equal to K1's tensor-core
    tokens (bf16, B=256 and a ragged B) and to the CUDA-core step (f32,
    and bf16 under ``cuda_cores``), each ``ablate`` part against its twin
@@ -36,7 +41,8 @@ Phases, one line or more each; any failure exits non-zero before a result:
    5 and greedy on an in-memory score corpus, for K3 and K2;
    ``decoding.greedy_decode_pallas`` at B=1024, for K4 (T launches, all
    on the tensor-core route in bf16, tokens held against the same loop
-   through K4's twin);
+   through K4's twin), and at B=256 in f32 (T launches, all on the TF32
+   route, rows and n_steps held against plain ``greedy_decode``);
    ``decoding.greedy_decode_whole(early_exit=True)`` on PAD-timed
    weights (blocks stop at different steps), for K5's early exit, held
    against the full K1 and, in bf16, against its twin;
@@ -46,7 +52,10 @@ Phases, one line or more each; any failure exits non-zero before a result:
    rounds for K3, the composed ``gru_attn_step_reference`` for K4) and
    its bound (operations at the bf16 peak or bytes at the device-memory
    rate); K4's CUDA-core body and the tensor-core route's two kernels
-   apart; captions/s of the greedy and beam paths;
+   apart; captions/s of the greedy and beam paths; the f32 route at B=100
+   and 1024 (K1, K2, K3, and K4's TF32 route beside its first design, the
+   composed route by events and device time, each launch's device time,
+   and its loop's idle share);
 6. ablate: the profiling sweep of K1 at B=1024 bf16 on the tensor-core
    body (its production step first and last, each ablated part, dual),
    each part's cost as full - variant (the phase split of production K1)
@@ -120,7 +129,8 @@ Phases, one line or more each; any failure exits non-zero before a result:
    launches per shard.
 
 ``--compare`` times K1, K2 (seg_len 4), K3 and K4 with their library
-routes, the K4 loop, the per-step cell kernels (a step of their
+routes, the K4 loop, the f32 route at B=100 and 1024 (K4 f32 and the
+composed route also by device time), the per-step cell kernels (a step of their
 launchers over a sweep of per-step operands out of L2, f32 and bf16),
 [train] (c)'s f32 and bf16 k-step dispatches with the loops' split, and
 the reconstructor's rollout forward + backward (the package's route and
@@ -132,7 +142,9 @@ inputs across the two trees, f32 bit for bit and bf16 within 2 ulps.
 alone, ``rounds`` times (3 unless given) this, other, other, this, each
 in a process of its own, and prints each tree's readings side by side.
 ``--read-rates`` times a small read kernel over an L2-resident buffer and
-over device memory.
+over device memory. ``--gate-rows`` times K4 f32's gate kernel at each
+rows a block it is built for over a sweep of batches, the rule's pick
+beside the fastest.
 
 The weights are random, drawn from a numpy seed. The last three lines are
 the card's name and power limit, one JSON line listing every kernel, and
@@ -187,6 +199,12 @@ TOPK_RTOL = TOPK_ATOL = 1e-5   # f32 sums of exact products, another order
 BEAM_CHECK_VIDEOS = 256        # f32 beam captions, kernel against plain
 EVAL_VIDEOS = 128              # the in-memory score corpus
 K4_CHUNKS = (1, 7)             # K4's frame_chunk values (L = 28)
+K4_RAGGED_B = 45               # K4's ragged batch (partial row tiles)
+# --gate-rows: the batches at which K4's f32 kernel B is timed at each of
+# its rows a block, and the rounds of the choices in turns
+GATE_ROWS_SWEEP_B = (1, 16, 45, 64, 100, 128, 160, 192, 240, 256, 320, 384,
+                     512, 768, 900, 1000, 1024)
+GATE_ROWS_ROUNDS = 3
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-2   # bf16 h: 2 bf16 ulps
 ABLATE_PARTS = ("emb", "attn", "score1", "fma", "proj", "nativeargmax",
                 "argmax")
@@ -678,29 +696,41 @@ def k4_operands(torch, cfg, params, enc, seed):
 
 
 def fused_step_against_twin(torch, tc, cfg):
-    """K4 against its twin, frame_chunk 1 and 7: f32 (CUDA-core body) at B
-    = CHECK_B within H_RTOL/H_ATOL; bf16 on the tensor-core route (its
-    per-body count shows it) at B = CHECK_B and TIME_B, and bf16 on the
-    CUDA-core body (``cuda_cores``) at CHECK_B, h within 2 bf16 ulps; at
-    TIME_B the route's two kernels each against its plain stage (X, then
-    h' from the same X). Returns the tensor-core route's max |h - h_twin|
-    (bf16)."""
+    """K4 against its twin, frame_chunk 1 and 7: f32 on the TF32 route at
+    B = CHECK_B, EVAL_B, TIME_B and K4_RAGGED_B and on the CUDA-core body
+    (``cuda_cores``, the first design) at CHECK_B, h within H_RTOL/H_ATOL;
+    bf16 on the tensor-core route (its per-body count shows it) at B =
+    CHECK_B and TIME_B, and bf16 on the CUDA-core body at CHECK_B, h
+    within 2 bf16 ulps. Each route's two kernels against its plain stages
+    (X, then h' from the same X): bf16 at TIME_B; f32 at every B, each
+    row's h' from the gate kernel bit-equal to its h' in a batch of
+    another rows a block (``k4_tf32_stages``). Returns the
+    max |h - h_twin| of the tensor-core route (bf16) and of the TF32
+    route (f32), keyed as the kernels line."""
     from recnet_tpu_torch.ops.cuda import fused_step as fs
     L, E = tc.encoder_output_len, cfg.embedding_size
-    err = 0.0
+    errs = {"fused_gru_attn_step": 0.0, "fused_gru_attn_step[f32]": 0.0}
     for dtype, B, cores in ((torch.float32, CHECK_B, False),
+                            (torch.float32, EVAL_B, False),
+                            (torch.float32, TIME_B, False),
+                            (torch.float32, K4_RAGGED_B, False),
+                            (torch.float32, CHECK_B, True),
                             (torch.bfloat16, CHECK_B, False),
                             (torch.bfloat16, TIME_B, False),
                             (torch.bfloat16, CHECK_B, True)):
-        dname = "f32" if dtype == torch.float32 else "bf16"
+        f32 = dtype == torch.float32
+        dname = "f32" if f32 else "bf16"
         params = seeded_params(cfg, dtype)
         enc = seeded_features(torch, B, L, cfg, dtype, 11)
         ops = k4_operands(torch, cfg, params, enc, 12)
         tiles = (params.get("layouts") or {}).get("gates")
         body = fs.step_body(dtype, cfg.hidden_size, cores)
+        check(body == ("cuda_cores" if cores else "tf32" if f32
+                       else "tensor_cores"),
+              f"K4 {dname}: step_body names {body}")
         for fc in K4_CHUNKS:
             kw = dict(emb_size=E, frame_chunk=fc)
-            n = fs.fused_gru_attn_step.body_launches[body]
+            before = dict(fs.fused_gru_attn_step.body_launches)
             got = fs.fused_gru_attn_step(*ops, tiles=tiles, cuda_cores=cores,
                                          **kw)
             want = fs.fused_gru_attn_step_reference(*ops, **kw)
@@ -708,20 +738,26 @@ def fused_step_against_twin(torch, tc, cfg):
             d = float((got.float() - want.float()).abs().max())
             log("kernels", f"K4 {dname} {body} B={B} frame_chunk={fc}: max "
                            f"|h - h_twin| {d:.3e}")
-            check(fs.fused_gru_attn_step.body_launches[body] == n + 1,
-                  f"K4 {dname} B={B} did not run on the {body} body")
-            if dtype == torch.float32:
+            after = dict(fs.fused_gru_attn_step.body_launches)
+            check(after == dict(before, **{body: before.get(body, 0) + 1}),
+                  f"K4 {dname} B={B} did not run on the {body} body alone")
+            if f32:
                 check(torch.allclose(got, want, rtol=H_RTOL, atol=H_ATOL),
-                      f"K4 f32 frame_chunk={fc}: h off the twin beyond rtol "
-                      f"{H_RTOL} atol {H_ATOL}")
+                      f"K4 f32 {body} B={B} frame_chunk={fc}: h off the "
+                      f"twin beyond rtol {H_RTOL} atol {H_ATOL}")
+                if body == "tf32":
+                    errs["fused_gru_attn_step[f32]"] = max(
+                        errs["fused_gru_attn_step[f32]"], d)
+                    k4_tf32_stages(torch, fs, ops, tiles, E, fc, B)
                 continue
             check(torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
                                  atol=BF16_ATOL),
                   f"K4 bf16 {body} B={B} frame_chunk={fc}: h off the twin "
                   f"beyond rtol {BF16_RTOL} atol {BF16_ATOL}")
             if body == "tensor_cores":
-                err = max(err, d)
-        if dtype != torch.bfloat16 or B != TIME_B:
+                errs["fused_gru_attn_step"] = max(
+                    errs["fused_gru_attn_step"], d)
+        if f32 or B != TIME_B:
             continue
         # each kernel of the route against its plain stage
         fc = K4_CHUNKS[-1]
@@ -745,7 +781,63 @@ def fused_step_against_twin(torch, tc, cfg):
         check(torch.allclose(h_new.float(), h_want.float(), rtol=BF16_RTOL,
                              atol=BF16_ATOL),
               "K4 kernel B: h off its plain stage beyond 2 bf16 ulps")
-    return err
+    return errs
+
+
+def k4_tf32_stages(torch, fs, ops, tiles, E, fc, B):
+    """The TF32 route's two kernels each against its plain stage: X's emb,
+    pad and h columns exact and ctx within H_RTOL/H_ATOL of
+    ``attention_pass_tf32_reference``; h' from that X within H_RTOL/H_ATOL
+    of ``gate_cell_tf32_reference`` (the products as three TF32 terms),
+    and each row's h' bit-equal to its h' in a batch of another
+    ``gate_rows`` (``other_gate_batch``)."""
+    x = fs._attention_pass_tf32(*ops[:7], frame_chunk=fc)
+    x_want = fs.attention_pass_tf32_reference(*ops[:7], frame_chunk=fc)
+    got = fs._gate_cell_tf32(x, tiles, ops[9])
+    other = other_gate_batch(torch, fs, x)
+    h_other = fs._gate_cell_tf32(other, tiles, ops[9])
+    h_want = fs.gate_cell_tf32_reference(x, tiles, ops[9])
+    torch.cuda.synchronize()
+    F, H = ops[2].shape[2], ops[1].shape[1]
+    n = min(B, other.shape[0])
+    exact = (torch.equal(x[:, :E], x_want[:, :E])
+             and torch.equal(x[:, E + F:], x_want[:, E + F:]))
+    same = torch.equal(h_other[:n], got[:n])
+    log("kernels", f"K4 f32 kernel A B={B} frame_chunk={fc}: emb, pad and h "
+                   f"columns of X {'equal' if exact else 'DIFFER'}, max "
+                   f"|ctx - plain| "
+                   f"{float((x - x_want)[:, E:E + F].abs().max()):.3e}; "
+                   f"kernel B on that X: max |h - plain| "
+                   f"{float((got - h_want).abs().max()):.3e}, rows a block "
+                   f"{fs.gate_rows(B)}; its first {n} rows at B="
+                   f"{other.shape[0]} ({fs.gate_rows(other.shape[0])} rows "
+                   f"a block) {'bit-equal' if same else 'DIFFER'}")
+    check(exact, "K4 f32 kernel A: X's emb, pad or h columns differ")
+    check(torch.allclose(x[:, E:E + F], x_want[:, E:E + F], rtol=H_RTOL,
+                         atol=H_ATOL),
+          f"K4 f32 kernel A: ctx off its plain stage beyond rtol {H_RTOL} "
+          f"atol {H_ATOL}")
+    check(torch.allclose(got, h_want, rtol=H_RTOL, atol=H_ATOL),
+          f"K4 f32 kernel B: h off its plain stage beyond rtol {H_RTOL} "
+          f"atol {H_ATOL}")
+    check(same, "K4 f32 kernel B: a row's h' differs between batches of "
+                "different rows a block")
+    check(tuple(x.shape) == (B, fs.gate_width(E + F, H, fs.TF32_K)),
+          "K4 f32 kernel A: X malformed")
+
+
+def other_gate_batch(torch, fs, x):
+    """X's rows in a batch that ``fs.gate_rows`` gives the other rows a
+    block: its first EVAL_B rows (32 rows a block) where x takes 128 rows
+    a block, else x repeated to a whole number of 128-row tiles."""
+    B, big = x.shape[0], fs.GATE_ROWS_CHOICES[0]
+    n = -(-B // big) * big
+    other = (x[:EVAL_B] if fs.gate_rows(B) == big
+             else x.repeat(n // B + 1, 1)[:n])
+    check(fs.gate_rows(other.shape[0]) != fs.gate_rows(B),
+          f"gate_rows gives one rows a block at B={B} and "
+          f"{other.shape[0]}")
+    return other.contiguous()
 
 
 def variants_against_k1(torch, tc, cfg_base):
@@ -1218,8 +1310,9 @@ def pallas_path(torch, tc, cfg, params_np):
     held against the same loop through K4's twin (BF16_TOKENS), beside
     that loop on K4's CUDA-core body; then its
     f32 tokens and n_steps at B = CHECK_B against plain ``greedy_decode``'s,
-    on the random weights, whose rows run all T steps. Returns K4's
-    launches."""
+    on the random weights, whose rows run all T steps, with K4's launches
+    counted (all T on the TF32 route). Returns K4's launches, keyed as the
+    kernels line (bf16, and "[f32]")."""
     from recnet_tpu_torch import decoding
     from recnet_tpu_torch.ops.cuda import fused_step as fs
     from recnet_tpu_torch.weights import params_from_jax
@@ -1253,7 +1346,17 @@ def pallas_path(torch, tc, cfg, params_np):
                                 f"{share} < {BF16_TOKENS}")
     f32 = params_from_jax(params_np, DEVICE, torch.float32)
     enc = seeded_features(torch, CHECK_B, L, cfg, torch.float32, 13)
+    reset_counts()
     got = decoding.greedy_decode_pallas(f32, cfg, enc, T - 1)
+    torch.cuda.synchronize()
+    f32_launches = fs.fused_gru_attn_step.n_launches
+    bodies = dict(fs.fused_gru_attn_step.body_launches)
+    log("pallas", f"greedy_decode_pallas B={CHECK_B} f32 T={T}: K4 launches "
+                  f"{f32_launches} by body {bodies}")
+    check(f32_launches == T, f"f32 K4 launched {f32_launches} times, not "
+                             f"T = {T}")
+    check(bodies == {"tf32": T},
+          f"f32 K4 did not run all {T} steps on the TF32 route")
     want = decoding.greedy_decode(f32, cfg, enc, T - 1)
     rows = (got.tokens == want.tokens).all(dim=0)
     share = rows.float().mean().item()
@@ -1267,7 +1370,8 @@ def pallas_path(torch, tc, cfg, params_np):
     check(share >= F32_ROWS, f"greedy_decode_pallas f32 rows agree on "
                              f"{share} < {F32_ROWS}")
     check(got.n_steps == want.n_steps, "greedy_decode_pallas n_steps differ")
-    return launches
+    return {"fused_gru_attn_step": launches,
+            "fused_gru_attn_step[f32]": f32_launches}
 
 
 def pad_timed(torch, tc, cfg, params):
@@ -1645,6 +1749,57 @@ def read_rates(torch):
         del buf
 
 
+def gate_rows_sweep(torch):
+    """``--gate-rows``: kernel B of K4's TF32 route (f32, the flagship's
+    width) at each rows a block it is built for, at each B of
+    GATE_ROWS_SWEEP_B: the whole route run with the rows forced, the
+    choices in turns over GATE_ROWS_ROUNDS rounds, kernel B's device time
+    read in the route's sequence (X just written, enc streamed through L2)
+    and h' held bit-equal across the choices. Logs each choice's range,
+    the fastest, and the rows ``fused_step.gate_rows`` picks."""
+    from recnet_tpu_torch.checkpoint import load_config_and_vocab
+    from recnet_tpu_torch.models.decoder import config_from_train
+    from recnet_tpu_torch.ops.cuda import fused_step as fs
+    with tempfile.TemporaryDirectory() as tmp:
+        tc, vocab = load_config_and_vocab(
+            str(flagship_checkpoint_dir(Path(tmp), VOCAB)))
+    cfg = config_from_train(tc, vocab.n_vocabs)
+    card, L, E = card_line(), tc.encoder_output_len, cfg.embedding_size
+    params = seeded_params(cfg, torch.float32)
+    tiles = params["layouts"]["gates"]
+    names = ("attn_wh_f32", "attn_scores_f32", "attn_ctx_f32",
+             "gate_gemm_f32")
+    for B in GATE_ROWS_SWEEP_B:
+        enc = seeded_features(torch, B, L, cfg, torch.float32, 11)
+        ops = k4_operands(torch, cfg, params, enc, 12)
+        named = dict(zip(fs._OPERANDS[:7], ops[:7]))
+        x = torch.empty((B, fs.gate_width(E + cfg.encoder_size,
+                                          cfg.hidden_size, fs.TF32_K)),
+                        device=DEVICE)
+        outs = {r: torch.empty_like(ops[1]) for r in fs.GATE_ROWS_CHOICES}
+        runs = {r: functools.partial(
+                    fs._launch_tf32, fs._ATTENTION_PASS | fs._GATE_CELL, x,
+                    outs[r], **named, tiles=tiles, bias3=ops[9],
+                    rows_per_block=r)
+                for r in fs.GATE_ROWS_CHOICES}
+        ms = collections.defaultdict(list)
+        for _ in range(GATE_ROWS_ROUNDS):
+            for r, run in runs.items():
+                ms[r].append(device_ms(torch, run, ("gate_gemm_f32",),
+                                       launches={"gate_gemm_f32": 1})
+                             ["gate_gemm_f32"])
+        torch.cuda.synchronize()
+        first = outs[fs.GATE_ROWS_CHOICES[0]]
+        check(all(torch.equal(o, first) for o in outs.values()),
+              f"K4 f32 kernel B B={B}: h' differs between rows a block")
+        best = min(ms, key=lambda r: min(ms[r]))
+        log("gate-rows", f"B={B}: kernel B device ms by rows a block "
+                         + ", ".join(f"{r}: {min(v):.4f}-{max(v):.4f}"
+                                     for r, v in ms.items())
+                         + f"; fastest {best}, gate_rows picks "
+                         f"{fs.gate_rows(B)}; h' bit-equal ({card})")
+
+
 def k4_work(cfg, L, B):
     """(flops, bytes) of one fused step in bf16: the products W h, the
     scores, ctx and the gates; each input read once (emb, h, enc, uv and
@@ -1893,10 +2048,10 @@ def f32_cases(torch, tc, cfg, params, B, pad_params=None):
     from <SOS> for T steps; K2 seg_len 4 from a zero state and <SOS> (the
     library route: ``greedy_decode`` of 4 steps); K3 at B x BEAM rows of GRU
     output, k = BEAM (the library route: the cuBLAS f32 product, then
-    ``topk_rounds``); K4 (its f32 body on CUDA-core FMAs is its own first
-    design; the library route: the composed
-    ``gru_attn_step_reference``; launches a decode: T in
-    ``greedy_decode_pallas``, which no entry point calls); with
+    ``topk_rounds``); K4 (the TF32 route, its first design the CUDA-core
+    body; the library route: the composed ``gru_attn_step_reference``;
+    launches a decode: T in ``greedy_decode_pallas``, which no entry point
+    calls); with
     ``pad_params`` (the PAD-timed weights) the early exit on the TF32 body,
     its work counted over the row-steps its 8-row tiles run (the library
     route: ``greedy_decode``). The first design: the CUDA-core body
@@ -1925,6 +2080,9 @@ def f32_cases(torch, tc, cfg, params, B, pad_params=None):
     split = {"topk_split_kernel": 1, "topk_merge_kernel": 1}
     k4 = k4_operands(torch, cfg, params, enc, 14)
     E, k4_flops, k4_bytes = cfg.embedding_size, *k4_work(cfg, L, B)
+    # the parameter set's gate tiles, as the K4 loop passes them
+    tiles = (params.get("layouts") or {}).get("gates")
+    k4kw = dict(emb_size=E, **({"tiles": tiles} if tiles is not None else {}))
     cases = {
         "whole_greedy_decode[f32]": (
             lambda: wd.whole_greedy_decode(*ops, **k1),
@@ -1953,12 +2111,14 @@ def f32_cases(torch, tc, cfg, params, B, pad_params=None):
             (2 * N * H * V, 4 * (N * H + H * V + V) + 8 * N * BEAM), 10,
             split, {"topk_proj_kernel": 1}, T),
         "fused_gru_attn_step[f32]": (
-            lambda: fs.fused_gru_attn_step(*k4, emb_size=E),
+            lambda: fs.fused_gru_attn_step(*k4, **k4kw),
             lambda: fs.fused_gru_attn_step(*k4, emb_size=E, cuda_cores=True),
             lambda: fs.fused_gru_attn_step_reference(*k4, emb_size=E),
             lambda: fs.gru_attn_step_reference(*k4[:9], k4[9][0], k4[9][1],
                                                E),
-            (k4_flops, 2 * k4_bytes), 10, {"fused_step_kernel": 1},
+            (k4_flops, 2 * k4_bytes), 10,
+            {"attn_wh_f32": 1, "attn_scores_f32": 1, "attn_ctx_f32": 1,
+             "gate_gemm_f32": 1},
             {"fused_step_kernel": 1}, T),
     }
     if pad_params is not None:
@@ -1982,15 +2142,59 @@ def f32_cases(torch, tc, cfg, params, B, pad_params=None):
     return cases
 
 
+def k4_f32_extras(torch, tc, cfg, params, B, library, route, parts, card):
+    """K4 f32 beside ``f32_times``' row: its launches' device time
+    (``parts``: kernel A's W h, scores and ctx, kernel B), kernel B's grid
+    and the clusters of 8 the card holds at once, the composed library
+    route's device time, a call's host time, and the K4 loop
+    (``greedy_decode_pallas`` at B, f32) by events and by the card's busy
+    time (its idle share)."""
+    from recnet_tpu_torch import decoding
+    from recnet_tpu_torch.ops.cuda import fused_step as fs
+    T = tc.caption_max_len + 1
+    enc = seeded_features(torch, B, tc.encoder_output_len, cfg,
+                          torch.float32, 3)
+    loop = lambda: decoding.greedy_decode_pallas(params, cfg, enc, T - 1)
+    loop_ms, busy = timed(torch, loop)[0], device_ms(torch, loop, reps=3)[""]
+    out = dict(attn_pass_ms=(parts["attn_wh_f32"] + parts["attn_scores_f32"]
+                             + parts["attn_ctx_f32"]),
+               attn_wh_ms=parts["attn_wh_f32"],
+               attn_scores_ms=parts["attn_scores_f32"],
+               attn_ctx_ms=parts["attn_ctx_f32"],
+               gate_gemm_ms=parts["gate_gemm_f32"],
+               library_device_ms=device_ms(torch, library)[""],
+               host_ms=host_ms(torch, route), loop_ms=loop_ms,
+               loop_busy_ms=busy, loop_idle_share=1 - busy / loop_ms,
+               gate_blocks=fs.gate_blocks(B, cfg.hidden_size),
+               gate_clusters_at_once=fs._library()
+               .recnet_fused_step_tf32_clusters(fs.gate_rows(B)))
+    log("times", f"fused_gru_attn_step[f32] B={B}: kernel A (attention "
+                 f"pass) {out['attn_pass_ms']:.4f} ms (W h "
+                 f"{out['attn_wh_ms']:.4f}, scores "
+                 f"{out['attn_scores_ms']:.4f}, ctx {out['attn_ctx_ms']:.4f}), "
+                 f"kernel B (gate GEMM + GRU cell) "
+                 f"{out['gate_gemm_ms']:.4f} ms device ({out['gate_blocks']} "
+                 f"blocks in clusters of {fs.GATE_PARTS}, "
+                 f"{out['gate_clusters_at_once']} clusters at once); library "
+                 f"route device {out['library_device_ms']:.4f} ms; host "
+                 f"{out['host_ms']:.4f} ms a call; the K4 loop (T={T}) "
+                 f"{loop_ms:.3f} ms a decode, the card busy {busy:.3f} ms "
+                 f"(idle share {out['loop_idle_share']:.3f}) ({card})")
+    return out
+
+
 def f32_times(torch, tc, cfg, params_np, pad_np):
     """[times] of the f32 route at the eval batch (EVAL_B) and at TIME_B:
     each of ``f32_cases`` (the early exit on ``pad_np``'s PAD-timed
-    weights) on its route (the TF32 body, K3's TF32 split route, K4's
-    CUDA-core body), its first design, its plain twin and its library route
+    weights) on its route (the TF32 body, K3's TF32 split route, K4's TF32
+    route), its first design, its plain twin and its library route
     by CUDA events; the device time of the route and of the first design by the
     profiler (held to the kernels a call); the launches a decode; the bound
-    (``bound_f32``) and the f32 CUDA-core peak's time beside it. Returns
-    the kernels line's entries at EVAL_B, TIME_B's under "at_<TIME_B>"."""
+    (``bound_f32``) and the f32 CUDA-core peak's time beside it. K4 also:
+    each of its two kernels' device time, the library route's device time,
+    a call's host time, and its loop (``greedy_decode_pallas``) by events
+    and by the card's busy time. Returns the kernels line's entries at
+    EVAL_B, TIME_B's under "at_<TIME_B>"."""
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     from recnet_tpu_torch.weights import params_from_jax
     params = params_from_jax(params_np, DEVICE, torch.float32)
@@ -2006,8 +2210,8 @@ def f32_times(torch, tc, cfg, params_np, pad_np):
             ms, first_ms, plain_ms, library_ms = (
                 timed(torch, fn, reps)[0]
                 for fn in (route, first, plain, library))
-            dev = sum(device_ms(torch, route, tuple(names),
-                                launches=names).values())
+            parts = device_ms(torch, route, tuple(names), launches=names)
+            dev = sum(parts.values())
             dev1 = sum(device_ms(torch, first, tuple(names1),
                                  launches=names1).values())
             bound_ms, bound_by = bound_f32(*work)
@@ -2020,6 +2224,9 @@ def f32_times(torch, tc, cfg, params_np, pad_np):
                             else f"B={B}"))
             if "whole" in name:
                 e["cluster"] = wd.cluster_size(B, cfg.hidden_size, n_sms)
+            if name == "fused_gru_attn_step[f32]":
+                e.update(k4_f32_extras(torch, tc, cfg, params, B, library,
+                                       route, parts, card))
             if name == "whole_greedy_decode[f32]" and B == EVAL_B:
                 # K1 at each cluster size the body takes (the spread's gain)
                 ops = decode_operands(params, seeded_features(
@@ -4399,6 +4606,10 @@ def f32_route_times(torch, tc, cfg):
             route, _, _, library, _, reps = case[:6]
             out[f"{name} B={B}"] = timed(torch, route, reps)[0]
             out[f"{name} library B={B}"] = timed(torch, library, reps)[0]
+            if name == "fused_gru_attn_step[f32]":   # host-paced: the card's
+                out[f"{name} device B={B}"] = device_ms(torch, route)[""]
+                out[f"{name} library device B={B}"] = device_ms(
+                    torch, library)[""]
     with tempfile.TemporaryDirectory() as tmp:
         _, vocab = load_config_and_vocab(
             str(flagship_checkpoint_dir(Path(tmp), VOCAB)))
@@ -4587,6 +4798,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--read-rates"]:
         read_rates(torch)
         return 0
+    if sys.argv[1:2] == ["--gate-rows"]:
+        build_kernels()
+        gate_rows_sweep(torch)
+        return 0
     build_kernels()
     from recnet_tpu_torch.checkpoint import load_config_and_vocab
     from recnet_tpu_torch.models.decoder import config_from_train
@@ -4600,7 +4815,7 @@ def main() -> int:
     errs = kernels_against_twins(torch, tc, cfg)
     errs.update(tf32_against_twins(torch, tc, cfg))
     errs.update(topk_against_twin(torch, cfg))
-    errs["fused_gru_attn_step"] = fused_step_against_twin(torch, tc, cfg)
+    errs.update(fused_step_against_twin(torch, tc, cfg))
     variant_errs = variants_against_k1(torch, tc, cfg)
     eos_np = eos_biased(torch, tc, cfg, params_np)
     launches = main_path(torch, tc, vocab, cfg, params_np, eos_np)
@@ -4612,8 +4827,7 @@ def main() -> int:
         "outproj_topk[f32]"]
     launches["whole_greedy_decode_segment[f32]"] += eval_launches["greedy"][
         "whole_greedy_decode_segment[f32]"]
-    launches["fused_gru_attn_step"] = pallas_path(torch, tc, cfg,
-                                                  params_np)
+    launches.update(pallas_path(torch, tc, cfg, params_np))
     pad_np = pad_timed(torch, tc, cfg, params_np)
     variant_launches = {}
     variant_launches["early_exit"], variant_errs["early_exit"] = (
@@ -4651,7 +4865,8 @@ def main() -> int:
              "whole_decode.py:440"),
             ("whole_greedy_decode_segment[f32]", "whole_decode_tf32.cu",
              "whole_decode.py:360"),
-            ("outproj_topk[f32]", "topk_proj.cu", "topk_proj.py:77")]
+            ("outproj_topk[f32]", "topk_proj.cu", "topk_proj.py:77"),
+            ("fused_gru_attn_step[f32]", "fused_step.cu", "fused_step.py:92")]
     # the K5 variants, each under its variant_launches key: the
     # tensor-core probes are built from whole_decode_probes.cu, the rest
     # (the early exit, and the CUDA-core body's variants) from
@@ -4692,8 +4907,8 @@ def main() -> int:
                                                else "rollout.cu"),
                              "replaces": serves[kind], "pallas": False},
                             **entry))
-    for k in kernels:     # the body each whole-decode row ran on
-        if k["name"].startswith("whole_greedy_decode"):
+    for k in kernels:     # the body each decode row ran on
+        if k["name"].startswith(("whole_greedy_decode", "fused_gru_attn")):
             k["body"] = ("cuda_cores" if "cuda_cores" in k["name"]
                          else "tf32" if "[f32]" in k["name"]
                          else "tensor_cores")

@@ -13,7 +13,7 @@
 //
 // On the TPU the weights (about 8 MB in bf16: w_ih 6.2 MB, w_hh 1.6 MB, W
 // 0.1 MB) sit in VMEM for the call while enc streams one frame chunk at a
-// time. Two bodies share this file; the wrapper picks one by dtype and
+// time. Three bodies share this file; the wrapper picks one by dtype and
 // shape (ops/cuda/fused_step.py step_body).
 //
 // * The tensor-core route (bf16, H a multiple of 16): two kernels.
@@ -58,8 +58,50 @@
 //     1.5 points of bf16 token agreement). Rows past B read zero-filled X
 //     rows and are not stored; X's zero pad past E + F meets zero rows of
 //     the tiles.
-// * The CUDA-core body (fused_step_kernel), the first design: f32 (mma on
-//   f32 is TF32), bf16 shapes the route does not take, and cuda_cores.
+// * The TF32 route (f32, H a multiple of 16 up to 907): the same two
+//   stages in f32, four launches.
+//   What bounds it. The step's bytes: enc (B L F f32, 17.2 MB at B = 100,
+//   176 MB at 1024), uv and the f32 gate tiles (15.5 MB), 0.0104 ms at B =
+//   100 and 0.0635 at 1024 at the HBM rate. The gate product as three TF32
+//   terms is 2.3 GFLOP at B = 100 (24 at 1024); mma.sync m16n8k8 runs TF32
+//   at half the wgmma peak, and at B = 1024 these products pace kernel B.
+//   What the design does about that.
+//   - Kernel A, three launches. W h (attn_wh_f32_kernel): a block a tile of
+//     16 rows x 32 columns of W, both in flight by cp.async at entry, h laid
+//     out again by k so that a k's 16 rows are four 16-byte loads. The
+//     scores (attn_scores_f32_kernel): a warp a (row, frame) item, 16-byte
+//     loads of uv and W h. ctx (attn_ctx_f32_kernel): a thread a (row, 4
+//     features), every frame's 16-byte streaming load in flight, 14 at a
+//     time, so enc streams near the HBM rate with no dependence chain in
+//     its way; the same launch copies X's emb, pad and h columns. X = [emb,
+//     ctx / L, zeros, h] in f32, its columns the rows of
+//     layout.gate_tiles_f32 (E + F padded to a multiple of 8). A first
+//     design that gave each row tile one cluster (W h and the scores shared
+//     in distributed shared memory, enc staged in shared memory) spent its
+//     time in that chain, and read slower at both batches.
+//   - Kernel B (gate_gemm_f32_kernel): mma.sync m16n8k8 on TF32 splits, a
+//     product as a_lo b_hi + a_hi b_lo + a_hi b_hi from a zero accumulator
+//     a k8 step, added in IEEE f32 (as whole_decode_tf32.cu). The weights
+//     are A straight from the f32 gate tiles (each lane's 16 bytes are its
+//     fragment), X's rows are B. A block takes BN rows x 256 / BN unit
+//     tiles x 3 gates (8 warps, a warp 16 units x 32 rows, two blocks an
+//     SM); its k8 steps stream through a cp.async ring. The k range is cut
+//     into KP = 8 parts (the [emb, ctx, pad] steps into the first ones, the
+//     h steps into the rest, so a block holds gi's sums or gh's), one a
+//     block of a cluster of 8: 128 blocks at B = 100. Each block pushes its
+//     part's sums to the block that owns their rows, which adds the parts
+//     in part order, then the biases and the GRU cell in f32. BN is 128,
+//     or 32 where 128-row tiles would pad the batch by more than an eighth
+//     (the wrapper's gate_rows: at B = 100, 32 rows read 0.046 ms for
+//     0.052 on the H100, at 1024 128 rows 0.229 for 0.251). Every sum's
+//     order is fixed by the shape alone, so a row's h' is bit-equal at
+//     either BN, whatever the batch. A wgmma body (one warpgroup, the three gates' nine terms
+//     under one wait a k8 step) gave the same h' bit for bit but ran
+//     slower: the from-zero rule needs a wait and a temporary accumulator a
+//     k8 step, and the registers of N = 64 rows spill.
+// * The CUDA-core body (fused_step_kernel), the first design: f32 shapes
+//   the TF32 route does not take, bf16 shapes the tensor-core route does
+//   not take, and cuda_cores.
 //   What bounds it: every block of TB = 8 rows streams all gate weights
 //   from L2 (1.0 GB of L2 reads a call at B = 1024) and each 2-byte weight
 //   load feeds TB = 8 f32 FMAs, so the L2 load latency and the FMA rate
@@ -71,12 +113,16 @@
 //   in flight; a thread owns one hidden unit j across the three gates, so
 //   the cell runs in registers. Rows past B are masked.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 
 #include "decode_common.cuh"
 #include "hopper_mma.cuh"
+#include "wgmma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -680,6 +726,591 @@ gate_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
     }
 }
 
+// ---------------------------------------------------------------------------
+// the TF32 route (f32): kernel A, the attention pass, in three launches
+// ---------------------------------------------------------------------------
+
+constexpr int THREADS_AF = 256;
+constexpr int NWARPS_AF = THREADS_AF / 32;
+constexpr int WH_ROWS = 16;        // W h: rows of a block's tile
+constexpr int WH_COLS = 32;        // its columns of W
+constexpr int WH_PARTS = 16;       // parts of its k range
+constexpr int EB_F = 14;           // enc frames a thread loads at once
+constexpr size_t SMEM_LIMIT = 232448;
+
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) / 16 * 16;
+}
+
+// the slice [lo, hi) of n items that block r of c takes
+__host__ __device__ inline void slice(int n, int r, int c, int& lo, int& hi) {
+  lo = r * n / c;
+  hi = (r + 1) * n / c;
+}
+
+// byte offsets of the W h launch's shared arrays
+// (ops/cuda/fused_step.py attn_tf32_smem_bytes mirrors it)
+struct WhSmem {
+  int hld;
+  size_t w, hrow, h, total;
+  __host__ __device__ explicit WhSmem(int H) {
+    hld = H + 4;                  // h's rows as copied, 4 words apart mod 32
+    const int parts = WH_PARTS * WH_ROWS * WH_COLS;        // then the parts'
+    const int hrows = WH_ROWS * hld;                       // sums in place
+    size_t o = 0;
+    w = o;    o = align16(o + 4 * (size_t)H * WH_COLS);    // [H][WH_COLS]
+    hrow = o; o = align16(o + 4 * (size_t)(hrows > parts ? hrows : parts));
+    h = o;    o = align16(o + 4 * (size_t)H * WH_ROWS);    // [H][WH_ROWS]
+    total = o;
+  }
+};
+
+// Kernel A, first launch: W h (B x A) in f32, a block a tile of WH_ROWS
+// rows x WH_COLS columns of W. Its W columns and h rows are in flight by
+// 16-byte cp.async at entry; h is laid out again as [k][row], so a k's 16
+// rows are four 16-byte loads that every thread of a part shares. A thread
+// takes 2 columns x 16 rows over one of WH_PARTS parts of the k range; the
+// parts' sums (in the freed copy of h) are added in part order. The order
+// depends on neither the batch nor the grid.
+__global__ void __launch_bounds__(THREADS_AF)
+attn_wh_f32_kernel(const float* __restrict__ h,
+                   const float* __restrict__ attn_W, float* __restrict__ wh,
+                   int B, int A, int H, int vec) {
+  extern __shared__ float4 smem_f4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem_f4);
+  const WhSmem lay(H);
+  float* w_s = reinterpret_cast<float*>(sm + lay.w);
+  float* hrow_s = reinterpret_cast<float*>(sm + lay.hrow);
+  float* h_s = reinterpret_cast<float*>(sm + lay.h);
+  float* part_s = hrow_s;   // once h is laid out again
+
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * WH_COLS, row0 = blockIdx.y * WH_ROWS;
+  const int rows = min(WH_ROWS, B - row0), cols = min(WH_COLS, A - c0);
+  if (vec) {   // A, H multiples of 4; W and h 16-byte aligned
+    const int q4 = WH_COLS / 4;
+    for (int c = tid; c < H * q4; c += THREADS_AF) {
+      const int k = c / q4, q = c % q4;
+      recnet::cp_async16_zfill(
+          w_s + 4 * c, attn_W + (size_t)k * A + c0 + 4 * (4 * q < cols ? q : 0),
+          4 * q < cols);
+    }
+    const int r4 = H / 4;
+    for (int c = tid; c < rows * r4; c += THREADS_AF)
+      recnet::cp_async16(hrow_s + (c / r4) * lay.hld + 4 * (c % r4),
+                         h + (size_t)(row0 + c / r4) * H + 4 * (c % r4));
+  } else {
+    for (int i = tid; i < H * WH_COLS; i += THREADS_AF) {
+      const int k = i / WH_COLS, c = i % WH_COLS;
+      w_s[i] = c < cols ? attn_W[(size_t)k * A + c0 + c] : 0.f;
+    }
+    for (int i = tid; i < rows * H; i += THREADS_AF)
+      hrow_s[(i / H) * lay.hld + i % H] = h[(size_t)row0 * H + i];
+  }
+  recnet::cp_async_commit();
+  recnet::cp_async_wait<0>();
+  __syncthreads();
+  for (int i = tid; i < H * WH_ROWS; i += THREADS_AF) {
+    const int b = i % WH_ROWS, k = i / WH_ROWS;
+    h_s[i] = b < rows ? hrow_s[b * lay.hld + k] : 0.f;
+  }
+  __syncthreads();
+
+  // thread (column pair cp, part p): k = p, p + WH_PARTS, ...
+  const int cp = tid % (WH_COLS / 2), p = tid / (WH_COLS / 2);
+  float acc[WH_ROWS][2] = {};
+#pragma unroll 4
+  for (int k = p; k < H; k += WH_PARTS) {
+    const float2 w = *reinterpret_cast<const float2*>(w_s + k * WH_COLS +
+                                                      2 * cp);
+    float hv[WH_ROWS];
+#pragma unroll
+    for (int b = 0; b < WH_ROWS; b += 8)
+      recnet::load_rows<8>(h_s + k * WH_ROWS + b, hv + b);
+#pragma unroll
+    for (int b = 0; b < WH_ROWS; ++b) {
+      acc[b][0] += hv[b] * w.x;
+      acc[b][1] += hv[b] * w.y;
+    }
+  }
+  __syncthreads();   // every thread is past h's copy: it holds the parts
+#pragma unroll
+  for (int b = 0; b < WH_ROWS; ++b)
+    *reinterpret_cast<float2*>(part_s + (p * WH_ROWS + b) * WH_COLS +
+                               2 * cp) = make_float2(acc[b][0], acc[b][1]);
+  __syncthreads();
+  for (int i = tid; i < rows * WH_COLS; i += THREADS_AF) {
+    const int b = i / WH_COLS, c = i % WH_COLS;
+    float s = 0.f;
+#pragma unroll 4
+    for (int q = 0; q < WH_PARTS; ++q)
+      s += part_s[(q * WH_ROWS + b) * WH_COLS + c];
+    if (c < cols) wh[(size_t)(row0 + b) * A + c0 + c] = s;
+  }
+}
+
+// Kernel A, second launch: the scores, a warp a (row, frame) item, a lane
+// 4 attention units at a time (16-byte loads of uv and W h where A is a
+// multiple of 4), reduced by shuffles, into sc (B x L).
+__global__ void __launch_bounds__(THREADS_AF)
+attn_scores_f32_kernel(const float* __restrict__ uv,
+                       const float* __restrict__ wh,
+                       const float* __restrict__ attn_w,
+                       const float* __restrict__ attn_b,
+                       float* __restrict__ sc, int B, int L, int A,
+                       int vec) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * NWARPS_AF + (threadIdx.x >> 5);
+  if (i >= B * L) return;
+  const float* up = uv + (size_t)i * A;
+  const float* wp = wh + (size_t)(i / L) * A;
+  float s = 0.f;
+  for (int a0 = 4 * lane; a0 < A; a0 += 128) {
+    float u[4], w[4];
+    if (vec) {
+      const float4 qu = *reinterpret_cast<const float4*>(up + a0);
+      const float4 qw = *reinterpret_cast<const float4*>(wp + a0);
+      u[0] = qu.x; u[1] = qu.y; u[2] = qu.z; u[3] = qu.w;
+      w[0] = qw.x; w[1] = qw.y; w[2] = qw.z; w[3] = qw.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        u[c] = a0 + c < A ? up[a0 + c] : 0.f;
+        w[c] = a0 + c < A ? wp[a0 + c] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (a0 + c < A)
+        s += tanhf(w[c] + u[c] + attn_b[a0 + c]) * attn_w[a0 + c];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_down_sync(0xffffffffu, s, off);
+  if (lane == 0) sc[i] = s;
+}
+
+// Kernel A, third launch: ctx, a stream of enc, and X's other columns. A
+// thread a (row, 4 features): every frame's 16-byte load of them in
+// flight, EB_F at a time, read once (streaming loads: enc does not push
+// the gate tiles out of L2); the frames summed in chunks of frame_chunk
+// (each chunk from zero, then added to ctx), / L, into X. The threads
+// past those copy a row's emb, zero pad and h columns, 4 columns each
+// (vec_x) or one.
+__global__ void __launch_bounds__(THREADS_AF)
+attn_ctx_f32_kernel(const float* __restrict__ emb,
+                    const float* __restrict__ h,
+                    const float* __restrict__ enc,
+                    const float* __restrict__ sc, float* __restrict__ x,
+                    int B, int L, int F, int E, int H, int ldx,
+                    int frame_chunk, int vec_enc, int vec_x) {
+  const unsigned nq = vec_enc ? F / 4 : F;
+  unsigned item = blockIdx.x * THREADS_AF + threadIdx.x;
+  if (item >= (unsigned)B * nq) {    // X's emb, pad and h columns
+    const int kx = ldx - H, pad = kx - E - F, w = vec_x ? 4 : 1;
+    const unsigned nc = (E + pad + H) / w;
+    item -= (unsigned)B * nq;
+    if (item >= (unsigned)B * nc) return;
+    const int row = (int)(item / nc), c = (int)(item % nc) * w;
+    float* xr = x + (size_t)row * ldx;
+    const float* src = c < E ? emb + (size_t)row * E + c
+                             : h + (size_t)row * H + c - E - pad;
+    float* dst = xr + (c < E ? c : c < E + pad ? E + F + c - E
+                                               : kx + c - E - pad);
+    if (vec_x)
+      *reinterpret_cast<float4*>(dst) =
+          c >= E && c < E + pad ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                : *reinterpret_cast<const float4*>(src);
+    else
+      *dst = c >= E && c < E + pad ? 0.f : *src;
+    return;
+  }
+  const int row = (int)(item / nq), q = (int)(item % nq);
+  const float* sp = sc + (size_t)row * L;
+  float* xp = x + (size_t)row * ldx + E;
+  if (vec_enc) {
+    const float4* ep = reinterpret_cast<const float4*>(
+        enc + (size_t)row * L * F + 4 * q);
+    const int f4 = F / 4;
+    float ctx[4] = {}, acc[4] = {};
+    int left = frame_chunk;            // frames left in the current chunk
+    for (int f0 = 0; f0 < L; f0 += EB_F) {
+      float4 v[EB_F];                  // EB_F frames' loads, all in flight
+#pragma unroll
+      for (int u = 0; u < EB_F; ++u)
+        if (f0 + u < L) v[u] = __ldcs(ep + (size_t)(f0 + u) * f4);
+#pragma unroll
+      for (int u = 0; u < EB_F; ++u) {
+        if (f0 + u >= L) break;
+        const float s = sp[f0 + u];
+        acc[0] += s * v[u].x;
+        acc[1] += s * v[u].y;
+        acc[2] += s * v[u].z;
+        acc[3] += s * v[u].w;
+        if (--left == 0) {             // the chunk's sum joins ctx
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            ctx[c] += acc[c];
+            acc[c] = 0.f;
+          }
+          left = frame_chunk;
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) xp[4 * q + c] = ctx[c] / (float)L;
+  } else {
+    const float* ep = enc + (size_t)row * L * F + q;
+    float ctx = 0.f, acc = 0.f;
+    int left = frame_chunk;
+#pragma unroll 4
+    for (int f = 0; f < L; ++f) {
+      acc += sp[f] * ep[(size_t)f * F];
+      if (--left == 0) {
+        ctx += acc;
+        acc = 0.f;
+        left = frame_chunk;
+      }
+    }
+    xp[q] = ctx / (float)L;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the TF32 route (f32): kernel B, the gate GEMM and the GRU cell
+// ---------------------------------------------------------------------------
+
+
+constexpr int KP = 8;              // k parts: a cluster's blocks, fixed
+constexpr int THREADS_BF = 256;    // 8 warps: a warp 16 units x 32 rows
+constexpr int KS_F = 4;            // k8 steps a stage of the ring
+constexpr int TWO_PER_SM = 115712; // shared memory of a block, two an SM
+                                   // (228 KB less 1 KB a block, halved)
+
+// The k parts: the first px of the KP parts split X's [emb, ctx, pad] k8
+// steps (gi), the others its h steps (gh), in proportion to their counts;
+// a block sums one part, so it holds one kind of sum.
+__host__ __device__ inline int x_parts(int nKx, int nKh) {
+  const int px = (KP * nKx + (nKx + nKh) / 2) / (nKx + nKh);
+  return px < 1 ? 1 : (px > KP - 1 ? KP - 1 : px);
+}
+
+constexpr int TILE_F = 128;        // f32 values of a 16 x 8 weight tile
+
+// BN rows x UT unit tiles (x 3 gates) a block, BN UT = 8 x 32
+template <int BN>
+struct GateF32 {
+  static constexpr int UT = 256 / BN;
+  static constexpr int RG = BN / 32;                  // row groups of a block
+  static constexpr int W_STEP = UT * 3 * TILE_F;      // a k8 step's weights
+  static constexpr int X_STEP = BN * 8;               // and its X tile
+  static constexpr int STEP = W_STEP + X_STEP;        // floats
+  static constexpr int CHUNKS = STEP / 4;             // 16-byte copies
+  static constexpr int CPT = (CHUNKS + THREADS_BF - 1) / THREADS_BF;
+  // the parts' sums that this block adds up, in the ring once every
+  // block's loop is done: its BN / KP rows of the block's, [KP parts][3
+  // gates][row][unit], a row PLD apart
+  static constexpr int OWN = BN / KP;
+  static constexpr int PLD = UT * 16 + 4;
+  static constexpr int RECV = KP * 3 * OWN * PLD;
+  // stages of the cp.async ring: as many as two blocks an SM allow, 2 to 5
+  static constexpr int FIT = TWO_PER_SM / (4 * KS_F * STEP);
+  static constexpr int STAGES = FIT < 2 ? 2 : (FIT > 5 ? 5 : FIT);
+  static constexpr int RING = STAGES * KS_F * STEP;
+  static constexpr size_t SMEM = 4 * (size_t)(RING > RECV ? RING : RECV);
+  static_assert(UT * RG == THREADS_BF / 32, "a warp a unit tile x 32 rows");
+};
+
+// one k8 step of a warp: 16 units x 3 gates x its nf 8-row fragments, each
+// product in three TF32 terms from a zero accumulator, added in f32
+__device__ __forceinline__ void gate_step_f32(const float* wst,
+                                              const float* xst, int lane,
+                                              int nf, float (&acc)[3][4][4]) {
+  unsigned ahi[3][4], alo[3][4];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    const float4 a = reinterpret_cast<const float4*>(wst + g * TILE_F)[lane];
+    recnet::split_tf32(a.x, ahi[g][0], alo[g][0]);
+    recnet::split_tf32(a.y, ahi[g][1], alo[g][1]);
+    recnet::split_tf32(a.z, ahi[g][2], alo[g][2]);
+    recnet::split_tf32(a.w, ahi[g][3], alo[g][3]);
+  }
+  const int t = lane & 3;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    if (f >= nf) break;
+    // row g of the fragment: its inputs t and t + 4, stored with the
+    // halves swapped on every other group of 4 rows (no bank conflicts)
+    const int r = f * 8 + (lane >> 2), sw = ((r >> 2) & 1) * 4;
+    const float* xr = xst + r * 8;
+    unsigned bhi[2], blo[2];
+    recnet::split_tf32(xr[t ^ sw], bhi[0], blo[0]);
+    recnet::split_tf32(xr[(t + 4) ^ sw], bhi[1], blo[1]);
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      float d[4];
+      recnet::mma_3xtf32(d, ahi[g], alo[g], bhi, blo);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][f][e] += d[e];
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS_BF, 2)
+gate_gemm_f32_kernel(const float* __restrict__ x,
+                     const float* __restrict__ wg,
+                     const float* __restrict__ bias3,
+                     float* __restrict__ h_out, int B, int H, int ldx) {
+  using S = GateF32<BN>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int kp = (int)cluster.block_rank();     // this block's k part
+  extern __shared__ float4 smem_f4[];
+  float* ring = reinterpret_cast<float*>(smem_f4);
+  float* recv = ring;   // once every block of the cluster is past its loop
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_ut = H / 16;
+  const int n_ug = (n_ut + S::UT - 1) / S::UT;
+  const int cid = (int)(blockIdx.x / KP);
+  const int ut0 = (cid % n_ug) * S::UT, row0 = (cid / n_ug) * BN;
+  const int nK = ldx / 8, nKx = nK - H / 8;      // k8 steps: X's, then h's
+  const int px = x_parts(nKx, nK - nKx);
+  int s_lo, s_hi;
+  if (kp < px) {
+    slice(nKx, kp, px, s_lo, s_hi);
+  } else {
+    slice(nK - nKx, kp - px, KP - px, s_lo, s_hi);
+    s_lo += nKx;
+    s_hi += nKx;
+  }
+
+  // A k8 step's copies: the UT unit tiles' 3 gate tiles (96 16-byte chunks
+  // each, contiguous), then X's BN rows x 2 halves, CPT a thread. Each
+  // copy's shared offset, source at step 0 and source stride per step are
+  // fixed for the thread; unit tiles past H and rows past B read zeros.
+  int c_dst[S::CPT], c_stride[S::CPT];
+  const float* c_src[S::CPT];
+  bool c_ok[S::CPT], c_any[S::CPT];
+#pragma unroll
+  for (int i = 0; i < S::CPT; ++i) {
+    const int c = tid + i * THREADS_BF;
+    c_any[i] = c < S::CHUNKS;
+    if (c < S::UT * 96) {
+      const int u = c / 96, ug = ut0 + u;
+      c_ok[i] = ug < n_ut;
+      c_src[i] = wg + (c_ok[i] ? (size_t)ug * nK * 3 * TILE_F + (c % 96) * 4
+                               : 0);
+      c_stride[i] = 3 * TILE_F;
+      c_dst[i] = c * 4;
+    } else {
+      const int w = c - S::UT * 96, r = w >> 1, half = w & 1,
+                row = row0 + r;
+      c_ok[i] = c_any[i] && row < B;
+      c_src[i] = x + (c_ok[i] ? (size_t)row * ldx + half * 4 : 0);
+      c_stride[i] = 8;
+      c_dst[i] = S::W_STEP + r * 8 + ((half ^ ((r >> 2) & 1)) << 2);
+    }
+  }
+  // the copies of stage t (k8 steps s_lo + t KS_F ..) into a ring slot
+  auto issue = [&](int slot, int t) {
+#pragma unroll
+    for (int ks = 0; ks < KS_F; ++ks) {
+      const int s = s_lo + t * KS_F + ks;
+      if (s >= s_hi) break;
+      float* st = ring + (slot * KS_F + ks) * S::STEP;
+#pragma unroll
+      for (int i = 0; i < S::CPT; ++i)
+        if (c_any[i])
+          recnet::cp_async16_zfill(
+              st + c_dst[i],
+              c_ok[i] ? c_src[i] + (size_t)s * c_stride[i] : c_src[i],
+              c_ok[i]);
+    }
+  };
+
+  // this warp's unit tile u and row group q (rows q * 32 ..); its 8-row
+  // fragments that hold a row below B
+  const int u = warp / S::RG, q = warp % S::RG;
+  const int nf = max(0, min(4, (B - row0 - q * 32 + 7) / 8));
+  float acc[3][4][4] = {};   // gi's part (kp < px) or gh's
+  const int n_st = (s_hi - s_lo + KS_F - 1) / KS_F;
+#pragma unroll
+  for (int t = 0; t < S::STAGES - 1; ++t) {
+    if (t < n_st) issue(t, t);
+    recnet::cp_async_commit();
+  }
+  for (int t = 0; t < n_st; ++t) {
+    recnet::cp_async_wait<S::STAGES - 2>();
+    __syncthreads();   // stage t landed for every thread; slot t - 1 is free
+    if (t + S::STAGES - 1 < n_st)
+      issue((t + S::STAGES - 1) % S::STAGES, t + S::STAGES - 1);
+    recnet::cp_async_commit();
+#pragma unroll
+    for (int ks = 0; ks < KS_F; ++ks) {
+      const int s = s_lo + t * KS_F + ks;
+      if (s >= s_hi) break;
+      const float* st = ring + ((t % S::STAGES) * KS_F + ks) * S::STEP;
+      const float* wst = st + u * 3 * TILE_F;
+      gate_step_f32(wst, st + S::W_STEP + q * 32 * 8, lane, nf, acc);
+    }
+  }
+  recnet::cp_async_wait<0>();
+
+  // this part's sums to the block that adds up their rows: row r's to
+  // block r / OWN, in the slot of this part. Accumulator element e of
+  // fragment f holds unit g + 8 (e / 2) and row 2 t + e % 2 of the
+  // fragment.
+  recnet::cluster_arrive();   // every block's ring is free once all arrive
+  recnet::cluster_wait();
+  {
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int unit = u * 16 + g + 8 * (e >> 1);
+        const int r = q * 32 + f * 8 + 2 * t4 + (e & 1);
+        float* dst = cluster.map_shared_rank(recv, r / S::OWN) +
+                     (kp * 3 * S::OWN + r % S::OWN) * S::PLD + unit;
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt)
+          dst[gt * S::OWN * S::PLD] = acc[gt][f][e];
+      }
+  }
+  recnet::cluster_arrive();   // the sums are in their blocks once all arrive
+  recnet::cluster_wait();
+
+  // this block sums the parts, in part order (gi the first px, gh the
+  // others), for its OWN rows of the block's; the biases and the GRU cell
+  // in f32; h' for rows below B
+  const int nu = S::UT * 16;
+  for (int i = tid; i < S::OWN * nu; i += THREADS_BF) {
+    const int ro = i / nu, unit = i % nu;
+    const int row = row0 + kp * S::OWN + ro, j = ut0 * 16 + unit;
+    if (row >= B || j >= H) continue;
+    float v[6] = {};
+#pragma unroll
+    for (int p = 0; p < KP; ++p) {
+      const int o = p < px ? 0 : 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        v[o + c] += recv[((p * 3 + c) * S::OWN + ro) * S::PLD + unit];
+    }
+    float gi3[3], gh3[3];
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) {
+      gi3[gt] = v[gt] + bias3[gt * H + j];
+      gh3[gt] = v[3 + gt] + bias3[3 * H + gt * H + j];
+    }
+    const float rg = sigmoid(gi3[0] + gh3[0]);
+    const float zg = sigmoid(gi3[1] + gh3[1]);
+    const float ng = tanhf(gi3[2] + rg * gh3[2]);
+    const float hp = x[(size_t)row * ldx + nKx * 8 + j];
+    h_out[(size_t)row * H + j] = (1.0f - zg) * ng + zg * hp;
+  }
+}
+
+// how many clusters of `c` blocks of `kernel` the card holds at once
+template <typename... Params>
+int active_clusters(void (*kernel)(Params...), int threads, size_t smem,
+                    int c) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)c, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+// a launch of `kernel` in clusters of `c` blocks along x
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int blocks, int threads,
+                            size_t smem, int c, cudaStream_t stream,
+                            Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attn_f32(const float* emb, const float* h,
+                            const float* enc, const float* uv,
+                            const float* attn_W, const float* attn_w,
+                            const float* attn_b, float* x, float* scratch,
+                            int B, int L, int F, int A, int E, int H, int ldx,
+                            int frame_chunk, cudaStream_t s) {
+  float* wh = scratch;                       // B x A, then the scores
+  float* sc = scratch + (size_t)B * A;       // B x L
+  const size_t smem = WhSmem(H).total;
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_wh_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int vec_wh = A % 4 == 0 && H % 4 == 0 && (size_t)attn_W % 16 == 0 &&
+                     (size_t)h % 16 == 0;
+  attn_wh_f32_kernel<<<dim3((A + WH_COLS - 1) / WH_COLS,
+                            (B + WH_ROWS - 1) / WH_ROWS),
+                       THREADS_AF, smem, s>>>(h, attn_W, wh, B, A, H, vec_wh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int vec_sc = A % 4 == 0 && (size_t)uv % 16 == 0;
+  attn_scores_f32_kernel<<<(B * L + NWARPS_AF - 1) / NWARPS_AF, THREADS_AF,
+                           0, s>>>(uv, wh, attn_w, attn_b, sc, B, L, A,
+                                   vec_sc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int vec_enc = F % 4 == 0 && (size_t)enc % 16 == 0;
+  const int vec_x = E % 4 == 0 && F % 4 == 0 && (size_t)emb % 16 == 0 &&
+                    (size_t)h % 16 == 0 && (size_t)x % 16 == 0;
+  const long long items = (long long)B * ((vec_enc ? F / 4 : F) +
+                                          (ldx - F) / (vec_x ? 4 : 1));
+  if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+  attn_ctx_f32_kernel<<<(unsigned)((items + THREADS_AF - 1) / THREADS_AF),
+                        THREADS_AF, 0, s>>>(emb, h, enc, sc, x, B, L, F, E,
+                                            H, ldx, frame_chunk, vec_enc,
+                                            vec_x);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_gate_f32(const float* x, const float* tiles,
+                            const float* bias3, float* h_out, int B, int H,
+                            int ldx, cudaStream_t s) {
+  using S = GateF32<BN>;
+  const int n_ug = (H / 16 + S::UT - 1) / S::UT;
+  return launch_clusters(gate_gemm_f32_kernel<BN>,
+                         n_ug * ((B + BN - 1) / BN) * KP, THREADS_BF, S::SMEM,
+                         KP, s, x, tiles, bias3, h_out, B, H, ldx);
+}
+
 }  // namespace
 
 extern "C" {
@@ -754,6 +1385,64 @@ int recnet_fused_step_tc(int kernels, const void* emb, const void* h,
         (const bf16*)x, (const bf16*)tiles, (const bf16*)bias3,
         (bf16*)h_out, B, H, ldx);
     return (int)cudaGetLastError();
+  }
+  return (int)cudaSuccess;
+}
+
+// How many clusters of kernel B (rows rows a block) the card holds at
+// once; -1 where it cannot say.
+int recnet_fused_step_tf32_clusters(int rows) {
+  if (rows == 128)
+    return active_clusters(gate_gemm_f32_kernel<128>, THREADS_BF,
+                           GateF32<128>::SMEM, KP);
+  if (rows == 32)
+    return active_clusters(gate_gemm_f32_kernel<32>, THREADS_BF,
+                           GateF32<32>::SMEM, KP);
+  return -1;
+}
+
+// The W h launch's shared memory in bytes; the wrapper's
+// attn_tf32_smem_bytes mirrors it.
+long long recnet_fused_step_tf32_attn_smem(int H) {
+  return (long long)WhSmem(H).total;
+}
+
+// The TF32 route, f32 throughout. kernels: 1 = kernel A (emb, h, enc, uv
+// and the attention weights -> x, by W h and the scores in scratch, B x
+// (A + L): three launches), 2 = kernel B (x, the f32 gate tiles and bias3
+// -> h_out), 3 = all, in that order on `stream`. x is (B, ldx) with ldx =
+// 8 ceil((E + F) / 8) + H; tiles as layout.gate_tiles_f32 makes them.
+// rows_b: kernel B's rows a block (32 or 128, with 256 / rows_b unit
+// tiles; h_out is bit-equal for each; the wrapper's gate_rows picks). Returns the first launch error.
+int recnet_fused_step_tf32(int kernels, const float* emb, const float* h,
+                           const float* enc, const float* uv,
+                           const float* attn_W, const float* attn_w,
+                           const float* attn_b, const float* tiles,
+                           const float* bias3, float* x, float* scratch,
+                           float* h_out, int B, int L, int F, int A, int E,
+                           int H, int ldx, int frame_chunk, int rows_b,
+                           void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || H % 16 != 0 || ldx % 8 != 0 || ldx <= H)
+    return (int)cudaErrorInvalidValue;
+  if (kernels & 1) {
+    if (frame_chunk < 1 || L % frame_chunk != 0 ||
+        ldx != (E + F + 7) / 8 * 8 + H)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t err =
+        launch_attn_f32(emb, h, enc, uv, attn_W, attn_w, attn_b, x, scratch,
+                        B, L, F, A, E, H, ldx, frame_chunk, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (kernels & 2) {
+    if ((size_t)x % 16 != 0 || (size_t)tiles % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaErrorInvalidValue;
+    if (rows_b == 128)
+      err = launch_gate_f32<128>(x, tiles, bias3, h_out, B, H, ldx, s);
+    else if (rows_b == 32)
+      err = launch_gate_f32<32>(x, tiles, bias3, h_out, B, H, ldx, s);
+    return (int)err;
   }
   return (int)cudaSuccess;
 }

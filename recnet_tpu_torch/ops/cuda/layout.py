@@ -91,6 +91,16 @@ def _fragment_order(w: torch.Tensor) -> torch.Tensor:
     return v.permute(order).reshape(*lead, n, 32, 4)
 
 
+def _fragment_rows(tiles: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``_fragment_order``: (..., n, 32 lanes, 4) -> (..., 8
+    inputs, n, 16 units)."""
+    lead = tiles.shape[:-2]
+    n, d = tiles.shape[-3], len(tiles.shape) - 3
+    v = tiles.reshape(*lead[:-1], n, 8, 4, 2, 2)   # n, g, t, e_hi, e_lo
+    order = (*range(d), d + 3, d + 2, d + 0, d + 4, d + 1)
+    return v.permute(order).reshape(*lead[:-1], 8, n, 16)
+
+
 def gate_tiles_f32(w_ih: torch.Tensor, w_hh: torch.Tensor,
                    n_gates: int) -> torch.Tensor:
     """The gate weights as K1/K2's TF32 body reads them: w_ih (K, G) with
@@ -108,6 +118,16 @@ def gate_tiles_f32(w_ih: torch.Tensor, w_hh: torch.Tensor,
     tiles = _fragment_order(w.view(steps, 8, n_gates * H // 16, 16))
     return (tiles.view(steps, n_gates, H // 16, 32, 4)
             .permute(2, 0, 1, 3, 4).contiguous())
+
+
+def gate_rows_f32(tiles: torch.Tensor) -> torch.Tensor:
+    """The weight rows that ``gate_tiles_f32`` tiles hold, (8 k8 steps,
+    G): w_ih's rows, zeros up to a multiple of 8, then w_hh's. Its
+    inverse, for the plain versions of the kernels that read the tiles."""
+    n_ut, steps, n_gates = tiles.shape[:3]
+    w = _fragment_rows(tiles.permute(1, 2, 0, 3, 4).reshape(
+        steps, n_gates * n_ut, 32, 4))
+    return w.reshape(steps * 8, n_gates * n_ut * 16)
 
 
 def column_tiles_f32(w: torch.Tensor, group: int) -> torch.Tensor:

@@ -3,8 +3,9 @@ decode (K1/K2) with its K5 variants (early exit, dual, ablate) on its
 bodies (tensor cores in bf16, the TF32 body in f32 at every cluster size,
 and CUDA cores under ``cuda_cores``), the fused
 projection + top-k (K3), the fused attention + GRU step (K4: its
-tensor-core route, each of the route's two kernels against its plain
-stage, and its CUDA-core body), and the training rollouts' kernels (the
+tensor-core route (bf16) and TF32 route (f32), each route's two kernels
+against its plain stage, and its CUDA-core body), and the training
+rollouts' kernels (the
 per-step cell and attention kernels, the cell kernels also against their
 first design, the whole-rollout cell kernels).
 
@@ -430,20 +431,19 @@ def test_k4_rejects_and_counts(cuda):
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-2)   # 2 bf16 ulps
 
 
-def _k4_flagship(device, b, seed):
+def _k4_flagship(device, b, seed, dtype=torch.bfloat16):
     """K4's operands at the flagship width (E = 468, F = 1536, H = 512,
-    A = 128, L = 28) in bf16, from random_params, with the parameter set's
-    gate tiles: (operands, tiles)."""
+    A = 128, L = 28) in ``dtype``, from random_params, with the parameter
+    set's gate tiles: (operands, tiles)."""
     cfg = DecoderConfig(cell_type="GRU", vocab_size=V, embedding_size=468,
                         encoder_size=1536, hidden_size=512, attn_size=128)
-    params = params_from_jax(random_params(cfg, seed), device,
-                             torch.bfloat16)
+    params = params_from_jax(random_params(cfg, seed), device, dtype)
     g = torch.Generator(device=device).manual_seed(seed)
-    enc = torch.randn((b, K4_L, 1536), generator=g, device=device).bfloat16()
+    enc = torch.randn((b, K4_L, 1536), generator=g, device=device).to(dtype)
     h = torch.tanh(torch.randn((b, 512), generator=g, device=device))
     tok = torch.randint(0, V, (b,), generator=g, device=device)
     a, r = params["attention"], params["rnn"][0]
-    ops = (params["embedding"][tok], h.bfloat16(), enc,
+    ops = (params["embedding"][tok], h.to(dtype), enc,
            precompute_uv(a, enc), a["W"], a["w"], a["b"][None, :], r["w_ih"],
            r["w_hh"], fs.pack_gru_bias(r["b_ih"], r["b_hh"]))
     return ops, params["layouts"]["gates"]
@@ -520,6 +520,121 @@ def test_k4_kernels_match_their_stages(cuda, flagship):
         *ops, emb_size=E_, frame_chunk=7, tiles=tiles))
 
 
+# the TF32 route (f32): h against the twin within the bound chip_smoke.py
+# holds it to (three TF32 terms err about 2^-21 of a product, and the sums
+# run in another order); each kernel against its plain stage
+TF32_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("frame_chunk", [1, 7])
+@pytest.mark.parametrize("b", [1, 45, 100, 1024])
+def test_k4_tf32_flagship_width(cuda, b, frame_chunk):
+    """f32 at the flagship width runs the TF32 route (one launch, counted
+    under "tf32"): h within TF32_TOL of the twin's, on the parameter set's
+    f32 gate tiles and on tiles made for the call alike (bit-equal)."""
+    ops, tiles = _k4_flagship(cuda, b, 60 + frame_chunk, torch.float32)
+    assert tiles.dtype == torch.float32 and tiles.shape == (32, 315, 3, 32, 4)
+    n = fs.fused_gru_attn_step.body_launches["tf32"]
+    got = fs.fused_gru_attn_step(*ops, emb_size=468, frame_chunk=frame_chunk,
+                                 tiles=tiles)
+    made = fs.fused_gru_attn_step(*ops, emb_size=468,
+                                  frame_chunk=frame_chunk)
+    want = fs.fused_gru_attn_step_reference(*ops, emb_size=468,
+                                            frame_chunk=frame_chunk)
+    torch.cuda.synchronize()
+    assert fs.fused_gru_attn_step.body_launches["tf32"] == n + 2
+    assert got.shape == (b, 512) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **TF32_TOL)
+    assert torch.equal(got, made)
+
+
+@pytest.mark.parametrize("frame_chunk", [1, 7])
+@pytest.mark.parametrize("b", [45, 1024])
+def test_k4_tf32_kernels_match_their_stages(cuda, b, frame_chunk):
+    """Kernel A against ``attention_pass_tf32_reference`` (emb, the zero
+    pad and h exact, ctx within TF32_TOL), kernel B against
+    ``gate_cell_tf32_reference`` on the same X (TF32_TOL), each row's h'
+    bit-equal to its h' in a batch on the other side of ``gate_rows``'
+    crossover (another rows a block), and the two hooks in turn bit-equal
+    to a launch of the route."""
+    ops, tiles = _k4_flagship(cuda, b, 70 + frame_chunk, torch.float32)
+    emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh, bias3 = ops
+    E_, F_, H_ = 468, 1536, 512
+    n = fs.fused_gru_attn_step.n_launches
+    x = fs._attention_pass_tf32(emb, h, enc, uv, attn_w, attn_v, attn_b,
+                                frame_chunk=frame_chunk)
+    x_want = fs.attention_pass_tf32_reference(
+        emb, h, enc, uv, attn_w, attn_v, attn_b, frame_chunk=frame_chunk)
+    h_new = fs._gate_cell_tf32(x, tiles, bias3)
+    big = fs.GATE_ROWS_CHOICES[0]
+    other = (x[:100] if fs.gate_rows(b) == big
+             else x.repeat(big // b + 1, 1)[:big]).contiguous()
+    assert fs.gate_rows(other.shape[0]) != fs.gate_rows(b)
+    h_other = fs._gate_cell_tf32(other, tiles, bias3)
+    h_want = fs.gate_cell_tf32_reference(x, tiles, bias3)
+    full = fs.fused_gru_attn_step(*ops, emb_size=E_, frame_chunk=frame_chunk,
+                                  tiles=tiles)
+    torch.cuda.synchronize()
+    assert fs.fused_gru_attn_step.n_launches == n + 1
+    assert x.shape == (b, fs.gate_width(E_ + F_, H_, fs.TF32_K)) == (b, 2520)
+    assert torch.equal(x[:, :E_], emb) and torch.equal(x[:, -H_:], h)
+    assert not x[:, E_ + F_:-H_].any()
+    torch.testing.assert_close(x[:, E_:E_ + F_], x_want[:, E_:E_ + F_],
+                               **TF32_TOL)
+    torch.testing.assert_close(h_new, h_want, **TF32_TOL)
+    rows = min(b, other.shape[0])
+    assert torch.equal(h_other[:rows], h_new[:rows])
+    assert torch.equal(full, h_new)
+
+
+def test_k4_tf32_rejects_tiles_it_cannot_read(cuda):
+    """Tiles of the wrong layout (the bf16 route's), shape or dtype raise
+    before a launch, in the wrapper and in the stage hook; so do rows a
+    block the gate kernel is not built for."""
+    ops, tiles = _k4_flagship(cuda, 8, 80, torch.float32)
+    n = fs.fused_gru_attn_step.n_launches
+    bad = (layout.gate_tiles(ops[7], ops[8], 3), tiles[:, :-1].contiguous(),
+           tiles.double(), tiles.bfloat16())
+    for t in bad:
+        with pytest.raises(ValueError, match="tiles"):
+            fs.fused_gru_attn_step(*ops, emb_size=468, tiles=t)
+    x = fs._attention_pass_tf32(*ops[:7])
+    for t in bad:
+        with pytest.raises(ValueError, match="tiles"):
+            fs._gate_cell_tf32(x, t, ops[9])
+    with pytest.raises(ValueError, match="rows_per_block"):
+        fs._launch_tf32(fs._GATE_CELL, x, torch.empty_like(ops[1]),
+                        tiles=tiles, bias3=ops[9], rows_per_block=16)
+    assert fs.fused_gru_attn_step.n_launches == n
+
+
+def test_k4_tf32_attention_mirror_equals_the_kernel(cuda):
+    lib = fs._library()
+    for hidden in (16, 32, 512, 896, 912):
+        assert (lib.recnet_fused_step_tf32_attn_smem(hidden)
+                == fs.attn_tf32_smem_bytes(hidden))
+
+
+@pytest.mark.parametrize("frame_chunk", [1, 7])
+def test_k4_tf32_odd_widths(cuda, frame_chunk):
+    """E = 13, F = 21, A = 6, H = 32 on the TF32 route: its scalar paths
+    (enc rows not a multiple of 4 features, uv rows not of 4 units, a pad
+    of 2 columns) within TF32_TOL of the twin, at B = 45."""
+    rng = np.random.default_rng(90 + frame_chunk)
+    t = lambda *shape: torch.from_numpy(
+        (rng.standard_normal(shape) * 0.3).astype(np.float32)).to(cuda)
+    e, f, a, hs, b = 13, 21, 6, 32, 45
+    ops = (t(b, e), t(b, hs), t(b, K4_L, f), t(b, K4_L, a), t(hs, a),
+           t(a, 1), t(1, a), t(e + f, 3 * hs), t(hs, 3 * hs), t(2, 3 * hs))
+    n = fs.fused_gru_attn_step.body_launches["tf32"]
+    got = fs.fused_gru_attn_step(*ops, emb_size=e, frame_chunk=frame_chunk)
+    want = fs.fused_gru_attn_step_reference(*ops, emb_size=e,
+                                            frame_chunk=frame_chunk)
+    torch.cuda.synchronize()
+    assert fs.fused_gru_attn_step.body_launches["tf32"] == n + 1
+    torch.testing.assert_close(got, want, **TF32_TOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_cuda_cores_option(cuda, dtype):
     """``cuda_cores=True`` runs the CUDA-core body: f32 within rtol 1e-5 /
@@ -539,10 +654,11 @@ def test_k4_cuda_cores_option(cuda, dtype):
 
 def test_k4_counts_launches_per_body(cuda):
     """One call, one launch, under the body that ``step_body`` names: bf16
-    with H = 16 on the tensor cores, f32 and H = 24 on the CUDA cores."""
+    with H = 16 on the tensor cores, f32 with H = 16 on the TF32 route,
+    H = 24 on the CUDA cores."""
     counts = fs.fused_gru_attn_step.body_launches
     cases = [(_k4_operands(cuda, torch.bfloat16, seed=51), "tensor_cores"),
-             (_k4_operands(cuda, torch.float32, seed=52), "cuda_cores")]
+             (_k4_operands(cuda, torch.float32, seed=52), "tf32")]
     rng = np.random.default_rng(53)
     t = lambda *shape: torch.from_numpy(
         (rng.standard_normal(shape) * 0.3).astype(np.float32)).to(

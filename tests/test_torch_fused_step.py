@@ -2,15 +2,20 @@
 its plain twin against the Pallas kernel in interpret mode and against the
 plain restatement, the plain stages of its tensor-core route (the gate
 operand X, then the gate product over the gate tiles with the GRU cell)
-against both, the rule that picks the body, and ``greedy_decode_pallas``
-against JAX's.
+and of its TF32 route (the same in f32, X in k8 steps, the products in
+three TF32 terms) against both, the rule that picks the body, and
+``greedy_decode_pallas`` against JAX's, with plain products and with the
+TF32 route's.
 
 Mirrors tests/test_pallas_fused.py:36-111. f32: rtol 2e-5, atol 2e-6, the
 JAX test's own tolerance (the same casts, summed in another order); the
 frame chunking changes only the order of the ctx sum: rtol 1e-6, atol 1e-7.
 bf16: the twin rounds ctx and h' to bf16 where Pallas does, but a sum in
 another order can put a stored value one bf16 ulp (2^-8 relative) apart;
-rtol 2^-7, atol 1e-2 (2 ulps)."""
+rtol 2^-7, atol 1e-2 (2 ulps). The TF32 route's stages: rtol 1e-4, atol
+1e-5 (TF32_TOL), the bound chip_smoke.py holds the card's h to: three
+TF32 terms err about 2^-21 of a product, and the sums run in another
+order."""
 
 import numpy as np
 import pytest
@@ -33,6 +38,8 @@ from recnet_tpu_torch.weights import params_from_jax
 B, L, F, E, H, A, V = 16, 7, 24, 12, 16, 8, 40
 MAX_LEN = 9
 F32_TOL = dict(rtol=2e-5, atol=2e-6)
+TF32_TOL = dict(rtol=1e-4, atol=1e-5)
+TOP2_MARGIN = 1e-3
 
 
 def _inputs(seed=0, b=B):
@@ -213,16 +220,21 @@ def test_wrapper_options_keep_the_twin_on_cpu():
     (torch.bfloat16, 16, False, "tensor_cores"),
     (torch.bfloat16, 24, False, "cuda_cores"),
     (torch.bfloat16, 512, True, "cuda_cores"),
-    (torch.float32, 512, False, "cuda_cores"),
+    (torch.float32, 512, False, "tf32"),
     (torch.float32, 16, True, "cuda_cores"),
+    (torch.float32, 16, False, "tf32"),
+    (torch.float32, 24, False, "cuda_cores"),
+    (torch.float32, 512, True, "cuda_cores"),
 ])
 def test_step_body_rule(dtype, hidden, cuda_cores, body):
-    """bf16 in 16-unit tiles takes the tensor-core route, as K1's body
-    does; f32 (the tensor cores' f32 is TF32), other shapes and
+    """bf16 in 16-unit tiles takes the tensor-core route and f32 in 16-unit
+    tiles the TF32 route, as K1's bodies do; other shapes and
     ``cuda_cores`` take the CUDA-core body."""
     assert fs.step_body(dtype, hidden, cuda_cores) == body
     assert (fs.step_body(dtype, hidden, cuda_cores) == "tensor_cores") == (
         wd._tensor_cores(dtype, hidden) and not cuda_cores)
+    assert (fs.step_body(dtype, hidden, cuda_cores) == "tf32") == (
+        wd._tf32(dtype, hidden) and not cuda_cores)
 
 
 # the tensor-core route's two stages: L = 28 frames (every frame_chunk of
@@ -380,3 +392,205 @@ def test_step_launcher_runs_the_twin_on_cpu():
     assert fs.fused_gru_attn_step.n_launches == n
     with pytest.raises(ValueError, match="no fused-step route"):
         fs.step_launcher(*[t.to("meta") for t in t_ops], emb_size=E)
+
+
+# --------------------------------------------------------------------------
+# the TF32 route (f32): its plain stages against the twin and the JAX
+# package; the rule's shape limit; its X layout
+# --------------------------------------------------------------------------
+
+def _tf32_stages(t_ops, frame_chunk):
+    """h' through the plain restatements of the TF32 route's kernels."""
+    emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh, bias3 = t_ops
+    x = fs.attention_pass_tf32_reference(emb, h, enc, uv, attn_w, attn_v,
+                                         attn_b, frame_chunk=frame_chunk)
+    return fs.gate_cell_tf32_reference(
+        x, layout.gate_tiles_f32(w_ih, w_hh, 3), bias3)
+
+
+@pytest.mark.parametrize("frame_chunk", [1, 7])
+def test_tf32_stages_match_twin_and_pallas_interpret(frame_chunk):
+    """B = 13 (a ragged 8-row fragment), E + F = 36 (a ragged k8 step):
+    against the twin and JAX's kernel in interpret mode, TF32_TOL."""
+    j_ops, t_ops = _stage_operands(80 + frame_chunk)
+    got = _tf32_stages(t_ops, frame_chunk)
+    assert got.shape == (S_B, H) and got.dtype == torch.float32
+    twin = fs.fused_gru_attn_step_reference(*t_ops, emb_size=E,
+                                            frame_chunk=frame_chunk)
+    np.testing.assert_allclose(got.numpy(), twin.numpy(), **TF32_TOL)
+    want = j_fs.fused_gru_attn_step(*j_ops, emb_size=E, block_b=S_B,
+                                    frame_chunk=frame_chunk, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TF32_TOL)
+    plain = fs.gru_attn_step_reference(*t_ops[:9], t_ops[9][0], t_ops[9][1],
+                                       E)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TF32_TOL)
+
+
+# the flagship decoder: GRU 512, embedding 468, attention 128, 28 x 1536
+FLAG = dict(embedding_size=468, encoder_size=1536, hidden_size=512,
+            attn_size=128)
+
+
+def _flagship_step_operands(b, seed):
+    """One step's operands at the flagship width, numpy f32 from a seed."""
+    rng = np.random.default_rng(seed)
+    e, f, hs, a = (FLAG[k] for k in ("embedding_size", "encoder_size",
+                                     "hidden_size", "attn_size"))
+    mk = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(
+        np.float32)
+    return (mk(b, e, scale=0.3), np.tanh(mk(b, hs)), mk(b, S_L, f),
+            mk(b, S_L, a, scale=0.3), mk(hs, a, scale=hs ** -0.5),
+            mk(a, 1, scale=a ** -0.5), mk(1, a, scale=0.1),
+            mk(e + f, 3 * hs, scale=(e + f) ** -0.5),
+            mk(hs, 3 * hs, scale=hs ** -0.5), mk(3 * hs, scale=0.1),
+            mk(3 * hs, scale=0.1))
+
+
+@pytest.mark.parametrize("frame_chunk", [1, 7])
+def test_tf32_stages_at_the_flagship_width(frame_chunk):
+    """One step at the flagship width, 3 rows: the TF32 route's stages
+    against JAX's kernel in interpret mode and the plain restatement,
+    TF32_TOL."""
+    j_ops, t_ops = _step_operands(_flagship_step_operands(3, 90 + frame_chunk))
+    e = FLAG["embedding_size"]
+    got = _tf32_stages(t_ops, frame_chunk)
+    assert got.shape == (3, FLAG["hidden_size"])
+    want = j_fs.fused_gru_attn_step(*j_ops, emb_size=e, block_b=3,
+                                    frame_chunk=frame_chunk, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TF32_TOL)
+    plain = j_fs.gru_attn_step_reference(*j_ops[:9], j_ops[9][0],
+                                         j_ops[9][1], e)
+    np.testing.assert_allclose(got.numpy(), np.asarray(plain), **TF32_TOL)
+
+
+def test_tf32_gate_operand_layout():
+    """X = [emb, ctx, zero pad to 40 columns, h] in f32: emb and h exact,
+    ctx the twin's ctx / L, the pad exactly zero; its columns are the rows
+    of the f32 gate tiles (``layout.gate_rows_f32`` gives back w_ih, the
+    zero rows and w_hh), so the route's products are [emb, ctx] W_ih and
+    h W_hh."""
+    _, t_ops = _stage_operands(85)
+    emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh, bias3 = t_ops
+    x = fs.attention_pass_tf32_reference(emb, h, enc, uv, attn_w, attn_v,
+                                         attn_b, frame_chunk=4)
+    assert fs.gate_width(E + F, H, fs.TF32_K) == 40 + H
+    assert x.shape == (S_B, 40 + H) and x.dtype == torch.float32
+    assert torch.equal(x[:, :E], emb) and torch.equal(x[:, -H:], h)
+    assert torch.equal(x[:, E + F:40], torch.zeros((S_B, 40 - E - F)))
+    ctx = fs._context(h, enc, uv, attn_w, attn_v, attn_b, 4)
+    assert torch.equal(x[:, E:E + F], ctx)
+    w = layout.gate_rows_f32(layout.gate_tiles_f32(w_ih, w_hh, 3))
+    assert w.shape == (40 + H, 3 * H)
+    assert torch.equal(w[:E + F], w_ih) and torch.equal(w[40:], w_hh)
+    assert not w[E + F:40].any()
+    np.testing.assert_allclose((x @ w).numpy(), (
+        torch.cat([emb, ctx], 1) @ w_ih + h @ w_hh).numpy(), rtol=1e-5,
+        atol=1e-6)
+
+
+def test_tf32_stage_wrappers_take_the_plain_stages_on_cpu():
+    _, t_ops = _stage_operands(86)
+    emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh, bias3 = t_ops
+    n = fs.fused_gru_attn_step.n_launches
+    x = fs._attention_pass_tf32(emb, h, enc, uv, attn_w, attn_v, attn_b,
+                                frame_chunk=7)
+    assert torch.equal(x, fs.attention_pass_tf32_reference(
+        emb, h, enc, uv, attn_w, attn_v, attn_b, frame_chunk=7))
+    tiles = layout.gate_tiles_f32(w_ih, w_hh, 3)
+    assert torch.equal(fs._gate_cell_tf32(x, tiles, bias3),
+                       fs.gate_cell_tf32_reference(x, tiles, bias3))
+    assert fs.fused_gru_attn_step.n_launches == n
+
+
+def test_tf32_stages_reject_what_the_kernels_do_not_take():
+    _, t_ops = _stage_operands(87)
+    emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh, bias3 = t_ops
+    attn = (h, enc, uv, attn_w, attn_v, attn_b)
+    with pytest.raises(ValueError, match="takes float32"):
+        fs.attention_pass_tf32_reference(emb.bfloat16(),
+                                         *(t.bfloat16() for t in attn))
+    x = fs._attention_pass_tf32(emb, *attn)
+    tiles = layout.gate_tiles_f32(w_ih, w_hh, 3)
+    with pytest.raises(ValueError, match="tiles has shape"):
+        fs._gate_cell_tf32(x, layout.gate_tiles(w_ih, w_hh, 3), bias3)
+    with pytest.raises(ValueError, match="tiles is torch.bfloat16"):
+        fs._gate_cell_tf32(x, tiles.bfloat16(), bias3)
+    with pytest.raises(ValueError, match="x has shape"):
+        fs._gate_cell_tf32(x[:, :-3], tiles, bias3)
+    with pytest.raises(ValueError, match="bias3 has shape"):
+        fs._gate_cell_tf32(x, tiles, bias3[:, :-1])
+
+
+def test_f32_widths_past_the_w_h_tile_take_the_first_design():
+    """The TF32 route's W h launch holds a tile's 32 columns of W and 16
+    rows of h in shared memory (131,328 bytes at the flagship's H = 512;
+    the other launches hold no operand whole): up to H = 907, past which
+    f32 takes the CUDA-core body."""
+    assert fs.attn_tf32_smem_bytes(512) == 131328
+    assert fs.attn_tf32_fits(512) and fs.attn_tf32_fits(H)
+    assert fs.attn_tf32_fits(896) and not fs.attn_tf32_fits(912)
+    assert fs.step_body(torch.float32, 896) == "tf32"
+    assert fs.step_body(torch.float32, 912) == "cuda_cores"
+    assert fs.step_body(torch.bfloat16, 912) == "tensor_cores"
+
+
+@pytest.mark.parametrize("b,rows,blocks", [
+    (100, 32, 128), (1024, 128, 1024), (45, 32, 64), (1, 32, 32),
+    (128, 128, 128), (192, 32, 192), (240, 128, 256), (1000, 128, 1024)])
+def test_gate_gemm_fills_the_card_at_the_eval_batch(b, rows, blocks):
+    """The TF32 route's gate GEMM at the flagship's H = 512: 128 rows a
+    block, or 32 where 128-row tiles would pad B by more than an eighth
+    (``gate_rows``); unit groups of 256 / rows 16-unit tiles x row tiles x
+    8 parts of the k range (a cluster's blocks): 128 blocks for the 132
+    SMs at the eval batch B = 100."""
+    assert fs.gate_rows(b) == rows
+    assert fs.gate_blocks(b, 512) == blocks
+
+
+def test_greedy_decode_pallas_on_tf32_products_matches_jax(monkeypatch):
+    """The K4 loop at the flagship width, f32, with K4 run through the TF32
+    route's plain stages (its products as three TF32 terms): the tokens
+    and n_steps of JAX's ``greedy_decode_pallas`` (interpret mode) and of
+    the loop with plain products. The fixture has a clear top-2 margin
+    (out_w scaled by 8: at least TOP2_MARGIN between the two largest
+    logits of every row and step; 0.0115 at this seed), far above what
+    the split's 2^-21 of a product moves a logit."""
+    max_len, b = 5, 4
+    kw = dict(cell_type="GRU", n_layers=1, vocab_size=V, embedding_scale=1.0,
+              **FLAG)
+    jcfg, tcfg = j_dec.DecoderConfig(**kw), t_dec.DecoderConfig(**kw)
+    params = j_dec.init_decoder_params(jax.random.PRNGKey(17), jcfg)
+    params = dict(params, out_w=params["out_w"] * 8.0)
+    enc = np.random.default_rng(17).standard_normal(
+        (b, S_L, FLAG["encoder_size"])).astype(np.float32)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    plain = t_decoding.greedy_decode_pallas(tp, tcfg, torch.from_numpy(enc),
+                                            max_len)
+    seen = []
+
+    def tf32_launcher(emb, h, enc, uv, attn_w, attn_v, attn_b, w_ih, w_hh,
+                      bias3, *, emb_size, frame_chunk=1, tiles=None):
+        assert tiles is None or tiles.shape == (32, 315, 3, 32, 4)
+        tiles = layout.gate_tiles_f32(w_ih, w_hh, 3)
+
+        def launch(emb, h):
+            x = fs.attention_pass_tf32_reference(
+                emb, h, enc, uv, attn_w, attn_v, attn_b,
+                frame_chunk=frame_chunk)
+            h_new = fs.gate_cell_tf32_reference(x, tiles, bias3)
+            logits = h_new @ tp["out_w"] + tp["out_b"]
+            top2 = logits.topk(2, dim=-1).values
+            seen.append(float((top2[:, 0] - top2[:, 1]).min()))
+            return h_new
+        return launch
+
+    monkeypatch.setattr(fs, "step_launcher", tf32_launcher)
+    got = t_decoding.greedy_decode_pallas(tp, tcfg, torch.from_numpy(enc),
+                                          max_len)
+    assert len(seen) == max_len + 1 and min(seen) > TOP2_MARGIN
+    want = j_decoding.greedy_decode_pallas(params, jcfg, jnp.asarray(enc),
+                                           max_len, block_b=b,
+                                           interpret=True)
+    assert got.n_steps == int(want.n_steps) == plain.n_steps
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    assert torch.equal(got.tokens, plain.tokens)
