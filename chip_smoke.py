@@ -28,10 +28,12 @@ Phases, one line or more each; any failure exits non-zero before a result:
    block), f32 under ``cuda_cores`` (the first design), bf16 on the
    tensor-core route at B=256 and 1024 (and each of its two kernels
    against its plain stage), bf16 under ``cuda_cores``; the K5
-   variants of K1 on both bodies: ``dual`` bit-equal to K1's tensor-core
-   tokens (bf16, B=256 and a ragged B) and to the CUDA-core step (f32,
-   and bf16 under ``cuda_cores``), each ``ablate`` part against its twin
-   (tensor-core body bf16, CUDA-core body f32);
+   variants of K1 on every body: ``dual`` bit-equal to K1's tensor-core
+   tokens (bf16, B=256 and a ragged B), to K1's TF32 tokens (f32, B=256
+   and the ragged B, clusters of 1, 2, 4 and 8) and to the CUDA-core step
+   (f32 and bf16 under ``cuda_cores``), each ``ablate`` part against its
+   twin (tensor-core body bf16; TF32 body f32 against the twin with its
+   three-term products; CUDA-core body f32);
 4. main paths, each with the launch counts set to 0 before it and read
    after it: greedy requests through the port's HTTP handler behind the
    MicroBatcher, from a flagship-width bf16 Captioner (use_pallas,
@@ -61,6 +63,12 @@ Phases, one line or more each; any failure exits non-zero before a result:
    each part's cost as full - variant (the phase split of production K1)
    and its tokens against its twin's, dual also at B=2048 beside K1 in
    turns; then the same sweep on the CUDA-core body (``cuda_cores``);
+   then in f32 (the flagship's dtype) on the TF32 body at B=100 (the eval
+   batch, clusters of 8) and B=1024: production first and last, each part
+   and dual by events and device time, the phase split, each part's
+   tokens against the twin with the body's three-term products, the
+   first design's dual and parts (``cuda_cores``) beside them, and dual
+   against K1 in turns at B=1024 and B=2048;
 7. train: training at the flagship width on an in-memory corpus of random
    features and captions (``examples/msvd_flagship.json``, data bundle
    off, short cadences): (a) three f32 train steps on the card against
@@ -206,6 +214,8 @@ GATE_ROWS_SWEEP_B = (1, 16, 45, 64, 100, 128, 160, 192, 240, 256, 320, 384,
                      512, 768, 900, 1000, 1024)
 GATE_ROWS_ROUNDS = 3
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-2   # bf16 h: 2 bf16 ulps
+# out_w's scale in the TF32 probes' checks (the CPU tests' fixtures')
+MARGIN_OUT_W = 8.0
 ABLATE_PARTS = ("emb", "attn", "score1", "fma", "proj", "nativeargmax",
                 "argmax")
 # the PAD-timed variant: (z, n) of the GRU unit whose rise lifts <PAD>, and
@@ -308,7 +318,8 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
     from recnet_tpu_torch.ops.cuda import build
     sources = ("whole_decode", "whole_decode_probes", "whole_decode_tf32",
-               "topk_proj", "fused_step", "rollout", "cell_rollout")
+               "whole_decode_tf32_probes", "topk_proj", "fused_step",
+               "rollout", "cell_rollout")
     t0 = time.perf_counter()
 
     def timed_build(name):
@@ -840,16 +851,104 @@ def other_gate_batch(torch, fs, x):
     return other.contiguous()
 
 
+def margin_params(cfg, dtype, L, seed=SEED):
+    """``seeded_params`` for checks of f32 kernels whose products are not
+    IEEE f32's (ROADMAP Queue 3, note 3): out_w x MARGIN_OUT_W, logits with
+    a clear top-2 margin; and the attention's score vector w / L. The fma
+    stub sums the L scores without / L; at that scale its ctx drives the
+    gates to where a change of rounding moves some GRU rows' later tokens
+    (the plain twins with f32, three-term and float64 products disagree
+    there), while with w / L every part's twins agree on every row.
+    ``tf32_probes_against_k1`` logs that agreement."""
+    from recnet_tpu_torch.weights import params_from_jax, random_params
+    p = random_params(cfg, seed)
+    p["out_w"] = p["out_w"] * MARGIN_OUT_W
+    p["attention"]["w"] = p["attention"]["w"] / L
+    return params_from_jax(p, DEVICE, dtype)
+
+
+def tf32_probes_against_k1(torch, tc, cfg, note):
+    """The f32 K5 probes on the TF32 body, ``cfg``'s cell: ``dual`` (16-row
+    tiles) bit-equal to TF32 production K1's tokens at CHECK_B and RAGGED_B
+    at every cluster size (1, 2, 4, 8); each ``ablate`` part at CHECK_B
+    (``margin_params``) against the twin with the body's three-term
+    products on F32_ROWS of rows, ``nativeargmax`` bit-equal to
+    production."""
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    T, L, f32 = tc.caption_max_len + 1, tc.encoder_output_len, torch.float32
+    cell = cfg.cell_type
+    kw = dict(emb_size=cfg.embedding_size, max_len=T - 1, cell_type=cell)
+    params = seeded_params(cfg, f32)
+    for B in (CHECK_B, RAGGED_B):
+        ops = decode_operands(params, seeded_features(torch, B, L, cfg, f32,
+                                                      1))
+        full = wd.whole_greedy_decode(*ops, **kw)
+        same = {}
+        for C in (1, 2, 4, 8):
+            dual = wd.whole_greedy_decode(*ops, dual=True, cluster=C, **kw)
+            torch.cuda.synchronize()
+            same[C] = bool(torch.equal(dual, full))
+            note("dual[tf32]", dual, full)
+        log("kernels", f"K5 dual {cell} f32 B={B}, TF32 body: tokens "
+                       f"bit-equal to TF32 K1's at cluster "
+                       + ", ".join(f"{c}: {v}" for c, v in same.items()))
+        check(all(same.values()), f"K5 dual {cell} f32 B={B} differs from "
+                                  f"K1 on the TF32 body")
+    ops = decode_operands(margin_params(cfg, f32, L),
+                          seeded_features(torch, CHECK_B, L, cfg, f32, 1))
+    production = wd.whole_greedy_decode(*ops, **kw)
+    H = cfg.hidden_size
+    z = torch.zeros((CHECK_B, H), dtype=f32, device=DEVICE)
+    sos = torch.full((CHECK_B, 1), cfg.sos_token, dtype=torch.int32,
+                     device=DEVICE)
+    f64 = lambda a, b: (a.double() @ b.double()).float()
+    for part in ABLATE_PARTS:
+        got = wd.whole_greedy_decode(*ops, ablate=part, **kw)
+        want, exact = (wd._decode_reference(
+            *ops, z, z, sos, emb_size=cfg.embedding_size, n_steps=T,
+            cell_type=cell, emb_scale=1.0, ablate=part, matmul=mm)[0]
+            for mm in (wd.matmul_3xtf32_reference, f64))
+        torch.cuda.synchronize()
+        equal = (got == want).all(dim=1)
+        rows = equal.double().mean().item()
+        note(f"ablate={part}[tf32]", got, want)
+        log("kernels", f"K5 ablate={part} {cell} TF32 body f32 B={CHECK_B} "
+                       f"(margin_params): rows equal to the three-term twin "
+                       f"{rows:.4f} (that twin's rows equal to the twin's "
+                       f"with float64 products "
+                       f"{(want == exact).all(dim=1).double().mean():.4f})")
+        for row in torch.nonzero(~equal)[:5, 0].tolist():
+            t = int(torch.nonzero(got[row] != want[row])[0, 0])
+            one = (ops[0], ops[1][row:row + 1], ops[2][row:row + 1], ops[3])
+            h = wd._decode_reference(
+                *one, z[:1], z[:1], sos[:1], emb_size=cfg.embedding_size,
+                n_steps=t + 1, cell_type=cell, emb_scale=1.0, ablate=part,
+                matmul=wd.matmul_3xtf32_reference)[1]
+            top = (wd.matmul_3xtf32_reference(h, ops[0]["out_w"])
+                   + ops[0]["out_b"]).topk(2, dim=-1).values[0]
+            log("kernels", f"  row {row} diverges at step {t}: the twin's "
+                           f"top-2 logit margin {float(top[0] - top[1]):.3e}")
+        check(rows >= F32_ROWS, f"K5 ablate={part} {cell} f32 TF32 body: "
+                                f"rows equal {rows} < {F32_ROWS}")
+        if part == "nativeargmax":
+            check(torch.equal(got, production),
+                  f"K5 ablate=nativeargmax {cell} f32 differs from TF32 "
+                  f"production")
+
+
 def variants_against_k1(torch, tc, cfg_base):
-    """K5 on both bodies, GRU and LSTM. ``dual``: on the tensor-core body
+    """K5 on every body, GRU and LSTM. ``dual``: on the tensor-core body
     (bf16, 16 rows a block) its tokens equal production K1's tensor-core
     tokens on every row, at CHECK_B and at a ragged batch (RAGGED_B: half
-    1 of the last block partly empty); on the CUDA-core body they equal
-    that body's production step's in f32 and in bf16 (``cuda_cores``).
-    ``ablate``: each part on the tensor-core body (bf16) against its twin
-    on BF16_TOKENS, and on the CUDA-core body (f32) on F32_ROWS of rows;
-    ``nativeargmax`` equal to its body's production step. Returns max
-    |token - twin token| per variant, keyed as ``variant_launches``."""
+    1 of the last block partly empty); on the TF32 body likewise in f32 at
+    every cluster size (``tf32_probes_against_k1``); on the CUDA-core body
+    they equal that body's production step's in f32 and in bf16
+    (``cuda_cores``). ``ablate``: each part on the tensor-core body (bf16)
+    against its twin on BF16_TOKENS, on the TF32 body (f32) against the
+    three-term twin and on the CUDA-core body (f32, ``cuda_cores``)
+    against the twin on F32_ROWS of rows; ``nativeargmax`` equal to its
+    body's production step. Returns max |token - twin token| per variant,
+    keyed as ``variant_launches``."""
     from recnet_tpu_torch.ops.cuda import whole_decode as wd
     T, L = tc.caption_max_len + 1, tc.encoder_output_len
     errs = {}
@@ -889,17 +988,19 @@ def variants_against_k1(torch, tc, cfg_base):
             check(rows == 1.0, f"K5 dual {cell} {dname} differs from K1 on "
                                f"the CUDA-core body")
             note("dual[cuda_cores]", dual, full)
+        tf32_probes_against_k1(torch, tc, cfg, note)
         for dtype in (torch.bfloat16, torch.float32):
             ops = decode_operands(seeded_params(cfg, dtype),
                                   seeded_features(torch, CHECK_B, L, cfg,
                                                   dtype, 1))
             f32 = dtype == torch.float32
             body = "CUDA-core body f32" if f32 else "tensor-core body bf16"
-            # the probes' own body's production step (f32's runs on the
-            # TF32 body)
+            # the probes' own body's production step (f32's CUDA-core
+            # probes are asked for by cuda_cores)
             production = wd.whole_greedy_decode(*ops, cuda_cores=f32, **kw)
             for part in ABLATE_PARTS:
-                got = wd.whole_greedy_decode(*ops, ablate=part, **kw)
+                got = wd.whole_greedy_decode(*ops, ablate=part,
+                                             cuda_cores=f32, **kw)
                 want = wd.whole_greedy_decode_reference(*ops, ablate=part,
                                                         **kw)
                 torch.cuda.synchronize()
@@ -2369,6 +2470,159 @@ def ablate_sweep(torch, tc, cfg, params_np):
                   f"{turns[2]:.3f} ms, K1 {turns[3]:.3f} ms; dual tokens "
                   f"equal to K1's on every row ({card})")
     return launches, out, errs
+
+
+def ablate_sweep_f32(torch, tc, cfg, params_np):
+    """The sweep of ``ablate_sweep`` in f32 on the TF32 body (the
+    flagship's dtype), at the eval batch (EVAL_B, clusters of 8) and at
+    TIME_B, from ``margin_params`` (the same work; clear top-2 margins for
+    the checks). Each batch: every variant launched once with the counts
+    from 0; each part's tokens against the twin with the body's three-term
+    products (F32_ROWS of rows), ``nativeargmax`` and ``dual`` against
+    production's (all equal); then production timed first and last, each
+    part and ``dual`` between, by CUDA events and by device time
+    (torch.profiler), each part's cost as full - variant and the phase
+    split; the first design's ``dual`` and parts (``cuda_cores``) once
+    each, by events and device time. ``dual`` against K1 in turns (K1,
+    dual, dual, K1) at TIME_B and DUAL_BIG_B, tokens equal. Returns
+    (launches by variant, {kernels-line name: entry at EVAL_B with TIME_B's
+    under "at_<TIME_B>"}, {variant: max |token - twin token|})."""
+    from recnet_tpu_torch import decoding
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    T, L, f32 = tc.caption_max_len + 1, tc.encoder_output_len, torch.float32
+    params = margin_params(cfg, f32, L)
+    kw = dict(emb_size=cfg.embedding_size, max_len=T - 1,
+              cell_type=cfg.cell_type)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    card = card_line()
+    kernel = {"tf32_decode_kernel": 1}
+    first = {"whole_decode_kernel": 1}
+    sweep = ([("", {})] + [(f"ablate={p}[tf32]", {"ablate": p})
+                           for p in ABLATE_PARTS]
+             + [("dual[tf32]", {"dual": True})])
+    launches, errs, entries = collections.Counter(), {}, {}
+    for B in (EVAL_B, TIME_B):
+        ops = decode_operands(params, seeded_features(torch, B, L, cfg, f32,
+                                                      3))
+        run = lambda vkw, o=ops: wd.whole_greedy_decode(*o, **vkw, **kw)
+        reset_counts()
+        tokens = {name: run(vkw) for name, vkw in sweep}
+        torch.cuda.synchronize()
+        counted = dict(wd.whole_greedy_decode.variant_launches)
+        check(wd.whole_greedy_decode.n_launches == 1
+              and wd.whole_greedy_decode.body_launches["tf32"] == len(sweep)
+              and all(counted.get(name) == 1 for name, _ in sweep[1:]),
+              f"the f32 sweep at B={B} missed a variant: {counted}")
+        launches.update(counted)
+        z = torch.zeros((B, cfg.hidden_size), dtype=f32, device=DEVICE)
+        sos = torch.full((B, 1), cfg.sos_token, dtype=torch.int32,
+                         device=DEVICE)
+        twin3 = lambda part: wd._decode_reference(
+            *ops, z, z, sos, emb_size=cfg.embedding_size, n_steps=T,
+            cell_type=cfg.cell_type, emb_scale=1.0, ablate=part,
+            matmul=wd.matmul_3xtf32_reference)[0]
+        for name, vkw in sweep[1:]:
+            part = vkw.get("ablate")
+            want = twin3(part) if part else tokens[""]
+            rows = (tokens[name] == want).all(dim=1).double().mean().item()
+            errs[name] = max(errs.get(name, 0.0),
+                             float((tokens[name] - want).abs().max()))
+            check(rows >= (F32_ROWS if part else 1.0),
+                  f"{name} f32 B={B}: rows equal {rows}")
+            if part == "nativeargmax":
+                check(torch.equal(tokens[name], tokens[""]),
+                      f"{name} f32 B={B} differs from production")
+        ms = {"": timed(torch, lambda: run({}))[0]}
+        dev = {"": device_ms(torch, lambda: run({}), tuple(kernel),
+                             launches=kernel)["tf32_decode_kernel"]}
+        for name, vkw in sweep[1:]:
+            ms[name] = timed(torch, lambda vkw=vkw: run(vkw))[0]
+            dev[name] = device_ms(torch, lambda vkw=vkw: run(vkw),
+                                  tuple(kernel),
+                                  launches=kernel)["tf32_decode_kernel"]
+        full = (ms[""] + timed(torch, lambda: run({}))[0]) / 2
+        full_dev = (dev[""] + device_ms(
+            torch, lambda: run({}), tuple(kernel),
+            launches=kernel)["tf32_decode_kernel"]) / 2
+        C, C2 = (wd.cluster_size(B, cfg.hidden_size, n_sms, r)
+                 for r in (8, 16))
+        log("ablate", f"K1's production step on the TF32 body B={B} f32 "
+                      f"(cluster {C}): {full:.3f} ms, device {full_dev:.3f} "
+                      f"ms (means of the first and last timing) on {card}")
+        library_ms = timed(torch, lambda: decoding.greedy_decode(
+            params, cfg, ops[1], T - 1))[0]
+        for name, vkw in sweep[1:]:
+            part = vkw.get("ablate", "")
+            cost, cost_dev = full - ms[name], full_dev - dev[name]
+            plain_ms = timed(torch, lambda vkw=vkw: (
+                wd.whole_greedy_decode_reference(*ops, **vkw, **kw)))[0]
+            cores = dict(vkw, cuda_cores=True)
+            first_ms = timed(torch, lambda cores=cores: run(cores))[0]
+            first_dev = device_ms(torch, lambda cores=cores: run(cores),
+                                  tuple(first),
+                                  launches=first)["whole_decode_kernel"]
+            bound_ms, bound_by = bound_f32(*decode_work(
+                cfg, L, B, B * T, T, ablate=part, elem=4))
+            e = dict(ms=ms[name], device_ms=dev[name], plain_ms=plain_ms,
+                     library_ms=None if part else library_ms,
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     full_minus_variant_ms=cost,
+                     full_minus_variant_device_ms=cost_dev,
+                     first_design_ms=first_ms,
+                     first_design_device_ms=first_dev,
+                     cluster=C if part else C2, shape=f"B={B}")
+            log("ablate", f"{name} f32 B={B}: {ms[name]:.3f} ms (device "
+                          f"{dev[name]:.3f}); full - variant {cost:.3f} ms "
+                          f"(device {cost_dev:.3f}, "
+                          f"{100 * cost_dev / full_dev:.1f}% of the step); "
+                          f"first design (cuda_cores) {first_ms:.3f} ms "
+                          f"(device {first_dev:.3f}); plain twin "
+                          f"{plain_ms:.3f} ms; "
+                          + (f"library route (greedy_decode) "
+                             f"{library_ms:.3f} ms; " if not part else "")
+                          + f"bound {bound_ms:.4f} ms ({bound_by}); cluster "
+                          f"{e['cluster']}; tokens equal to "
+                          f"{'the three-term twin' if part else 'K1'}'s")
+            key = f"whole_greedy_decode[{name}]"
+            if B == EVAL_B:
+                entries[key] = e
+            else:
+                entries[key][f"at_{B}"] = e
+        split = {p: (full - ms[f"ablate={p}[tf32]"],
+                     full_dev - dev[f"ablate={p}[tf32]"])
+                 for p in ("emb", "attn", "proj")}
+        rest = (full - sum(v[0] for v in split.values()),
+                full_dev - sum(v[1] for v in split.values()))
+        log("ablate", f"phase split of the TF32 body B={B} f32 (cluster "
+                      f"{C}), events (device): embedding gather "
+                      f"{split['emb'][0]:.3f} ({split['emb'][1]:.3f}) ms, "
+                      f"attention (W h, scores, enc reads, ctx exchange) "
+                      f"{split['attn'][0]:.3f} ({split['attn'][1]:.3f}) ms, "
+                      f"projection and argmax {split['proj'][0]:.3f} "
+                      f"({split['proj'][1]:.3f}) ms, the rest (gates, cell, "
+                      f"barriers) {rest[0]:.3f} ({rest[1]:.3f}) ms of "
+                      f"{full:.3f} ({full_dev:.3f}) ms ({card})")
+    # dual against K1 in turns: one wave of 16-row tiles at DUAL_BIG_B
+    # where K1 needs two
+    for B in (TIME_B, DUAL_BIG_B):
+        ops = decode_operands(params, seeded_features(torch, B, L, cfg, f32,
+                                                      4))
+        run = lambda vkw, o=ops: wd.whole_greedy_decode(*o, **vkw, **kw)
+        k1, dual = run({}), run({"dual": True})
+        torch.cuda.synchronize()
+        check(torch.equal(k1, dual), f"dual f32 B={B} differs from K1")
+        turns = [timed(torch, lambda vkw=vkw: run(vkw))[0]
+                 for vkw in ({}, {"dual": True}, {"dual": True}, {})]
+        C, C2 = (wd.cluster_size(B, cfg.hidden_size, n_sms, r)
+                 for r in (8, 16))
+        log("ablate", f"B={B} f32, TF32 body, in turns: K1 {turns[0]:.3f} "
+                      f"ms (cluster {C}), dual {turns[1]:.3f} ms, dual "
+                      f"{turns[2]:.3f} ms (cluster {C2}), K1 "
+                      f"{turns[3]:.3f} ms; dual tokens equal to K1's on "
+                      f"every row ({card})")
+        entries["whole_greedy_decode[dual[tf32]]"][f"turns_{B}"] = dict(
+            k1_ms=(turns[0], turns[3]), dual_ms=(turns[1], turns[2]))
+    return dict(launches), entries, errs
 
 
 # --------------------------------------------------------------------------
@@ -4836,8 +5090,12 @@ def main() -> int:
     entries.update(f32_times(torch, tc, cfg, params_np, pad_np))
     sweep_launches, sweep_ms, sweep_errs = ablate_sweep(torch, tc, cfg,
                                                         params_np)
+    f32_launches, f32_entries, f32_errs = ablate_sweep_f32(torch, tc, cfg,
+                                                           params_np)
     variant_launches.update(sweep_launches)
-    for name, err in sweep_errs.items():
+    variant_launches.update(f32_launches)
+    entries.update(f32_entries)
+    for name, err in list(sweep_errs.items()) + list(f32_errs.items()):
         variant_errs[name] = max(variant_errs.get(name, 0.0), err)
     rollout_entries = train_phase(torch, tc, vocab)
     data_phase(torch, tc, vocab)
@@ -4868,15 +5126,18 @@ def main() -> int:
             ("outproj_topk[f32]", "topk_proj.cu", "topk_proj.py:77"),
             ("fused_gru_attn_step[f32]", "fused_step.cu", "fused_step.py:92")]
     # the K5 variants, each under its variant_launches key: the
-    # tensor-core probes are built from whole_decode_probes.cu, the rest
-    # (the early exit, and the CUDA-core body's variants) from
-    # whole_decode.cu
-    variants = (["early_exit", "dual", "dual[cuda_cores]", "cuda_cores"]
-                + [f"ablate={p}{suffix}" for suffix in ("", "[cuda_cores]")
+    # tensor-core probes are built from whole_decode_probes.cu, the TF32
+    # body's (f32) from whole_decode_tf32_probes.cu, the rest (the early
+    # exit, and the CUDA-core body's variants) from whole_decode.cu
+    variants = (["early_exit", "dual", "dual[cuda_cores]", "cuda_cores",
+                 "dual[tf32]"]
+                + [f"ablate={p}{suffix}"
+                   for suffix in ("", "[cuda_cores]", "[tf32]")
                    for p in ABLATE_PARTS])
-    rows += [(f"whole_greedy_decode[{v}]",
-              "whole_decode.cu" if v == "early_exit" or "cuda_cores" in v
-              else "whole_decode_probes.cu", "whole_decode.py:497")
+    source = lambda v: ("whole_decode_tf32_probes.cu" if "[tf32]" in v
+                        else "whole_decode.cu" if v == "early_exit"
+                        or "cuda_cores" in v else "whole_decode_probes.cu")
+    rows += [(f"whole_greedy_decode[{v}]", source(v), "whole_decode.py:497")
              for v in variants]
     counts = dict(launches, **{f"whole_greedy_decode[{v}]": n
                                for v, n in variant_launches.items()})
@@ -4911,7 +5172,7 @@ def main() -> int:
         if k["name"].startswith(("whole_greedy_decode", "fused_gru_attn")):
             k["body"] = ("cuda_cores" if "cuda_cores" in k["name"]
                          else "tf32" if "[f32]" in k["name"]
-                         else "tensor_cores")
+                         or "[tf32]" in k["name"] else "tensor_cores")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

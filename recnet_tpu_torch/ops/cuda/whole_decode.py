@@ -1,5 +1,6 @@
-"""The greedy whole-decode on Hopper: wrappers of ``csrc/whole_decode.cu``
-(and ``csrc/whole_decode_probes.cu``) and their plain-PyTorch twins.
+"""The greedy whole-decode on Hopper: wrappers of ``csrc/whole_decode.cu``,
+``csrc/whole_decode_tf32.cu`` (and their probe sources) and their
+plain-PyTorch twins.
 
 Counterpart of ``recnet_tpu/ops/pallas/whole_decode.py``:
 
@@ -14,19 +15,20 @@ Both launch one CUDA kernel (K1 from a zero state and <SOS>) on one of
 three bodies, chosen by ``kernel_route``: every bf16 launch with H a
 multiple of 16 runs on the tensor-core body, production, the early exit and
 the K5 probes ``dual`` and ``ablate`` alike (the probes from a library of
-their own, ``whole_decode_probes``); f32 production and early-exit launches
-with H a multiple of 16 run on the TF32 body (``csrc/whole_decode_tf32.cu``:
-three-term TF32 products on the tensor cores, a tile of 8 rows spread over a
-cluster of ``cluster_size`` blocks); f32's ``dual`` and ``ablate``, f32 and
-bf16 with other H, and any launch asked for with ``cuda_cores`` run on the
-CUDA-core body. ``dual`` on the
-tensor-core body takes 16 rows a block as two 8-row halves that share each
-weight tile read from L2, half the production step's L2 bytes a row; each
-SM's own read stream, not the L2 bytes in total, bounds the decode, so it
-takes production's time where both fit one wave (B = 1024 on an H100) and
-gains where production needs two (B = 2048: 0.58 of its time). The
-``ablate`` parts there split the production step by phase (full -
-variant).
+their own, ``whole_decode_probes``); every f32 launch with H a multiple of
+16 whose buffers fit a block runs on the TF32 body
+(``csrc/whole_decode_tf32.cuh``: three-term TF32 products on the tensor
+cores, a tile of 8 rows (16 under ``dual``) spread over a cluster of
+``cluster_size`` blocks; the probes from ``whole_decode_tf32_probes``);
+f32 and bf16 with other H, f32 the TF32 body cannot hold, and any launch
+asked for with ``cuda_cores`` run on the CUDA-core body. ``dual`` on the
+tensor-core and TF32 bodies takes 16 rows a tile as two 8-row halves that
+share each weight tile read from L2, half the production step's L2 bytes a
+row; each SM's own read stream, not the L2 bytes in total, bounds the
+decode, so on the tensor-core body it takes production's time where both
+fit one wave (B = 1024 on an H100) and gains where production needs two
+(B = 2048: 0.58 of its time). The ``ablate`` parts split the production
+step by phase (full - variant).
 A build or launch failure on any body raises; nothing falls back to
 another body or to the twin. A wrapper launches the kernel for CUDA tensors
 and raises on anything the kernel does not take; for CPU tensors it runs
@@ -37,7 +39,8 @@ body in ``body_launches``; K1 counts its K5 variants apart, in
 "[cuda_cores]" after it.
 
 Unlike the Pallas wrappers there is no ``block_b``: a block owns 8 rows (16
-under the tensor-core ``dual``) and masks the ragged tail, so any B works.
+under ``dual`` on the tensor-core and TF32 bodies) and masks the ragged
+tail, so any B works.
 ``emb_scale`` multiplies the gathered embedding row, as ``decoder_step``
 does (the Pallas step leaves it out, which is exact only at the shipped
 scale 1.0). A token outside [0, V) gathers a zero embedding row, as the
@@ -129,28 +132,27 @@ def kernel_route(dtype: torch.dtype, H: int, *, early_exit: bool = False,
                  cuda_cores: bool = False, tf32_fits: bool = True) -> Route:
     """The body and variant bits of a launch. Every variant (production,
     ``early_exit``, ``dual``, one ``ablate`` part) runs on the tensor-core
-    body where it takes the operands (bf16, H % 16 == 0), unless
-    ``cuda_cores`` asks for the CUDA-core body, which takes any of them;
-    the tensor-core probes (``dual``, ``ablate``) live in the library
-    ``whole_decode_probes``. f32 production and early-exit launches with
-    H % 16 == 0 run on the TF32 body (library ``whole_decode_tf32``) while
-    ``F32_ON_TF32`` holds and its buffers fit a block (``tf32_fits``, from
-    ``tf32_smem_bytes``: not at H = 1536, say); f32's probes, and f32 the
-    TF32 body does not take, run on the CUDA-core body, by this rule and
-    never after a failure. Raises ``ValueError`` on options the kernel is
-    not built for."""
+    body where it takes the operands (bf16, H % 16 == 0), and in f32 on
+    the TF32 body (H % 16 == 0, while ``F32_ON_TF32`` holds and the
+    variant's buffers fit a block: ``tf32_fits``, from ``tf32_smem_bytes``;
+    not at H = 1536, say), unless ``cuda_cores`` asks for the CUDA-core
+    body, which takes any of them; the probes (``dual``, ``ablate``) live
+    in the libraries ``whole_decode_probes`` and
+    ``whole_decode_tf32_probes``. f32 the TF32 body does not take runs on
+    the CUDA-core body, by this rule and never after a failure. Raises
+    ``ValueError`` on options the kernel is not built for."""
     _check_options(early_exit, dual, ablate)
     variant = _variant(early_exit, dual, ablate)
     if variant not in _BUILT_VARIANTS:
         raise ValueError("the kernel is built for one ablated part at a "
                          "time (emb, attn, score1, fma, proj, nativeargmax, "
                          "argmax)")
-    if (not cuda_cores and F32_ON_TF32 and _tf32(dtype, H) and tf32_fits
-            and variant & ~_EARLY_EXIT == 0):
-        return Route(TF32, variant, "whole_decode_tf32")
+    probe = (variant & ~_EARLY_EXIT) != 0
+    if not cuda_cores and F32_ON_TF32 and _tf32(dtype, H) and tf32_fits:
+        return Route(TF32, variant, "whole_decode_tf32_probes" if probe
+                     else "whole_decode_tf32")
     if cuda_cores or not _tensor_cores(dtype, H):
         return Route(CUDA_CORES, variant, "whole_decode")
-    probe = (variant & ~_EARLY_EXIT) != 0
     return Route(TENSOR_CORES, variant | _TENSOR_CORES,
                  "whole_decode_probes" if probe else "whole_decode")
 
@@ -192,49 +194,66 @@ def check_tc_fits(n_gates: int, variant: int, L: int, A: int, K: int,
     return need
 
 
-def tf32_smem_bytes(n_gates: int, L: int, A: int, K: int, H: int) -> int:
-    """The TF32 body's shared memory in bytes (K = E + F): the rows' f32
-    buffers (x, h double-buffered, c, W h, scores; row strides of 4 mod 32
-    words over whole k8 steps), the reductions, the cluster's exchange of
-    (key, index) and each warp's ring of 4 slots (3 for an LSTM) of
-    n_gates 512-byte tiles. Mirrors ``Tf32Smem`` in
-    ``csrc/whole_decode_tf32.cu`` (``recnet_whole_decode_tf32_smem``)."""
-    slots = 3 if n_gates == 4 else 4
+def tf32_smem_bytes(n_gates: int, L: int, A: int, K: int, H: int,
+                    variant: int = 0, E: int = None) -> int:
+    """The TF32 body's shared memory in bytes for ``variant`` (K = E + F):
+    the rows' f32 buffers (x, h double-buffered, c, W h, scores; row
+    strides of 4 mod 32 words over whole k8 steps), the reductions, the
+    cluster's exchange of (key, index) and each warp's ring of 4 slots (3
+    for an LSTM) of n_gates 512-byte tiles. Under ``dual`` (E needed): 16
+    rows, x only from the embedding's last whole k8 step on, one h, no c,
+    and 3 slots (2 for an LSTM). Mirrors ``Tf32Smem`` in
+    ``csrc/whole_decode_tf32.cuh`` (``recnet_whole_decode_tf32_smem`` for
+    production, ``recnet_whole_decode_tf32_variant_smem`` of the probes'
+    library for any variant)."""
+    dual = bool(variant & _DUAL)
+    if dual and E is None:
+        raise ValueError("the TF32 body's dual layout depends on E")
+    rows = 2 * ROWS_PER_BLOCK if dual else ROWS_PER_BLOCK
+    slots = (2 if n_gates == 4 else 3) if dual else (
+        3 if n_gates == 4 else 4)
+    x0 = E // 8 * 8 if dual else 0
     ld = lambda n: -(-(-(-n // 8) * 8) // 32) * 32 + 4
     align16 = lambda n: -(-n // 16) * 16
     o = 0
-    for nbytes in (4 * ROWS_PER_BLOCK * ld(K),      # x = [emb, ctx]
-                   4 * 2 * ROWS_PER_BLOCK * ld(H),  # h, double-buffered
-                   4 * ROWS_PER_BLOCK * H,          # c
-                   4 * ROWS_PER_BLOCK * A,          # W h
+    for nbytes in (4 * rows * ld(K - x0),           # x = [emb, ctx] from x0
+                   4 * (1 if dual else 2) * rows * ld(H),   # h
+                   0 if dual else 4 * rows * H,     # c
+                   4 * rows * A,                    # W h
                    4 * 2 * A,                       # attn w, b
-                   4 * ROWS_PER_BLOCK * L,          # scores
-                   4 * 2 * _TC_WARPS * ROWS_PER_BLOCK,    # argmax
-                   4 * 2 * MAX_CLUSTER * ROWS_PER_BLOCK,  # cluster's best
-                   4 * ROWS_PER_BLOCK):             # tokens
+                   4 * rows * L,                    # scores
+                   4 * 2 * _TC_WARPS * rows,        # argmax
+                   4 * 2 * MAX_CLUSTER * rows,      # cluster's best
+                   4 * rows):                       # tokens
         o = align16(o + nbytes)
     return o + 4 * _TC_WARPS * slots * n_gates * 128
 
 
-def check_tf32_fits(n_gates: int, L: int, A: int, K: int, H: int) -> int:
-    """The TF32 body's shared memory for these shapes; raises
-    ``ValueError`` where a block cannot have it."""
-    need = tf32_smem_bytes(n_gates, L, A, K, H)
+def check_tf32_fits(n_gates: int, L: int, A: int, K: int, H: int,
+                    variant: int = 0, E: int = None) -> int:
+    """The TF32 body's shared memory for these shapes and ``variant``;
+    raises ``ValueError`` where a block cannot have it."""
+    need = tf32_smem_bytes(n_gates, L, A, K, H, variant, E)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"the TF32 body needs {need} bytes of shared memory at L={L}, "
-            f"A={A}, E+F={K}, H={H} ({n_gates} gates); a Hopper block has "
+            f"A={A}, E+F={K}, H={H} ({n_gates} gates"
+            f"{', dual' if variant & _DUAL else ''}); a Hopper block has "
             f"{SMEM_LIMIT}")
     return need
 
 
-def cluster_size(B: int, H: int, n_sms: int) -> int:
-    """Blocks of the TF32 body's cluster that share one tile of 8 rows: the
-    largest C of 8, 4, 2 with ceil(B / 8) C blocks at most the card's SM
-    count and C at most the H / 16 unit tiles; else 1. At the flagship
-    (H = 512) on 132 SMs: 8 up to B = 128 (the eval batch B = 100: 13
-    tiles, 104 blocks), 4 up to 264, 2 up to 528, 1 beyond (B = 1024)."""
-    tiles = -(-B // ROWS_PER_BLOCK)
+def cluster_size(B: int, H: int, n_sms: int,
+                 rows: int = ROWS_PER_BLOCK) -> int:
+    """Blocks of the TF32 body's cluster that share one tile of ``rows``
+    rows (8, or 16 under ``dual``): the largest C of 8, 4, 2 with
+    ceil(B / rows) C blocks at most the card's SM count and C at most the
+    H / 16 unit tiles; else 1. At the flagship (H = 512) on 132 SMs, 8-row
+    tiles: 8 up to B = 128 (the eval batch B = 100: 13 tiles, 104 blocks),
+    4 up to 264, 2 up to 528, 1 beyond (B = 1024); 16-row tiles: 8 up to
+    256 (B = 100: 7 tiles, 56 blocks), 4 up to 528, 2 up to 1056 (B =
+    1024: 64 tiles, 128 blocks), 1 beyond (B = 2048)."""
+    tiles = -(-B // rows)
     for C in (8, 4, 2):
         if C <= MAX_CLUSTER and C <= H // 16 and tiles * C <= n_sms:
             return C
@@ -267,22 +286,31 @@ _COUNT_LOCK = threading.Lock()
 def _library(name: str = "whole_decode") -> ctypes.CDLL:
     """The built library ``name``: "whole_decode" (production, the early
     exit, the CUDA-core probes), "whole_decode_probes" (the tensor-core
-    probes) or "whole_decode_tf32" (the TF32 body), bound at first use."""
+    probes), "whole_decode_tf32" (the TF32 body's production and early
+    exit) or "whole_decode_tf32_probes" (its probes), bound at first
+    use."""
     lib = build.load(name)
     if getattr(lib, "_recnet_bound", False):
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
     args = [i, i, i] + [p] * 18 + [i] * 8 + [ctypes.c_float, p]
-    if name == "whole_decode_tf32":
-        lib.recnet_whole_decode_tf32.argtypes = (
-            [i, i, i] + [p] * 17 + [i] * 8 + [ctypes.c_float, p])
-        lib.recnet_whole_decode_tf32.restype = i
+    if name.startswith("whole_decode_tf32"):
+        entry = (lib.recnet_whole_decode_tf32_probe
+                 if name == "whole_decode_tf32_probes"
+                 else lib.recnet_whole_decode_tf32)
+        entry.argtypes = [i, i, i] + [p] * 17 + [i] * 8 + [ctypes.c_float, p]
+        entry.restype = i
+        lib.recnet_tf32_error_string.argtypes = [i]
+        lib.recnet_tf32_error_string.restype = ctypes.c_char_p
+        if name == "whole_decode_tf32_probes":
+            smem = lib.recnet_whole_decode_tf32_variant_smem
+            smem.argtypes, smem.restype = [i] * 7, ctypes.c_longlong
+            lib._recnet_bound = True
+            return lib
         lib.recnet_whole_decode_tf32_smem.argtypes = [i] * 5
         lib.recnet_whole_decode_tf32_smem.restype = ctypes.c_longlong
         lib.recnet_whole_decode_tf32_out_group.argtypes = []
         lib.recnet_whole_decode_tf32_out_group.restype = i
-        lib.recnet_tf32_error_string.argtypes = [i]
-        lib.recnet_tf32_error_string.restype = ctypes.c_char_p
         if lib.recnet_whole_decode_tf32_out_group() != layout.PROJ_GROUP:
             raise RuntimeError(
                 f"the TF32 body's out_w column group "
@@ -425,10 +453,11 @@ def _launch_tf32(params, enc, uv, bias2, h, c, token, route: Route,
     B, L, F = enc.shape
     H, A = params["attention"]["W"].shape
     V = params["out_w"].shape[1]
-    check_tf32_fits(n_gates, L, A, E + F, H)
+    check_tf32_fits(n_gates, L, A, E + F, H, route.variant, E)
     if cluster is None:
         cluster = cluster_size(B, H, torch.cuda.get_device_properties(
-            device).multi_processor_count)
+            device).multi_processor_count, 2 * ROWS_PER_BLOCK
+            if route.variant & _DUAL else ROWS_PER_BLOCK)
     if cluster not in (1, 2, 4, 8) or cluster > H // 16:
         raise ValueError(f"cluster {cluster}: the TF32 body takes 1, 2, 4 or "
                          f"8 blocks a tile, at most H / 16 = {H // 16}")
@@ -441,7 +470,10 @@ def _launch_tf32(params, enc, uv, bias2, h, c, token, route: Route,
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"the TF32 body's {name} tiles must be "
                              f"contiguous f32 on {device}, 16-byte aligned")
-    lib = _library("whole_decode_tf32")
+    lib = _library(route.library)
+    entry = (lib.recnet_whole_decode_tf32_probe
+             if route.library == "whole_decode_tf32_probes"
+             else lib.recnet_whole_decode_tf32)
     tokens = torch.zeros((B, n_steps), dtype=torch.int32, device=device)
     h_out, c_out = torch.empty_like(h), torch.empty_like(c)
     tok_out = torch.empty((B, 1), dtype=torch.int32, device=device)
@@ -449,7 +481,7 @@ def _launch_tf32(params, enc, uv, bias2, h, c, token, route: Route,
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.recnet_whole_decode_tf32(
+        err = entry(
             n_gates, route.variant, cluster, ptr(enc), ptr(uv),
             ptr(params["embedding"]), ptr(tiles["attn_W"]), ptr(a["w"]),
             ptr(a["b"]), ptr(tiles["gates"]), ptr(bias2),
@@ -466,14 +498,19 @@ def _launch_tf32(params, enc, uv, bias2, h, c, token, route: Route,
 
 
 def _operand_route(params: Dict, enc: torch.Tensor, emb_size: int,
-                   cell_type: str, **options) -> Route:
+                   cell_type: str, early_exit: bool = False,
+                   dual: bool = False, ablate: str = "",
+                   cuda_cores: bool = False) -> Route:
     """``kernel_route`` for these operands: whether the TF32 body's buffers
-    fit a block is read from their shapes."""
+    fit a block, for the variant asked for, is read from their shapes."""
     H, A = params["attention"]["W"].shape
     L, F = enc.shape[1], enc.shape[2]
+    _check_options(early_exit, dual, ablate)
     fits = (tf32_smem_bytes(_N_GATES.get(cell_type, 4), L, A, emb_size + F,
-                            H) <= SMEM_LIMIT)
-    return kernel_route(enc.dtype, H, tf32_fits=fits, **options)
+                            H, _variant(early_exit, dual, ablate), emb_size)
+            <= SMEM_LIMIT)
+    return kernel_route(enc.dtype, H, early_exit=early_exit, dual=dual,
+                        ablate=ablate, cuda_cores=cuda_cores, tf32_fits=fits)
 
 
 def _device_route(enc: torch.Tensor) -> str:
@@ -672,23 +709,25 @@ def whole_greedy_decode(params: Dict, enc: torch.Tensor, uv: torch.Tensor,
     The K5 variants, as in JAX: ``early_exit`` stops a block of 8 rows
     once all its tokens are 0 (the Pallas condition: 0, not the config's
     <PAD>), later columns reading 0; ``dual`` runs each block as two
-    row-halves with the production tokens (tensor-core body: two 8-row
-    halves sharing each weight tile; CUDA-core body: two 4-row halves on
-    their own barriers); ``ablate`` (profiling) stubs parts of the step:
+    row-halves with the production tokens (tensor-core and TF32 bodies:
+    two 8-row halves sharing each weight tile, bit-equal to production;
+    CUDA-core body: two 4-row halves on their own barriers); ``ablate``
+    (profiling) stubs parts of the step:
     "emb", "attn" / "score1" / "fma", "proj" / "nativeargmax" / "argmax",
     one part at a time on the card (the twin takes any comma-joined set).
     ``dual`` with ``early_exit`` or ``ablate`` raises ``ValueError``.
 
     The body (``kernel_route``): bf16 with H % 16 == 0 runs every variant
-    on the tensor-core body; f32 with H % 16 == 0 runs production and the
-    early exit on the TF32 body; the rest on the CUDA-core body;
+    on the tensor-core body; f32 with H % 16 == 0 every variant whose
+    buffers fit a block on the TF32 body; the rest on the CUDA-core body;
     ``cuda_cores`` asks for the CUDA-core body for any variant (the first
     design, kept as the redesigns' baseline: the same tokens up to the sum
     order). The tensor-core and TF32 bodies read the tiles in
     ``params["layouts"]`` (see ``layout.kernel_layouts``), or make them
     for the call where they are missing; a launch whose shared memory a
     block cannot have raises ``ValueError``. ``cluster`` sets the TF32
-    body's blocks a tile (``cluster_size`` when None)."""
+    body's blocks a tile (``cluster_size`` of its 8 or, under ``dual``, 16
+    rows when None)."""
     _check_options(early_exit, dual, ablate)
     kw = dict(emb_size=emb_size, cell_type=cell_type, emb_scale=emb_scale)
     if _device_route(enc) == "cpu":

@@ -2316,6 +2316,114 @@ def test_tf32_layout_mirror_equals_the_kernel(cuda, cell):
         assert lib.recnet_whole_decode_tf32_smem(n_gates, *shape) == want
 
 
+TF32_VARIANTS = ([{}, dict(early_exit=True), dict(dual=True)]
+                 + [dict(ablate=p) for p in ("emb", "attn", "score1", "fma",
+                                             "proj", "nativeargmax",
+                                             "argmax")])
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_tf32_variant_layout_mirror_equals_the_kernel(cuda, cell):
+    """Every variant's shared memory, dual's 16-row layout included: the
+    Python mirror against the probes' library's count (the production
+    library's, for production's layout, in the test above)."""
+    n_gates = 3 if cell == "GRU" else 4
+    lib = wd._library("whole_decode_tf32_probes")
+    for L, A, E, F, H in ((28, 128, 468, 1536, 512), (7, 8, 12, 24, 16),
+                          (28, 128, 468, 1536, 528), (28, 128, 13, 40, 32)):
+        for options in TF32_VARIANTS:
+            v = wd.kernel_route(torch.float32, H, **options).variant
+            want = wd.tf32_smem_bytes(n_gates, L, A, E + F, H, v, E)
+            assert lib.recnet_whole_decode_tf32_variant_smem(
+                n_gates, v, L, A, E, E + F, H) == want
+
+
+def _tf32_start(device, b, h, seed):
+    """A carried state that is not zero (h in (-0.5, 0.5), c about 0.5),
+    and <SOS>."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    h0 = 0.5 * torch.tanh(torch.randn((b, h), generator=g, device=device))
+    c0 = 0.5 * torch.randn((b, h), generator=g, device=device)
+    return h0, c0, torch.full((b, 1), 1, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("b", [45, 100, 1004, 2048])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_k5_dual_tf32_bit_equal_to_k1(cuda, cell, b):
+    """dual on the TF32 body (16-row tiles, two halves sharing each weight
+    fragment): tokens, h and c bit-equal to TF32 production K1's from a
+    carried state at every cluster size and the wrapper's pick, ragged
+    tails included; through K1's wrapper counted as "dual[tf32]" and equal
+    to production's tokens."""
+    cfg, ops = _tf32_operands(cell, cuda, b, seed=b)
+    kw = dict(emb_size=TF32_E, n_steps=MAX_LEN + 1, cell_type=cell,
+              emb_scale=1.0)
+    start = _tf32_start(cuda, b, 512, b)
+    want = wd._launch(*ops, *start, route=wd.kernel_route(torch.float32, 512),
+                      **kw)
+    dual = wd.kernel_route(torch.float32, 512, dual=True)
+    assert dual.library == "whole_decode_tf32_probes"
+    for c in (1, 2, 4, 8, None):
+        got = wd._launch(*ops, *start, route=dual, cluster=c, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), f"cluster {c}"
+    counts = wd.whole_greedy_decode.variant_launches
+    n = counts["dual[tf32]"]
+    k1 = dict(emb_size=TF32_E, max_len=MAX_LEN, cell_type=cell)
+    got = wd.whole_greedy_decode(*ops, dual=True, **k1)
+    assert counts["dual[tf32]"] == n + 1
+    assert torch.equal(got, wd.whole_greedy_decode(*ops, **k1))
+
+
+@pytest.mark.parametrize("part", ["emb", "attn", "score1", "fma", "proj",
+                                  "nativeargmax", "argmax"])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_k5_ablate_tf32_matches_the_three_term_twin(cuda, cell, part):
+    """Each ablate part on the TF32 body (out_w x 4: a clear top-2 margin)
+    against the twin with the body's three-term products and that part:
+    tokens on F32_ROWS of rows; counted as "ablate=<part>[tf32]";
+    ``nativeargmax`` equal to production's tokens bit for bit."""
+    cfg = DecoderConfig(cell_type=cell, vocab_size=4188,
+                        embedding_size=TF32_E, encoder_size=TF32_F,
+                        hidden_size=512, attn_size=128)
+    p = random_params(cfg, 11)
+    p["out_w"] = p["out_w"] * 4.0
+    params = params_from_jax(p, cuda, torch.float32)
+    enc = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (100, 28, TF32_F)).astype(np.float32)).to(cuda)
+    r = params["rnn"][0]
+    ops = (params, enc, precompute_uv(params["attention"], enc),
+           torch.stack([r["b_ih"], r["b_hh"]]))
+    kw = dict(emb_size=TF32_E, cell_type=cell)
+    counts = wd.whole_greedy_decode.variant_launches
+    n = counts[f"ablate={part}[tf32]"]
+    got = wd.whole_greedy_decode(*ops, max_len=MAX_LEN, ablate=part, **kw)
+    assert counts[f"ablate={part}[tf32]"] == n + 1
+    z, _, sos = _zero_start(cuda, 100, 512)
+    want = wd._decode_reference(*ops, z, z, sos, n_steps=MAX_LEN + 1,
+                                emb_scale=1.0, ablate=part,
+                                matmul=wd.matmul_3xtf32_reference, **kw)[0]
+    torch.cuda.synchronize()
+    assert _share((got == want).all(dim=1)) >= F32_ROWS
+    if part == "nativeargmax":
+        assert torch.equal(got, wd.whole_greedy_decode(
+            *ops, max_len=MAX_LEN, **kw))
+
+
+def test_f32_probes_by_kernel_name(cuda):
+    """f32 dual and ablate launch tf32_decode_kernel; under cuda_cores
+    the CUDA-core body's whole_decode_kernel."""
+    cfg, ops = _tf32_operands("GRU", cuda, 100)
+    kw = dict(emb_size=TF32_E, max_len=MAX_LEN)
+    has = lambda fn, part: any(part in n for n in _kernel_names(fn, part))
+    for options in (dict(dual=True), dict(ablate="attn")):
+        assert has(lambda: wd.whole_greedy_decode(*ops, **options, **kw),
+                   "tf32_decode_kernel")
+        assert has(lambda: wd.whole_greedy_decode(
+            *ops, cuda_cores=True, **options, **kw), "whole_decode_kernel")
+
+
 def test_f32_parameter_sets_carry_the_tf32_tiles(cuda):
     """f32 params on the card carry the TF32 body's tiles, made once; K1
     gives the same tokens with them as with tiles made for the call."""

@@ -130,6 +130,57 @@ def test_tf32_model_matches_pallas_tokens(cell):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+ABLATE_PARTS = ("emb", "attn", "score1", "fma", "proj", "nativeargmax",
+                "argmax")
+
+
+def _small_pallas_case(cell, seed):
+    """A small f32 decoder whose logits keep a clear top-2 margin (out_w
+    x 8), its operands for JAX and for the port."""
+    B, L, F, E, H, A, V = 16, 7, 24, 12, 16, 8, 40
+    cfg = j_dec.DecoderConfig(cell_type=cell, vocab_size=V, embedding_size=E,
+                              encoder_size=F, hidden_size=H, attn_size=A)
+    params = j_dec.init_decoder_params(jax.random.PRNGKey(seed), cfg)
+    params = dict(params, out_w=params["out_w"] * 8.0)
+    enc = jnp.asarray(np.random.default_rng(seed).standard_normal((B, L, F)),
+                      jnp.float32)
+    uv = j_attn.precompute_uv(params["attention"], enc)
+    r = params["rnn"][0]
+    bias2 = jnp.stack([r["b_ih"], r["b_hh"]])
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    t_ops = (tp, torch.from_numpy(np.array(enc)),
+             torch.from_numpy(np.array(uv)),
+             torch.from_numpy(np.array(bias2)))
+    return (params, enc, uv, bias2), t_ops, dict(E=E, H=H, B=B)
+
+
+@pytest.mark.parametrize("variant", [dict(ablate=p) for p in ABLATE_PARTS]
+                         + [dict(dual=True)],
+                         ids=list(ABLATE_PARTS) + ["dual"])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_tf32_model_of_the_probes_matches_pallas_tokens(cell, variant):
+    """The K5 probes on the TF32 body, modelled at a small width: the twin
+    with the body's three-term products and each ``ablate`` part against
+    the JAX package's Pallas kernel with that part (interpret mode, f32),
+    and the production twin against JAX's ``dual`` kernel (two 4-row
+    halves of each 8-row tile): equal tokens."""
+    j_ops, t_ops, d = _small_pallas_case(cell, 13)
+    want = whole_greedy_decode(*j_ops, emb_size=d["E"], max_len=9,
+                               block_b=8, cell_type=cell, interpret=True,
+                               **variant)
+    z = torch.zeros((d["B"], d["H"]))
+    sos = torch.full((d["B"], 1), 1, dtype=torch.int32)
+    got = wd._decode_reference(*t_ops, z, z, sos, emb_size=d["E"],
+                               n_steps=10, cell_type=cell, emb_scale=1.0,
+                               ablate=variant.get("ablate", ""),
+                               matmul=wd.matmul_3xtf32_reference)[0]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if variant.get("ablate") == "argmax":   # int(max logit): not an index
+        assert bool((got != wd._decode_reference(
+            *t_ops, z, z, sos, emb_size=d["E"], n_steps=10, cell_type=cell,
+            emb_scale=1.0, matmul=wd.matmul_3xtf32_reference)[0]).any())
+
+
 TF, CC, TC = wd.TF32, wd.CUDA_CORES, wd.TENSOR_CORES
 
 
@@ -137,14 +188,30 @@ TF, CC, TC = wd.TF32, wd.CUDA_CORES, wd.TENSOR_CORES
     (512, {}, (TF, 0, "whole_decode_tf32")),
     (16, {}, (TF, 0, "whole_decode_tf32")),
     (512, dict(early_exit=True), (TF, 1, "whole_decode_tf32")),
-    # f32's probes and cuda_cores stay on the first design
-    (512, dict(dual=True), (CC, 2, "whole_decode")),
-    (512, dict(ablate="emb"), (CC, 4, "whole_decode")),
+    # f32's probes on the TF32 body, from their own library
+    (512, dict(dual=True), (TF, 2, "whole_decode_tf32_probes")),
+    (512, dict(ablate="emb"), (TF, 4, "whole_decode_tf32_probes")),
+    (512, dict(ablate="attn"), (TF, 1 << 3, "whole_decode_tf32_probes")),
+    (512, dict(ablate="score1"), (TF, 2 << 3, "whole_decode_tf32_probes")),
+    (512, dict(ablate="fma"), (TF, 3 << 3, "whole_decode_tf32_probes")),
+    (512, dict(ablate="proj"), (TF, 1 << 5, "whole_decode_tf32_probes")),
+    (512, dict(ablate="nativeargmax"),
+     (TF, 2 << 5, "whole_decode_tf32_probes")),
+    (512, dict(ablate="argmax"), (TF, 3 << 5, "whole_decode_tf32_probes")),
+    (16, dict(dual=True), (TF, 2, "whole_decode_tf32_probes")),
+    # cuda_cores keeps the first design for any f32 variant
     (512, dict(cuda_cores=True), (CC, 0, "whole_decode")),
     (512, dict(early_exit=True, cuda_cores=True), (CC, 1, "whole_decode")),
+    (512, dict(dual=True, cuda_cores=True), (CC, 2, "whole_decode")),
+    (512, dict(ablate="emb", cuda_cores=True), (CC, 4, "whole_decode")),
+    (512, dict(ablate="fma", cuda_cores=True), (CC, 3 << 3, "whole_decode")),
+    (512, dict(ablate="argmax", cuda_cores=True),
+     (CC, 3 << 5, "whole_decode")),
     # no 16-unit tiles: the CUDA-core body, by rule
     (24, {}, (CC, 0, "whole_decode")),
     (520, dict(early_exit=True), (CC, 1, "whole_decode")),
+    (24, dict(dual=True), (CC, 2, "whole_decode")),
+    (520, dict(ablate="proj"), (CC, 1 << 5, "whole_decode")),
 ])
 def test_f32_route_rule(H_, options, want):
     assert wd.F32_ON_TF32
@@ -288,6 +355,75 @@ def test_cluster_size_is_bounded_by_the_unit_tiles():
     assert wd.cluster_size(1, 32, 132) == 2
     assert wd.cluster_size(1, 64, 132) == 4
     assert wd.cluster_size(100, 512, 64) == 4
+
+
+DUAL = wd.kernel_route(torch.float32, 512, dual=True).variant
+
+
+@pytest.mark.parametrize("n_gates,want", [(3, 221_504), (4, 213_312)])
+def test_tf32_dual_layout_fits_a_hopper_block(n_gates, want):
+    """16 rows under dual: x from the embedding's last whole k8 step on
+    (16 x 1572 words: 100,608 B), one h (33,024 B), no c, and rings of 3
+    slots (GRU) or 2 (LSTM): production's 16-row buffers would need
+    228,096 B before any ring."""
+    got = wd.check_tf32_fits(n_gates, **FLAGSHIP_SMEM, variant=DUAL, E=468)
+    assert got == want == wd.tf32_smem_bytes(n_gates, **FLAGSHIP_SMEM,
+                                             variant=DUAL, E=468)
+    assert got <= wd.SMEM_LIMIT
+    rows16 = 4 * 16 * (2020 + 2 * 516 + 512)
+    assert rows16 == 228_096
+    # the ablate parts keep production's layout
+    for part in ABLATE_PARTS:
+        v = wd.kernel_route(torch.float32, 512, ablate=part).variant
+        assert wd.tf32_smem_bytes(n_gates, **FLAGSHIP_SMEM, variant=v,
+                                  E=468) == 219_936
+
+
+def test_tf32_dual_layout_needs_the_embedding_width():
+    with pytest.raises(ValueError, match="depends on E"):
+        wd.tf32_smem_bytes(3, **FLAGSHIP_SMEM, variant=DUAL)
+
+
+@pytest.mark.parametrize("shape", [dict(FLAGSHIP_SMEM, K=2260),
+                                   dict(FLAGSHIP_SMEM, L=300)])
+def test_tf32_dual_layout_refuses_what_a_block_cannot_hold(shape):
+    """Features of 1792 (K = 2260) or 300 frames: production's 8 rows
+    still fit, dual's 16 do not (GRU)."""
+    assert wd.check_tf32_fits(3, **shape)
+    with pytest.raises(ValueError, match="232448"):
+        wd.check_tf32_fits(3, **shape, variant=DUAL, E=468)
+
+
+def test_tf32_dual_that_cannot_fit_takes_the_cuda_core_body_by_rule():
+    """At features of 1792 the GRU's dual layout does not fit a block, so
+    dual runs on the CUDA-core body by the rule (operands' shapes), while
+    production and the ablate parts stay on the TF32 body."""
+    params = {"attention": {"W": torch.zeros(512, 128)}}
+    enc = torch.zeros(2, L_FLAG, 1792)
+    route = lambda **kw: wd._operand_route(params, enc, 468, "GRU", **kw)
+    assert route(dual=True) == (CC, 2, "whole_decode")
+    assert route() == (TF, 0, "whole_decode_tf32")
+    assert route(ablate="attn").body == TF
+    assert wd._operand_route(params, enc, 468, "LSTM", dual=True).body == TF
+    assert wd._operand_route(params, torch.zeros(2, L_FLAG, 1536), 468,
+                             "GRU", dual=True) == (
+        TF, 2, "whole_decode_tf32_probes")
+
+
+@pytest.mark.parametrize("B,want", [(1, 8), (100, 8), (256, 8), (257, 4),
+                                    (528, 4), (529, 2), (1004, 2), (1024, 2),
+                                    (1056, 2), (1057, 1), (2048, 1)])
+def test_dual_cluster_size_fills_the_card(B, want):
+    """dual's tiles of 16 rows: the largest C with ceil(B / 16) C blocks on
+    132 SMs: 56 blocks at the eval batch, 128 at B = 1024 (and at the
+    ragged 1004: 63 tiles), one wave of 128 tiles of C = 1 at 2048."""
+    assert wd.cluster_size(B, 512, 132, rows=16) == want
+
+
+def test_dual_cluster_size_is_bounded_by_the_unit_tiles():
+    assert wd.cluster_size(1, 16, 132, rows=16) == 1
+    assert wd.cluster_size(1, 32, 132, rows=16) == 2
+    assert wd.cluster_size(100, 512, 40, rows=16) == 4
 
 
 def test_f32_the_tf32_body_cannot_hold_takes_the_cuda_core_body():

@@ -385,11 +385,18 @@ TC, CC = wd.TENSOR_CORES, wd.CUDA_CORES
      (CC, 1 << 5, "whole_decode")),
     (torch.bfloat16, 512, dict(early_exit=True, cuda_cores=True),
      (CC, 1, "whole_decode")),
-    # f32 production in 16-unit tiles: the TF32 body; f32's probes, and
-    # bf16 without 16-unit tiles: the CUDA-core body
+    # f32 in 16-unit tiles: the TF32 body, its probes from their own
+    # library; under cuda_cores, and bf16 without 16-unit tiles: the
+    # CUDA-core body
     (torch.float32, 512, {}, (wd.TF32, 0, "whole_decode_tf32")),
-    (torch.float32, 512, dict(dual=True), (CC, 2, "whole_decode")),
-    (torch.float32, 512, dict(ablate="argmax"), (CC, 3 << 5, "whole_decode")),
+    (torch.float32, 512, dict(dual=True),
+     (wd.TF32, 2, "whole_decode_tf32_probes")),
+    (torch.float32, 512, dict(ablate="argmax"),
+     (wd.TF32, 3 << 5, "whole_decode_tf32_probes")),
+    (torch.float32, 512, dict(dual=True, cuda_cores=True),
+     (CC, 2, "whole_decode")),
+    (torch.float32, 512, dict(ablate="argmax", cuda_cores=True),
+     (CC, 3 << 5, "whole_decode")),
     (torch.bfloat16, 24, dict(dual=True), (CC, 2, "whole_decode")),
     (torch.bfloat16, 24, dict(ablate="score1"),
      (CC, 2 << 3, "whole_decode")),
@@ -416,6 +423,8 @@ def test_kernel_route_refuses_what_is_not_built(options, match):
     (False, False, "attn", CC, "ablate=attn[cuda_cores]"),
     (True, False, "", CC, "early_exit[cuda_cores]"),
     (True, False, "", TC, "early_exit"),
+    (False, True, "", wd.TF32, "dual[tf32]"),
+    (False, False, "score1", wd.TF32, "ablate=score1[tf32]"),
 ])
 def test_variant_launches_name_the_body(early_exit, dual, ablate, body, want):
     assert wd._variant_name(early_exit, dual, ablate, body == CC,
