@@ -42,7 +42,8 @@ def main(argv=None):
     a.add_argument("--keep_last_k", type=int, default=0,
                    help="checkpoint retention (0 = keep all)")
     a.add_argument("--profile_dir", type=str, default=None,
-                   help="torch.profiler trace directory (traces iters 10-14)")
+                   help="torch.profiler trace directory (traces iters 10-14, "
+                   "with the program's spans)")
     a.add_argument("--steps_per_dispatch", type=int, default=None,
                    help="train steps per dispatch (cadences must divide by k)")
     a.add_argument("--device_feature_cache", action="store_true",

@@ -21,6 +21,13 @@ its <EOS>, the latest first <EOS>). ``across`` reduces such a value over
 the shards of a batch that is decoded in pieces on several devices
 (``serving.Captioner`` on a mesh), so that every piece stops where the
 whole batch does; by default the batch is whole and the value is kept.
+
+The segmented greedy decode and the beam search mark their phases with
+spans (``utils.profiling``, off unless turned on): ``decode.greedy`` /
+``decode.beam`` around the call, ``decode.prepare``, each
+``decode.segment`` or ``decode.beam_step`` (``decode.beam_cell``,
+``decode.beam_topk``, ``decode.beam_select``), and with ``waits`` each host
+read of device data (``decode.stop_check``, ``decode.n_steps``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from recnet_tpu_torch.ops import attention as attn_ops
 from recnet_tpu_torch.ops import rnn as rnn_ops
 from recnet_tpu_torch.ops.cuda import fused_step, topk_proj
 from recnet_tpu_torch.ops.cuda import whole_decode as wd
+from recnet_tpu_torch.utils.profiling import span
 
 
 def whole_batch(x: torch.Tensor, op) -> torch.Tensor:
@@ -228,29 +236,36 @@ def greedy_decode_whole_segmented(params: Dict, cfg: dec_mod.DecoderConfig,
     T = max_len + 1
     n_seg = -(-T // segment)
     H = cfg.hidden_size
-    uv = attn_ops.precompute_uv(params["attention"], encoder_outputs)
-    bias2 = _bias2(params)
-    h = torch.zeros((B, H), dtype=dtype, device=dev)
-    c = torch.zeros((B, H), dtype=dtype, device=dev)
-    tok = torch.full((B, 1), cfg.sos_token, dtype=torch.int32, device=dev)
-    seen_eos = torch.zeros((B, 1), dtype=torch.bool, device=dev)
-    toks = torch.full((B, n_seg * segment), cfg.pad_token,
-                      dtype=torch.int32, device=dev)
-    for s in range(n_seg):
-        stop = across((tok == cfg.pad_token).all(), torch.all)
-        if eos_stop:
-            stop = stop | across(seen_eos.all(), torch.all)
-        if bool(stop):                           # host sync
-            break
-        tseg, h, c, tok = wd.whole_greedy_decode_segment(
-            params, encoder_outputs, uv, bias2, h, c, tok,
-            emb_size=cfg.embedding_size, seg_len=segment,
-            cell_type=cfg.cell_type, emb_scale=cfg.embedding_scale)
-        toks[:, s * segment:(s + 1) * segment] = tseg
-        seen_eos |= (tseg == cfg.eos_token).any(dim=1, keepdim=True)
-    tokens = toks[:, :T].T
-    return GreedyResult(tokens, _steps_to_first_all_pad(
-        tokens, cfg.pad_token, across))
+    with span("decode.greedy"):
+        with span("decode.prepare"):
+            uv = attn_ops.precompute_uv(params["attention"], encoder_outputs)
+            bias2 = _bias2(params)
+            h = torch.zeros((B, H), dtype=dtype, device=dev)
+            c = torch.zeros((B, H), dtype=dtype, device=dev)
+            tok = torch.full((B, 1), cfg.sos_token, dtype=torch.int32,
+                             device=dev)
+            seen_eos = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+            toks = torch.full((B, n_seg * segment), cfg.pad_token,
+                              dtype=torch.int32, device=dev)
+        for s in range(n_seg):
+            stop = across((tok == cfg.pad_token).all(), torch.all)
+            if eos_stop:
+                stop = stop | across(seen_eos.all(), torch.all)
+            with span("decode.stop_check", waits=True):
+                stopped = bool(stop)                 # host sync
+            if stopped:
+                break
+            with span("decode.segment"):
+                tseg, h, c, tok = wd.whole_greedy_decode_segment(
+                    params, encoder_outputs, uv, bias2, h, c, tok,
+                    emb_size=cfg.embedding_size, seg_len=segment,
+                    cell_type=cfg.cell_type, emb_scale=cfg.embedding_scale)
+                toks[:, s * segment:(s + 1) * segment] = tseg
+                seen_eos |= (tseg == cfg.eos_token).any(dim=1, keepdim=True)
+        tokens = toks[:, :T].T
+        with span("decode.n_steps", waits=True):
+            n_steps = _steps_to_first_all_pad(tokens, cfg.pad_token, across)
+    return GreedyResult(tokens, n_steps)
 
 
 class BeamResult(NamedTuple):
@@ -301,13 +316,8 @@ def beam_decode(params: Dict, cfg: dec_mod.DecoderConfig,
     T = max_len + 1
     dtype, dev = encoder_outputs.dtype, encoder_outputs.device
     a = params["attention"]
-    uv = attn_ops.precompute_uv(a, encoder_outputs)        # shared by beams
     hoist = cfg.n_layers == 1
-    if hoist:
-        pre_table, encW, b_ih = dec_mod.hoisted_decode_tables(
-            params, cfg, encoder_outputs)
     is_gru = cfg.cell_type == "GRU" and hoist
-    sat = torch.tensor(_LOGSIG_SAT, dtype=dtype, device=dev)
 
     def compute_scores(query):
         wh = query @ a["W"]                                       # (B, K, A)
@@ -357,65 +367,87 @@ def beam_decode(params: Dict, cfg: dec_mod.DecoderConfig,
 
     L, H = cfg.n_layers, cfg.hidden_size
     state_shape = (B, K, H) if hoist else (B, K, L, H)
-    h = torch.zeros(state_shape, dtype=dtype, device=dev)
-    c = (torch.zeros((1, 1, 1), dtype=dtype, device=dev) if is_gru
-         else torch.zeros(state_shape, dtype=dtype, device=dev))
-    tokens = torch.full((B, K), cfg.sos_token, dtype=torch.int32, device=dev)
-    cum_prob = torch.full((B, K), float("-inf"), dtype=dtype, device=dev)
-    cum_prob[:, 0] = 0.0                     # one live beam at t = 0
-    last_eos = torch.full((B, K), -1, dtype=torch.int32, device=dev)
-    first_eos = torch.full((B, K), -1, dtype=torch.int32, device=dev)
-    history = torch.full((B, K, T), cfg.pad_token, dtype=torch.int32,
-                         device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    n_steps = torch.zeros((), dtype=torch.int32, device=dev)
+    with span("decode.beam"):
+        with span("decode.prepare"):
+            uv = attn_ops.precompute_uv(a, encoder_outputs)  # shared by beams
+            if hoist:
+                pre_table, encW, b_ih = dec_mod.hoisted_decode_tables(
+                    params, cfg, encoder_outputs)
+            sat = torch.tensor(_LOGSIG_SAT, dtype=dtype, device=dev)
+            h = torch.zeros(state_shape, dtype=dtype, device=dev)
+            c = (torch.zeros((1, 1, 1), dtype=dtype, device=dev) if is_gru
+                 else torch.zeros(state_shape, dtype=dtype, device=dev))
+            tokens = torch.full((B, K), cfg.sos_token, dtype=torch.int32,
+                                device=dev)
+            cum_prob = torch.full((B, K), float("-inf"), dtype=dtype,
+                                  device=dev)
+            cum_prob[:, 0] = 0.0                 # one live beam at t = 0
+            last_eos = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+            first_eos = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+            history = torch.full((B, K, T), cfg.pad_token, dtype=torch.int32,
+                                 device=dev)
+            done = torch.zeros((), dtype=torch.bool, device=dev)
+            n_steps = torch.zeros((), dtype=torch.int32, device=dev)
 
-    for t in range(T):
-        if early_exit:
-            stop = done
-            if length_cutoff_margin is not None:
-                stop = stop | (
-                    across((first_eos >= 0).all(), torch.all)
-                    & (t >= across(first_eos.max(), torch.amax) + 1
-                       + length_cutoff_margin))
-            if bool(stop):                   # host sync
-                break
-        out, nh, nc = beam_decoder_step(tokens, h, c)
-        pb_val, pb_idx = per_beam_topk(out)                      # (B*K, K)
+        for t in range(T):
+            if early_exit:
+                stop = done
+                if length_cutoff_margin is not None:
+                    stop = stop | (
+                        across((first_eos >= 0).all(), torch.all)
+                        & (t >= across(first_eos.max(), torch.amax) + 1
+                           + length_cutoff_margin))
+                with span("decode.stop_check", waits=True):
+                    stopped = bool(stop)         # host sync
+                if stopped:
+                    break
+            with span("decode.beam_step"):
+                with span("decode.beam_cell"):
+                    out, nh, nc = beam_decoder_step(tokens, h, c)
+                with span("decode.beam_topk"):
+                    pb_val, pb_idx = per_beam_topk(out)          # (B*K, K)
+                with span("decode.beam_select"):
+                    # length-penalised cumulative score (eval.py:51-63)
+                    seq_len = torch.where(last_eos >= 0, last_eos + 1,
+                                          t + 1).to(dtype)
+                    penalized = cum_prob / seq_len ** 0.7
+                    cand = (penalized.reshape(B * K, 1)
+                            + nnf.logsigmoid(pb_val)).reshape(B, K * K)
+                    # a stable descending sort keeps lax.top_k's order
+                    # among equals
+                    top_val, top_i = torch.sort(cand, dim=1, descending=True,
+                                                stable=True)
+                    top_val, top_i = top_val[:, :K], top_i[:, :K]
+                    src = torch.div(top_i, K, rounding_mode="floor")
+                    word = torch.gather(pb_idx.reshape(B, K * K), 1, top_i)
 
-        # length-penalised cumulative score (eval.py:51-63)
-        seq_len = torch.where(last_eos >= 0, last_eos + 1, t + 1).to(dtype)
-        penalized = cum_prob / seq_len ** 0.7
-        cand = (penalized.reshape(B * K, 1)
-                + nnf.logsigmoid(pb_val)).reshape(B, K * K)
-        # a stable descending sort keeps lax.top_k's order among equals
-        top_val, top_i = torch.sort(cand, dim=1, descending=True,
-                                    stable=True)
-        top_val, top_i = top_val[:, :K], top_i[:, :K]
-        src = torch.div(top_i, K, rounding_mode="floor")
-        word = torch.gather(pb_idx.reshape(B, K * K), 1, top_i)
+                    h = gather_beams(nh, src)
+                    c = c if is_gru else gather_beams(nc, src)
+                    new_hist = gather_beams(history, src)
+                    new_hist[:, :, t] = word
+                    new_last_eos = torch.where(
+                        word == cfg.eos_token, t,
+                        torch.gather(last_eos, 1, src))
+                    inherited = torch.gather(first_eos, 1, src)
+                    new_first_eos = torch.where(
+                        inherited >= 0, inherited,
+                        torch.where(word == cfg.eos_token, t, -1)
+                    ).to(torch.int32)
 
-        h = gather_beams(nh, src)
-        c = c if is_gru else gather_beams(nc, src)
-        new_hist = gather_beams(history, src)
-        new_hist[:, :, t] = word
-        new_last_eos = torch.where(word == cfg.eos_token, t,
-                                   torch.gather(last_eos, 1, src))
-        inherited = torch.gather(first_eos, 1, src)
-        new_first_eos = torch.where(
-            inherited >= 0, inherited,
-            torch.where(word == cfg.eos_token, t, -1)).to(torch.int32)
-
-        # freeze the output-bearing state once done (the reference's break)
-        keep = lambda n, o: torch.where(done, o, n)
-        tokens = keep(word, tokens)
-        cum_prob = keep(top_val, cum_prob)
-        last_eos = keep(new_last_eos, last_eos)
-        first_eos = keep(new_first_eos, first_eos)
-        history = keep(new_hist, history)
-        n_steps = torch.where(done, n_steps, t + 1)
-        done = done | across((word == cfg.pad_token).all(), torch.all)
-    return BeamResult(history[:, 0, :], int(n_steps), cum_prob)
+                    # freeze the output-bearing state once done (the
+                    # reference's break)
+                    keep = lambda n, o: torch.where(done, o, n)
+                    tokens = keep(word, tokens)
+                    cum_prob = keep(top_val, cum_prob)
+                    last_eos = keep(new_last_eos, last_eos)
+                    first_eos = keep(new_first_eos, first_eos)
+                    history = keep(new_hist, history)
+                    n_steps = torch.where(done, n_steps, t + 1)
+                    done = done | across((word == cfg.pad_token).all(),
+                                         torch.all)
+        with span("decode.n_steps", waits=True):
+            n = int(n_steps)
+    return BeamResult(history[:, 0, :], n, cum_prob)
 
 
 @torch.no_grad()

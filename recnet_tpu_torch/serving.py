@@ -37,6 +37,7 @@ from recnet_tpu_torch.decoding import (beam_decode, greedy_decode,
                                        whole_batch)
 from recnet_tpu_torch.models import decoder as dec_mod
 from recnet_tpu_torch.parallel import mesh as mesh_lib
+from recnet_tpu_torch.utils.profiling import span
 from recnet_tpu_torch.weights import params_from_jax, torch_dtype
 
 
@@ -138,7 +139,8 @@ class Captioner:
                                                        "beam_topk")),
                 length_cutoff_margin=self.beam_length_margin,
                 across=across)
-            return res.tokens[:, : res.n_steps].T.cpu().numpy()
+            with span("decode.to_host", waits=True):
+                return res.tokens[:, : res.n_steps].T.cpu().numpy()
         if self.use_pallas and kernels_supported(self.dcfg, "greedy_whole"):
             if self.greedy_segment:
                 # eos_stop: the sentences are exact and the all-<PAD> break
@@ -153,7 +155,8 @@ class Captioner:
         else:
             res = greedy_decode(params, self.dcfg, videos, max_len,
                                 early_exit=True, across=across)
-        return res.tokens[: res.n_steps].cpu().numpy()
+        with span("decode.to_host", waits=True):
+            return res.tokens[: res.n_steps].cpu().numpy()
 
     def _decode_chunk(self, chunk: np.ndarray,
                       beam_width: Optional[int]) -> np.ndarray:

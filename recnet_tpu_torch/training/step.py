@@ -29,6 +29,12 @@ gradients and the loss terms over 'data'. The clip's norm is global over
 val step decodes the whole batch on every rank. Averaging per-rank means,
 as ``DistributedDataParallel`` does, would weigh the ranks' tokens
 unequally whenever their token counts differ.
+
+Spans (``utils.profiling``, off unless turned on) mark a cached k-step
+call (``train.call``, with its gather), each step (``train.step``) and its
+phases: ``train.forward`` (zero_grad and the forward pass),
+``train.backward`` and ``train.optimizer`` (the all-reduce on a mesh, the
+clip, both Adam steps).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from recnet_tpu_torch.parallel import mesh as mesh_lib
 from recnet_tpu_torch.training.optim import (clip_by_global_norm,
                                              load_adam_state, make_adam)
 from recnet_tpu_torch.utils.misc import tree_fill, tree_leaves
+from recnet_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -201,33 +208,40 @@ def _make_step_fn(tc: TrainConfig, dcfg: dec_mod.DecoderConfig,
     always_tf = ratio >= 1.0
 
     def step_fn(state: TrainState, videos, captions) -> Dict:
+        with span("train.step"):
+            return _step(state, videos, captions)
+
+    def _step(state: TrainState, videos, captions) -> Dict:
         shard = mesh_lib.step_shard(mesh, videos.shape[0], dcfg.vocab_size)
         specs = mesh_lib.param_specs(state.dec_params, ".dec_params", mesh)
         use_tf, generator = _step_draws(tc.seed + 1, state.step, ratio,
                                         videos.device)
         opts = [state.dec_opt] + ([state.rec_opt] if tc.use_recon else [])
-        for opt in opts:
-            opt.zero_grad(set_to_none=True)
-        total, aux = _forward(
-            state.dec_params, state.rec_params if tc.use_recon else None,
-            dcfg, rcfg, pad, tc.lambda_recon, tc.decoder_lambda_reg,
-            tc.reconstructor_lambda_reg, videos, captions, use_tf, generator,
-            train=True, always_tf=always_tf, compute_dtype=compute_dtype,
-            shard=shard, dec_specs=specs)
-        total.backward()
+        with span("train.forward"):
+            for opt in opts:
+                opt.zero_grad(set_to_none=True)
+            total, aux = _forward(
+                state.dec_params, state.rec_params if tc.use_recon else None,
+                dcfg, rcfg, pad, tc.lambda_recon, tc.decoder_lambda_reg,
+                tc.reconstructor_lambda_reg, videos, captions, use_tf,
+                generator, train=True, always_tf=always_tf,
+                compute_dtype=compute_dtype, shard=shard, dec_specs=specs)
+        with span("train.backward"):
+            total.backward()
         losses = [total.detach(), aux["dec_loss"].detach(),
                   aux["rec_loss"].detach()]
-        if shard is not None and shard.data_group is not None:
-            # the ranks' shares: one sum of every gradient and loss term
-            losses = mesh_lib.all_reduce_grads(
-                [p for opt in opts for p in opt.param_groups[0]["params"]],
-                losses, shard.data_group)
-        gnorm = (clip_by_global_norm(state.dec_params, tc.gradient_clip,
-                                     shard, specs)
-                 if tc.use_gradient_clip
-                 else torch.zeros((), device=videos.device))
-        for opt in opts:
-            opt.step()
+        with span("train.optimizer"):
+            if shard is not None and shard.data_group is not None:
+                # the ranks' shares: one sum of every gradient and loss term
+                losses = mesh_lib.all_reduce_grads(
+                    [p for opt in opts for p in opt.param_groups[0]["params"]],
+                    losses, shard.data_group)
+            gnorm = (clip_by_global_norm(state.dec_params, tc.gradient_clip,
+                                         shard, specs)
+                     if tc.use_gradient_clip
+                     else torch.zeros((), device=videos.device))
+            for opt in opts:
+                opt.step()
         state.step += 1
         return {"loss": losses[0], "dec_loss": losses[1],
                 "rec_loss": losses[2], "grad_norm": gnorm,
@@ -288,10 +302,11 @@ def build_train_multi_step_cached(tc: TrainConfig,
     multi_fn = build_train_multi_step(tc, dcfg, rcfg, k, mesh)
 
     def fn(state: TrainState, cache, vid_rows, captions) -> Dict:
-        B = vid_rows.shape[1]
-        videos = gather_f32(cache, vid_rows.reshape(-1))
-        return multi_fn(state, videos.reshape(k, B, *cache.shape[1:]),
-                        captions)
+        with span("train.call"):
+            B = vid_rows.shape[1]
+            videos = gather_f32(cache, vid_rows.reshape(-1))
+            return multi_fn(state, videos.reshape(k, B, *cache.shape[1:]),
+                            captions)
     return fn
 
 
