@@ -10,6 +10,9 @@
                                                  # read rates
     python3 chip_smoke.py --gate-rows            # K4 f32's gate kernel at
                                                  # each rows a block
+    python3 chip_smoke.py --embedding-backward   # the embedding backward
+                                                 # and the train step with
+                                                 # and without it
 
 Phases, one line or more each; any failure exits non-zero before a result:
 
@@ -152,7 +155,13 @@ in a process of its own, and prints each tree's readings side by side.
 ``--read-rates`` times a small read kernel over an L2-resident buffer and
 over device memory. ``--gate-rows`` times K4 f32's gate kernel at each
 rows a block it is built for over a sweep of batches, the rule's pick
-beside the fastest.
+beside the fastest. ``--embedding-backward`` holds the embedding gather's
+backward (``ops/cuda/embedding.py``) at the train cells' shape against
+float64 ``index_put_``, its twin and itself, times it beside ATen's two
+routes and its bound, reads whether ``F.embedding``'s backward syncs the
+host or changes its bits, and times the f32 k-step call of the global
+flagship at B 1024 with the kernel, the plain gather and ``F.embedding``
+in turns.
 
 The weights are random, drawn from a numpy seed. The last three lines are
 the card's name and power limit, one JSON line listing every kernel, and
@@ -213,6 +222,14 @@ K4_RAGGED_B = 45               # K4's ragged batch (partial row tiles)
 GATE_ROWS_SWEEP_B = (1, 16, 45, 64, 100, 128, 160, 192, 240, 256, 320, 384,
                      512, 768, 900, 1000, 1024)
 GATE_ROWS_ROUNDS = 3
+# --embedding-backward: the train cells' teacher-forced inputs (T 31 x B
+# 1024 of MSVD-like captions, ``tests/torch_embedding_cases.py``), the
+# k-step call's routes in turns, the library route's repeated calls
+EMB_T, EMB_B = 31, 1024
+EMB_ROUNDS = 3
+EMB_REPEATS = 20
+EMB_STEPS = 10
+EMB_CACHE_VIDEOS = 1200
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-2   # bf16 h: 2 bf16 ulps
 # out_w's scale in the TF32 probes' checks (the CPU tests' fixtures')
 MARGIN_OUT_W = 8.0
@@ -319,7 +336,7 @@ def build_kernels():
     from recnet_tpu_torch.ops.cuda import build
     sources = ("whole_decode", "whole_decode_probes", "whole_decode_tf32",
                "whole_decode_tf32_probes", "topk_proj", "fused_step",
-               "rollout", "cell_rollout")
+               "rollout", "cell_rollout", "embedding_backward")
     t0 = time.perf_counter()
 
     def timed_build(name):
@@ -1044,6 +1061,11 @@ def reset_counts():
             if hasattr(fn, name):
                 getattr(fn, name).clear()
     rollout.reset_counts()
+    try:       # ``--compare`` imports a tree that may lack it
+        from recnet_tpu_torch.ops.cuda import embedding
+    except ImportError:
+        return
+    embedding.embedding_backward.n_launches = 0
 
 
 def flagship_checkpoint_dir(tmp: Path, n_vocab: int) -> Path:
@@ -1901,6 +1923,256 @@ def gate_rows_sweep(torch):
                          f"{fs.gate_rows(B)}; h' bit-equal ({card})")
 
 
+def caption_inputs(seed, T, B, V):
+    """``caption_inputs`` of ``tests/torch_embedding_cases.py``, the module
+    loaded by its path: ``tests`` is no package here, and one installed
+    under that name would shadow it."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tests" / \
+        "torch_embedding_cases.py"
+    spec = importlib.util.spec_from_file_location("torch_embedding_cases",
+                                                  path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    return cases.caption_inputs(seed, T, B, V)
+
+
+def sync_fault(torch, fn):
+    """None if ``fn`` runs through under ``set_sync_debug_mode("error")``,
+    else the first line of the error a host synchronisation raised."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return None
+
+
+def embedding_backward_times(torch, E):
+    """``--embedding-backward`` (a), and the kernels line's entry of the
+    default run: the kernel at the train cells' shape (N = EMB_T x EMB_B
+    caption inputs, E, V = VOCAB) against float64 ``index_put_`` with
+    accumulate (within 1e-5 of |value| plus the sum of the magnitudes added
+    into it, the scale of an f32 sum's rounding; ATen's two routes too),
+    bit for bit against its twin and against itself over five calls; by
+    CUDA events and device time (each of its parts by name) beside ATen's
+    ``index_put_`` with accumulate (the autograd route of ``table[tokens]``:
+    a zero fill, then the sort and ``indexing_backward_kernel``) and
+    ``F.embedding``'s backward (``embedding_dense_backward``), and the
+    bound: the cotangent and tokens read once, the table's gradient written
+    once, at the device-memory rate. The issue's other properties, read on
+    both routes a gradient could take: whether a forward and backward of
+    the gather syncs the host (``set_sync_debug_mode("error")``), whether
+    EMB_REPEATS calls give the same bits, and whether
+    ``torch.use_deterministic_algorithms`` refuses the library's backward.
+    Returns the kernels-line entry, less its launches (the caller's count
+    over train steps)."""
+    from recnet_tpu_torch.ops.cuda import embedding
+    from recnet_tpu_torch.parallel import vocab as vocab_par
+    card = card_line()
+    tok = caption_inputs(SEED, EMB_T, EMB_B, VOCAB).reshape(-1).to(DEVICE)
+    N, V = tok.numel(), VOCAB
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    d_rows = torch.randn((N, E), device=DEVICE, generator=g)
+    run = lambda: embedding.embedding_backward(tok, d_rows, V)
+    aten = lambda: torch.zeros((V, E), device=DEVICE).index_put_(
+        (tok,), d_rows, accumulate=True)
+    dense = lambda: torch.ops.aten.embedding_dense_backward(
+        d_rows, tok, V, -1, False)
+    zeros = torch.zeros((V, E), dtype=torch.float64, device=DEVICE)
+    want = zeros.clone().index_put_((tok,), d_rows.double(), accumulate=True)
+    mag = zeros.index_put_((tok,), d_rows.double().abs(), accumulate=True)
+    got = run()
+    errs = {}
+    for name, fn in (("kernel", lambda: got), ("aten", aten),
+                     ("dense", dense)):
+        err = (fn().double() - want).abs()
+        errs[name] = float(err.max())
+        errs[f"{name}_over_magnitude"] = float((err / (want.abs() + mag)
+                                                ).nan_to_num().max())
+        check(bool((err <= 1e-5 * (want.abs() + mag)).all()),
+              f"embedding backward ({name}): max |err| {errs[name]:.3g} "
+              f"against float64 index_put_")
+    check(all(torch.equal(run(), got) for _ in range(5)),
+          "embedding backward: two calls gave other bits")
+    check(torch.equal(got.cpu(), embedding.embedding_backward_reference(
+              tok.cpu(), d_rows.cpu(), V)),
+          "embedding backward: the kernel's bits are not its twin's")
+    first = dense()
+    dense_repeats = sum(torch.equal(dense(), first)
+                        for _ in range(EMB_REPEATS))
+    table = torch.randn((V, E), device=DEVICE, generator=g)
+    table.requires_grad_(True)
+    rows = d_rows.reshape(EMB_T, EMB_B, E)
+    gather = {"kernel": lambda: vocab_par.embed(table, tok.view(
+                  EMB_T, EMB_B)),
+              "dense": lambda: torch.nn.functional.embedding(
+                  tok.view(EMB_T, EMB_B), table)}
+    syncs = {name: sync_fault(torch, lambda: (fn() * rows).sum().backward())
+             for name, fn in gather.items()}
+    check(syncs["kernel"] is None, f"the embedding kernel's route syncs the "
+                                   f"host: {syncs['kernel']}")
+    torch.use_deterministic_algorithms(True)
+    try:
+        dense()
+        dense_flagged = None
+    except RuntimeError as e:
+        dense_flagged = str(e).splitlines()[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ms = timed(torch, run, reps=20)[0]
+    aten_ms = timed(torch, aten, reps=3)[0]
+    dense_ms = timed(torch, dense, reps=20)[0]
+    parts = ("", "embedding_keys", "DeviceRadixSort", "embedding_tile_sum",
+             "embedding_merge")
+    dev = device_ms(torch, run, parts, reps=20)
+    aten_dev = device_ms(torch, aten, ("", "indexing_backward_kernel"),
+                         reps=3)
+    dense_dev = device_ms(torch, dense, ("",), reps=20)
+    nbytes = N * E * 4 + N * tok.element_size() + V * E * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    pad = float((tok == 0).float().mean())
+    errors = ", ".join(f"{name} {errs[name]:.3g} "
+                       f"({errs[f'{name}_over_magnitude']:.3g})"
+                       for name in ("kernel", "aten", "dense"))
+    log("embedding", f"N={N} (<PAD> share {pad:.4f}, "
+                     f"{int(torch.unique(tok).numel())} rows read), E={E}, "
+                     f"V={V}: kernel {ms:.4f} ms by events, device "
+                     f"{dev['']:.4f} ("
+                     + ", ".join(f"{p} {dev[p]:.4f}" for p in parts[1:])
+                     + f"); ATen index_put_ "
+                     f"accumulate {aten_ms:.4f} ms, device "
+                     f"{aten_dev['']:.4f} (indexing_backward_kernel "
+                     f"{aten_dev['indexing_backward_kernel']:.4f}); "
+                     f"embedding_dense_backward {dense_ms:.4f} ms, device "
+                     f"{dense_dev['']:.4f}; bound {bound_ms:.4f} ms "
+                     f"({nbytes / 1e6:.1f} MB at "
+                     f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); max |err| "
+                     f"against float64 (over |value| + magnitude): "
+                     f"{errors} ({card})")
+    log("embedding", f"host syncs of a forward and backward of the gather "
+                     f"(set_sync_debug_mode error): embed's kernel route "
+                     f"{syncs['kernel'] or 'none'}; F.embedding "
+                     f"{syncs['dense'] or 'none'}; embedding_dense_backward "
+                     f"the same bits in {dense_repeats} of {EMB_REPEATS} "
+                     f"calls; under use_deterministic_algorithms "
+                     f"{dense_flagged or 'runs'} ({card})")
+    return dict(name="embedding_backward", route="cuda",
+                source="recnet_tpu_torch/csrc/embedding_backward.cu",
+                replaces="ATen index_put_ (accumulate)", pallas=False,
+                max_abs_err=errs["kernel"], ms=ms,
+                device_ms=dev[""], parts_device_ms={
+                    p: dev[p] for p in parts[1:]},
+                library_ms=aten_ms, library_device_ms=aten_dev[""],
+                indexing_backward_device_ms=aten_dev[
+                    "indexing_backward_kernel"],
+                dense_ms=dense_ms, dense_device_ms=dense_dev[""],
+                dense_syncs=syncs["dense"], dense_repeats=dense_repeats,
+                dense_deterministic_refusal=dense_flagged,
+                bound_ms=bound_ms, bound_by="bytes")
+
+
+def embedding_step_times(torch, tc, vocab):
+    """``--embedding-backward`` (b): the f32 k-step call (EMB_STEPS steps,
+    ``build_train_multi_step_cached``) of the global flagship at B =
+    EMB_B on ``caption_inputs`` and seeded features in a bf16 cache, by
+    three routes of the gather's backward in turns over EMB_ROUNDS rounds:
+    the kernel (``vocab._kernel_gather`` as it is), the plain gather's
+    ``index_put_`` (it returns False), and ``F.embedding``'s
+    ``embedding_dense_backward`` (``vocab.embed`` replaced by it): ms a step
+    by CUDA events over a call, the kernel's launches a step (the counts
+    reset just before a call and read after it), and a profiled call of
+    each route: the device ms a step of the kernel's parts, of ATen's
+    ``indexing_backward_kernel`` and of ``embedding_dense_backward``'s
+    ``compute_grad_weight`` and ``sum_and_scatter``."""
+    from recnet_tpu_torch.models import decoder as dec_mod
+    from recnet_tpu_torch.ops.cuda import embedding
+    from recnet_tpu_torch.parallel import vocab as vocab_par
+    from recnet_tpu_torch.training import step as S
+    card = card_line()
+    k, B = EMB_STEPS, EMB_B
+    ttc = tc.replace(batch_size=B, steps_per_dispatch=k,
+                     train_precision="float32")
+    state, dcfg, rcfg = S.init_train_state(SEED, ttc, VOCAB, DEVICE)
+    fn = S.build_train_multi_step_cached(ttc, dcfg, rcfg, k)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    cache = torch.randn((EMB_CACHE_VIDEOS, tc.encoder_output_len,
+                         tc.encoder_output_size), device=DEVICE,
+                        generator=g).to(torch.bfloat16)
+    rows = torch.randint(0, EMB_CACHE_VIDEOS, (k, B), device=DEVICE,
+                         generator=g)
+    caps = torch.stack([caption_inputs(SEED + 2 + i, EMB_T, B, VOCAB)
+                        for i in range(k)]).to(DEVICE)
+    # the inputs' first row is <SOS>, the step's captions start at words
+    caps = torch.cat([caps[:, 1:], torch.zeros_like(caps[:, :1])], 1)
+    call = lambda: fn(state, cache, rows, caps)
+    kernel_gather, embed = vocab_par._kernel_gather, vocab_par.embed
+    dense = lambda table, tokens, shard=None: \
+        torch.nn.functional.embedding(tokens, table)
+    routes = {"kernel": (kernel_gather, embed),
+              "plain": (lambda *a: False, embed),
+              "dense": (kernel_gather, dense)}
+    assert dec_mod.vocab_par is vocab_par     # the decoder's embed
+    ms = collections.defaultdict(list)
+    counted = {}
+    try:
+        for _ in range(EMB_ROUNDS):
+            for name in ("kernel", "plain", "dense", "dense", "plain",
+                         "kernel"):
+                vocab_par._kernel_gather, vocab_par.embed = routes[name]
+                reset_counts()
+                call()
+                torch.cuda.synchronize()
+                counted[name] = embedding.embedding_backward.n_launches / k
+                ms[name].append(timed(torch, call, reps=1)[0] / k)
+        dev = {}
+        for name in routes:
+            vocab_par._kernel_gather, vocab_par.embed = routes[name]
+            counts, times = profiled(torch, call)
+            dev[name] = {
+                part: sum(t for key, t in times.items() if part in key)
+                / 1000 / k
+                for part in ("embedding_", "DeviceRadixSort",
+                             "indexing_backward_kernel",
+                             "compute_grad_weight", "sum_and_scatter")}
+            dev[name]["all"] = sum(times.values()) / 1000 / k
+            dev[name]["activities"] = sum(counts.values()) / k
+    finally:
+        vocab_par._kernel_gather, vocab_par.embed = kernel_gather, embed
+    check(counted == {"kernel": 1, "plain": 0, "dense": 0},
+          f"embedding backward launches a step: {counted}")
+    for name in routes:
+        log("embedding", f"train call k={k} B={B} f32, {name} route: "
+                         + ", ".join(f"{x:.3f}" for x in ms[name])
+                         + f" ms a step by CUDA events (median "
+                         f"{float(np.median(ms[name])):.3f}); "
+                         f"{counted[name]:g} embedding launches a step; "
+                         "device ms a step, profiled: "
+                         + ", ".join(f"{p} {v:.4f}"
+                                     for p, v in dev[name].items())
+                         + f" ({card})")
+    return {name: dict(ms=ms[name], launches=counted[name], **dev[name])
+            for name in routes}
+
+
+def embedding_phase(torch):
+    """``--embedding-backward``: (a) then (b); prints the kernels line,
+    the entry's launches those a step of (b)'s kernel route."""
+    from recnet_tpu_torch.checkpoint import load_config_and_vocab
+    with tempfile.TemporaryDirectory() as tmp:
+        tc, vocab = load_config_and_vocab(
+            str(flagship_checkpoint_dir(Path(tmp), VOCAB)))
+    entry = embedding_backward_times(torch, tc.embedding_size)
+    entry["train_step"] = embedding_step_times(torch, tc, vocab)
+    entry["launches"] = entry["train_step"]["kernel"]["launches"]
+    print(card_line())
+    print(json.dumps({"kernels": [entry]}))
+
+
 def k4_work(cfg, L, B):
     """(flops, bytes) of one fused step in bf16: the products W h, the
     scores, ctx and the gates; each input read once (emb, h, enc, uv and
@@ -2678,13 +2950,15 @@ def train_card_against_cpu(torch, tc, corpus):
     just after them, with CARD_BF16_STEPS bf16 card steps (finite losses)
     after the f32 ones and one f32 step with an LSTM decoder (the per-step
     LSTM cells: the flagship's decoder is GRU) between them: the rollouts'
-    kernels of the train step in both precisions. The reconstructor's
+    kernels of the train step in both precisions, and the embedding
+    backward's (one a step in both, checked). The reconstructor's
     whole-rollout kernels are counted by precision: "cell_rollout_<kind>
     [<cell>]" in the bf16 steps, and "...[f32]" in the f32 steps: the
     flagship's reconstructor width is one that ``ops.rnn.whole_rollout``
     runs whole (``whole_rollout_kernels`` checks the rule on the card).
     Returns {rollout kernel name: launches}."""
     from recnet_tpu_torch.checkpoint import state_leaves
+    from recnet_tpu_torch.ops.cuda import embedding
     from recnet_tpu_torch.training import step as S
     tc = tc.replace(embedding_dropout=0.0, decoder_dropout=0.0,
                     decoder_out_dropout=0.0, reconstructor_dropout=0.0,
@@ -2718,6 +2992,7 @@ def train_card_against_cpu(torch, tc, corpus):
             f32_whole = {f"{k}[f32]": n for k, n in rollout_launches(
                 (), tc.reconstructor_model).items()
                 if k.startswith("cell_rollout")}
+            f32_embedding = embedding.embedding_backward.n_launches
             btc = tc.replace(train_precision="bfloat16")
             bstate, bdcfg, brcfg = S.init_train_state(
                 SEED, btc, corpus.vocab.n_vocabs, device)
@@ -2731,6 +3006,16 @@ def train_card_against_cpu(torch, tc, corpus):
             for name, n in f32_whole.items():
                 launches[name[:-len("[f32]")]] -= n     # the bf16 steps'
             launches.update(f32_whole)
+            # the gather's backward: one a step in both precisions (the
+            # table an f32 master under autocast), teacher forcing always on
+            launches["embedding_backward"] = (
+                embedding.embedding_backward.n_launches)
+            steps = {"f32": CARD_CPU_STEPS + 1, "bf16": CARD_BF16_STEPS}
+            emb = {"f32": f32_embedding,
+                   "bf16": launches["embedding_backward"] - f32_embedding}
+            check(tc.decoder_teacher_forcing_ratio >= 1.0 and emb == steps,
+                  f"embedding backward launches {emb} in the card's "
+                  f"{steps} train steps: one a step expected")
             del bstate, bstep
             check(np.isfinite(bf16).all(), f"bf16 card steps: loss {bf16}")
             check(np.isfinite(lstm_loss), f"the LSTM decoder's f32 step: "
@@ -3949,7 +4234,9 @@ def loop_launches(torch, run):
 
 def train_phase(torch, tc, vocab):
     """[train]: (a) card against CPU, (b) the loop with val, test, save
-    and resume, (c) times."""
+    and resume, (c) times. Returns the kernels-line entries of the train
+    step's kernels (the rollouts', the embedding backward's), each with its
+    launches in (a)'s card steps."""
     ttc = train_config(tc)
     ttc.validate()
     corpus = train_corpus(ttc, vocab)
@@ -3980,6 +4267,8 @@ def train_phase(torch, tc, vocab):
     rollout_split(torch, ttc)
     whole_rollout_split(torch, ttc)
     rollout_times(torch, ttc)
+    entries["embedding_backward"] = embedding_backward_times(
+        torch, ttc.embedding_size)
     for name, entry in entries.items():
         entry["launches"] = launches[name]
     return entries
@@ -5056,6 +5345,10 @@ def main() -> int:
         build_kernels()
         gate_rows_sweep(torch)
         return 0
+    if sys.argv[1:2] == ["--embedding-backward"]:
+        build_kernels()
+        embedding_phase(torch)
+        return 0
     build_kernels()
     from recnet_tpu_torch.checkpoint import load_config_and_vocab
     from recnet_tpu_torch.models.decoder import config_from_train
@@ -5098,6 +5391,7 @@ def main() -> int:
     for name, err in list(sweep_errs.items()) + list(f32_errs.items()):
         variant_errs[name] = max(variant_errs.get(name, 0.0), err)
     rollout_entries = train_phase(torch, tc, vocab)
+    embedding_entry = rollout_entries.pop("embedding_backward")
     data_phase(torch, tc, vocab)
     dist_phase(torch, tc, vocab, cfg, eos_np)
     T, L = tc.caption_max_len + 1, tc.encoder_output_len
@@ -5168,6 +5462,7 @@ def main() -> int:
                                                else "rollout.cu"),
                              "replaces": serves[kind], "pallas": False},
                             **entry))
+    kernels.append(embedding_entry)
     for k in kernels:     # the body each decode row ran on
         if k["name"].startswith(("whole_greedy_decode", "fused_gru_attn")):
             k["body"] = ("cuda_cores" if "cuda_cores" in k["name"]

@@ -9,7 +9,10 @@ no 'model' group:
 * ``embed``: each rank looks up the tokens inside its rows of the table,
   zeroes the others, and the ranks sum (every token lies in one shard, so
   the sum is exact); the backward passes the gradient through, since every
-  model rank computes the same downstream gradient;
+  model rank computes the same downstream gradient. Without a 'model'
+  group, a CUDA float32 table that requires grad, with grad mode on, takes
+  the gather whose backward is the hand-written kernel
+  (``ops.cuda.embedding``); everything else the plain ``table[tokens]``;
 * ``project``: the hidden state enters the projection by an identity whose
   backward sums over the group (each rank's logit columns give part of
   dL/dh); the rank's logits are its columns;
@@ -24,6 +27,9 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as tdist
+from torch.autograd.function import once_differentiable
+
+from recnet_tpu_torch.ops.cuda import embedding
 
 
 def _tp(shard) -> bool:
@@ -61,6 +67,35 @@ class _EnterModel(torch.autograd.Function):
         return g.to(grad.dtype), None
 
 
+class _Gather(torch.autograd.Function):
+    """``table[tokens]``; its backward sums the cotangent's rows by token
+    in ``embedding.embedding_backward`` (ATen's ``index_put_`` walks a run
+    of equal tokens on one warp, row after row)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.n_rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        tokens, = ctx.saved_tensors
+        flat = tokens.reshape(-1).contiguous()
+        d_rows = grad.reshape(-1, grad.shape[-1]).contiguous()
+        return embedding.embedding_backward(flat, d_rows, ctx.n_rows), None
+
+
+def _kernel_gather(table: torch.Tensor, tokens: torch.Tensor) -> bool:
+    """Whether ``embed`` takes ``_Gather``: what the kernel takes, with a
+    gradient to compute."""
+    return (table.is_cuda and table.dtype == torch.float32
+            and table.dim() == 2 and table.requires_grad
+            and torch.is_grad_enabled()
+            and tokens.dtype in (torch.int32, torch.int64))
+
+
 def sum_over_model(x: torch.Tensor, shard) -> torch.Tensor:
     """``x`` summed over the 'model' group, differentiable (each rank's
     part of a sum every rank then uses alike); ``x`` without one."""
@@ -71,6 +106,8 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
           shard=None) -> torch.Tensor:
     """``table[tokens]`` for a table split by rows over 'model'."""
     if not _tp(shard):
+        if _kernel_gather(table, tokens):
+            return _Gather.apply(table, tokens)
         return table[tokens]
     start, stop, _ = shard.cols
     local = tokens.long() - start

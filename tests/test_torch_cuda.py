@@ -7,7 +7,9 @@ tensor-core route (bf16) and TF32 route (f32), each route's two kernels
 against its plain stage, and its CUDA-core body), and the training
 rollouts' kernels (the
 per-step cell and attention kernels, the cell kernels also against their
-first design, the whole-rollout cell kernels).
+first design, the whole-rollout cell kernels) and the embedding gather's
+backward (against its twin bit for bit, float64 ``index_put_``, its
+route and a train step's gradients).
 
 Needs a CUDA card with sm_90a and nvcc; every test skips without a card.
 This file imports neither JAX nor the test conftest, so on the card run:
@@ -31,6 +33,7 @@ from recnet_tpu_torch.ops.cuda import layout
 from recnet_tpu_torch.ops.cuda import topk_proj
 from recnet_tpu_torch.ops.cuda import whole_decode as wd
 from recnet_tpu_torch.weights import params_from_jax, random_params
+from torch_embedding_cases import caption_inputs, tokens
 
 pytestmark = pytest.mark.cuda
 
@@ -2456,3 +2459,197 @@ def test_k3_tf32_split_matches_twin_and_single_pass(cuda, n, k, seed):
         assert _share(rows) >= 0.99
         torch.testing.assert_close(got[0][rows], other[0][rows], rtol=1e-5,
                                    atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the embedding gather's backward (csrc/embedding_backward.cu)
+# --------------------------------------------------------------------------
+
+# the train cells' shape: T 31 x B 1024 input tokens, E 468, V 4188
+CELL_T, CELL_B, CELL_E, CELL_V = 31, 1024, 468, 4188
+
+
+def _embedding_case(case, device, seed=0):
+    """(tokens (N,), d_rows (N, E), V, R) of a named case."""
+    rng = np.random.default_rng(seed)
+    if case == "cell":
+        tok = caption_inputs(seed, CELL_T, CELL_B, CELL_V).reshape(-1)
+        e, v, r = CELL_E, CELL_V, 64
+    else:
+        pattern, r, e = case.split("/")
+        r, e, v = int(r), int(e), 41
+        tok = tokens(pattern, 203, v, seed=r + e)
+    d_rows = torch.from_numpy(rng.standard_normal(
+        (tok.numel(), e)).astype(np.float32))
+    return tok.to(device), d_rows.to(device), v, r
+
+
+EMBEDDING_CASES = (["cell"]
+                   + [f"traffic/{r}/{e}" for r in (1, 4, 64) for e in (5, 468)]
+                   + [f"same/{r}/5" for r in (1, 4, 64)]
+                   + ["ends/4/468", "ends/64/468", "sparse/4/5",
+                      "negative/4/5"])
+
+
+def _assert_summed(got, tok, d_rows, v):
+    """``got`` within 1e-5 of float64 ``index_put_`` with accumulate,
+    relative to |value| plus the sum of the magnitudes added into it: the
+    scale of any float32 summation's rounding (a <PAD> row of 23,000
+    normal rows sums to hundreds from terms of 18,000 in magnitude)."""
+    idx = (tok.long() % v,)
+    zeros = torch.zeros((v, d_rows.shape[1]), dtype=torch.float64,
+                        device=d_rows.device)
+    want = zeros.clone().index_put_(idx, d_rows.double(), accumulate=True)
+    mag = zeros.index_put_(idx, d_rows.double().abs(), accumulate=True)
+    err = (got.double() - want).abs()
+    assert bool((err <= 1e-5 * (want.abs() + mag)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("token_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("case", EMBEDDING_CASES)
+def test_embedding_backward_matches_f64_index_put(cuda, case, token_dtype):
+    """The kernel bit for bit against its twin on the CPU (the same
+    order), and against float64 ``index_put_`` with accumulate
+    (``_assert_summed``); one launch counted; rows no token reads are
+    zeros."""
+    from recnet_tpu_torch.ops.cuda import embedding
+    tok, d_rows, v, r = _embedding_case(case, cuda)
+    tok = tok.to(token_dtype)
+    n = embedding.embedding_backward.n_launches
+    got = embedding.embedding_backward(tok, d_rows, v, tile_rows=r)
+    torch.cuda.synchronize()
+    assert embedding.embedding_backward.n_launches == n + 1
+    twin = embedding.embedding_backward_reference(tok.cpu(), d_rows.cpu(), v,
+                                                  tile_rows=r)
+    assert torch.equal(got.cpu(), twin)
+    _assert_summed(got, tok, d_rows, v)
+    hit = torch.zeros(v, dtype=torch.bool, device=cuda)
+    hit[tok.long() % v] = True
+    assert not got[~hit].any()
+
+
+def test_embedding_backward_takes_unaligned_rows(cuda):
+    """d_rows 4 bytes past a 16-byte boundary: the one-float route, bit
+    for bit as the twin."""
+    from recnet_tpu_torch.ops.cuda import embedding
+    tok, d_rows, v, r = _embedding_case("cell", cuda, seed=1)
+    flat = torch.empty(d_rows.numel() + 1, device=cuda)
+    shifted = flat[1:].view_as(d_rows).copy_(d_rows)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    got = embedding.embedding_backward(tok, shifted, v, tile_rows=r)
+    assert torch.equal(got, embedding.embedding_backward(tok, d_rows, v))
+    assert torch.equal(got.cpu(), embedding.embedding_backward_reference(
+        tok.cpu(), d_rows.cpu(), v))
+
+
+def test_embedding_backward_is_bitwise_repeatable(cuda):
+    """Five calls at the cell's shape, the same bits."""
+    from recnet_tpu_torch.ops.cuda import embedding
+    tok, d_rows, v, r = _embedding_case("cell", cuda, seed=2)
+    first = embedding.embedding_backward(tok, d_rows, v, tile_rows=r)
+    for _ in range(4):
+        again = embedding.embedding_backward(tok, d_rows, v, tile_rows=r)
+        assert torch.equal(again, first)
+
+
+def test_embedding_backward_refuses_on_the_card(cuda):
+    from recnet_tpu_torch.ops.cuda import embedding
+    tok, d_rows, v, r = _embedding_case("traffic/4/468", cuda)
+    for bad_tok, bad_rows in ((tok, d_rows.to(torch.bfloat16)),
+                              (tok, d_rows.t().contiguous().t()),
+                              (tok.cpu(), d_rows),
+                              (tok[::2], d_rows[::2])):
+        with pytest.raises(ValueError):
+            embedding.embedding_backward(bad_tok, bad_rows, v)
+
+
+def test_embed_route_issues_no_sync(cuda):
+    """A forward and backward of ``vocab.embed`` on the kernel's route
+    under ``set_sync_debug_mode("error")``: no host synchronisation, one
+    launch, the gradient of ``_assert_summed``."""
+    from recnet_tpu_torch.ops.cuda import embedding
+    from recnet_tpu_torch.parallel import vocab as vocab_par
+    tok = caption_inputs(3, CELL_T, 64, CELL_V).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    table = torch.randn(CELL_V, CELL_E, device=cuda, generator=g)
+    table.requires_grad_(True)
+    d = torch.randn(*tok.shape, CELL_E, device=cuda, generator=g)
+    torch.cuda.synchronize()
+    n = embedding.embedding_backward.n_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (vocab_par.embed(table, tok) * d).sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert embedding.embedding_backward.n_launches == n + 1
+    _assert_summed(table.grad, tok.reshape(-1), d.reshape(-1, CELL_E),
+                   CELL_V)
+
+
+def test_embed_route_rule_on_the_card(cuda, monkeypatch):
+    """The kernel only for a float32 table that requires grad, grad mode
+    on, without a 'model' group."""
+    from recnet_tpu_torch.ops.cuda import embedding
+    from recnet_tpu_torch.parallel import mesh as t_mesh
+    from recnet_tpu_torch.parallel import vocab as vocab_par
+    tok = caption_inputs(4, 5, 8, 40).to(cuda)
+    base = torch.randn(40, 12, device=cuda)
+
+    def launches(table, shard=None, grad=True):
+        n = embedding.embedding_backward.n_launches
+        with torch.set_grad_enabled(grad):
+            rows = vocab_par.embed(table, tok, shard)
+            if rows.requires_grad:
+                rows.float().sum().backward()
+        torch.cuda.synchronize()
+        return embedding.embedding_backward.n_launches - n
+
+    assert launches(base.clone().requires_grad_(True)) == 1
+    assert launches(base.clone().requires_grad_(True), grad=False) == 0
+    assert launches(base.clone()) == 0
+    assert launches(base.to(torch.bfloat16).requires_grad_(True)) == 0
+    monkeypatch.setattr(vocab_par._SumOverModel, "apply",
+                        lambda x, group: x)
+    shard = t_mesh.Shard(rows=(0, 8, 8), cols=(0, 40, 40),
+                         model_group=object())
+    assert launches(base.clone().requires_grad_(True), shard) == 0
+
+
+@pytest.mark.parametrize("prec", ["float32", "bfloat16"])
+def test_train_step_gradients_with_the_embedding_kernel(cuda, monkeypatch,
+                                                        prec):
+    """One step with the global reconstructor from one state, the kernel's
+    route against the plain gather's (``_kernel_gather`` off): every leaf's
+    gradient within rtol 1e-5 and 1e-5 of its largest |g|; one launch a
+    step on the route, none off it. In bf16 the rollouts run under autocast
+    over the float32 masters, so the table and the rows' cotangent are
+    float32 and the gather takes the kernel as in f32."""
+    from recnet_tpu_torch.ops.cuda import embedding
+    from recnet_tpu_torch.parallel import vocab as vocab_par
+    from recnet_tpu_torch.training import step as S
+    rng = np.random.default_rng(5)
+    videos = torch.from_numpy(rng.standard_normal((B, L, F)).astype(
+        np.float32)).to(cuda)
+    captions = rng.integers(3, V, (9, B)).astype(np.int32)
+    captions[5:] = 0
+    captions = torch.from_numpy(captions).to(cuda)
+    grads = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(vocab_par, "_kernel_gather",
+                                lambda *a: False)
+        tc = _train_config("global", train_precision=prec)
+        state, dcfg, rcfg = S.init_train_state(0, tc, V, "cuda")
+        fn = S.build_train_step(tc, dcfg, rcfg)
+        n = embedding.embedding_backward.n_launches
+        fn(state, videos, captions)
+        torch.cuda.synchronize()
+        assert embedding.embedding_backward.n_launches - n == (
+            1 if route == "kernel" else 0)
+        grads[route] = [p.grad.detach().cpu().numpy().copy()
+                        for opt in (state.dec_opt, state.rec_opt)
+                        for p in opt.param_groups[0]["params"]]
+    assert len(grads["kernel"]) == len(grads["plain"])
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
