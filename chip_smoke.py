@@ -13,6 +13,8 @@
     python3 chip_smoke.py --embedding-backward   # the embedding backward
                                                  # and the train step with
                                                  # and without it
+    python3 chip_smoke.py --gemm [check]         # the train step's TF32
+                                                 # GEMM at its shapes
 
 Phases, one line or more each; any failure exits non-zero before a result:
 
@@ -230,6 +232,14 @@ EMB_ROUNDS = 3
 EMB_REPEATS = 20
 EMB_STEPS = 10
 EMB_CACHE_VIDEOS = 1200
+# ``--gemm``: the error rule against float64 (the kernel within
+# GEMM_ERR_RATIO of cuBLAS f32's error at the same shape); calls held for
+# equal bits; rounds of the k-step call by each route
+GEMM_B = 1024
+GEMM_ERR_RATIO = 2.0
+GEMM_REPEATS = 5
+GEMM_ROUNDS = 2
+F32_EXACT_FLOPS = 494.7e12 / 3    # three TF32 terms at the TF32 peak
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-2   # bf16 h: 2 bf16 ulps
 # out_w's scale in the TF32 probes' checks (the CPU tests' fixtures')
 MARGIN_OUT_W = 8.0
@@ -336,7 +346,7 @@ def build_kernels():
     from recnet_tpu_torch.ops.cuda import build
     sources = ("whole_decode", "whole_decode_probes", "whole_decode_tf32",
                "whole_decode_tf32_probes", "topk_proj", "fused_step",
-               "rollout", "cell_rollout", "embedding_backward")
+               "rollout", "cell_rollout", "embedding_backward", "gemm_tf32x3")
     t0 = time.perf_counter()
 
     def timed_build(name):
@@ -1066,6 +1076,11 @@ def reset_counts():
     except ImportError:
         return
     embedding.embedding_backward.n_launches = 0
+    try:
+        from recnet_tpu_torch.ops.cuda import gemm
+    except ImportError:
+        return
+    gemm.launch.n_launches = 0
 
 
 def flagship_checkpoint_dir(tmp: Path, n_vocab: int) -> Path:
@@ -1923,18 +1938,21 @@ def gate_rows_sweep(torch):
                          f"{fs.gate_rows(B)}; h' bit-equal ({card})")
 
 
-def caption_inputs(seed, T, B, V):
-    """``caption_inputs`` of ``tests/torch_embedding_cases.py``, the module
-    loaded by its path: ``tests`` is no package here, and one installed
-    under that name would shadow it."""
+def tests_module(name: str):
+    """``tests/<name>.py`` loaded by its path: ``tests`` is no package
+    here, and one installed under that name would shadow it."""
     import importlib.util
-    path = Path(__file__).resolve().parent / "tests" / \
-        "torch_embedding_cases.py"
-    spec = importlib.util.spec_from_file_location("torch_embedding_cases",
-                                                  path)
-    cases = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cases)
-    return cases.caption_inputs(seed, T, B, V)
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def caption_inputs(seed, T, B, V):
+    """``caption_inputs`` of ``tests/torch_embedding_cases.py``."""
+    return tests_module("torch_embedding_cases").caption_inputs(seed, T, B,
+                                                                 V)
 
 
 def sync_fault(torch, fn):
@@ -2169,6 +2187,189 @@ def embedding_phase(torch):
     entry = embedding_backward_times(torch, tc.embedding_size)
     entry["train_step"] = embedding_step_times(torch, tc, vocab)
     entry["launches"] = entry["train_step"]["kernel"]["launches"]
+    print(card_line())
+    print(json.dumps({"kernels": [entry]}))
+
+
+def three_tf32_products(a, b, *, bias=None, out=None, accumulate=False):
+    """The three-term split on the library: a and b split as hi =
+    tf32(x), lo = tf32(x - hi), then a_lo b_hi + a_hi b_lo + a_hi b_hi as
+    three cuBLAS TF32 products (``allow_tf32`` on for them alone), with
+    ``mm_reference``'s epilogues."""
+    import torch
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    a_hi, b_hi = wd.tf32_round(a), wd.tf32_round(b)
+    a_lo, b_lo = wd.tf32_round(a - a_hi), wd.tf32_round(b - b_hi)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y = (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if bias is not None:
+        y = y + bias
+    if out is None:
+        return y
+    return out.add_(y) if accumulate else out.copy_(y)
+
+
+def gemm_case(torch, name, kind, M, K, N, epi, timing):
+    """One product: the kernel (``gemm.launch``), cuBLAS f32
+    (``mm_reference``), the split on the library (``three_tf32_products``)
+    and one TF32 term (the control: a_hi b_hi, summed in float64), each
+    against float64 as max |C - C64| / max |C64|; the kernel within
+    GEMM_ERR_RATIO of cuBLAS f32's error, the control not; GEMM_REPEATS
+    calls giving the same bits; one launch a call; ``route``, what
+    ``gemm.mm`` runs at the shape (``kernel_pays``). ``timing``: the
+    kernel's, cuBLAS f32's and the library split's (``library_ms``, the
+    split included) ms by CUDA events, and the bound."""
+    from recnet_tpu_torch.ops.cuda import gemm
+    from recnet_tpu_torch.ops.cuda import whole_decode as wd
+    cases = tests_module("torch_gemm_cases")
+    a, b, bias, buf = cases.operands(kind, M, K, N, epi, SEED, DEVICE)
+    acc = epi == "acc"
+    call = lambda fn, **kw: cases.run(fn, a, b, bias, buf, epi, **kw)
+    want = cases.exact(a, b, bias, buf, epi)
+    err = lambda got: cases.rel_err(got, want)
+    reset_counts()
+    got = call(gemm.launch)
+    torch.cuda.synchronize()
+    check(gemm.launch.n_launches == 1,
+          f"gemm {name}: {gemm.launch.n_launches} launches for one product")
+    same = all(torch.equal(call(gemm.launch), got)
+               for _ in range(GEMM_REPEATS - 1))
+    check(same, f"gemm {name}: {GEMM_REPEATS} calls gave other bits")
+    row = {"name": name, "kind": kind, "M": M, "K": K, "N": N,
+           "epilogue": epi,
+           "route": ("kernel" if gemm.kernel_pays(M, N, K, gemm._n_sms(
+               a.device)) else "cublas"),
+           "err": err(got),
+           "cublas_err": err(call(gemm.mm_reference)),
+           "library_err": err(call(three_tf32_products))}
+    del want
+    ctl = cases.exact(a, b, bias, buf, epi, wd.tf32_round, wd.tf32_round)
+    want = cases.exact(a, b, bias, buf, epi)
+    row["tf32_control_err"] = cases.rel_err(ctl.float(), want)
+    del ctl, want
+    limit = GEMM_ERR_RATIO * row["cublas_err"]
+    check(row["err"] <= limit, f"gemm {name}: error {row['err']:.3e} over "
+                               f"{GEMM_ERR_RATIO} x cuBLAS f32's "
+                               f"{row['cublas_err']:.3e}")
+    check(row["tf32_control_err"] > limit,
+          f"gemm {name}: the one-term control's {row['tf32_control_err']:.3e}"
+          f" passes the limit {limit:.3e}")
+    if timing:
+        reps = 50 if 2.0 * M * N * K < 2e10 else 5
+        row["ms"] = timed(torch, lambda: call(gemm.launch), reps)[0]
+        row["cublas_ms"] = timed(torch, lambda: call(gemm.mm_reference),
+                                 reps)[0]
+        row["library_ms"] = timed(torch,
+                                  lambda: call(three_tf32_products), reps)[0]
+        flops = 2.0 * M * N * K
+        nbytes = 4.0 * (M * K + K * N + M * N * (2 if acc else 1))
+        row["bound_ms"] = max(flops / F32_EXACT_FLOPS,
+                              nbytes / HBM_BYTES_PER_S) * 1e3
+        row["bound_by"] = ("operations" if flops / F32_EXACT_FLOPS
+                           >= nbytes / HBM_BYTES_PER_S else "bytes")
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["roofline"] = 100.0 * row["bound_ms"] / row["ms"]
+    log("gemm", json.dumps(row))
+    return row
+
+
+GEMM_LIBRARY_NAMES = ("gemm", "gemv", "dot_kernel", "magma", "splitKreduce")
+# cuBLAS's float32 products on the CUDA cores, by kernel name
+F32_LIBRARY_NAMES = ("sgemm", "gemm_f32f32", "gemv")
+
+
+def gemm_step_routes(torch, tc, kind):
+    """The f32 k-step call (EMB_STEPS steps, ``build_train_multi_step_
+    cached``) of the ``kind`` reconstructor's flagship at B = GEMM_B, by
+    the kernel's route and by torch's products (``gemm.mm`` as
+    ``mm_reference``, ``gemm.product_route`` False) in turns over
+    GEMM_ROUNDS rounds: ms a step by CUDA events, the kernel's launches a
+    step, and one profiled call of each: the device ms a step of the
+    matrix-product kernels by name (cuBLAS's and this kernel's), and of
+    all of it; ``float32_left``, the kernel route's float32 products on
+    the CUDA cores (cuBLAS's sgemm, f32f32 and gemv kernels)."""
+    from recnet_tpu_torch.ops.cuda import gemm
+    from recnet_tpu_torch.training import step as S
+    card = card_line()
+    k, B = EMB_STEPS, GEMM_B
+    ttc = tc.replace(batch_size=B, steps_per_dispatch=k,
+                     train_precision="float32", reconstructor_type=kind)
+    state, dcfg, rcfg = S.init_train_state(SEED, ttc, VOCAB, DEVICE)
+    fn = S.build_train_multi_step_cached(ttc, dcfg, rcfg, k)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    cache = torch.randn((EMB_CACHE_VIDEOS, tc.encoder_output_len,
+                         tc.encoder_output_size), device=DEVICE,
+                        generator=g).to(torch.bfloat16)
+    rows = torch.randint(0, EMB_CACHE_VIDEOS, (k, B), device=DEVICE,
+                         generator=g)
+    caps = torch.stack([caption_inputs(SEED + 2 + i, EMB_T, B, VOCAB)
+                        for i in range(k)]).to(DEVICE)
+    caps = torch.cat([caps[:, 1:], torch.zeros_like(caps[:, :1])], 1)
+    call = lambda: fn(state, cache, rows, caps)
+    mm, route = gemm.mm, gemm.product_route
+    routes = {"kernel": (mm, route),
+              "cublas": (gemm.mm_reference, lambda *x, **kw: False)}
+    ms = collections.defaultdict(list)
+    out = {}
+    try:
+        for _ in range(GEMM_ROUNDS):
+            for name in ("kernel", "cublas", "cublas", "kernel"):
+                gemm.mm, gemm.product_route = routes[name]
+                reset_counts()
+                call()
+                torch.cuda.synchronize()
+                out.setdefault(name, {})["launches"] = (
+                    gemm.launch.n_launches / k)
+                ms[name].append(timed(torch, call, reps=1)[0] / k)
+        for name in routes:
+            gemm.mm, gemm.product_route = routes[name]
+            counts, times = profiled(torch, call)
+            prods = {key: [counts[key] / k, times[key] / 1000 / k]
+                     for key in counts
+                     if any(x in key for x in GEMM_LIBRARY_NAMES)}
+            out[name].update(
+                ms=ms[name], median_ms=float(np.median(ms[name])),
+                device_ms=sum(times.values()) / 1000 / k,
+                activities=sum(counts.values()) / k,
+                products_device_ms=sum(v[1] for v in prods.values()),
+                products=prods,
+                float32_left={key: v for key, v in prods.items()
+                              if "gemm_tf32x3" not in key and any(
+                                  x in key for x in F32_LIBRARY_NAMES)})
+    finally:
+        gemm.mm, gemm.product_route = mm, route
+    for name, row in out.items():
+        log("gemm", f"train call {kind} k={k} B={B} f32, {name} route: "
+                    f"{json.dumps(row)} ({card})")
+    check(out["cublas"]["launches"] == 0 and out["kernel"]["launches"] > 0,
+          f"gemm launches a step: {out['kernel']['launches']} by the "
+          f"kernel's route, {out['cublas']['launches']} by torch's")
+    return out
+
+
+def gemm_phase(torch, check_only: bool):
+    """``--gemm``: every ``gemm_cases`` product (``gemm_case``), then, unless
+    ``check_only``, the global and local k-step calls by both routes
+    (``gemm_step_routes``); prints the kernels line."""
+    from recnet_tpu_torch.checkpoint import load_config_and_vocab
+    rows = []
+    for case in tests_module("torch_gemm_cases").CASES:
+        rows.append(gemm_case(torch, *case, timing=not check_only))
+        torch.cuda.empty_cache()
+    entry = {"name": "gemm_tf32x3", "route": "cuda",
+             "source": "recnet_tpu_torch/csrc/gemm_tf32x3.cu",
+             "replaces": None, "pallas": False, "shapes": rows}
+    if not check_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            tc, _ = load_config_and_vocab(
+                str(flagship_checkpoint_dir(Path(tmp), VOCAB)))
+        entry["train_step"] = {kind: gemm_step_routes(torch, tc, kind)
+                               for kind in ("global", "local")}
+        entry["launches"] = entry["train_step"]["global"]["kernel"][
+            "launches"]
     print(card_line())
     print(json.dumps({"kernels": [entry]}))
 
@@ -2950,15 +3151,17 @@ def train_card_against_cpu(torch, tc, corpus):
     just after them, with CARD_BF16_STEPS bf16 card steps (finite losses)
     after the f32 ones and one f32 step with an LSTM decoder (the per-step
     LSTM cells: the flagship's decoder is GRU) between them: the rollouts'
-    kernels of the train step in both precisions, and the embedding
-    backward's (one a step in both, checked). The reconstructor's
+    kernels of the train step in both precisions, the embedding
+    backward's (one a step in both, checked) and the TF32 GEMM's (more
+    than none in the f32 steps, none in the bf16 ones: autocast keeps
+    torch's products; checked). The reconstructor's
     whole-rollout kernels are counted by precision: "cell_rollout_<kind>
     [<cell>]" in the bf16 steps, and "...[f32]" in the f32 steps: the
     flagship's reconstructor width is one that ``ops.rnn.whole_rollout``
     runs whole (``whole_rollout_kernels`` checks the rule on the card).
     Returns {rollout kernel name: launches}."""
     from recnet_tpu_torch.checkpoint import state_leaves
-    from recnet_tpu_torch.ops.cuda import embedding
+    from recnet_tpu_torch.ops.cuda import embedding, gemm
     from recnet_tpu_torch.training import step as S
     tc = tc.replace(embedding_dropout=0.0, decoder_dropout=0.0,
                     decoder_out_dropout=0.0, reconstructor_dropout=0.0,
@@ -2993,6 +3196,7 @@ def train_card_against_cpu(torch, tc, corpus):
                 (), tc.reconstructor_model).items()
                 if k.startswith("cell_rollout")}
             f32_embedding = embedding.embedding_backward.n_launches
+            f32_gemm = gemm.launch.n_launches
             btc = tc.replace(train_precision="bfloat16")
             bstate, bdcfg, brcfg = S.init_train_state(
                 SEED, btc, corpus.vocab.n_vocabs, device)
@@ -3016,6 +3220,14 @@ def train_card_against_cpu(torch, tc, corpus):
             check(tc.decoder_teacher_forcing_ratio >= 1.0 and emb == steps,
                   f"embedding backward launches {emb} in the card's "
                   f"{steps} train steps: one a step expected")
+            # the f32 steps' matrix products on the TF32 GEMM, none of the
+            # bf16 steps' (autocast's products stay torch's)
+            launches["gemm_tf32x3"] = gemm.launch.n_launches
+            products = {"f32": f32_gemm,
+                        "bf16": gemm.launch.n_launches - f32_gemm}
+            check(products["f32"] > 0 and products["bf16"] == 0,
+                  f"TF32 GEMM launches {products} in the card's {steps} "
+                  f"train steps: some in f32, none in bf16 expected")
             del bstate, bstep
             check(np.isfinite(bf16).all(), f"bf16 card steps: loss {bf16}")
             check(np.isfinite(lstm_loss), f"the LSTM decoder's f32 step: "
@@ -4235,8 +4447,8 @@ def loop_launches(torch, run):
 def train_phase(torch, tc, vocab):
     """[train]: (a) card against CPU, (b) the loop with val, test, save
     and resume, (c) times. Returns the kernels-line entries of the train
-    step's kernels (the rollouts', the embedding backward's), each with its
-    launches in (a)'s card steps."""
+    step's kernels (the rollouts', the embedding backward's, the TF32
+    GEMM's), each with its launches in (a)'s card steps."""
     ttc = train_config(tc)
     ttc.validate()
     corpus = train_corpus(ttc, vocab)
@@ -4269,6 +4481,10 @@ def train_phase(torch, tc, vocab):
     rollout_times(torch, ttc)
     entries["embedding_backward"] = embedding_backward_times(
         torch, ttc.embedding_size)
+    entries["gemm_tf32x3"] = dict(
+        name="gemm_tf32x3", route="cuda",
+        source="recnet_tpu_torch/csrc/gemm_tf32x3.cu", replaces=None,
+        pallas=False)
     for name, entry in entries.items():
         entry["launches"] = launches[name]
     return entries
@@ -5349,6 +5565,15 @@ def main() -> int:
         build_kernels()
         embedding_phase(torch)
         return 0
+    if sys.argv[1:2] == ["--gemm"]:
+        check_only = sys.argv[2:3] == ["check"]
+        if check_only:       # the GEMM alone
+            from recnet_tpu_torch.ops.cuda import build
+            build.load("gemm_tf32x3")
+        else:
+            build_kernels()
+        gemm_phase(torch, check_only)
+        return 0
     build_kernels()
     from recnet_tpu_torch.checkpoint import load_config_and_vocab
     from recnet_tpu_torch.models.decoder import config_from_train
@@ -5392,6 +5617,7 @@ def main() -> int:
         variant_errs[name] = max(variant_errs.get(name, 0.0), err)
     rollout_entries = train_phase(torch, tc, vocab)
     embedding_entry = rollout_entries.pop("embedding_backward")
+    gemm_entry = rollout_entries.pop("gemm_tf32x3")
     data_phase(torch, tc, vocab)
     dist_phase(torch, tc, vocab, cfg, eos_np)
     T, L = tc.caption_max_len + 1, tc.encoder_output_len
@@ -5463,6 +5689,7 @@ def main() -> int:
                              "replaces": serves[kind], "pallas": False},
                             **entry))
     kernels.append(embedding_entry)
+    kernels.append(gemm_entry)
     for k in kernels:     # the body each decode row ran on
         if k["name"].startswith(("whole_greedy_decode", "fused_gru_attn")):
             k["body"] = ("cuda_cores" if "cuda_cores" in k["name"]

@@ -35,7 +35,7 @@ from torch import nn
 
 from recnet_tpu_torch.ops import attention as attn_ops
 from recnet_tpu_torch.ops import rnn as rnn_ops
-from recnet_tpu_torch.ops.cuda import rollout
+from recnet_tpu_torch.ops.cuda import gemm, rollout
 from recnet_tpu_torch.parallel import vocab as vocab_par
 
 State = Tuple[torch.Tensor, torch.Tensor]
@@ -243,7 +243,7 @@ def teacher_forced_rollout_fast(params: Dict, cfg: DecoderConfig,
     att = params["attention"]
     if cfg.n_layers == 1:
         r0, E = params["rnn"][0], cfg.embedding_size
-        gi_emb = emb_all @ r0["w_ih"][:E] + r0["b_ih"]          # (T, B, G)
+        gi_emb = gemm.matmul(emb_all, r0["w_ih"][:E], r0["b_ih"])  # (T, B, G)
         hs = tf_attn_rollout(cfg.cell_type, att, r0["w_ih"][E:], r0["w_hh"],
                              r0["b_hh"], encoder_outputs, uv, gi_emb)
         hiddens = hs[:, None]                                   # (T, 1, B, H)
@@ -310,7 +310,9 @@ class _TfAttnRollout(torch.autograd.Function):
     stacked contractions after the loop (d(enc) only when enc needs a
     gradient: the train step's videos do not). U's gradient is None: it
     reaches U through ``precompute_uv``'s autograd from d_uv (the JAX
-    backward returns zeros for it)."""
+    backward returns zeros for it). Every product is ``gemm.mm``: in f32
+    on the card the three-term TF32 kernel, into or onto the buffers' rows
+    (``out=``, ``accumulate``); under autocast and on the CPU torch's."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
@@ -346,12 +348,9 @@ class _TfAttnRollout(torch.autograd.Function):
                                           h0 if lstm else None, hs, cs, acts)
         h_prev, ctx_t = (h0,) + hs.unbind(0)[:-1], ctxs.unbind(0)
         for t in range(T):
-            if lstm:
-                gw[t].addmm_(h_prev[t], w_cat)
-            else:
-                torch.mm(h_prev[t], w_cat, out=gw[t])
+            gemm.mm(h_prev[t], w_cat, out=gw[t], accumulate=lstm)
             attend(t)
-            gi[t].addmm_(ctx_t[t], w_enc)
+            gemm.mm(ctx_t[t], w_enc, out=gi[t], accumulate=True)
             cell(t)
         if not lstm:
             cs = hs.new_empty((0,))
@@ -389,24 +388,21 @@ class _TfAttnRollout(torch.autograd.Function):
         dgi_t, dgw_t, dctx_t = dgi.unbind(0), dgw.unbind(0), dctx.unbind(0)
         for t in reversed(range(T)):
             cell(t)                             # GRU: dh = dh z
-            torch.mm(dgi_t[t], w_enc_t, out=dctx_t[t])
+            gemm.mm(dgi_t[t], w_enc_t, out=dctx_t[t])
             attend(t)
-            if lstm:
-                torch.mm(dgw_t[t], w_cat_t, out=dh)
-            else:
-                dh.addmm_(dgw_t[t], w_cat_t)
+            gemm.mm(dgw_t[t], w_cat_t, out=dh, accumulate=not lstm)
         dpre = act.square().neg_().add_(1).mul_(dsc[..., None]).mul_(
             w.reshape(-1))                                      # (T, B, F, A)
         d_uv = dpre.sum(0)
         rows = T * B
         hp = h_prev.reshape(rows, H).t()
         grads = (
-            hp @ dwh.reshape(rows, A),                                 # W
+            gemm.mm(hp, dwh.reshape(rows, A)),                         # W
             None,                                                      # U
             d_uv.sum((0, 1)),                                          # b
             torch.einsum("tbfa,tbf->a", act, dsc)[:, None],            # w
-            ctxs.reshape(rows, E).t() @ dgi.reshape(rows, G),          # w_enc
-            hp @ dgh.reshape(rows, G),                                 # w_hh
+            gemm.mm(ctxs.reshape(rows, E).t(), dgi.reshape(rows, G)),  # w_enc
+            gemm.mm(hp, dgh.reshape(rows, G)),                         # w_hh
             dgh.sum((0, 1)),                                           # b_hh
             (torch.einsum("tbf,tbe->bfe", scores, dctx) / F            # enc
              if ctx.needs_input_grad[8] else None),

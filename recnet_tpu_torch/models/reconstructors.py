@@ -34,6 +34,7 @@ import torch
 from recnet_tpu_torch.models.decoder import _dropout, _multilayer_rnn
 from recnet_tpu_torch.ops import attention as attn_ops
 from recnet_tpu_torch.ops import rnn as rnn_ops
+from recnet_tpu_torch.ops.cuda import gemm
 
 
 class ReconstructorConfig(NamedTuple):
@@ -110,11 +111,11 @@ def global_reconstruct(params: Dict, cfg: ReconstructorConfig,
         # every step's input is known before the loop: the input-side gate
         # product and the output projection run once for all T steps
         p0 = params["rnn"][0]
-        gi_all = (torch.cat([decoder_hiddens[:, 0], mp_all], -1) @ p0["w_ih"]
-                  + p0["b_ih"])                                  # (T, B, G)
+        gi_all = gemm.matmul(torch.cat([decoder_hiddens[:, 0], mp_all], -1),
+                             p0["w_ih"], p0["b_ih"])             # (T, B, G)
         z = mp_all.new_zeros((B, cfg.hidden_size))
         outs = rnn_ops.rnn_rollout_pre(cfg.cell_type, p0, gi_all, z, z)
-        return outs @ params["out_w"] + params["out_b"]
+        return gemm.matmul(outs, params["out_w"], params["out_b"])
     state, outs = _zero_state(cfg, B, mp_all), []
     for t in range(T):
         # input = [decoder_hiddens[t][0], mean-pool]
@@ -123,7 +124,7 @@ def global_reconstruct(params: Dict, cfg: ReconstructorConfig,
         out, state = _multilayer_rnn(cfg, params["rnn"], x, state,
                                      generator, train, shard)
         outs.append(out)
-    return torch.stack(outs) @ params["out_w"] + params["out_b"]
+    return gemm.matmul(torch.stack(outs), params["out_w"], params["out_b"])
 
 
 def global_recon_loss(params: Dict, cfg: ReconstructorConfig,
@@ -166,7 +167,7 @@ def local_reconstruct(params: Dict, cfg: ReconstructorConfig,
                                      generator, train, shard)
         outs.append(out)
     # the output projection runs once for all steps
-    return torch.stack(outs) @ params["out_w"] + params["out_b"]
+    return gemm.matmul(torch.stack(outs), params["out_w"], params["out_b"])
 
 
 def local_recon_loss(params: Dict, cfg: ReconstructorConfig,

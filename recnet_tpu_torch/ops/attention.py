@@ -13,6 +13,8 @@ from typing import Dict, Optional
 
 import torch
 
+from recnet_tpu_torch.ops.cuda import gemm
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -34,8 +36,9 @@ def init_attention_params(generator: torch.Generator, query_size: int,
 
 
 def precompute_uv(params: Params, values: torch.Tensor) -> torch.Tensor:
-    """(B, T, F) -> (B, T, A). Hoisted out of the decode loop."""
-    return values @ params["U"]
+    """(B, T, F) -> (B, T, A). Hoisted out of the decode loop. In the
+    train step the product runs on ``gemm.matmul``'s route."""
+    return gemm.matmul(values, params["U"])
 
 
 def attention_scores(params: Params, query: torch.Tensor,

@@ -14,8 +14,12 @@ Weights are input-major, as in the JAX package: ``w_ih (input, nG*H)``,
 ``lstm_rollout_pre`` / ``gru_rollout_pre``, ``torch.autograd.Function``s
 with the JAX package's custom-VJP construction (``recnet_tpu/ops/rnn.py``
 :207-293): the forward keeps each step's gate activations, the backward
-loop carries only (dh, dc), and ``dw_hh`` and ``db_hh`` are one product and
-one sum over all T B rows after it. On the card each direction is one
+loop carries only (dh, dc), and ``dw_hh`` and ``db_hh`` are one product
+(``ops.cuda.gemm.mm``: three TF32 terms on the card in f32) and one sum
+over all T B rows after it. ``lstm_cell`` and ``gru_cell``, the steps of
+the train step's per-step loops, take both products through
+``gemm.matmul``; their ``_pre`` forms, the steps of the plain references
+and of decoding, keep torch's. On the card each direction is one
 launch of ``ops/cuda/rollout.py``'s ``cell_rollout_forward`` /
 ``cell_rollout_backward`` (the recurrent products inside; their plain
 versions, the step loops, on the CPU); widths the card cannot hold in
@@ -33,7 +37,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from recnet_tpu_torch.ops.cuda import rollout
+from recnet_tpu_torch.ops.cuda import gemm, rollout
 
 Params = Dict[str, torch.Tensor]
 State = Tuple[torch.Tensor, torch.Tensor]
@@ -56,20 +60,17 @@ def init_rnn_params(generator: torch.Generator, cell_type: str,
             "b_ih": u(G), "b_hh": u(G)}
 
 
-def lstm_cell_pre(params: Params, gi: torch.Tensor, state: State) -> State:
-    """LSTM step with the input-side term ``gi = x @ w_ih + b_ih`` given."""
-    h, c = state
-    gates = gi + h @ params["w_hh"] + params["b_hh"]
+def _lstm_gates(gates: torch.Tensor, c: torch.Tensor) -> State:
+    """(h', c') from an LSTM step's gate pre-activations [i, f, g, o]."""
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new, c_new
 
 
-def gru_cell_pre(params: Params, gi: torch.Tensor,
-                 h: torch.Tensor) -> torch.Tensor:
-    """GRU step with ``gi = x @ w_ih + b_ih`` given. Returns h'."""
-    gh = h @ params["w_hh"] + params["b_hh"]
+def _gru_gates(gi: torch.Tensor, gh: torch.Tensor,
+               h: torch.Tensor) -> torch.Tensor:
+    """h' from a GRU step's input-side ``gi`` and recurrent ``gh`` terms."""
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r)
@@ -78,14 +79,30 @@ def gru_cell_pre(params: Params, gi: torch.Tensor,
     return (1.0 - z) * n + z * h
 
 
+def lstm_cell_pre(params: Params, gi: torch.Tensor, state: State) -> State:
+    """LSTM step with the input-side term ``gi = x @ w_ih + b_ih`` given."""
+    h, c = state
+    return _lstm_gates(gi + h @ params["w_hh"] + params["b_hh"], c)
+
+
+def gru_cell_pre(params: Params, gi: torch.Tensor,
+                 h: torch.Tensor) -> torch.Tensor:
+    """GRU step with ``gi = x @ w_ih + b_ih`` given. Returns h'."""
+    return _gru_gates(gi, h @ params["w_hh"] + params["b_hh"], h)
+
+
 def lstm_cell(params: Params, x: torch.Tensor, state: State) -> State:
     """One LSTM step. x (B, in), state (h, c) each (B, H)."""
-    return lstm_cell_pre(params, x @ params["w_ih"] + params["b_ih"], state)
+    h, c = state
+    gi = gemm.matmul(x, params["w_ih"], params["b_ih"])
+    return _lstm_gates(gi + gemm.matmul(h, params["w_hh"]) + params["b_hh"],
+                       c)
 
 
 def gru_cell(params: Params, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """One GRU step with PyTorch's reset-gate placement. Returns h'."""
-    return gru_cell_pre(params, x @ params["w_ih"] + params["b_ih"], h)
+    return _gru_gates(gemm.matmul(x, params["w_ih"], params["b_ih"]),
+                      gemm.matmul(h, params["w_hh"], params["b_hh"]), h)
 
 
 def rnn_step_pre(cell_type: str, params: Params, gi: torch.Tensor,
@@ -273,7 +290,8 @@ class _LstmRolloutPre(torch.autograd.Function):
         dgates, _, dh, dc = ctx.route[1]("LSTM", dhs, acts, w_hh, h0, hs,
                                           c0, cs)
         h_prev = torch.cat([h0[None], hs[:-1]])
-        d_w_hh = h_prev.reshape(T * B, H).t() @ dgates.reshape(T * B, 4 * H)
+        d_w_hh = gemm.mm(h_prev.reshape(T * B, H).t(),
+                         dgates.reshape(T * B, 4 * H))
         grads = (d_w_hh, dgates.sum((0, 1)), dgates, dh, dc)
         return tuple(g.to(d) for g, d in zip(grads, ctx.dtypes))
 
@@ -301,7 +319,8 @@ class _GruRolloutPre(torch.autograd.Function):
         dgi, dgh, dh, _ = ctx.route[1]("GRU", dhs, acts, w_hh, h0, hs, None,
                                         None)
         h_prev = torch.cat([h0[None], hs[:-1]])
-        d_w_hh = h_prev.reshape(T * B, H).t() @ dgh.reshape(T * B, 3 * H)
+        d_w_hh = gemm.mm(h_prev.reshape(T * B, H).t(),
+                         dgh.reshape(T * B, 3 * H))
         grads = (d_w_hh, dgh.sum((0, 1)), dgi, dh)
         return tuple(g.to(d) for g, d in zip(grads, ctx.dtypes))
 

@@ -29,7 +29,7 @@ import torch
 import torch.distributed as tdist
 from torch.autograd.function import once_differentiable
 
-from recnet_tpu_torch.ops.cuda import embedding
+from recnet_tpu_torch.ops.cuda import embedding, gemm
 
 
 def _tp(shard) -> bool:
@@ -119,10 +119,12 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
 
 def project(h: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
             shard=None) -> torch.Tensor:
-    """``h @ out_w + out_b``: the rank's logit columns under 'model'."""
+    """``h @ out_w + out_b``: the rank's logit columns under 'model'.
+    Without a 'model' group the product runs on ``gemm.matmul``'s route."""
     if _tp(shard):
         h = _EnterModel.apply(h, shard.model_group)
-    return h @ out_w + out_b
+        return h @ out_w + out_b
+    return gemm.matmul(h, out_w, out_b)
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor,

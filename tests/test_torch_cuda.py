@@ -7,9 +7,11 @@ tensor-core route (bf16) and TF32 route (f32), each route's two kernels
 against its plain stage, and its CUDA-core body), and the training
 rollouts' kernels (the
 per-step cell and attention kernels, the cell kernels also against their
-first design, the whole-rollout cell kernels) and the embedding gather's
+first design, the whole-rollout cell kernels), the embedding gather's
 backward (against its twin bit for bit, float64 ``index_put_``, its
-route and a train step's gradients).
+route and a train step's gradients) and the train step's three-term TF32
+GEMM (against float64 within twice cuBLAS f32's error at every product of
+the train cells, repeatable, counted, its route and a train step).
 
 Needs a CUDA card with sm_90a and nvcc; every test skips without a card.
 This file imports neither JAX nor the test conftest, so on the card run:
@@ -33,6 +35,7 @@ from recnet_tpu_torch.ops.cuda import layout
 from recnet_tpu_torch.ops.cuda import topk_proj
 from recnet_tpu_torch.ops.cuda import whole_decode as wd
 from recnet_tpu_torch.weights import params_from_jax, random_params
+import torch_gemm_cases as gemm_cases
 from torch_embedding_cases import caption_inputs, tokens
 
 pytestmark = pytest.mark.cuda
@@ -2652,4 +2655,149 @@ def test_train_step_gradients_with_the_embedding_kernel(cuda, monkeypatch,
     assert len(grads["kernel"]) == len(grads["plain"])
     for got, want in zip(grads["kernel"], grads["plain"]):
         np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+# --------------------------------------------------------------------------
+# the train step's GEMM on three TF32 terms (ops/cuda/gemm.py)
+# --------------------------------------------------------------------------
+
+GEMM_ERR_RATIO = 2.0    # the kernel's error within this of cuBLAS f32's
+
+
+@pytest.mark.parametrize("case", gemm_cases.CASES,
+                         ids=[c[0] for c in gemm_cases.CASES])
+def test_gemm_at_the_train_shapes(cuda, case):
+    """Every product of the train cells at its shape and layout: the
+    kernel's max |C - C64| / max |C64| at most twice cuBLAS f32's
+    (``mm_reference``), which a one-term TF32 product (the operands rounded
+    to TF32, summed in float64) exceeds; five calls give the same bits; one
+    launch a product; ``mm`` launches it where ``kernel_pays``."""
+    from recnet_tpu_torch.ops.cuda import gemm
+    name, kind, M, K, N, epi = case
+    a, b, bias, buf = gemm_cases.operands(kind, M, K, N, epi, 0, cuda)
+    gemm.launch.n_launches = 0
+    got = gemm_cases.run(gemm.launch, a, b, bias, buf, epi)
+    torch.cuda.synchronize()
+    assert gemm.launch.n_launches == 1
+    for _ in range(4):
+        assert torch.equal(gemm_cases.run(gemm.launch, a, b, bias, buf,
+                                          epi), got)
+    assert gemm.launch.n_launches == 5
+    routed = gemm_cases.run(gemm.mm, a, b, bias, buf, epi)
+    pays = gemm.kernel_pays(M, N, K, gemm._n_sms(a.device))
+    assert gemm.launch.n_launches == 5 + pays
+    if pays:
+        assert torch.equal(routed, got)
+    want = gemm_cases.exact(a, b, bias, buf, epi)
+    limit = GEMM_ERR_RATIO * gemm_cases.rel_err(
+        gemm_cases.run(gemm.mm_reference, a, b, bias, buf, epi), want)
+    assert gemm_cases.rel_err(got, want) <= limit
+    ctl = gemm_cases.exact(a, b, bias, buf, epi, wd.tf32_round,
+                           wd.tf32_round)
+    assert gemm_cases.rel_err(ctl.float(), want) > limit
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dw"])
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (5, 3, 7), (129, 33, 131),
+                                   (300, 468, 4188), (64, 4100, 200),
+                                   (1000, 8200, 5)])
+def test_gemm_ragged_and_unaligned(cuda, kind, M, K, N):
+    """Shapes off the tile and off 4, a split-K case (K over 4096 on few
+    tiles) and operands one float past an aligned start (4-byte copies):
+    each element within (K + 16) u (|A| |B|)_ij of float64 (u = 2^-24: a
+    float32 sum of K products, and the three terms' 2^-21 a product)."""
+    from recnet_tpu_torch.ops.cuda import gemm
+    for offset in (0, 1):
+        a, b, _, _ = gemm_cases.operands(kind, M, K + offset, N, "", 1, cuda)
+        a, b = a[:, offset:], b[offset:]
+        got = gemm.launch(a, b)
+        want = a.double() @ b.double()
+        scale = a.double().abs() @ b.double().abs()
+        assert bool(((got.double() - want).abs()
+                     <= (K + 16) * 2.0 ** -24 * scale).all())
+
+
+def test_gemm_refuses_on_the_card(cuda):
+    from recnet_tpu_torch.ops.cuda import gemm
+    a, b = torch.randn(8, 4, device=cuda), torch.randn(4, 6, device=cuda)
+    with pytest.raises(ValueError):
+        gemm.launch(a, b.bfloat16())
+    with pytest.raises(ValueError):
+        gemm.launch(a.bfloat16(), b.bfloat16())
+    with pytest.raises(ValueError):
+        gemm.launch(a, b, accumulate=True)
+    with pytest.raises(ValueError):
+        gemm.launch(a.cpu(), b.cpu())
+    n = gemm.launch.n_launches
+    got = gemm.mm(a.bfloat16(), b.bfloat16())    # autocast's products
+    assert got.dtype == torch.bfloat16 and gemm.launch.n_launches == n
+
+
+def test_gemm_route_rule_on_the_card(cuda):
+    """Under grad, f32 products that fill half a wave launch the kernel, in
+    the forward and both gradients (y: 512 tiles, dx: 128, dw: 16 tiles
+    split 8 ways); a product of one tile takes torch's; no_grad and
+    autocast launch nothing."""
+    from recnet_tpu_torch.ops.cuda import gemm
+    x = torch.randn(8, 1024, 256, device=cuda, requires_grad=True)
+    w = torch.randn(256, 1024, device=cuda, requires_grad=True)
+    n = gemm.launch.n_launches
+    gemm.matmul(x, w).sum().backward()
+    torch.cuda.synchronize()
+    assert gemm.launch.n_launches - n == 3          # y, dx, dw
+    xs = torch.randn(3, 5, 8, device=cuda, requires_grad=True)
+    ws = torch.randn(8, 6, device=cuda, requires_grad=True)
+    gemm.matmul(xs, ws).sum().backward()
+    with torch.no_grad():
+        gemm.matmul(x, w)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        assert gemm.matmul(x, w).dtype == torch.bfloat16
+    assert gemm.launch.n_launches - n == 3
+
+
+@pytest.mark.parametrize("recon", ["global", "local"])
+def test_train_step_with_the_gemm_against_torch_products(cuda, monkeypatch,
+                                                         recon):
+    """One f32 step from one state, the kernel's products against torch's
+    (``gemm.mm`` as ``mm_reference``, ``product_route`` off), the kernel
+    taking every product of its route (``kernel_pays`` True: at these
+    widths no product fills half a wave of the card): the losses
+    within rtol 1e-5 and every leaf's gradient within rtol 1e-4 and 1e-5 of
+    its largest |g| (three TF32 terms err about 2^-21 a product, cuBLAS
+    f32 about 2^-24 a sum's addition; both far below these); launches on
+    the kernel's route only."""
+    from recnet_tpu_torch.ops.cuda import gemm
+    from recnet_tpu_torch.training import step as S
+    rng = np.random.default_rng(6)
+    videos = torch.from_numpy(rng.standard_normal((B, L, F)).astype(
+        np.float32)).to(cuda)
+    captions = rng.integers(3, V, (9, B)).astype(np.int32)
+    captions[5:] = 0
+    captions = torch.from_numpy(captions).to(cuda)
+    out = {}
+    for route in ("kernel", "torch"):
+        if route == "kernel":
+            monkeypatch.setattr(gemm, "kernel_pays", lambda *a: True)
+        else:
+            monkeypatch.undo()
+            monkeypatch.setattr(gemm, "product_route", lambda *a: False)
+            monkeypatch.setattr(gemm, "mm", gemm.mm_reference)
+        tc = _train_config(recon)
+        state, dcfg, rcfg = S.init_train_state(0, tc, V, "cuda")
+        n = gemm.launch.n_launches
+        m = S.build_train_step(tc, dcfg, rcfg)(state, videos, captions)
+        torch.cuda.synchronize()
+        launched = gemm.launch.n_launches - n
+        assert launched > 0 if route == "kernel" else launched == 0
+        out[route] = (m, [p.grad.detach().cpu().numpy().copy()
+                          for opt in (state.dec_opt, state.rec_opt)
+                          for p in opt.param_groups[0]["params"]])
+    (mk, gk), (mt, gt) = out["kernel"], out["torch"]
+    for key in ("loss", "dec_loss", "rec_loss"):
+        np.testing.assert_allclose(float(mk[key]), float(mt[key]),
+                                   rtol=1e-5)
+    assert len(gk) == len(gt)
+    for got, want in zip(gk, gt):
+        np.testing.assert_allclose(got, want, rtol=1e-4,
                                    atol=1e-5 * np.abs(want).max())
